@@ -1,0 +1,139 @@
+"""Build and load the package's CUDA kernels.
+
+The sources under ``pointcloudattack_tpu_torch/csrc/`` are compiled with
+``nvcc`` into one shared library with a plain C interface, at first use,
+and loaded with ``ctypes``.  The library lands in
+``pointcloudattack_tpu_torch/_build/<hash>/libpca_kernels.so``, keyed on a
+hash of the sources and the compiler flags, so an edited source rebuilds
+and an unchanged one loads at once.  A missing ``nvcc`` or a failed build
+raises with the compiler's output; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+LIB_NAME = "libpca_kernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+
+@dataclass
+class BuildInfo:
+    """What the last :func:`load_library` call did."""
+
+    path: str
+    built: bool  # False when an existing library of the same hash loaded
+    seconds: float
+    log: str  # nvcc's output (ptxas register / shared-memory report)
+
+
+_LIB: ctypes.CDLL | None = None
+_INFO: BuildInfo | None = None
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found on PATH or under $CUDA_HOME/bin; the CUDA kernels "
+        "of pointcloudattack_tpu_torch cannot be built"
+    )
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _compile(out: Path) -> str:
+    nvcc = _nvcc()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    srcs = [str(s) for s in _sources() if s.suffix == ".cu"]
+    with tempfile.NamedTemporaryFile(
+        dir=out.parent, suffix=".so", delete=False
+    ) as tmp:
+        tmp_path = tmp.name
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp_path, *srcs]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        Path(tmp_path).unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}:\n"
+            f"{' '.join(cmd)}\n{log}"
+        )
+    os.replace(tmp_path, out)  # atomic: a concurrent loader sees all or none
+    return log
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.pca_chain_smem.argtypes = [ci, vp, ci, ci]
+    lib.pca_chain_smem.restype = ctypes.c_size_t
+    lib.pca_chain_max_smem.argtypes = []
+    lib.pca_chain_max_smem.restype = ctypes.c_size_t
+    lib.pca_error_string.argtypes = [ci]
+    lib.pca_error_string.restype = ctypes.c_char_p
+    # device, x, B, N, L, dims, params, part_v, part_i, y, idx, tm, stream
+    lib.pca_chain_fwd.argtypes = [ci, vp, ci, ci, ci, vp, vp, vp, vp, vp, vp, ci, vp]
+    lib.pca_chain_fwd.restype = ci
+    # device, x, B, N, L, dims, params, wts, idx, g, dx, tm, stream
+    lib.pca_chain_bwd.argtypes = [ci, vp, ci, ci, ci, vp, vp, vp, vp, vp, vp, ci, vp]
+    lib.pca_chain_bwd.restype = ci
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernel library, built from the package's sources if needed."""
+    global _LIB, _INFO
+    if _LIB is not None:
+        return _LIB
+    out = BUILD_DIR / _source_hash() / LIB_NAME
+    t0 = time.perf_counter()
+    built, log = False, ""
+    if not out.is_file():
+        log = _compile(out)
+        built = True
+    lib = ctypes.CDLL(str(out))
+    _declare(lib)
+    _INFO = BuildInfo(str(out), built, time.perf_counter() - t0, log)
+    _LIB = lib
+    return lib
+
+
+def build_info() -> BuildInfo | None:
+    """Details of the library load, or None before the first one."""
+    return _INFO
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise when a C entry point returned a CUDA error code."""
+    if code != 0:
+        msg = lib.pca_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
