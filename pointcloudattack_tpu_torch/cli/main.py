@@ -1,4 +1,4 @@
-"""Command-line entry point: ``attack cw`` on PointNet.
+"""Command-line entry point: ``attack cw`` on PointNet or PointNet++.
 
 Counterpart of ``pointcloudattack_tpu/cli/main.py::cmd_attack`` for the
 ``cw`` family.  Run as
@@ -9,6 +9,7 @@ Counterpart of ``pointcloudattack_tpu/cli/main.py::cmd_attack`` for the
         --budget 0.18 --num_samples 64 --seed 0 --device cuda \\
         --output_dir runs --save_adv
 
+``--model`` is ``PointNet``, ``PointNet++Ssg`` or ``PointNet++Msg``.
 ``--device`` defaults to ``cuda`` and never drops to the CPU; pass
 ``--device cpu`` to run the plain versions of the kernels.  Without
 ``--checkpoint`` the victim's weights are drawn from ``--seed``.
@@ -149,7 +150,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("attack")
     p.add_argument("family", choices=list(ATTACK_FAMILIES), help="attack family")
     p.add_argument("--dataset", default="synthetic", choices=["synthetic"])
-    p.add_argument("--model", default="PointNet", choices=["PointNet"])
+    p.add_argument("--model", default="PointNet", choices=["PointNet", "PointNet++Ssg", "PointNet++Msg"])
     p.add_argument("--num_points", type=int, default=1024)
     p.add_argument("--num_classes", type=int, default=0, help="0 = 10")
     p.add_argument("--checkpoint", default="", help="reference-layout .pth state dict")

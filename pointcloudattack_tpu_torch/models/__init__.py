@@ -10,13 +10,21 @@ import torch
 
 from pointcloudattack_tpu_torch.models.common import feature_transform_regularizer
 from pointcloudattack_tpu_torch.models.pointnet import PointNetCls, PointNetFeat, STN
+from pointcloudattack_tpu_torch.models.pointnet2 import (
+    PointNet2MSG,
+    PointNet2SSG,
+    SetAbstraction,
+    SetAbstractionMSG,
+)
 
 MODEL_REGISTRY = {
     "PointNet": lambda num_classes, **kw: PointNetCls(num_classes=num_classes, **kw),
+    "PointNet++Ssg": lambda num_classes, **kw: PointNet2SSG(num_classes=num_classes, **kw),
+    "PointNet++Msg": lambda num_classes, **kw: PointNet2MSG(num_classes=num_classes, **kw),
 }
 
 # Whether the model's first output is log-probs or raw logits.
-OUTPUT_KIND = {"PointNet": "log_probs"}
+OUTPUT_KIND = {"PointNet": "log_probs", "PointNet++Ssg": "log_probs", "PointNet++Msg": "log_probs"}
 
 
 def make_model(
@@ -41,6 +49,10 @@ __all__ = [
     "make_model",
     "PointNetCls",
     "PointNetFeat",
+    "PointNet2MSG",
+    "PointNet2SSG",
     "STN",
+    "SetAbstraction",
+    "SetAbstractionMSG",
     "feature_transform_regularizer",
 ]

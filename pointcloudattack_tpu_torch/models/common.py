@@ -18,15 +18,18 @@ import torch.nn.functional as F
 from torch import nn
 
 from pointcloudattack_tpu_torch.ops.chain_maxpool import mlp_chain_maxpool
+from pointcloudattack_tpu_torch.ops.gather_chain import gather_chain_groupmax, gather_rows
 
 
 class PointConv(nn.Module):
-    """Per-point linear layer holding a Conv1d-layout weight ``[out, in, 1]``,
-    computed as ``x @ W^T + b`` over the last axis of ``x``."""
+    """Per-point linear layer holding a 1x1 convolution's weight, Conv1d
+    layout ``[out, in, 1]`` (``spatial=1``) or Conv2d layout ``[out, in, 1,
+    1]`` (``spatial=2``), computed as ``x @ W^T + b`` over the last axis of
+    ``x``."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, spatial: int = 1):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(cout, cin, 1))
+        self.weight = nn.Parameter(torch.empty((cout, cin) + (1,) * spatial))
         self.bias = nn.Parameter(torch.empty(cout))
         bound = 1.0 / math.sqrt(cin)
         with torch.no_grad():
@@ -35,7 +38,7 @@ class PointConv(nn.Module):
 
     def kernel(self) -> torch.Tensor:
         """The weight as a ``[in, out]`` matrix (a view)."""
-        return self.weight[:, :, 0].t()
+        return self.weight.flatten(1).t()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x @ self.kernel() + self.bias
@@ -76,7 +79,8 @@ class PointMLP:
     the pool (ReLU and max commute).  In eval mode a pooled ``[B, N, C]``
     input runs the whole stack as one fused chain (``mlp_chain_maxpool``:
     the kernel on a CUDA tensor, its plain version on a CPU tensor); in
-    train mode the layers run unfused.
+    train mode the layers run unfused.  ``group_max`` runs the stack over
+    gathered neighbour groups with a max over each group.
     """
 
     def __init__(
@@ -97,6 +101,19 @@ class PointMLP:
             (conv.kernel(), conv.bias, bn.running_mean, bn_mul(bn), bn.bias)
             for conv, bn in self.pairs
         ]
+
+    def group_max(self, src, centers, idx, layout, train: bool = False) -> torch.Tensor:
+        """The stack over each group's rows, then the max over the group:
+        ``[B, G, C_L]``.  The rows are built from ``src [B, N, Cs]``,
+        ``centers [B, G, Cc]`` and ``idx [B, G, K]`` by ``layout`` (see
+        ``ops/gather_chain.py``).  In eval mode the gather, the stack and
+        the max run as one fused op (``gather_chain_groupmax``: the kernel
+        on a CUDA tensor, its plain version on a CPU tensor); in train mode
+        the stack runs unfused over the ``[B, G, K, C0]`` rows."""
+        if train:
+            return self(gather_rows(src, centers, idx, layout), train=True).amax(dim=2)
+        y = gather_chain_groupmax(src, centers, idx, self.fused_layers(), layout)
+        return torch.relu(y) if self.relu_last else y
 
     def __call__(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if self.pool_max and not train and x.dim() == 3:

@@ -3,27 +3,165 @@
 The port's modules carry the reference names, so a reference ``.pth`` and
 the JAX package's exported variables both load with
 ``load_state_dict(strict=True)`` and no mapping code.
+
+The name correspondence of each model (torch name <-> flax path) is a
+``_Spec``, the port's own numpy-only copy of the one in
+``pointcloudattack_tpu/train/torch_port.py``; the port imports nothing of
+the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping
 
 import numpy as np
 import torch
 
 
-def state_dict_from_flax(
-    variables: Mapping, feature_transform: bool = False
-) -> dict[str, torch.Tensor]:
-    """JAX PointNet variables (numpy arrays) -> the port's state dict.
+def _np(t) -> np.ndarray:
+    """torch.Tensor | array -> float32 numpy."""
+    if hasattr(t, "detach"):
+        t = t.detach().cpu().numpy()
+    return np.asarray(t, dtype=np.float32)
 
-    Uses the JAX package's numpy-only exporter, imported here so that the
-    port's run-time path never loads that package.
+
+@dataclasses.dataclass(frozen=True)
+class _DenseEntry:
+    torch_name: str
+    flax_path: tuple
+    spatial: int  # 0 = Linear, 1 = Conv1d 1x1, 2 = Conv2d 1x1
+
+
+@dataclasses.dataclass(frozen=True)
+class _BNEntry:
+    torch_name: str
+    flax_path: tuple
+
+
+class _Spec:
+    """Records the torch-name <-> flax-path correspondence of one model."""
+
+    def __init__(self):
+        self.entries: list = []
+
+    def dense(self, torch_name, flax_path, kind="conv1d"):
+        spatial = {"lin": 0, "conv1d": 1, "conv2d": 2}[kind]
+        self.entries.append(_DenseEntry(torch_name, tuple(flax_path), spatial))
+
+    def bn(self, torch_name, flax_path):
+        self.entries.append(_BNEntry(torch_name, tuple(flax_path)))
+
+
+def _get(tree, path):
+    node = tree
+    for p in path:
+        node = node[p]
+    return node
+
+
+def _apply_export(spec: _Spec, variables: Mapping) -> dict:
+    """flax variables -> reference-layout numpy state_dict along the spec."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd: dict = {}
+    for e in spec.entries:
+        leaf = _get(params, e.flax_path)
+        if isinstance(e, _DenseEntry):
+            w = _np(leaf["kernel"]).T  # [out, in]
+            sd[e.torch_name + ".weight"] = w.reshape(w.shape + (1,) * e.spatial)
+            if "bias" in leaf:
+                sd[e.torch_name + ".bias"] = _np(leaf["bias"])
+        else:
+            st = _get(stats, e.flax_path)
+            sd[e.torch_name + ".weight"] = _np(leaf["scale"])
+            sd[e.torch_name + ".bias"] = _np(leaf["bias"])
+            sd[e.torch_name + ".running_mean"] = _np(st["mean"])
+            sd[e.torch_name + ".running_var"] = _np(st["var"])
+            sd[e.torch_name + ".num_batches_tracked"] = np.asarray(0, dtype=np.int64)
+    return sd
+
+
+def _stn_spec(s: _Spec, prefix: str, path: tuple):
+    for i in range(3):
+        s.dense(f"{prefix}.conv{i+1}", path + ("mlp", f"dense{i}"))
+        s.bn(f"{prefix}.bn{i+1}", path + ("mlp", f"bn{i}"))
+    for i in range(2):
+        s.dense(f"{prefix}.fc{i+1}", path + ("fc", f"dense{i}"), kind="lin")
+        s.bn(f"{prefix}.bn{i+4}", path + ("fc", f"bn{i}"))
+    s.dense(f"{prefix}.fc3", path + ("out",), kind="lin")
+
+
+def pointnet_spec(feature_transform: bool = False) -> _Spec:
+    """model/pointnet.py PointNetCls layout."""
+    s = _Spec()
+    _stn_spec(s, "feat.stn", ("feat", "stn"))
+    if feature_transform:
+        _stn_spec(s, "feat.fstn", ("feat", "fstn"))
+    for i, mlp in enumerate(["mlp1", "mlp2", "mlp3"]):
+        s.dense(f"feat.conv{i+1}", ("feat", mlp, "dense0"))
+        s.bn(f"feat.bn{i+1}", ("feat", mlp, "bn0"))
+    s.dense("fc1", ("fc1", "dense0"), kind="lin")
+    s.bn("bn1", ("fc1", "bn0"))
+    s.dense("fc2", ("fc2",), kind="lin")
+    s.bn("bn2", ("bn2",))
+    s.dense("fc3", ("fc3",), kind="lin")
+    return s
+
+
+def _cls_head_spec(s: _Spec):
+    s.dense("fc1", ("head", "fc1", "dense0"), kind="lin")
+    s.bn("bn1", ("head", "fc1", "bn0"))
+    s.dense("fc2", ("head", "fc2", "dense0"), kind="lin")
+    s.bn("bn2", ("head", "fc2", "bn0"))
+    s.dense("fc3", ("head", "fc3"), kind="lin")
+
+
+def pointnet2_ssg_spec() -> _Spec:
+    """model/pointnet2_SSG.py PointNet_Ssg layout."""
+    s = _Spec()
+    for k in range(1, 4):
+        for i in range(3):
+            s.dense(f"sa{k}.mlp_convs.{i}", (f"sa{k}", "mlp", f"dense{i}"), kind="conv2d")
+            s.bn(f"sa{k}.mlp_bns.{i}", (f"sa{k}", "mlp", f"bn{i}"))
+    _cls_head_spec(s)
+    return s
+
+
+def pointnet2_msg_spec() -> _Spec:
+    """model/pointnet2_MSG.py PointNet_Msg layout."""
+    s = _Spec()
+    for k in (1, 2):  # MSG layers with 3 branches x 3 convs
+        for br in range(3):
+            for i in range(3):
+                s.dense(
+                    f"sa{k}.conv_blocks.{br}.{i}", (f"sa{k}", f"branch{br}", f"dense{i}"),
+                    kind="conv2d",
+                )
+                s.bn(f"sa{k}.bn_blocks.{br}.{i}", (f"sa{k}", f"branch{br}", f"bn{i}"))
+    for i in range(3):  # final group-all SA
+        s.dense(f"sa3.mlp_convs.{i}", ("sa3", "mlp", f"dense{i}"), kind="conv2d")
+        s.bn(f"sa3.mlp_bns.{i}", ("sa3", "mlp", f"bn{i}"))
+    _cls_head_spec(s)
+    return s
+
+
+SPECS = {
+    "PointNet": pointnet_spec,
+    "PointNet++Ssg": pointnet2_ssg_spec,
+    "PointNet++Msg": pointnet2_msg_spec,
+}
+
+
+def state_dict_from_flax(model_name: str, variables: Mapping, **kw) -> dict[str, torch.Tensor]:
+    """The JAX model's variables (numpy arrays) -> the port's state dict.
+
+    ``model_name`` is a key of ``SPECS``; ``kw`` goes to its spec
+    (``feature_transform`` for PointNet).
     """
-    from pointcloudattack_tpu.train.torch_port import export_pointnet
-
-    sd = export_pointnet(variables, feature_transform)
+    if model_name not in SPECS:
+        raise KeyError(f"no weight spec for {model_name!r}; choose from {sorted(SPECS)}")
+    sd = _apply_export(SPECS[model_name](**kw), variables)
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}  # writable copies
 
 

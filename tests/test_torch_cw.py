@@ -48,7 +48,7 @@ def victim():
     jm = jmodels.make_model("PointNet", NUM_CLASSES)
     v = jmodels.init_model(jm, jax.random.PRNGKey(3), num_points=NUM_POINTS, batch=2)
     v = perturb(v, np.random.RandomState(3))
-    sd = state_dict_from_flax(v)
+    sd = state_dict_from_flax("PointNet", v)
     fn = make_model_fn(models.make_model("PointNet", NUM_CLASSES), sd, "cpu")
     return j_make_model_fn(jm, v), fn, sd
 
@@ -176,9 +176,16 @@ def test_port_imports_no_jax():
         "pointcloudattack_tpu_torch.data.synthetic",
         "pointcloudattack_tpu_torch.ops._build",
         "pointcloudattack_tpu_torch.ops.chain_maxpool",
+        "pointcloudattack_tpu_torch.ops.pairwise",
+        "pointcloudattack_tpu_torch.ops.gather",
+        "pointcloudattack_tpu_torch.ops.fps",
+        "pointcloudattack_tpu_torch.ops.ball_query",
+        "pointcloudattack_tpu_torch.ops.grouping",
+        "pointcloudattack_tpu_torch.ops.gather_chain",
         "pointcloudattack_tpu_torch.models",
         "pointcloudattack_tpu_torch.models.common",
         "pointcloudattack_tpu_torch.models.pointnet",
+        "pointcloudattack_tpu_torch.models.pointnet2",
         "pointcloudattack_tpu_torch.losses.adv",
         "pointcloudattack_tpu_torch.losses.distance",
         "pointcloudattack_tpu_torch.constraints.clip",

@@ -64,7 +64,7 @@ def build_pair(feature_transform=False, seed=0):
     jm = jmodels.make_model("PointNet", NUM_CLASSES, feature_transform=feature_transform)
     v = jmodels.init_model(jm, jax.random.PRNGKey(seed), num_points=NUM_POINTS, batch=2)
     v = perturb(v, np.random.RandomState(seed))
-    sd = state_dict_from_flax(v, feature_transform=feature_transform)
+    sd = state_dict_from_flax("PointNet", v, feature_transform=feature_transform)
     tm = models.make_model("PointNet", NUM_CLASSES, feature_transform=feature_transform)
     fn = make_model_fn(tm, sd, "cpu")
     jfn = jax.jit(lambda a: jm.apply(v, a, train=False)[0])
