@@ -4,7 +4,7 @@ Run from the root of a checkout, on a machine with one H100:
 
     python3 chip_smoke.py
 
-It takes about two minutes, the kernel build included.
+It takes about two to three and a half minutes, the kernel build included.
 
 Phases, each raising on failure (nothing is caught; any failure exits
 non-zero and prints no result):
@@ -44,6 +44,33 @@ non-zero and prints no result):
               by cloud at each of the card's iterates); MSG log-probs and the
               CW-loss input gradient at B=2.
 10. profile-ssg  torch.profiler over 10 SSG CW iterations.
+11. kernels-knn  the self-kNN kernel bit for bit against its plain version
+              at the four EdgeConv inputs of one forward of the DGCNN victim
+              (B=16, N=1024, k=20, C=3/64/64/128), at a ragged N=1000 and
+              with every point 4 times (ties); times beside the bound.
+12. kernels-gather-dgcnn  the gather kernel at the four EdgeConv shapes (K=20,
+              the center segment, one layer) under check_gather's rules, and
+              each EdgeConv stage fused against the unfused plain layer.
+13. kernels-chamfer  the row-min kernel bit for bit (mins, argmin, dx) at
+              [64,1024,3] x [64,1024,3] and at a ragged 1000 x 1000 with every
+              y point 4 times.
+14. slice-knn  the KNN attack on PointNet at bench.py's knn settings (B=64,
+              kappa 30, budget 0.18, lr 1e-2, 500 of its 2500 iterations),
+              nn_refresh 1 and 5 (knn_r5), then 100 iterations on PointNet++
+              SSG (the cw_ssg clouds): exact launch counts, ASR > 0, every point
+              within the budget, s/batch over 3 reps after a warm-up.
+15. parity-knn  KNN on PointNet (B=8, 10 iterations) on the card and on the
+              CPU from the same weights and noise: success identical,
+              adversarial clouds within 1e-5 but at a few points (at most
+              PART_SHARE) that parted where a coordinate's gradient lay
+              within rounding of 0.
+16. slice-dgcnn  C&W 1 x 100 on DGCNN at bench.py's cw_dgcnn settings (B=16):
+              exact launch counts (kNN 4 and gather 4 per forward, gather 4 per
+              backward), ASR > 0, s/batch.
+17. parity-dgcnn  DGCNN at B=2, card against CPU, the CPU taking the card's kNN
+              indices and max-pool picks: log-probs and the CW-loss gradient.
+18. profile-dgcnn  torch.profiler over 10 DGCNN CW iterations.
+Each of phases 11-18 prints its seconds.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the per-kernel record.  The script imports nothing of JAX.
@@ -53,6 +80,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -68,6 +96,10 @@ TPU_BWD = "pointcloudattack_tpu/ops/pallas/dense_max_kernel.py:216"
 TPU_FPS = "pointcloudattack_tpu/ops/pallas/fps_kernel.py:79"
 TPU_GATHER_FWD = "pointcloudattack_tpu/ops/pallas/gather_chain_kernel.py:550"
 TPU_GATHER_BWD = "pointcloudattack_tpu/ops/pallas/gather_chain_kernel.py:641"
+KNN_SRC = "pointcloudattack_tpu_torch/csrc/knn.cu"
+CHAMFER_SRC = "pointcloudattack_tpu_torch/csrc/min_sqdist.cu"
+TPU_KNN = "pointcloudattack_tpu/ops/pallas/knn_kernel.py:111"
+TPU_CHAMFER = "pointcloudattack_tpu/ops/pallas/chamfer_kernel.py:103"
 
 B, N, NUM_CLASSES = 64, 1024, 40
 SPINE = (3, 64, 128, 1024)
@@ -90,6 +122,11 @@ EDGE = 1e-5  # a hidden unit this close to 0 may take either side of its ReLU
 LOGP_ATOL, GRAD_REL, GRAD_CLEAN, CLEAN_SHARE = 1e-4, 5e-2, 1e-5, 0.25
 PICK_ATOL = Y_TOL["atol"]  # a card pick lies at most this far below the CPU's max
 PART_ATOL = 1e-5  # a cloud's card and CPU iterates further apart than this have parted
+# KNN on PointNet, card against CPU: at most PART_SHARE of the points may
+# part, each where one of its coordinates' gradient lay within TINY_GRAD of
+# 0, relative to its cloud's largest |gradient| (1 of 8192 parted on an
+# H100, at 6.8e-8 of its cloud's largest)
+PART_SHARE, TINY_GRAD = 1e-3, 1e-5
 
 # PointNet++: bench.py's cw_ssg / cw_msg cells (8 classes x 2 clouds)
 PN2_B, PN2_ITER = 16, 100
@@ -110,6 +147,22 @@ GATHER_SHAPES = {
     "msg_sa2_k32": (512, 128, 0.2, 32, 320, "msg", (64, 64, 128)),
     "msg_sa2_k64": (512, 128, 0.4, 64, 320, "msg", (128, 128, 256)),
     "msg_sa2_k128": (512, 128, 0.8, 128, 320, "msg", (128, 128, 256)),
+}
+# The KNN attack: bench.py's knn / knn_r5 cells (bench.py:412-451), the
+# first 64 of make_synthetic_clouds(40, 2, 1024, seed=4), num_iter cut from
+# 2500 to 500; then 100 iterations on PointNet++ SSG (the cw_ssg clouds)
+KNN_DATA, KNN_ITER, KNN_LR, KNN_SSG_ITER = 4, 500, 1e-2, 100
+# C&W on DGCNN: bench.py's cw_dgcnn cell (bench.py:215-269), B=16,
+# make_synthetic_clouds(8, 2, 1024, seed=3), 1 x 100, k=20
+DG_DATA, DG_ITER, DG_K = 3, 100, 20
+# DGCNN's four EdgeConv stages at B=16, N=1024, k=20, in the same format:
+# src = centers = the stage input (xyz, or seeded features of that width),
+# idx its self-kNN, layout (diff, center)
+DGCNN_GATHER_SHAPES = {
+    "dgcnn_conv1": (1024, 1024, None, 20, 0, "dgcnn", (64,)),
+    "dgcnn_conv2": (1024, 1024, None, 20, 64, "dgcnn", (64,)),
+    "dgcnn_conv3": (1024, 1024, None, 20, 64, "dgcnn", (128,)),
+    "dgcnn_conv4": (1024, 1024, None, 20, 128, "dgcnn", (256,)),
 }
 FPS_SHAPES = ((1024, 512), (512, 128))  # (N, npoint) of SSG's (and MSG's) two SAs
 GROUP_ALL = {"ssg_sa3": (259, 256, 512, 1024), "msg_sa3": (643, 256, 512, 1024)}
@@ -319,7 +372,8 @@ def phase_kernels():
 def gather_case(seed, n, npoint, radius, k, feat, kind, widths):
     """src, centers and idx as a set abstraction makes them on the card
     (FPS, then the ball query, whose short balls repeat their first index),
-    with seeded layers and cotangent."""
+    or as an EdgeConv does (``kind`` "dgcnn"), with seeded layers and
+    cotangent."""
     import numpy as np
     import torch
 
@@ -327,9 +381,17 @@ def gather_case(seed, n, npoint, radius, k, feat, kind, widths):
     from pointcloudattack_tpu_torch.ops.fps import farthest_point_sample
     from pointcloudattack_tpu_torch.ops.gather import index_points
     from pointcloudattack_tpu_torch.ops.gather_chain import layout_width
+    from pointcloudattack_tpu_torch.ops.knn import knn
 
     rng = np.random.RandomState(seed)
     xyz = torch.from_numpy((rng.randn(PN2_B, n, 3) * 0.5).astype(np.float32)).cuda()
+    if kind == "dgcnn":  # an EdgeConv: centers are the source rows, idx their kNN
+        src = torch.from_numpy(rng.randn(PN2_B, n, feat).astype(np.float32)).cuda() if feat else xyz
+        c = src.shape[-1]
+        new_xyz, idx, layout = src, knn(src, k), (("diff", 0, c, 0), ("center", 0, c))
+        layers = seeded_layers(rng, (2 * c, *widths), "cuda")
+        dy = torch.from_numpy(rng.randn(PN2_B, npoint, widths[-1]).astype(np.float32)).cuda()
+        return src, new_xyz, idx, layers, layout, dy
     new_xyz = index_points(xyz, farthest_point_sample(xyz, npoint)).contiguous()
     idx = query_ball_point(radius, k, xyz, new_xyz)
     if feat:
@@ -372,7 +434,7 @@ def check_gather(name, src, ctr, idx, layers, layout, dy):
     b, n = src.shape[:2]
     win = winners(am_ref, idx.shape[2])
     edge = torch.zeros_like(win)
-    h = gc.gather_rows(src, ctr, idx, layout)
+    h, z = gc.gather_rows(src, ctr, idx, layout), None  # one layer (DGCNN) has no hidden unit
     for w, b_, mean, mul, beta in layers[:-1]:
         z = (h @ w + b_ - mean) * mul + beta
         edge |= (z.abs() <= EDGE).any(-1)
@@ -400,6 +462,22 @@ def check_gather(name, src, ctr, idx, layers, layout, dy):
     return errs, am_ref, g, int(win.sum())
 
 
+def gather_fwd_flops(n, b, ng, k, layout, dims) -> float:
+    """The gather forward's least work.  Its first layer is affine in the
+    gathered row, and each segment of the row is a slice of one source
+    point's features ("pass"), of one center's ("center"), or the
+    difference of the two ("diff"), so W·row = P[j] + Q[i] with
+    P = W_src·src over the n source points and Q = W_ctr·ctr over the ng
+    centers: products a point, then one add a row and unit to join them.
+    With one layer (DGCNN) that add leaves the max (max_j P[j] + Q[i]), and
+    the row pays one compare a unit instead.  The later layers cost the
+    full chain on every row."""
+    src_w = sum(s[2] - s[1] for s in layout if s[0] in ("diff", "pass"))
+    ctr_w = sum(s[2] - s[1] for s in layout if s[0] in ("diff", "center"))
+    rows = b * ng * k
+    return 2.0 * b * dims[1] * (n * src_w + ng * ctr_w) + rows * dims[1] + chain_flops(rows, dims[1:])
+
+
 def time_gather(name, widths, src, ctr, idx, layers, layout, am, g, win):
     """Gather kernel and plain times at one case, and the bounds."""
     from pointcloudattack_tpu_torch.ops import gather_chain as gc
@@ -415,13 +493,113 @@ def time_gather(name, widths, src, ctr, idx, layers, layout, am, g, win):
     dims = (gc.layout_width(layout), *widths)
     io = 4.0 * (src.numel() + ctr.numel() + idx.numel())
     pools = 4.0 * b * ng * dims[-1]
-    b_fwd = bound(chain_flops(b * ng * k, dims), io + param_bytes(dims) + 2 * pools)
+    b_fwd = bound(gather_fwd_flops(src.shape[1], b, ng, k, layout, dims), io + param_bytes(dims) + 2 * pools)
     b_bwd = bound(chain_bwd_flops(win, b * ng, dims),
                   io + 2 * param_bytes(dims) + 2 * pools + 4.0 * (src.numel() + ctr.numel()))
     log(f"[kernels] gather {name} chain {dims}: forward {ms['fwd']:.4f} ms (plain {ms['fwd_plain']:.4f}, "
         f"bound {b_fwd[0]:.4f} by {b_fwd[1]} over {b * ng * k} rows), backward {ms['bwd']:.4f} ms (plain "
         f"{ms['bwd_plain']:.4f}, bound {b_bwd[0]:.4f} by {b_bwd[1]} over the {win} winning rows)")
     return ms, b_fwd, b_bwd
+
+
+def knn_bound(b, n, c, k):
+    """(bound_ms, bound_by) of one self-kNN: 2C + 2 operations a pair for
+    the distance (C products and C - 1 sums of xy, the doubling, the
+    subtraction and the sum), 2C a point for the norms, one compare a pair
+    for the selection (against the row's running k-th distance) and
+    k log2(k) a row to order the k kept; x read once, the indices written
+    once.  This kernel's own selection makes k passes over a row, which the
+    bound does not charge: it is the cost of the design, not of the
+    function."""
+    flops = b * n * n * (2.0 * c + 3) + 2.0 * b * n * c + b * n * k * math.log2(k)
+    return bound(flops, 4.0 * (b * n * c + b * n * k))
+
+
+def chamfer_bound(b, n, m):
+    """(bound_ms, bound_by) of one row min: 8 operations a pair (3
+    subtractions, 3 products, 2 sums); x and y read once, mins and argmin
+    written once."""
+    return bound(8.0 * b * n * m, 4.0 * (3 * b * n + 3 * b * m + 2 * b * n))
+
+
+def check_knn(tag, name, x, k):
+    """The kNN kernel against plain on one input: the indices bit-equal.
+    Returns the measured max |index difference|."""
+    import torch
+
+    from pointcloudattack_tpu_torch.ops import knn as knn_mod
+
+    got = knn_mod.knn(x, k)
+    want = knn_mod.knn_plain(x, k)
+    torch.cuda.synchronize()
+    err = float((got.long() - want.long()).abs().max())
+    if not torch.equal(got, want):
+        bad = (got != want).any(-1)
+        raise AssertionError(f"knn {name}: the kernel differs from plain in {int(bad.sum())} of {bad.numel()} rows")
+    rows = torch.arange(x.shape[1], device=x.device, dtype=torch.int32)
+    log(f"[{tag}] {name} {tuple(x.shape)} k={k}: indices bit-equal to the plain version (max |diff| "
+        f"{err:.1f}); the point itself is neighbour 0 in {float((got[..., 0] == rows).float().mean()):.4f} "
+        f"of the rows")
+    return err
+
+
+def check_chamfer(tag, name, x, y, w):
+    """The row-min kernel against plain on one input: mins and argmin
+    bit-equal, and ``dx`` of ``sum(mins * w)`` through autograd (the
+    kernel's Function against autograd through the plain version's dense
+    ``amin``) bit-equal on rows with one nearest point; where several tie
+    (duplicated y points), ``amin`` splits the gradient among them, whose
+    sum may round: atol 1e-6 there.  Returns the measured max |diff| over
+    mins, argmin and dx."""
+    import torch
+
+    from pointcloudattack_tpu_torch.ops import chamfer
+
+    xk = x.clone().requires_grad_(True)
+    mins, arg = chamfer.min_sqdist_rows(xk, y)
+    (dx,) = torch.autograd.grad((mins * w).sum(), xk)
+    xp = x.clone().requires_grad_(True)
+    mins_p, arg_p = chamfer.min_rows_plain(xp, y)
+    (dx_p,) = torch.autograd.grad((mins_p * w).sum(), xp)
+    torch.cuda.synchronize()
+    err = max(float((mins - mins_p).detach().abs().max()), float((arg.long() - arg_p.long()).abs().max()),
+              float((dx - dx_p).abs().max()))
+    if not (torch.equal(mins, mins_p.detach()) and torch.equal(arg, arg_p)):
+        raise AssertionError(f"min_sqdist_rows {name}: mins differ in {int((mins != mins_p).sum())} rows, "
+                             f"argmin in {int((arg != arg_p).sum())}")
+    with torch.no_grad():
+        d = None
+        for c in range(3):
+            diff = x[..., :, None, c] - y[..., None, :, c]
+            d = diff * diff if d is None else d + diff * diff
+        tied = (d == mins[..., None]).sum(-1) > 1
+        del d, diff
+    if not torch.equal(dx[~tied], dx_p[~tied]):
+        raise AssertionError(f"min_sqdist_rows {name}: dx differs on rows with one nearest point")
+    torch.testing.assert_close(dx[tied], dx_p[tied], rtol=0.0, atol=1e-6)
+    log(f"[{tag}] {name} x {tuple(x.shape)} y {tuple(y.shape)}: mins and argmin bit-equal to the plain "
+        f"version, dx bit-equal on the {int((~tied).sum())} rows with one nearest point (max|diff| "
+        f"{float((dx - dx_p).abs().max()):.3e} over all, {int(tied.sum())} rows tie); max |diff| over "
+        f"mins, argmin and dx {err:.3e}")
+    return err
+
+
+def new_record(*keys):
+    """Per-kernel sums of errors, times and bounds over several shapes."""
+    return {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": {}, "rows": 0} for k in keys}
+
+
+def accumulate(r, ms, plain_ms, bnd, rows=0):
+    r["ms"] += ms
+    r["plain_ms"] += plain_ms
+    r["bound_ms"] += bnd[0]
+    r["bound_by"][bnd[1]] = r["bound_by"].get(bnd[1], 0.0) + bnd[0]
+    r["rows"] += rows
+
+
+def summed_bound(r):
+    """(bound_ms, bound_by) of a summed record: the larger share names it."""
+    return (r["bound_ms"], max(r["bound_by"], key=r["bound_by"].get))
 
 
 def phase_kernels_pn2():
@@ -433,16 +611,7 @@ def phase_kernels_pn2():
     from pointcloudattack_tpu_torch.ops import chain_maxpool as cm
     from pointcloudattack_tpu_torch.ops import fps as fps_mod
 
-    rec = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": {}, "rows": 0}
-           for k in ("fps", "gather_fwd", "gather_bwd")}
-
-    def add(r, ms, plain_ms, bnd, rows=0):
-        r["ms"] += ms
-        r["plain_ms"] += plain_ms
-        r["bound_ms"] += bnd[0]
-        r["bound_by"][bnd[1]] = r["bound_by"].get(bnd[1], 0.0) + bnd[0]
-        r["rows"] += rows
-
+    rec = new_record("fps", "gather_fwd", "gather_bwd")
     for n, npoint in FPS_SHAPES:
         xyz = torch.from_numpy((np.random.RandomState(n).randn(PN2_B, n, 3) * 0.5).astype(np.float32)).cuda()
         start = torch.zeros(PN2_B, dtype=torch.int32, device="cuda")
@@ -451,13 +620,15 @@ def phase_kernels_pn2():
         dup = torch.cat([xyz[:, : n // 4]] * 4, dim=1).contiguous()  # every pick ties with its copies
         dup_got = fps_mod.farthest_point_sample(dup, npoint)
         dup_want = fps_mod.fps_plain(dup, npoint, start)
+        rec["fps"]["err"] = max(rec["fps"]["err"], float((got.long() - want.long()).abs().max()),
+                                float((dup_got.long() - dup_want.long()).abs().max()))
         if not (torch.equal(got, want) and torch.equal(dup_got, dup_want)):
             raise AssertionError(f"FPS kernel differs from the plain version at N={n} npoint={npoint}")
         ms = time_pairs({"plain": lambda: fps_mod.fps_plain(xyz, npoint, start),
                          "kernel": lambda: fps_mod.farthest_point_sample(xyz, npoint)}, reps=10)
         flops = 10.0 * PN2_B * (npoint - 1) * n  # 3 sub, 3 mul, 2 add, min, compare
         t, by = bound(flops, 4.0 * (xyz.numel() + PN2_B + PN2_B * npoint))
-        add(rec["fps"], ms["kernel"], ms["plain"], (t, by))
+        accumulate(rec["fps"], ms["kernel"], ms["plain"], (t, by))
         log(f"[kernels] fps [{PN2_B},{n},3] -> {npoint}: bit-equal to the plain version (also with "
             f"every point 4 times); kernel {ms['kernel']:.4f} ms ({ms['kernel'] * 1e3 / npoint:.3f} us "
             f"per step), plain {ms['plain']:.4f} ms, bound {t:.5f} ms by {by}")
@@ -472,7 +643,7 @@ def phase_kernels_pn2():
         ):
             rec[key]["err"] = max(rec[key]["err"], e)
             if name.startswith("ssg"):  # one SSG forward / backward
-                add(rec[key], m, p, bb, rows)
+                accumulate(rec[key], m, p, bb, rows)
         del case, am, g
         torch.cuda.empty_cache()
     for i, (name, dims) in enumerate(GROUP_ALL.items()):
@@ -514,6 +685,10 @@ def make_victim(name, device, clouds, drops):
         m.momentum = 1.0
     with torch.no_grad():
         model(clouds)
+    missed = [n for n, m in model.named_modules() if isinstance(m, nn.BatchNorm1d) and int(m.num_batches_tracked) != 1]
+    if missed:
+        raise AssertionError(f"{name}: the pass over the clouds missed the BatchNorms {missed}")
+    log(f"[victim] {name}: all {len(bns)} BatchNorms took the statistics of the {len(clouds)} clouds")
     for m in bns:
         m.momentum = 0.1
     state = {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -546,34 +721,50 @@ def victim_labels(model_fn, data, labels, tag="slice"):
     return pred
 
 
-def reset_all():
+def _counters():
     from pointcloudattack_tpu_torch.ops import chain_maxpool as cm
+    from pointcloudattack_tpu_torch.ops import chamfer
     from pointcloudattack_tpu_torch.ops import fps as fps_mod
     from pointcloudattack_tpu_torch.ops import gather_chain as gc
+    from pointcloudattack_tpu_torch.ops import knn as knn_mod
 
-    cm.reset_launches()
-    fps_mod.reset_launches()
-    gc.reset_launches()
+    return {"fps": (fps_mod, "fps"), "gather_fwd": (gc, "fwd"), "gather_bwd": (gc, "bwd"),
+            "chain_fwd": (cm, "fwd"), "chain_bwd": (cm, "bwd"), "knn": (knn_mod, "knn"),
+            "min_rows": (chamfer, "min_rows")}
+
+
+def reset_all():
+    for mod, _ in _counters().values():
+        mod.reset_launches()
 
 
 def read_all():
-    from pointcloudattack_tpu_torch.ops import chain_maxpool as cm
-    from pointcloudattack_tpu_torch.ops import fps as fps_mod
-    from pointcloudattack_tpu_torch.ops import gather_chain as gc
-
-    return {"fps": fps_mod.LAUNCHES["fps"], "gather_fwd": gc.LAUNCHES["fwd"], "gather_bwd": gc.LAUNCHES["bwd"],
-            "chain_fwd": cm.LAUNCHES["fwd"], "chain_bwd": cm.LAUNCHES["bwd"]}
+    return {k: mod.LAUNCHES[key] for k, (mod, key) in _counters().items()}
 
 
-def run_attack(tag, model_fn, data, target, num_iter, per_fwd, per_bwd):
-    """The counted main-path run (also the warm-up), the checks, then three
-    fenced timed reps; returns the launch counts."""
+def check_adv(tag, adv, data, succ):
+    """A finite adversarial batch of the input's shape, every point within
+    the budget, ASR > 0; returns (ASR, max per-point move)."""
     import torch
 
-    from pointcloudattack_tpu_torch.attacks.cw import CWPerturbConfig, build_cw_attack
+    if tuple(adv.shape) != tuple(data.shape) or not bool(torch.isfinite(adv).all()):
+        raise AssertionError(f"{tag}: the adversarial clouds are not a finite tensor of the input's shape")
+    moved = float((adv - data).norm(dim=-1).max())
+    if moved > BUDGET * (1 + 1e-5):
+        raise AssertionError(f"{tag}: a point moved {moved} > budget {BUDGET}")
+    asr = float(succ.float().mean())
+    if asr <= 0:
+        raise AssertionError(f"{tag}: ASR is 0")
+    return asr, moved
 
-    cfg = CWPerturbConfig(binary_step=BINARY_STEP, num_iter=num_iter, kappa=KAPPA, budget=BUDGET)
-    attack = build_cw_attack(model_fn, cfg)
+
+def counted_and_timed(tag, what, attack, data, target, iters, per_fwd, per_step, check):
+    """The counted main-path run (also the warm-up), whose launches must be
+    ``per_fwd`` per forward (``iters`` + 1: one per step, one final) and
+    ``per_step`` per step, then ``check(result)``, then three fenced timed
+    reps; returns the launch counts."""
+    import torch
+
     gen = torch.Generator(device="cuda")
     b = data.shape[0]
 
@@ -588,37 +779,59 @@ def run_attack(tag, model_fn, data, target, num_iter, per_fwd, per_bwd):
     reset_all()
     res, t_warm = run(1)
     launches = read_all()
-    forwards = BINARY_STEP * num_iter + 1  # one per Adam step, one final
-    want = {k: 0 for k in launches}
-    for k, v in per_fwd.items():
-        want[k] = v * forwards
-    for k, v in per_bwd.items():
-        want[k] = v * BINARY_STEP * num_iter
+    want = {k: per_fwd.get(k, 0) * (iters + 1) + per_step.get(k, 0) * iters for k in launches}
     log(f"[{tag}] kernel launches during the attack: {launches} (expected {want})")
     if launches != want:
-        raise AssertionError(f"launch counts {launches} != expected {want}")
-
-    adv = res.best_attack
-    if tuple(adv.shape) != tuple(data.shape) or not bool(torch.isfinite(adv).all()):
-        raise AssertionError("best_attack is not a finite tensor of the input's shape")
-    moved = (adv - data).norm(dim=-1).max()
-    if float(moved) > BUDGET * (1 + 1e-5):
-        raise AssertionError(f"a point moved {float(moved)} > budget {BUDGET}")
-    succ = res.success
-    if not bool(torch.isfinite(res.best_dist[succ]).all()):
-        raise AssertionError("non-finite best_dist on a successful example")
-    asr = float(succ.float().mean())
-    log(f"[{tag}] ASR {asr:.3f} ({int(succ.sum())}/{b}); max per-point move {float(moved):.4f}; "
-        f"mean best L2 of successes {float(res.best_dist[succ].mean()) if asr else float('nan'):.5f}")
-    if asr <= 0:
-        raise AssertionError("ASR is 0")
-
+        raise AssertionError(f"{tag}: launch counts {launches} != expected {want}")
+    check(res)
     times = [run(2 + i)[1] for i in range(3)]
     tmin, tmean = min(times), sum(times) / len(times)
-    log(f"[{tag}] CW {BINARY_STEP}x{num_iter} B={b} N={data.shape[1]}: warm-up {t_warm:.4f} s; "
+    log(f"[{tag}] {what} B={b} N={data.shape[1]}: warm-up {t_warm:.4f} s; "
         f"timed {[round(t, 6) for t in times]} s/batch; min {tmin:.6f} s "
         f"({b / tmin:.3f} clouds/s), mean {tmean:.6f} s ({b / tmean:.3f} clouds/s)")
     return launches
+
+
+def run_attack(tag, model_fn, data, target, num_iter, per_fwd, per_bwd):
+    """C&W 1 x ``num_iter``, counted and timed; returns the launch counts."""
+    import torch
+
+    from pointcloudattack_tpu_torch.attacks.cw import CWPerturbConfig, build_cw_attack
+
+    cfg = CWPerturbConfig(binary_step=BINARY_STEP, num_iter=num_iter, kappa=KAPPA, budget=BUDGET)
+
+    def check(res):
+        succ = res.success
+        asr, moved = check_adv(tag, res.best_attack, data, succ)
+        if not bool(torch.isfinite(res.best_dist[succ]).all()):
+            raise AssertionError("non-finite best_dist on a successful example")
+        log(f"[{tag}] ASR {asr:.3f} ({int(succ.sum())}/{len(succ)}); max per-point move {moved:.4f}; "
+            f"mean best L2 of successes {float(res.best_dist[succ].mean()):.5f}")
+
+    return counted_and_timed(tag, f"CW {BINARY_STEP}x{num_iter}", build_cw_attack(model_fn, cfg), data, target,
+                             BINARY_STEP * num_iter, per_fwd, per_bwd, check)
+
+
+def run_knn(tag, model_fn, data, target, num_iter, nn_refresh, per_fwd, per_step):
+    """The KNN attack (kappa 30, budget 0.18, lr 1e-2), counted and timed;
+    returns the launch counts."""
+    import torch
+
+    from pointcloudattack_tpu_torch.attacks.knn import KNNAttackConfig, build_knn_attack
+    from pointcloudattack_tpu_torch.losses.distance import chamfer_dist
+
+    cfg = KNNAttackConfig(attack_lr=KNN_LR, num_iter=num_iter, kappa=KAPPA, budget=BUDGET, nn_refresh=nn_refresh)
+
+    def check(res):
+        adv, succ = res
+        asr, moved = check_adv(tag, adv, data, succ)
+        with torch.no_grad():
+            cham = chamfer_dist(adv, data)
+        log(f"[{tag}] ASR {asr:.3f} ({int(succ.sum())}/{len(succ)}); max per-point move {moved:.4f}; "
+            f"mean adv->ori Chamfer {float(cham.mean()):.3e}")
+
+    return counted_and_timed(tag, f"KNN {num_iter} iterations, nn_refresh {nn_refresh},",
+                             build_knn_attack(model_fn, cfg), data, target, num_iter, per_fwd, per_step, check)
 
 
 def phase_slice(model_fn, data, target):
@@ -683,24 +896,38 @@ def logp_ties(logp, target):
     return torch.minimum(top[:, 0] - top[:, 1], (real - top[:, 0]).abs())
 
 
-def grad_parity(model_fn, cpu_fn, adv, ori, target):
-    """Log-probs and the CW-loss input gradient (adversarial loss plus 10 x
-    the L2 distance, as the attack's first round weighs it) at ``adv``, on
-    the card and on the CPU, the CPU taking the card's picks.  Per cloud:
+def cw_loss(logp, a, o, t):
+    """The CW loss as the attack's first round weighs it: the adversarial
+    loss plus 10 x the L2 distance."""
+    from pointcloudattack_tpu_torch.losses.adv import untargeted_logits_adv_loss
+    from pointcloudattack_tpu_torch.losses.distance import l2_dist
+
+    return untargeted_logits_adv_loss(logp, t, KAPPA) + l2_dist(a, o) * 10.0
+
+
+def knn_loss(logp, a, o, t):
+    """The KNN attack's loss: the adversarial loss plus N x the Chamfer
+    distance."""
+    from pointcloudattack_tpu_torch.losses.adv import untargeted_logits_adv_loss
+    from pointcloudattack_tpu_torch.losses.distance import chamfer_dist
+
+    return untargeted_logits_adv_loss(logp, t, KAPPA) + chamfer_dist(a, o) * a.shape[1]
+
+
+def grad_parity(model_fn, cpu_fn, adv, ori, target, loss_fn=cw_loss):
+    """Log-probs and the input gradient of ``loss_fn`` at ``adv``, on the
+    card and on the CPU, the CPU taking the card's picks.  Per cloud:
     log-probs max|diff|, the gradient's relative L2 difference, the
     log-prob tie gap (``logp_ties``, on the card) and how far below the
     CPU's max the card's picks lie."""
     import torch
-
-    from pointcloudattack_tpu_torch.losses.adv import untargeted_logits_adv_loss
-    from pointcloudattack_tpu_torch.losses.distance import l2_dist
 
     outs = []
     with card_picks() as gaps:
         for fn, a0, o, t in ((model_fn, adv, ori, target), (cpu_fn, adv.cpu(), ori.cpu(), target.cpu())):
             a = a0.detach().clone().requires_grad_(True)
             logp = fn(a)
-            loss = (untargeted_logits_adv_loss(logp, t, KAPPA) + l2_dist(a, o) * 10.0).sum()
+            loss = loss_fn(logp, a, o, t).sum()
             (grad,) = torch.autograd.grad(loss, a)
             outs.append((logp.detach().cpu(), grad.cpu()))
     (lp_gpu, g_gpu), (lp_cpu, g_cpu) = outs
@@ -737,6 +964,18 @@ def hold_grad_parity(tag, steps, clean=True):
         raise AssertionError(f"{tag}: only {share:.3f} of the gradients agree within {GRAD_CLEAN}")
 
 
+def recording_fn(fn, its, grads):
+    """``fn`` that appends each step's input to ``its`` and, once the step
+    differentiates, its gradient to ``grads`` (an attack's final forward
+    takes no gradient and is not recorded)."""
+    def run(a):
+        if a.requires_grad:
+            its.append(a.detach().cpu())
+            a.register_hook(lambda g: grads.append(g.detach().cpu()))
+        return fn(a)
+    return run
+
+
 def attack_parity(tag, name, model_fn, state, data, target, b, may_part=False):
     """A short attack (1 x 10) on the card and on the CPU from the same
     weights and noise: success, best distance and adversarial clouds.
@@ -764,14 +1003,7 @@ def attack_parity(tag, name, model_fn, state, data, target, b, may_part=False):
     cpu_fn = make_model_fn(models.make_model(name, NUM_CLASSES), state, "cpu")
     its, grads = {"card": [], "cpu": []}, {"card": [], "cpu": []}
 
-    def recording(fn, side):
-        def run(a):
-            if a.requires_grad:  # an Adam step's input (the final re-check is not)
-                its[side].append(a.detach().cpu())
-                a.register_hook(lambda g: grads[side].append(g.detach().cpu()))
-            return fn(a)
-        return run
-
+    recording = lambda fn, side: recording_fn(fn, its[side], grads[side])  # noqa: E731
     res_gpu = build_cw_attack(recording(model_fn, "card"), cfg)(data[:b], target[:b], init_noise=noise.cuda())
     res_cpu = build_cw_attack(recording(cpu_fn, "cpu"), cfg)(data[:b].cpu(), target[:b].cpu(), init_noise=noise)
     if not all(len(v) == cfg.num_iter for v in (*its.values(), *grads.values())):
@@ -879,6 +1111,273 @@ def phase_profile(tag, model_fn, data, target):
         log(f"[{tag}]   {t / 1e3:9.3f} ms  {t / total:6.3f}  x{n:<5d} {name[:90]}")
 
 
+@contextlib.contextmanager
+def phase_clock(tag):
+    t0 = time.perf_counter()
+    yield
+    log(f"[{tag}] phase took {time.perf_counter() - t0:.1f} s")
+
+
+@contextlib.contextmanager
+def knn_inputs():
+    """While open, records the input and k of every kNN that DGCNN runs."""
+    from pointcloudattack_tpu_torch.models import dgcnn as dgcnn_mod
+
+    orig, seen = dgcnn_mod.knn, []
+
+    def rec(x, k):
+        seen.append((x.detach().clone(), k))
+        return orig(x, k)
+
+    dgcnn_mod.knn = rec
+    try:
+        yield seen
+    finally:
+        dgcnn_mod.knn = orig
+
+
+@contextlib.contextmanager
+def card_knn():
+    """While open, each kNN DGCNN runs on the card records its indices, and
+    each one it runs on the CPU takes the oldest recorded ones in place of
+    its own: the deeper stages' features differ by rounding between the two
+    sides, and a neighbour near the k-th may differ.  Yields ``diffs``, a
+    list that gets, for each kNN the CPU ran, how many of its own index sets
+    differ from the card's."""
+    from pointcloudattack_tpu_torch.models import dgcnn as dgcnn_mod
+
+    orig, picks, diffs = dgcnn_mod.knn, [], []
+
+    def knn(x, k):
+        idx = orig(x, k)
+        if x.is_cuda:
+            picks.append(idx.cpu())
+            return idx
+        card = picks.pop(0)
+        diffs.append(int((idx.sort(-1).values != card.sort(-1).values).any(-1).sum()))
+        return card
+
+    dgcnn_mod.knn = knn
+    try:
+        yield diffs
+    finally:
+        dgcnn_mod.knn = orig
+    if picks:
+        raise AssertionError(f"{len(picks)} of the card's kNN calls found no CPU counterpart")
+
+
+def edgeconv_fused_vs_unfused(model, inputs):
+    """One EdgeConv stage each way at the path's shapes: the fused gather
+    kernel + LeakyReLU against the unfused plain layer (gather, matmul, BN,
+    LeakyReLU, max), forward and forward + input backward, the same kNN."""
+    import torch
+    import torch.nn.functional as F
+
+    from pointcloudattack_tpu_torch.ops.gather_chain import gather_chain_groupmax
+    from pointcloudattack_tpu_torch.ops.knn import knn
+
+    out = []
+    for i, ((x, k), edge) in enumerate(zip(inputs, model.edges)):
+        idx = knn(x, k)
+        c = x.shape[-1]
+        layout = (("diff", 0, c, 0), ("center", 0, c))
+        fused = lambda a: F.leaky_relu(gather_chain_groupmax(a, a, idx, [edge.fused_layer()], layout), 0.2)  # noqa: E731
+        unfused = lambda a: edge.unfused(a, idx)  # noqa: E731
+        xr = x.clone().requires_grad_(True)
+        torch.testing.assert_close(fused(x), unfused(x), rtol=1e-5, atol=1e-4)
+        ms = time_pairs({
+            "unfused": lambda: unfused(x), "fused": lambda: fused(x),
+            "fused_fb": lambda: torch.autograd.grad(fused(xr).sum(), xr),
+            "unfused_fb": lambda: torch.autograd.grad(unfused(xr).sum(), xr),
+        }, reps=10)
+        log(f"[kernels-gather-dgcnn] EdgeConv conv{i + 1} {tuple(x.shape)} k={k} -> {edge.bn.num_features}: "
+            f"fused forward {ms['fused']:.4f} ms, unfused plain {ms['unfused']:.4f} ms; forward + input "
+            f"backward fused {ms['fused_fb']:.4f} ms, unfused {ms['unfused_fb']:.4f} ms")
+        out.append(ms)
+        del xr
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_kernels_dgcnn(model, model_fn, data):
+    """The kNN kernel at the four EdgeConv inputs of one forward of the
+    DGCNN victim (and ragged, and all ties), the gather kernel at the four
+    EdgeConv shapes, and the fused EdgeConv against the unfused one; the
+    record's numbers sum the four stages of one forward (and backward)."""
+    import torch
+
+    from pointcloudattack_tpu_torch.ops import knn as knn_mod
+
+    rec = new_record("knn", "gather_fwd", "gather_bwd")
+    with knn_inputs() as inputs, torch.no_grad():
+        model_fn(data)
+    if [tuple(x.shape[1:]) + (k,) for x, k in inputs] != [(N, c, DG_K) for c in (3, 64, 64, 128)]:
+        raise AssertionError(f"DGCNN ran kNN on {[tuple(x.shape) for x, _ in inputs]}")
+    with phase_clock("kernels-knn"):
+        for i, (x, k) in enumerate(inputs):
+            rec["knn"]["err"] = max(rec["knn"]["err"], check_knn("kernels-knn", f"conv{i + 1} input", x, k))
+            ms = time_pairs({"plain": lambda: knn_mod.knn_plain(x, k), "kernel": lambda: knn_mod.knn(x, k)}, reps=5)
+            bnd = knn_bound(*x.shape, k)
+            accumulate(rec["knn"], ms["kernel"], ms["plain"], bnd)
+            log(f"[kernels-knn] conv{i + 1} {tuple(x.shape)} k={k}: kernel {ms['kernel']:.4f} ms, plain "
+                f"{ms['plain']:.4f} ms, bound {bnd[0]:.4f} ms by {bnd[1]}")
+        errs = [check_knn("kernels-knn", "conv2 input, first 1000 points (ragged)",
+                          inputs[1][0][:, :1000].contiguous(), DG_K)]
+        for i in (0, 3):  # every point 4 times: each row's first 4 neighbours tie at distance 0
+            x = inputs[i][0]
+            errs.append(check_knn("kernels-knn", f"conv{i + 1} input, its first 256 points 4 times (ties)",
+                                  torch.cat([x[:, :256]] * 4, dim=1).contiguous(), DG_K))
+        rec["knn"]["err"] = max(rec["knn"]["err"], *errs)
+    with phase_clock("kernels-gather-dgcnn"):
+        for i, (name, shape) in enumerate(DGCNN_GATHER_SHAPES.items()):
+            case = gather_case(40 + i, *shape)
+            errs, am, g, win = check_gather(name, *case)
+            ms, b_fwd, b_bwd = time_gather(name, shape[6], *case[:5], am, g, win)
+            b, ng, k = case[2].shape
+            for key, e, m, p, bb, rows in (
+                ("gather_fwd", errs["y"], ms["fwd"], ms["fwd_plain"], b_fwd, b * ng * k),
+                ("gather_bwd", max(errs["dsrc"], errs["dctr"]), ms["bwd"], ms["bwd_plain"], b_bwd, win),
+            ):
+                rec[key]["err"] = max(rec[key]["err"], e)
+                accumulate(rec[key], m, p, bb, rows)
+            del case, am, g
+            torch.cuda.empty_cache()
+        rec["edgeconv"] = edgeconv_fused_vs_unfused(model, inputs)
+    return rec
+
+
+def phase_kernels_chamfer(data):
+    """The row-min kernel at the KNN attack's shape, against an iterate a
+    few steps in (clean clouds plus noise of 0.01), and at a ragged
+    N = M = 1000 against a cloud whose points each appear 4 times."""
+    import numpy as np
+    import torch
+
+    from pointcloudattack_tpu_torch.ops import chamfer
+
+    rng = np.random.RandomState(8)
+    adv = (data + torch.from_numpy(rng.randn(*data.shape).astype(np.float32) * 0.01).cuda()).contiguous()
+    w = torch.from_numpy(rng.rand(*data.shape[:2]).astype(np.float32)).cuda()
+    err = check_chamfer("kernels-chamfer", f"B={data.shape[0]} N=M={data.shape[1]}", adv, data, w)
+    dup = torch.cat([data[:, :250]] * 4, dim=1).contiguous()
+    err = max(err, check_chamfer("kernels-chamfer", "ragged N=M=1000, every y point 4 times",
+                                 adv[:, :1000].contiguous(), dup, w[:, :1000].contiguous()))
+    ms = time_pairs({"plain": lambda: chamfer.min_rows_plain(adv, data), "kernel": lambda: chamfer.min_rows_fwd(adv, data)})
+    b, n, _ = data.shape
+    bnd = chamfer_bound(b, n, n)
+    log(f"[kernels-chamfer] [{b},{n},3] x [{b},{n},3]: kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, "
+        f"bound {bnd[0]:.5f} ms by {bnd[1]} ({8.0 * b * n * n / 1e9:.3f} G operations)")
+    return {"ms": ms["kernel"], "plain_ms": ms["plain"], "bound": bnd, "err": err}
+
+
+def parted_points(card_it, cpu_it, g_card, g_cpu):
+    """Where two runs of an attack part: ``card_it`` and ``cpu_it``
+    ``[S + 1, b, N, 3]`` (each step's input, then the end), ``g_card`` and
+    ``g_cpu`` each step's input gradient ``[b, N, 3]``.  Returns
+    (``parted [b, N]``: some iterate further apart than PART_ATOL; a line
+    naming each parted point; the parted points none of whose first-parted
+    coordinates had a card gradient within TINY_GRAD of 0, relative to its
+    cloud's largest, at some step before)."""
+    import torch
+
+    apart = (card_it - cpu_it).abs() > PART_ATOL
+    parted = apart.any(-1).any(0)
+    why, unexplained = [], []
+    for c, p in parted.nonzero().tolist():
+        s_ = int(apart[:, c, p].any(-1).int().argmax())
+        coords = apart[s_, c, p]  # the coordinates that parted first
+        if not s_:
+            unexplained.append((c, p))
+            why.append(f"cloud {c} point {p} apart from the start")
+            continue
+        rel = torch.stack([g[c, p].abs() / g[c].abs().max() for g in g_card[:s_]])[:, coords]
+        if not bool((rel <= TINY_GRAD).any()):
+            unexplained.append((c, p))
+        why.append(f"cloud {c} point {p} parted at step {s_} in coordinates {coords.nonzero().flatten().tolist()}, "
+                   f"whose least gradient relative to the cloud's largest before then was {float(rel.min()):.3e}; "
+                   f"its gradient at step {s_ - 1} card {[float(v) for v in g_card[s_ - 1][c, p]]} cpu "
+                   f"{[float(v) for v in g_cpu[s_ - 1][c, p]]} (the cloud's largest |gradient| "
+                   f"{float(g_card[s_ - 1][c].abs().max()):.3e})")
+    return parted, why, unexplained
+
+
+def phase_parity_knn(model_fn, state, data, target):
+    """The KNN attack (B=8, 10 iterations) on the card and on the CPU from
+    the same weights and noise.  Held: ``success`` identical; the final
+    clouds within 1e-5 at every point whose card and CPU iterates never
+    parted (by more than PART_ATOL); and at each of the card's iterates the
+    loss gradient, the CPU taking the card's picks (``hold_grad_parity``).
+    A point parts where a coordinate's gradient lies within rounding of 0
+    next to the cloud's largest (the Chamfer term pulls a point that is back
+    on its clean position to 0): Adam's step is about lr whatever the
+    gradient's size, so a few per cent between the two sides' tiny gradients
+    become a difference of the step.  So at most PART_SHARE of the points
+    may part, and each only if a coordinate that parted had, at some step
+    before, a gradient within TINY_GRAD of 0 on the card (relative to its
+    cloud's largest); each is named with the step and both sides'
+    gradients there."""
+    import numpy as np
+    import torch
+
+    from pointcloudattack_tpu_torch import models
+    from pointcloudattack_tpu_torch.attacks.knn import KNNAttackConfig, build_knn_attack
+    from pointcloudattack_tpu_torch.utils.apply import make_model_fn
+
+    b, steps = 8, 10
+    cfg = KNNAttackConfig(attack_lr=KNN_LR, num_iter=steps, kappa=KAPPA, budget=BUDGET)
+    noise = torch.from_numpy(np.random.RandomState(5).randn(b, N, 3).astype(np.float32))
+    cpu_fn = make_model_fn(models.make_model("PointNet", NUM_CLASSES), state, "cpu")
+    its, grads = {"card": [], "cpu": []}, {"card": [], "cpu": []}
+
+    recording = lambda fn, side: recording_fn(fn, its[side], grads[side])  # noqa: E731
+    adv_g, succ_g = build_knn_attack(recording(model_fn, "card"), cfg)(data[:b], target[:b], init_noise=noise.cuda())
+    adv_c, succ_c = build_knn_attack(recording(cpu_fn, "cpu"), cfg)(data[:b].cpu(), target[:b].cpu(), init_noise=noise)
+    if not all(len(v) == steps for v in (*its.values(), *grads.values())):
+        raise AssertionError(f"parity-knn: recorded {[len(v) for v in its.values()]} iterates and "
+                             f"{[len(v) for v in grads.values()]} gradients, expected {steps} each")
+    card_it = torch.stack(its["card"] + [adv_g.cpu()])  # [steps + 1, b, N, 3]: each step's input, then the end
+    cpu_it = torch.stack(its["cpu"] + [adv_c])
+    parted, why, unexplained = parted_points(card_it, cpu_it, grads["card"], grads["cpu"])
+    diff = (adv_g.cpu() - adv_c).abs()
+    share = float(parted.float().mean())
+    log(f"[parity-knn] card vs CPU, PointNet B={b}, {steps} iterations: success card {succ_g.tolist()} cpu "
+        f"{succ_c.tolist()}; final clouds max |diff| per cloud {[float(v) for v in diff.amax(dim=(1, 2))]}; "
+        f"{int(parted.sum())} of {parted.numel()} points parted (> {PART_ATOL}), a share of {share:.2e} "
+        f"(at most {PART_SHARE}); the others max |diff| {float(diff[~parted].max()):.3e}"
+        + "".join(f"; {w}" for w in why))
+    if not torch.equal(succ_g.cpu(), succ_c):
+        raise AssertionError("parity-knn: success differs between the card and the CPU")
+    if share > PART_SHARE:
+        raise AssertionError(f"parity-knn: {int(parted.sum())} points parted, more than {PART_SHARE} of them")
+    if unexplained:
+        raise AssertionError(f"parity-knn: points {unexplained} parted with no coordinate's gradient within "
+                             f"{TINY_GRAD} of 0 (relative) before then")
+    torch.testing.assert_close(adv_g.cpu()[~parted], adv_c[~parted], rtol=0.0, atol=1e-5)
+    hold_grad_parity("parity-knn", [grad_parity(model_fn, cpu_fn, a.cuda(), data[:b], target[:b], knn_loss)
+                                    for a in its["card"]])
+
+
+def phase_parity_dgcnn(model_fn, state, data, target):
+    """DGCNN at B=2, card against CPU, the CPU taking the card's kNN indices
+    and max-pool picks: log-probs and the CW-loss input gradient."""
+    import torch
+
+    from pointcloudattack_tpu_torch import models
+    from pointcloudattack_tpu_torch.utils.apply import make_model_fn
+
+    b = 2
+    cpu_fn = make_model_fn(models.make_model("DGCNN", NUM_CLASSES), state, "cpu")
+    ori = data[:b]
+    adv = ori + 0.01 * torch.randn(ori.shape, generator=torch.Generator(device="cuda").manual_seed(3), device="cuda")
+    with card_knn() as diffs:
+        res = grad_parity(model_fn, cpu_fn, adv, ori, target[:b])
+    log(f"[parity-dgcnn] the CPU took the card's kNN indices at its {len(diffs)} EdgeConv stages; its own "
+        f"would differ in {diffs} of the {b * N} index sets of each")
+    if len(diffs) != 4:
+        raise AssertionError(f"parity-dgcnn: the CPU ran {len(diffs)} kNNs, expected 4")
+    hold_grad_parity("parity-dgcnn", [res], clean=False)
+
+
 def pn2_path(name):
     """Victim, clean-prediction targets and the counted attack of one
     PointNet++ path; returns (model_fn, state, data, target, launches)."""
@@ -896,10 +1395,13 @@ def main():
         raise SystemExit(f"chip_smoke: {KERNEL_SRC} not found beside this script; run it from a checkout")
     sys.path.insert(0, str(ROOT))
 
+    t_start = time.perf_counter()
     smi = phase_device()
     import torch
 
     import pointcloudattack_tpu_torch  # noqa: F401  (TF32 off)
+    from pointcloudattack_tpu_torch import models
+    from pointcloudattack_tpu_torch.utils.apply import make_model_fn
 
     phase_build()
     k = phase_kernels()
@@ -917,26 +1419,61 @@ def main():
     attack_parity("parity-ssg", "PointNet++Ssg", ssg[0], ssg[1], ssg[2], ssg[3], 4, may_part=True)
     phase_parity_msg(*msg[:4])
     phase_profile("profile-ssg", ssg[0], ssg[2], ssg[3])
+
+    # DGCNN: the victim, then its kernels at the path's shapes
+    dg_data, dg_labels = synthetic_data(8, 2, DG_DATA, "cuda")
+    dg_fn, dg_state = make_victim("DGCNN", "cuda", dg_data, ("dp1", "dp2"))
+    dg_target = victim_labels(dg_fn, dg_data, dg_labels, "slice-dgcnn")
+    dg_model = models.make_model("DGCNN", NUM_CLASSES)
+    make_model_fn(dg_model, dg_state, "cuda")  # loads, moves and freezes it: its EdgeConvs are timed alone
+    dg = phase_kernels_dgcnn(dg_model, dg_fn, dg_data)
+    # the KNN attack on PointNet (bench.py's knn and knn_r5), then on SSG
+    knn_clouds, knn_labels = synthetic_data(NUM_CLASSES, 2, KNN_DATA, "cuda")
+    with phase_clock("kernels-chamfer"):
+        cham = phase_kernels_chamfer(knn_clouds[:B])
+    knn_fn, knn_state = make_victim("PointNet", "cuda", knn_clouds, ("dropout",))
+    knn_data = knn_clouds[:B]
+    knn_target = victim_labels(knn_fn, knn_data, knn_labels[:B], "slice-knn")
+    with phase_clock("slice-knn"):
+        knn1 = run_knn("slice-knn", knn_fn, knn_data, knn_target, KNN_ITER, 1,
+                       {"chain_fwd": 2}, {"chain_bwd": 2, "min_rows": 1})
+        knn5 = run_knn("slice-knn-r5", knn_fn, knn_data, knn_target, KNN_ITER, 5,
+                       {"chain_fwd": 2}, {"chain_bwd": 2})
+        fwd, step = PN2_LAUNCHES["PointNet++Ssg"]
+        knn_ssg = run_knn("slice-knn-ssg", ssg[0], ssg[2], ssg[3], KNN_SSG_ITER, 1,
+                          fwd, {**step, "min_rows": 1})
+    with phase_clock("parity-knn"):
+        phase_parity_knn(knn_fn, knn_state, knn_data, knn_target)
+    with phase_clock("slice-dgcnn"):
+        dg_launches = run_attack("slice-dgcnn", dg_fn, dg_data, dg_target, DG_ITER,
+                                 {"knn": 4, "gather_fwd": 4}, {"gather_bwd": 4})
+    with phase_clock("parity-dgcnn"):
+        phase_parity_dgcnn(dg_fn, dg_state, dg_data, dg_target)
+    with phase_clock("profile-dgcnn"):
+        phase_profile("profile-dgcnn", dg_fn, dg_data, dg_target)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "pointcloudattack_tpu"))
     if loaded:
         raise AssertionError(f"the JAX side was imported: {loaded}")
 
     by_path = {"pointnet": {"chain_fwd": launches["fwd"], "chain_bwd": launches["bwd"]},
-               "ssg": ssg[4], "msg": msg[4]}
+               "ssg": ssg[4], "msg": msg[4], "dgcnn": dg_launches, "knn": knn1, "knn_r5": knn5,
+               "knn_ssg": knn_ssg}
 
-    def entry(name, key, source, replaces, launches_, err, ms, plain_ms, bnd, at, rows=None):
+    def entry(name, key, source, replaces, launches_, err, ms, plain_ms, bnd, at, rows=None, **extra):
         """``rows``: the chain rows the bound charges (every row forward, the
-        winning rows backward); None for FPS."""
+        winning rows backward); None for the others."""
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches_, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bnd[0], "bound_by": bnd[1], "bound_rows": rows, "library_ms": None, "at": at,
-                "launches_by_path": {p: c[key] for p, c in by_path.items() if key in c}}
+                "launches_by_path": {p: c[key] for p, c in by_path.items() if c.get(key)}, **extra}
 
     ssg_at = "sum over the shapes of one PointNet++ SSG forward (B=16, N=1024)"
+    dg_at = "sum over the four EdgeConv stages of one DGCNN forward (B=16, N=1024, k=20)"
 
-    def pn2_bound(key):
-        by = pn2[key]["bound_by"]
-        return (pn2[key]["bound_ms"], max(by, key=by.get))
+    def at_dgcnn(key):
+        r = dg[key]
+        return {"at_dgcnn": {"at": dg_at, "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                             "bound_by": summed_bound(r)[1], "bound_rows": r["rows"], "max_abs_err": r["err"]}}
 
     record = {"kernels": [
         entry("chain_maxpool_fwd", "chain_fwd", KERNEL_SRC, TPU_FWD, launches["fwd"], k["err_y"],
@@ -945,15 +1482,20 @@ def main():
         entry("chain_maxpool_bwd", "chain_bwd", KERNEL_SRC, TPU_BWD, launches["bwd"], k["err_dx"],
               k["bwd"], k["bwd_plain"], k["bound_bwd"], "PointNet spine B=64 N=1024 3-64-128-1024",
               k["rows_bwd"]),
-        entry("fps", "fps", FPS_SRC, TPU_FPS, ssg[4]["fps"], 0.0, pn2["fps"]["ms"],
-              pn2["fps"]["plain_ms"], pn2_bound("fps"), ssg_at),
+        entry("fps", "fps", FPS_SRC, TPU_FPS, ssg[4]["fps"], pn2["fps"]["err"], pn2["fps"]["ms"],
+              pn2["fps"]["plain_ms"], summed_bound(pn2["fps"]), ssg_at),
         entry("gather_chain_fwd", "gather_fwd", GATHER_SRC, TPU_GATHER_FWD, ssg[4]["gather_fwd"],
               pn2["gather_fwd"]["err"], pn2["gather_fwd"]["ms"], pn2["gather_fwd"]["plain_ms"],
-              pn2_bound("gather_fwd"), ssg_at, pn2["gather_fwd"]["rows"]),
+              summed_bound(pn2["gather_fwd"]), ssg_at, pn2["gather_fwd"]["rows"], **at_dgcnn("gather_fwd")),
         entry("gather_chain_bwd", "gather_bwd", GATHER_SRC, TPU_GATHER_BWD, ssg[4]["gather_bwd"],
               pn2["gather_bwd"]["err"], pn2["gather_bwd"]["ms"], pn2["gather_bwd"]["plain_ms"],
-              pn2_bound("gather_bwd"), ssg_at, pn2["gather_bwd"]["rows"]),
+              summed_bound(pn2["gather_bwd"]), ssg_at, pn2["gather_bwd"]["rows"], **at_dgcnn("gather_bwd")),
+        entry("knn", "knn", KNN_SRC, TPU_KNN, dg_launches["knn"], dg["knn"]["err"], dg["knn"]["ms"],
+              dg["knn"]["plain_ms"], summed_bound(dg["knn"]), dg_at),
+        entry("min_sqdist_rows", "min_rows", CHAMFER_SRC, TPU_CHAMFER, knn1["min_rows"], cham["err"], cham["ms"],
+              cham["plain_ms"], cham["bound"], f"B={B} N=M={N}, one KNN iteration's Chamfer on PointNet"),
     ]}
+    log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

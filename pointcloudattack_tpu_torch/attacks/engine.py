@@ -66,6 +66,18 @@ def _bias_correction(decay: float, count: int) -> float:
     return float(np.float32(1.0) - np.float32(decay) ** np.float32(count))
 
 
+def adam_step(param, grad, mu, nu, count: int, lr: float):
+    """One Adam step in optax's op order (``scale_by_adam``, then ``* -lr``,
+    then ``apply_updates``); ``count`` is the 1-based step.  Returns
+    ``(param, mu, nu)``."""
+    mu = (1 - ADAM_B1) * grad + ADAM_B1 * mu
+    nu = (1 - ADAM_B2) * grad**2 + ADAM_B2 * nu
+    mu_hat = mu / _bias_correction(ADAM_B1, count)
+    nu_hat = nu / _bias_correction(ADAM_B2, count)
+    update = mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS)
+    return param + update * -lr, mu, nu
+
+
 def cw_attack(
     model_fn: ModelFn,
     data: torch.Tensor,
@@ -140,13 +152,7 @@ def cw_attack(
                 o_bestscore = torch.where(o_improved, pred, o_bestscore)
                 o_bestattack = torch.where(o_improved[:, None, None], adv, o_bestattack)
 
-                # Adam in optax's op order (scale_by_adam, then * -lr)
-                mu = (1 - ADAM_B1) * grad + ADAM_B1 * mu
-                nu = (1 - ADAM_B2) * grad**2 + ADAM_B2 * nu
-                mu_hat = mu / _bias_correction(ADAM_B1, it + 1)
-                nu_hat = nu / _bias_correction(ADAM_B2, it + 1)
-                update = mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS)
-                adv_new = adv + update * -cfg.attack_lr
+                adv_new, mu, nu = adam_step(adv, grad, mu, nu, it + 1, cfg.attack_lr)
                 if clip_fn is not None:
                     adv_new = clip_fn(adv_new, ori)
             # the pre-step iterate is this iteration's evaluated input

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from pointcloudattack_tpu_torch.models.common import feature_transform_regularizer
+from pointcloudattack_tpu_torch.models.dgcnn import DGCNN, EdgeConv
 from pointcloudattack_tpu_torch.models.pointnet import PointNetCls, PointNetFeat, STN
 from pointcloudattack_tpu_torch.models.pointnet2 import (
     PointNet2MSG,
@@ -21,10 +22,12 @@ MODEL_REGISTRY = {
     "PointNet": lambda num_classes, **kw: PointNetCls(num_classes=num_classes, **kw),
     "PointNet++Ssg": lambda num_classes, **kw: PointNet2SSG(num_classes=num_classes, **kw),
     "PointNet++Msg": lambda num_classes, **kw: PointNet2MSG(num_classes=num_classes, **kw),
+    "DGCNN": lambda num_classes, **kw: DGCNN(num_classes=num_classes, **kw),
 }
 
 # Whether the model's first output is log-probs or raw logits.
-OUTPUT_KIND = {"PointNet": "log_probs", "PointNet++Ssg": "log_probs", "PointNet++Msg": "log_probs"}
+OUTPUT_KIND = {"PointNet": "log_probs", "PointNet++Ssg": "log_probs", "PointNet++Msg": "log_probs",
+               "DGCNN": "log_probs"}
 
 
 def make_model(
@@ -47,6 +50,8 @@ __all__ = [
     "MODEL_REGISTRY",
     "OUTPUT_KIND",
     "make_model",
+    "DGCNN",
+    "EdgeConv",
     "PointNetCls",
     "PointNetFeat",
     "PointNet2MSG",

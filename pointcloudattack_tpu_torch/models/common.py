@@ -25,23 +25,25 @@ class PointConv(nn.Module):
     """Per-point linear layer holding a 1x1 convolution's weight, Conv1d
     layout ``[out, in, 1]`` (``spatial=1``) or Conv2d layout ``[out, in, 1,
     1]`` (``spatial=2``), computed as ``x @ W^T + b`` over the last axis of
-    ``x``."""
+    ``x`` (``x @ W^T`` without ``bias``)."""
 
-    def __init__(self, cin: int, cout: int, spatial: int = 1):
+    def __init__(self, cin: int, cout: int, spatial: int = 1, bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty((cout, cin) + (1,) * spatial))
-        self.bias = nn.Parameter(torch.empty(cout))
+        self.bias = nn.Parameter(torch.empty(cout)) if bias else None
         bound = 1.0 / math.sqrt(cin)
         with torch.no_grad():
             self.weight.uniform_(-bound, bound)
-            self.bias.uniform_(-bound, bound)
+            if bias:
+                self.bias.uniform_(-bound, bound)
 
     def kernel(self) -> torch.Tensor:
         """The weight as a ``[in, out]`` matrix (a view)."""
         return self.weight.flatten(1).t()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.kernel() + self.bias
+        y = x @ self.kernel()
+        return y if self.bias is None else y + self.bias
 
 
 def bn_mul(bn: nn.BatchNorm1d) -> torch.Tensor:
@@ -146,6 +148,7 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
             if isinstance(m, (PointConv, nn.Linear)):
                 bound = 1.0 / math.sqrt(m.weight.shape[1])
                 m.weight.uniform_(-bound, bound, generator=generator)
-                m.bias.uniform_(-bound, bound, generator=generator)
+                if m.bias is not None:
+                    m.bias.uniform_(-bound, bound, generator=generator)
             elif isinstance(m, nn.BatchNorm1d):
                 m.reset_parameters()

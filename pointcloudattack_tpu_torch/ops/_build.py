@@ -140,6 +140,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pca_gather_bwd.argtypes = [ci, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp, ci, vp, vp,
                                    vp, vp, vp, vp, vp, vp, ci, vp]
     lib.pca_gather_bwd.restype = ci
+    # device, x, nrm, B, N, C, k, out, stream
+    lib.pca_knn.argtypes = [ci, vp, vp, ci, ci, ci, ci, vp, vp]
+    lib.pca_knn.restype = ci
+    # device, x, y, B, N, M, mins, argmin, stream
+    lib.pca_min_rows.argtypes = [ci, vp, vp, ci, ci, ci, vp, vp, vp]
+    lib.pca_min_rows.restype = ci
 
 
 def load_library() -> ctypes.CDLL:

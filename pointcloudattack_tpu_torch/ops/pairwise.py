@@ -28,3 +28,12 @@ def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     yy = _dot_last(y, y)[..., None, :]  # [..., 1, M]
     xy = _dot_last(x[..., :, None, :], y[..., None, :, :])  # [..., N, M]
     return xx - 2.0 * xy + yy
+
+
+def first_argmin(d: torch.Tensor):
+    """``(min, argmin)`` over the last axis of ``d``, ``argmin`` int32 and
+    the first index attaining the minimum, on every device."""
+    m = d.amin(dim=-1)
+    cols = torch.arange(d.shape[-1], device=d.device, dtype=torch.int32)
+    big = torch.full((), d.shape[-1], device=d.device, dtype=torch.int32)
+    return m, torch.where(d == m[..., None], cols, big).amin(dim=-1)

@@ -146,10 +146,27 @@ def pointnet2_msg_spec() -> _Spec:
     return s
 
 
+def dgcnn_spec() -> _Spec:
+    """model/dgcnn.py DGCNN layout (the EdgeConv BatchNorms at ``bnK``)."""
+    s = _Spec()
+    for k in range(1, 5):
+        s.dense(f"conv{k}.0", (f"conv{k}", "Dense_0"), kind="conv2d")
+        s.bn(f"bn{k}", (f"conv{k}", "BatchNorm_0"))
+    s.dense("conv5.0", ("conv5",))
+    s.bn("bn5", ("bn5",))
+    s.dense("linear1", ("linear1",), kind="lin")
+    s.bn("bn6", ("bn6",))
+    s.dense("linear2", ("linear2",), kind="lin")
+    s.bn("bn7", ("bn7",))
+    s.dense("linear3", ("linear3",), kind="lin")
+    return s
+
+
 SPECS = {
     "PointNet": pointnet_spec,
     "PointNet++Ssg": pointnet2_ssg_spec,
     "PointNet++Msg": pointnet2_msg_spec,
+    "DGCNN": dgcnn_spec,
 }
 
 

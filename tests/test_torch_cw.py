@@ -182,7 +182,12 @@ def test_port_imports_no_jax():
         "pointcloudattack_tpu_torch.ops.ball_query",
         "pointcloudattack_tpu_torch.ops.grouping",
         "pointcloudattack_tpu_torch.ops.gather_chain",
+        "pointcloudattack_tpu_torch.ops.knn",
+        "pointcloudattack_tpu_torch.ops.chamfer",
         "pointcloudattack_tpu_torch.models",
+        "pointcloudattack_tpu_torch.models.dgcnn",
+        "pointcloudattack_tpu_torch.losses.geometry",
+        "pointcloudattack_tpu_torch.attacks.knn",
         "pointcloudattack_tpu_torch.models.common",
         "pointcloudattack_tpu_torch.models.pointnet",
         "pointcloudattack_tpu_torch.models.pointnet2",

@@ -1,0 +1,90 @@
+"""The bookkeeping of ``chip_smoke.py`` that runs on the CPU: the least-work
+counts behind its kNN and gather bounds, and the rule by which its KNN
+card-against-CPU check lets a point part.
+
+The gather bound charges a one-layer EdgeConv per point, not per edge row;
+``test_gather_bound_factoring_computes_the_layer`` holds that factored
+algorithm to the plain gather + layer + max (atol 1e-5: f32 sums in another
+order).
+"""
+
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from pointcloudattack_tpu_torch.ops import gather_chain as gc
+from pointcloudattack_tpu_torch.ops.knn import knn_plain
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (its bounds and its parting rule)
+
+
+def test_knn_bound_charges_one_compare_a_pair():
+    b, n, c, k = 16, 1024, 3, 20
+    flops = b * n * n * (2 * c + 3) + 2 * b * n * c + b * n * k * np.log2(k)
+    t, by = chip_smoke.knn_bound(b, n, c, k)
+    assert by == "operations"
+    assert t == flops / chip_smoke.PEAK_FLOPS * 1e3
+    # k compares a pair (one selection pass per pick) would cost 3x more at C=3
+    assert chip_smoke.bound(b * n * n * (2 * c + 2 + k), 0)[0] > 2.5 * t
+
+
+def test_gather_bound_counts_per_point_products():
+    layout = (("diff", 0, 64, 0), ("center", 0, 64))
+    b, n, k = 16, 1024, 20
+    got = chip_smoke.gather_fwd_flops(n, b, n, k, layout, (128, 64))
+    assert got == 2.0 * b * 64 * (n * 64 + n * 128) + b * n * k * 64
+    # a hidden layer after the first costs its full product on every row
+    ssg = (("diff", 0, 3, 0), ("pass", 3, 131))
+    rows = b * 128 * 64
+    want = 2.0 * b * 128 * (512 * 131 + 128 * 3) + rows * 128 + chip_smoke.chain_flops(rows, (128, 128, 256))
+    assert chip_smoke.gather_fwd_flops(512, b, 128, 64, ssg, (131, 128, 128, 256)) == want
+
+
+def test_gather_bound_factoring_computes_the_layer():
+    """The work the one-layer bound charges computes the layer: per point
+    P = x W1 and Q = x (W2 - W1), the BatchNorm scale folded in, then
+    max_j P[j] + Q[i] over each point's k neighbours."""
+    rng = np.random.RandomState(0)
+    b, n, c, k, cout = 2, 64, 8, 5, 16
+    x = torch.from_numpy(rng.randn(b, n, c).astype(np.float32))
+    idx = knn_plain(x, k)
+    layout = (("diff", 0, c, 0), ("center", 0, c))
+    (w, bias, mean, mul, beta), = chip_smoke.seeded_layers(rng, (2 * c, cout), "cpu")
+    mul = mul * torch.from_numpy(np.where(rng.rand(cout) < 0.5, -1.0, 1.0).astype(np.float32))
+    want, _ = gc.gather_chain_plain(x, x, idx, [(w, bias, mean, mul, beta)], layout)
+    p = (x @ w[:c]) * mul
+    q = (x @ (w[c:] - w[:c]) + bias - mean) * mul + beta
+    nbr = torch.gather(p[:, None].expand(b, n, n, cout), 2, idx.long()[..., None].expand(b, n, k, cout))
+    torch.testing.assert_close(nbr.amax(2) + q, want, rtol=0.0, atol=1e-5)
+
+
+def _run(b=2, n=6, steps=4, seed=0):
+    rng = np.random.RandomState(seed)
+    it = torch.from_numpy(rng.randn(steps + 1, b, n, 3).astype(np.float32))
+    grads = [torch.from_numpy(rng.randn(b, n, 3).astype(np.float32)) for _ in range(steps)]
+    return it, grads
+
+
+def test_parting_allowed_where_a_gradient_was_near_zero():
+    card, g = _run()
+    cpu = card.clone()
+    g[1][0, 3, 2] = 1e-8  # rounding of 0 next to the cloud's largest, about 1
+    cpu[2:, 0, 3, 2] += 3e-4  # Adam's step parts the point after it
+    parted, why, unexplained = chip_smoke.parted_points(card, cpu, g, g)
+    assert parted.nonzero().tolist() == [[0, 3]]
+    assert unexplained == [] and "parted at step 2 in coordinates [2]" in why[0]
+
+
+def test_parting_refused_where_every_gradient_was_clear_of_zero():
+    card, g = _run()
+    for gi in g:
+        gi.copy_(gi.sign() * (gi.abs() + 0.1))
+    cpu = card.clone()
+    cpu[3:, 1, 4, 0] -= 1e-3
+    cpu[:, 0, 1, 1] += 1e-3  # apart from the start: nothing explains it
+    parted, _, unexplained = chip_smoke.parted_points(card, cpu, g, g)
+    assert parted.nonzero().tolist() == [[0, 1], [1, 4]]
+    assert sorted(unexplained) == [(0, 1), (1, 4)]
