@@ -4,7 +4,7 @@ Run from the root of a checkout, on a machine with one H100:
 
     python3 chip_smoke.py
 
-It takes about two to three and a half minutes, the kernel build included.
+It takes about four to six minutes, the kernel build included.
 
 Phases, each raising on failure (nothing is caught; any failure exits
 non-zero and prints no result):
@@ -70,7 +70,19 @@ non-zero and prints no result):
 17. parity-dgcnn  DGCNN at B=2, card against CPU, the CPU taking the card's kNN
               indices and max-pool picks: log-probs and the CW-loss gradient.
 18. profile-dgcnn  torch.profiler over 10 DGCNN CW iterations.
-Each of phases 11-18 prints its seconds.
+19. kernels-geoa3  the curvature (kappa) kernels and the two-direction Chamfer
+              kernels against their plain versions on the CPU at GeoA3's shape
+              (B=8, N=1024, k=16), at a ragged N=1000 and with exact duplicates;
+              times beside the plain versions' and the bounds.
+20. slice-geoa3  GeoA3 on PointNet at bench.py's geoa3 settings (B=8, CE, 10
+              rounds, 100 of their 500 iterations): exact launch counts, ASR > 0,
+              finite clouds, s/batch over 3 reps after a warm-up.
+21. parity-geoa3  GeoA3 (B=4, 2 x 10) on the card and on the CPU from the same
+              weights and start offsets, the CPU on the card's normals: success,
+              the kept step and best_loss, the clouds at points that never parted,
+              and the loss gradient at each of the card's iterates.
+22. profile-geoa3  torch.profiler over 10 GeoA3 iterations.
+Each of phases 11-22 prints its seconds.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the per-kernel record.  The script imports nothing of JAX.
@@ -100,6 +112,12 @@ KNN_SRC = "pointcloudattack_tpu_torch/csrc/knn.cu"
 CHAMFER_SRC = "pointcloudattack_tpu_torch/csrc/min_sqdist.cu"
 TPU_KNN = "pointcloudattack_tpu/ops/pallas/knn_kernel.py:111"
 TPU_CHAMFER = "pointcloudattack_tpu/ops/pallas/chamfer_kernel.py:103"
+KAPPA_SRC = "pointcloudattack_tpu_torch/csrc/kappa.cu"
+BOTH_SRC = "pointcloudattack_tpu_torch/csrc/min_sqdist_both.cu"
+TPU_KAPPA_FWD = "pointcloudattack_tpu/ops/pallas/kappa_kernel.py:321"
+TPU_KAPPA_BWD = "pointcloudattack_tpu/ops/pallas/kappa_kernel.py:358"
+TPU_BOTH_FWD = "pointcloudattack_tpu/ops/pallas/chamfer_kernel.py:205"
+TPU_BOTH_BWD = "pointcloudattack_tpu/ops/pallas/chamfer_kernel.py:236"
 
 B, N, NUM_CLASSES = 64, 1024, 40
 SPINE = (3, 64, 128, 1024)
@@ -127,6 +145,7 @@ PART_ATOL = 1e-5  # a cloud's card and CPU iterates further apart than this have
 # 0, relative to its cloud's largest |gradient| (1 of 8192 parted on an
 # H100, at 6.8e-8 of its cloud's largest)
 PART_SHARE, TINY_GRAD = 1e-3, 1e-5
+GRAD_APART = 1e-3  # a coordinate's two gradients this far apart, relative, move Adam's steps PART_ATOL apart
 
 # PointNet++: bench.py's cw_ssg / cw_msg cells (8 classes x 2 clouds)
 PN2_B, PN2_ITER = 16, 100
@@ -164,6 +183,20 @@ DGCNN_GATHER_SHAPES = {
     "dgcnn_conv3": (1024, 1024, None, 20, 64, "dgcnn", (128,)),
     "dgcnn_conv4": (1024, 1024, None, 20, 128, "dgcnn", (256,)),
 }
+# GeoA3: bench.py's geoa3 cell (bench.py:454-496), PointNet, B=8,
+# make_synthetic_clouds(8, 1, 1024, seed=5), CE loss, Chamfer + 0.1 Hausdorff
+# + curvature (k=16), 10 binary rounds of 500 iterations, cut to 100
+GEO_DATA, GEO_ROUNDS, GEO_ITER, GEO_K = 5, 10, 100, 16
+# the kernels against their plain versions: kappa rtol 1e-6, its gradients
+# atol 1e-5, the two-direction bundle's gradients atol 1e-6 (all designed to
+# be bit-equal to the plain version on the CPU; the log says whether they are)
+KAPPA_RTOL, KAPPA_GRAD_ATOL, BOTH_GRAD_ATOL = 1e-6, 1e-5, 1e-6
+# GeoA3 card against CPU: once a point has parted, the curvature term and the
+# victim's pooled features carry the difference to other points
+# (``round_partings``), so a share of the points, not a few, may part; at
+# least GEO_HELD_SHARE of them must never part (on the CPU against the JAX
+# package 0.68 or more, tests/test_torch_geoa3.py)
+GEO_HELD_SHARE = 0.5
 FPS_SHAPES = ((1024, 512), (512, 128))  # (N, npoint) of SSG's (and MSG's) two SAs
 GROUP_ALL = {"ssg_sa3": (259, 256, 512, 1024), "msg_sa3": (643, 256, 512, 1024)}
 
@@ -726,11 +759,13 @@ def _counters():
     from pointcloudattack_tpu_torch.ops import chamfer
     from pointcloudattack_tpu_torch.ops import fps as fps_mod
     from pointcloudattack_tpu_torch.ops import gather_chain as gc
+    from pointcloudattack_tpu_torch.ops import kappa
     from pointcloudattack_tpu_torch.ops import knn as knn_mod
 
     return {"fps": (fps_mod, "fps"), "gather_fwd": (gc, "fwd"), "gather_bwd": (gc, "bwd"),
             "chain_fwd": (cm, "fwd"), "chain_bwd": (cm, "bwd"), "knn": (knn_mod, "knn"),
-            "min_rows": (chamfer, "min_rows")}
+            "min_rows": (chamfer, "min_rows"), "both_fwd": (chamfer, "both_fwd"), "both_bwd": (chamfer, "both_bwd"),
+            "kappa_fwd": (kappa, "kappa_fwd"), "kappa_bwd": (kappa, "kappa_bwd")}
 
 
 def reset_all():
@@ -742,27 +777,33 @@ def read_all():
     return {k: mod.LAUNCHES[key] for k, (mod, key) in _counters().items()}
 
 
-def check_adv(tag, adv, data, succ):
+def check_adv(tag, adv, data, succ, budget=BUDGET):
     """A finite adversarial batch of the input's shape, every point within
-    the budget, ASR > 0; returns (ASR, max per-point move)."""
+    ``budget`` (None: no budget), ASR > 0; returns (ASR, max per-point
+    move)."""
     import torch
 
     if tuple(adv.shape) != tuple(data.shape) or not bool(torch.isfinite(adv).all()):
         raise AssertionError(f"{tag}: the adversarial clouds are not a finite tensor of the input's shape")
     moved = float((adv - data).norm(dim=-1).max())
-    if moved > BUDGET * (1 + 1e-5):
-        raise AssertionError(f"{tag}: a point moved {moved} > budget {BUDGET}")
+    if budget is not None and moved > budget * (1 + 1e-5):
+        raise AssertionError(f"{tag}: a point moved {moved} > budget {budget}")
     asr = float(succ.float().mean())
     if asr <= 0:
         raise AssertionError(f"{tag}: ASR is 0")
     return asr, moved
 
 
-def counted_and_timed(tag, what, attack, data, target, iters, per_fwd, per_step, check):
+def per_path(iters, per_fwd, per_step):
+    """Launches of an attack of ``iters`` steps: ``per_fwd`` per forward
+    (``iters`` + 1: one per step, one final) and ``per_step`` per step."""
+    return {k: per_fwd.get(k, 0) * (iters + 1) + per_step.get(k, 0) * iters for k in {*per_fwd, *per_step}}
+
+
+def counted_and_timed(tag, what, attack, data, target, expect, check):
     """The counted main-path run (also the warm-up), whose launches must be
-    ``per_fwd`` per forward (``iters`` + 1: one per step, one final) and
-    ``per_step`` per step, then ``check(result)``, then three fenced timed
-    reps; returns the launch counts."""
+    ``expect`` (0 for a kernel it does not name), then ``check(result)``,
+    then three fenced timed reps; returns the launch counts."""
     import torch
 
     gen = torch.Generator(device="cuda")
@@ -779,7 +820,7 @@ def counted_and_timed(tag, what, attack, data, target, iters, per_fwd, per_step,
     reset_all()
     res, t_warm = run(1)
     launches = read_all()
-    want = {k: per_fwd.get(k, 0) * (iters + 1) + per_step.get(k, 0) * iters for k in launches}
+    want = {k: expect.get(k, 0) for k in launches}
     log(f"[{tag}] kernel launches during the attack: {launches} (expected {want})")
     if launches != want:
         raise AssertionError(f"{tag}: launch counts {launches} != expected {want}")
@@ -809,7 +850,7 @@ def run_attack(tag, model_fn, data, target, num_iter, per_fwd, per_bwd):
             f"mean best L2 of successes {float(res.best_dist[succ].mean()):.5f}")
 
     return counted_and_timed(tag, f"CW {BINARY_STEP}x{num_iter}", build_cw_attack(model_fn, cfg), data, target,
-                             BINARY_STEP * num_iter, per_fwd, per_bwd, check)
+                             per_path(BINARY_STEP * num_iter, per_fwd, per_bwd), check)
 
 
 def run_knn(tag, model_fn, data, target, num_iter, nn_refresh, per_fwd, per_step):
@@ -831,7 +872,8 @@ def run_knn(tag, model_fn, data, target, num_iter, nn_refresh, per_fwd, per_step
             f"mean adv->ori Chamfer {float(cham.mean()):.3e}")
 
     return counted_and_timed(tag, f"KNN {num_iter} iterations, nn_refresh {nn_refresh},",
-                             build_knn_attack(model_fn, cfg), data, target, num_iter, per_fwd, per_step, check)
+                             build_knn_attack(model_fn, cfg), data, target, per_path(num_iter, per_fwd, per_step),
+                             check)
 
 
 def phase_slice(model_fn, data, target):
@@ -1072,16 +1114,17 @@ def phase_parity_msg(model_fn, state, data, target):
     hold_grad_parity("parity-msg", [grad_parity(model_fn, cpu_fn, adv, ori, target[:b])], clean=False)
 
 
-def phase_profile(tag, model_fn, data, target):
+def phase_profile(tag, model_fn, data, target, attack=None, what="CW 1x10"):
+    """torch.profiler over one run of ``attack(data, target)`` (C&W 1 x 10
+    when absent) after a warm-up: kernel time by name and the device's idle
+    share of the kernel window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from pointcloudattack_tpu_torch.attacks.cw import CWPerturbConfig, build_cw_attack
 
-    iters = 10
-    attack = build_cw_attack(
-        model_fn, CWPerturbConfig(binary_step=1, num_iter=iters, kappa=KAPPA, budget=BUDGET)
-    )
+    if attack is None:
+        attack = build_cw_attack(model_fn, CWPerturbConfig(binary_step=1, num_iter=10, kappa=KAPPA, budget=BUDGET))
     attack(data, target)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1103,7 +1146,7 @@ def phase_profile(tag, model_fn, data, target):
         t, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.end - e.time_range.start, n + 1)
     total = sum(t for t, _ in by_name.values())
-    log(f"[{tag}] CW 1x{iters} B={data.shape[0]} under the profiler: wall {wall * 1e3:.3f} ms; "
+    log(f"[{tag}] {what} B={data.shape[0]} under the profiler: wall {wall * 1e3:.3f} ms; "
         f"{len(kernels)} kernels, {total / 1e3:.3f} ms of kernel time; device busy "
         f"{busy / 1e3:.3f} ms of the {window / 1e3:.3f} ms kernel window "
         f"(idle share {1 - busy / window if window else float('nan'):.3f})")
@@ -1301,6 +1344,96 @@ def parted_points(card_it, cpu_it, g_card, g_cpu):
     return parted, why, unexplained
 
 
+def round_partings(card_it, cpu_it, g_card, iters, choices=None, g_cpu=None):
+    """Where two runs of an attack whose rounds each restart from the same
+    start (GeoA3) part.  ``card_it`` and ``cpu_it`` ``[S, b, N, 3]`` hold each
+    step's input (S = rounds x ``iters``), ``g_card`` each step's input
+    gradient ``[b, N, 3]``.  Returns (``parted [b, N]``: some iterate further
+    apart than PART_ATOL; a line for each round and cloud that parts, naming
+    the step at which it first does and what explains it; whether the run's
+    first parting is explained).  A parting is explained when each of its
+    points had, at an earlier step of the round, a parting coordinate's
+    gradient within TINY_GRAD of 0 relative to the cloud's largest (Adam's
+    step is about lr whatever the gradient's size) or, with the other side's
+    gradients ``g_cpu``, one that differed between the sides by more than
+    GRAD_APART of itself (Adam turns a relative gradient difference d into a
+    step difference of about lr * d, and lr * GRAD_APART = PART_ATOL at
+    lr 1e-2), or when at an earlier
+    step of the round the two sides' iterates of the cloud make another
+    discrete choice (``choices(c, a)``: a dict of the choices a cloud ``c``
+    iterate ``a [1, N, 3]`` makes, such as its neighbour sets and max-pool
+    picks), so that their gradients differ by more than rounding.  After a
+    point has parted, the curvature term (its neighbours' kappa) and the
+    victim's pooled features carry the difference to other points, so only
+    the first parting is held to the rule."""
+    import torch
+
+    apart = (card_it - cpu_it).abs() > PART_ATOL
+    lines, onsets = [], []
+    for r in range(apart.shape[0] // iters):
+        for c in range(apart.shape[1]):
+            steps = apart[r * iters:(r + 1) * iters, c].flatten(1).any(-1)
+            if not bool(steps.any()):
+                continue
+            s_ = r * iters + int(steps.int().argmax())
+            pts = apart[s_, c].any(-1).nonzero().flatten().tolist()
+            def explained(q, p):
+                g = g_card[q][c, p][apart[s_, c, p]]
+                if bool((g.abs() <= TINY_GRAD * g_card[q][c].abs().max()).any()):
+                    return True
+                return g_cpu is not None and bool(
+                    ((g - g_cpu[q][c, p][apart[s_, c, p]]).abs() > GRAD_APART * g.abs()).any())
+
+            tiny = [p for p in pts if any(explained(q, p) for q in range(r * iters, s_))]
+            rel = max((float(((g_card[q][c, p] - g_cpu[q][c, p]).abs() / g_card[q][c, p].abs()).max())
+                       for q in range(r * iters, s_) for p in pts), default=float("nan")) if g_cpu is not None else None
+            other = []
+            if choices is not None and len(tiny) < len(pts):
+                for q in range(r * iters, s_):
+                    mine, theirs = choices(c, card_it[q, c:c + 1]), choices(c, cpu_it[q, c:c + 1])
+                    other += [(q, k) for k in mine if not torch.equal(mine[k], theirs[k])]
+            onsets.append((s_, len(tiny) == len(pts) or bool(other)))
+            lines.append(f"round {r} cloud {c}: {len(pts)} points part first at step {s_} ({pts[:8]}...), "
+                         f"{len(tiny)} of them after a gradient within {TINY_GRAD} of 0 (or {GRAD_APART} apart "
+                         f"between the sides; the largest relative difference {rel}); the two sides' iterates "
+                         f"chose otherwise at (step, choice) {other}")
+    first = min(onsets)[0] if onsets else None
+    return apart.any(-1).any(0), lines, all(ok for s_, ok in onsets if s_ == first)
+
+
+def geoa3_choices(cpu_fn, ori):
+    """``choices`` for ``round_partings`` on GeoA3, on the CPU: the victim's
+    max-pool picks, the curvature's neighbour sets (k = GEO_K), each point's
+    nearest point in the other cloud either way and the Hausdorff point of
+    a cloud ``c`` iterate ``a [1, N, 3]`` against ``ori[c]``."""
+    import torch
+
+    from pointcloudattack_tpu_torch.ops import chain_maxpool as cm
+    from pointcloudattack_tpu_torch.ops.chamfer import both_plain
+    from pointcloudattack_tpu_torch.ops.kappa import kappa_plain
+
+    def choices(c, a):
+        orig, picks = cm.chain_maxpool_fwd, []
+
+        def chain_fwd(x, layers):
+            y, idx = orig(x, layers)
+            picks.append(idx)
+            return y, idx
+
+        cm.chain_maxpool_fwd = chain_fwd
+        try:
+            with torch.no_grad():
+                cpu_fn(a)
+        finally:
+            cm.chain_maxpool_fwd = orig
+        rmin, rarg, _, carg = both_plain(a, ori[c:c + 1])
+        return {**{f"max-pool {i}": p for i, p in enumerate(picks)},
+                "curvature neighbours": kappa_plain(a, a, GEO_K)[1].sort(-1).values,
+                "nearest clean point": rarg, "nearest adversarial point": carg, "Hausdorff point": rmin.argmax(-1)}
+
+    return choices
+
+
 def phase_parity_knn(model_fn, state, data, target):
     """The KNN attack (B=8, 10 iterations) on the card and on the CPU from
     the same weights and noise.  Held: ``success`` identical; the final
@@ -1378,6 +1511,296 @@ def phase_parity_dgcnn(model_fn, state, data, target):
     hold_grad_parity("parity-dgcnn", [res], clean=False)
 
 
+def kappa_bound(b, n, k):
+    """(bound_ms, bound_by) of one curvature forward: 8 operations a pair
+    for the exact distance and one compare a pair for the selection, (k+1)
+    log2(k+1) a row to order the picks, 11 a kept edge (the projection's 5,
+    a subtraction, the square root, the 1e-12, the division, the absolute
+    value and the mean's sum) and 5 a row for n_i . a_i; adv and the normals
+    read once, kappa written once."""
+    flops = 9.0 * b * n * n + b * n * (k + 1) * math.log2(k + 1) + 11.0 * b * n * k + 5.0 * b * n
+    return bound(flops, 4.0 * (2 * 3 * b * n + b * n))
+
+
+def kappa_bwd_bound(b, n, k):
+    """(bound_ms, bound_by) of one curvature backward: about 43 operations a
+    kept edge (its distance 8, projection 6, square root and 1e-12, sign,
+    w s, alpha and beta 6, the edge term alpha n + beta v 9, the row's two
+    sums 6 and alpha v 3) and 3 adds to put it on its neighbour; adv, the
+    normals, dkappa and the k picks read once, dadv and dnormal written
+    once."""
+    return bound(46.0 * b * n * k, 4.0 * (2 * 3 * b * n + b * n + b * n * k + 2 * 3 * b * n))
+
+
+def both_bound(b, n, m):
+    """(bound_ms, bound_by) of one two-direction forward: 8 operations a
+    pair for the distance and a compare each for the row and the column
+    min; x and y read once, both mins and argmins written once."""
+    return bound(10.0 * b * n * m, 4.0 * (3 * b * n + 3 * b * m + 2 * b * n + 2 * b * m))
+
+
+def both_bwd_bound(b, n, m):
+    """(bound_ms, bound_by) of one two-direction backward: each point's own
+    term (3 subtractions, 4 products) and its pull onto the matched point (3
+    sums); x, y, the argmins and the cotangents read once, dx and dy written
+    once."""
+    return bound(10.0 * b * (n + m), 4.0 * (3 * b * n + 3 * b * m + 2 * b * n + 2 * b * m + 3 * b * n + 3 * b * m))
+
+
+def _same(tag, what, got, want, **tol):
+    """``got`` (on the card) against ``want`` (on the CPU): within ``tol``
+    when given, else equal; returns (max |diff|, bit-equal)."""
+    import torch
+
+    got = got.cpu()
+    err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+    if tol:
+        torch.testing.assert_close(got, want, **tol, msg=lambda m: f"{tag} {what}: {m}")
+    elif not torch.equal(got, want):
+        raise AssertionError(f"{tag} {what}: the kernel differs from the plain version (max |diff| {err})")
+    return err, torch.equal(got, want)
+
+
+def check_kappa(tag, name, a, nrm, dk):
+    """The curvature kernels against the plain versions on the CPU (whose
+    sums run in a fixed order) on one input: the picks equal, kappa within
+    KAPPA_RTOL, dadv and dnormal within KAPPA_GRAD_ATOL.  Returns the max
+    |diff| over all of them."""
+    from pointcloudattack_tpu_torch.ops import chamfer, kappa
+
+    kap, picks = kappa.kappa_fwd(a, nrm, GEO_K)
+    dadv, dnrm = kappa.kappa_bwd(a, nrm, picks, dk, GEO_K)
+    kap_p, picks_p = kappa.kappa_plain(a.cpu(), nrm.cpu(), GEO_K)
+    dadv_p, dnrm_p = kappa.kappa_bwd_plain(a.cpu(), nrm.cpu(), picks_p, dk.cpu(), GEO_K)
+    res = {"picks": _same(tag, "picks", picks, picks_p),
+           "kappa": _same(tag, "kappa", kap, kap_p, rtol=KAPPA_RTOL, atol=0.0),
+           "dadv": _same(tag, "dadv", dadv, dadv_p, rtol=0.0, atol=KAPPA_GRAD_ATOL),
+           "dnormal": _same(tag, "dnormal", dnrm, dnrm_p, rtol=0.0, atol=KAPPA_GRAD_ATOL)}
+    zero = int((chamfer.exact_sqdist(a, a).gather(-1, picks.long()) == 0).sum())
+    log(f"[{tag}] kappa {name} {tuple(a.shape)} k={GEO_K}: picks equal to the plain version's; max |diff| "
+        + ", ".join(f"{k} {e:.3e} ({'bit-equal' if eq else 'not bit-equal'})" for k, (e, eq) in res.items())
+        + f"; {zero} picks at distance 0, all finite")
+    return max(e for e, _ in res.values())
+
+
+def check_both(tag, name, x, y, gr, gc):
+    """The two-direction kernels against the plain versions on the CPU on
+    one input: both mins and argmins bit for bit, dx and dy within
+    BOTH_GRAD_ATOL.  Returns the max |diff| over all of them."""
+    from pointcloudattack_tpu_torch.ops import chamfer
+
+    fwd = chamfer.both_fwd(x, y)
+    dx, dy = chamfer.both_bwd(x, y, fwd[1], fwd[3], gr, gc)
+    fwd_p = chamfer.both_plain(x.cpu(), y.cpu())
+    dx_p, dy_p = chamfer.both_bwd_plain(x.cpu(), y.cpu(), fwd_p[1], fwd_p[3], gr.cpu(), gc.cpu())
+    res = {k: _same(tag, k, g, w) for k, g, w in zip(("row_min", "row_arg", "col_min", "col_arg"), fwd, fwd_p)}
+    res["dx"] = _same(tag, "dx", dx, dx_p, rtol=0.0, atol=BOTH_GRAD_ATOL)
+    res["dy"] = _same(tag, "dy", dy, dy_p, rtol=0.0, atol=BOTH_GRAD_ATOL)
+    log(f"[{tag}] min_sqdist_both {name} x {tuple(x.shape)} y {tuple(y.shape)}: mins and argmins bit-equal to the "
+        "plain version; max |diff| " + ", ".join(f"{k} {e:.3e} ({'bit-equal' if eq else 'not bit-equal'})"
+                                                for k, (e, eq) in res.items() if k in ("dx", "dy")))
+    return max(e for e, _ in res.values())
+
+
+def phase_kernels_geoa3(data):
+    """The curvature and the two-direction kernels at GeoA3's shapes, on an
+    iterate a few steps in (clean clouds plus 1e-3 noise) with the normals
+    of each point's nearest clean point, at a ragged N=1000, and with every
+    point twice (kappa) or 4 times (the bundle's y); times beside the
+    plain versions' (on the card) and the bounds."""
+    import numpy as np
+    import torch
+
+    from pointcloudattack_tpu_torch.geometry.normals import estimate_normal
+    from pointcloudattack_tpu_torch.losses.geometry import nn1_idx
+    from pointcloudattack_tpu_torch.ops import chamfer, kappa
+    from pointcloudattack_tpu_torch.ops.gather import index_points
+
+    rng = np.random.RandomState(11)
+    b, n, _ = data.shape
+    dev = lambda arr: torch.from_numpy(arr.astype(np.float32)).cuda()  # noqa: E731
+    adv = (data + dev(rng.randn(b, n, 3) * 1e-3)).contiguous()
+    nrm = index_points(estimate_normal(data), nn1_idx(adv, data)).contiguous()
+    dk = dev(rng.randn(b, n) * 1e-3)
+    gr, gc = dev(rng.rand(b, n)), dev(rng.rand(b, n))
+    half = lambda t: torch.cat([t[:, : n // 2]] * 2, dim=1).contiguous()  # noqa: E731
+    rec = new_record("kappa_fwd", "kappa_bwd", "both_fwd", "both_bwd")
+    err_k = max(check_kappa("kernels-geoa3", f"B={b} N={n}", adv, nrm, dk),
+                check_kappa("kernels-geoa3", "ragged N=1000", adv[:, :1000].contiguous(), nrm[:, :1000].contiguous(),
+                            dk[:, :1000].contiguous()),
+                check_kappa("kernels-geoa3", "every point twice", half(adv), half(nrm), dk))
+    dup = torch.cat([data[:, :250]] * 4, dim=1).contiguous()
+    err_b = max(check_both("kernels-geoa3", f"B={b} N=M={n}", adv, data, gr, gc),
+                check_both("kernels-geoa3", "ragged N=M=1000, every y point 4 times", adv[:, :1000].contiguous(), dup,
+                           gr[:, :1000].contiguous(), gc[:, :1000].contiguous()))
+    for key in ("kappa_fwd", "kappa_bwd"):
+        rec[key]["err"] = err_k
+    for key in ("both_fwd", "both_bwd"):
+        rec[key]["err"] = err_b
+    _, picks = kappa.kappa_fwd(adv, nrm, GEO_K)
+    fwd = chamfer.both_fwd(adv, data)
+    ms = time_pairs({
+        "kappa_fwd_plain": lambda: kappa.kappa_plain(adv, nrm, GEO_K),
+        "kappa_fwd": lambda: kappa.kappa_fwd(adv, nrm, GEO_K),
+        "kappa_bwd_plain": lambda: kappa.kappa_bwd_plain(adv, nrm, picks, dk, GEO_K),
+        "kappa_bwd": lambda: kappa.kappa_bwd(adv, nrm, picks, dk, GEO_K),
+        "both_fwd_plain": lambda: chamfer.both_plain(adv, data),
+        "both_fwd": lambda: chamfer.both_fwd(adv, data),
+        "both_bwd_plain": lambda: chamfer.both_bwd_plain(adv, data, fwd[1], fwd[3], gr, gc),
+        "both_bwd": lambda: chamfer.both_bwd(adv, data, fwd[1], fwd[3], gr, gc),
+    }, reps=10)
+    for key, bnd in (("kappa_fwd", kappa_bound(b, n, GEO_K)), ("kappa_bwd", kappa_bwd_bound(b, n, GEO_K)),
+                     ("both_fwd", both_bound(b, n, n)), ("both_bwd", both_bwd_bound(b, n, n))):
+        accumulate(rec[key], ms[key], ms[f"{key}_plain"], bnd)
+        log(f"[kernels-geoa3] {key} [{b},{n},3] k={GEO_K}: kernel {ms[key]:.4f} ms, plain {ms[f'{key}_plain']:.4f} ms, "
+            f"bound {bnd[0]:.5f} ms by {bnd[1]}")
+    return rec
+
+
+def run_geoa3(tag, model_fn, data, target):
+    """GeoA3 (bench.py's geoa3 settings, GEO_ROUNDS x GEO_ITER), counted and
+    timed: per iteration one model forward and backward, the curvature
+    forward and backward and the bundle's forward and backward; per round
+    one more forward; once the normals' kNN, the clean cloud's curvature and
+    the final forward."""
+    import torch
+
+    from pointcloudattack_tpu_torch.attacks.geoa3 import GeoA3Config, build_geoa3_attack
+
+    steps = GEO_ROUNDS * GEO_ITER
+    expect = {"chain_fwd": 2 * (steps + GEO_ROUNDS + 1), "chain_bwd": 2 * steps, "knn": 1, "kappa_fwd": 1 + steps,
+              "kappa_bwd": steps, "both_fwd": steps, "both_bwd": steps}
+
+    def check(res):
+        adv, best_loss, succ = res
+        asr, moved = check_adv(tag, adv, data, succ, budget=None)
+        if not bool(torch.isfinite(best_loss[succ]).all()):
+            raise AssertionError(f"{tag}: non-finite best_loss on a successful example")
+        log(f"[{tag}] ASR {asr:.3f} ({int(succ.sum())}/{len(succ)}); max per-point move {moved:.4f}; "
+            f"best constraint of the successes {[round(float(v), 8) for v in best_loss[succ]]}")
+
+    attack = build_geoa3_attack(model_fn, GeoA3Config(binary_max_steps=GEO_ROUNDS, iter_max_steps=GEO_ITER))
+    return counted_and_timed(tag, f"GeoA3 {GEO_ROUNDS}x{GEO_ITER}", attack, data, target, expect, check)
+
+
+@contextlib.contextmanager
+def card_normals():
+    """While open, each normal estimate GeoA3 runs on the card is recorded,
+    and each one it runs on the CPU takes the oldest recorded one in place of
+    its own: a normal of a nearly collinear 3-point neighbourhood is
+    ill-conditioned, and the card's and the CPU's eigensolvers (their acos
+    and cos) may give it differently.  Yields ``diffs``, a list that gets,
+    for each CPU estimate, the largest difference of its own normals from
+    the card's."""
+    from pointcloudattack_tpu_torch.attacks import geoa3 as geo_mod
+
+    orig, taken, diffs = geo_mod.estimate_normal, [], []
+
+    def estimate(pc, k=3):
+        nrm = orig(pc, k)
+        if pc.is_cuda:
+            taken.append(nrm.cpu())
+            return nrm
+        card = taken.pop(0)
+        diffs.append(float((nrm - card).abs().max()))
+        return card
+
+    geo_mod.estimate_normal = estimate
+    try:
+        yield diffs
+    finally:
+        geo_mod.estimate_normal = orig
+    if taken:
+        raise AssertionError(f"{len(taken)} of the card's normal estimates found no CPU counterpart")
+
+
+def geoa3_loss(normals, k_oris):
+    """GeoA3's first-round loss (CE plus 10 x the constraint) as a
+    ``grad_parity`` loss, each side on its own normals and clean curvature
+    (``normals`` / ``k_oris``: device type -> tensor)."""
+    from pointcloudattack_tpu_torch.attacks.geoa3 import GeoA3Config, _constraint_loss, _make_cls_fn
+
+    cfg = GeoA3Config()
+    cls = _make_cls_fn(cfg)
+
+    def loss(logp, a, o, t):
+        dev = a.device.type
+        return cls(logp, t) + cfg.initial_const * _constraint_loss(a, o, normals[dev], k_oris[dev], cfg)
+
+    return loss
+
+
+def phase_parity_geoa3(model_fn, state, data, target):
+    """GeoA3 (B=4, 2 rounds x 10 iterations) on the card and on the CPU from
+    the same weights and start offsets, the CPU taking the card's normals
+    (``card_normals``).  Held: ``success`` identical; the step whose
+    iterate each side keeps, and where it is the same, ``best_loss`` within
+    rtol 1e-4 and ``best_attack`` within 1e-5 at every point whose iterates
+    never parted (by more than PART_ATOL); the run's first parting explained
+    (``round_partings``: after a gradient within TINY_GRAD of 0, or after
+    the two sides' iterates chose other neighbours, nearest points or
+    max-pool picks, ``geoa3_choices``), and at least
+    GEO_HELD_SHARE of the points never parted; and at each of the card's
+    iterates the loss gradient, the CPU taking the card's picks
+    (``hold_grad_parity``)."""
+    import numpy as np
+    import torch
+
+    from pointcloudattack_tpu_torch import models
+    from pointcloudattack_tpu_torch.attacks.geoa3 import GeoA3Config, build_geoa3_attack
+    from pointcloudattack_tpu_torch.geometry.normals import estimate_normal
+    from pointcloudattack_tpu_torch.losses.geometry import kappa_ori
+    from pointcloudattack_tpu_torch.utils.apply import make_model_fn
+
+    b, rounds, iters = 4, 2, 10
+    cfg = GeoA3Config(binary_max_steps=rounds, iter_max_steps=iters)
+    offsets = torch.from_numpy((np.random.RandomState(6).randn(rounds, b, N, 3) * 1e-3).astype(np.float32))
+    cpu_fn = make_model_fn(models.make_model("PointNet", NUM_CLASSES), state, "cpu")
+    its, grads = {"card": [], "cpu": []}, {"card": [], "cpu": []}
+    recording = lambda fn, side: recording_fn(fn, its[side], grads[side])  # noqa: E731
+    with card_normals() as diffs:
+        adv_g, loss_g, succ_g = build_geoa3_attack(recording(model_fn, "card"), cfg)(
+            data[:b], target[:b], init_offsets=offsets.cuda())
+        adv_c, loss_c, succ_c = build_geoa3_attack(recording(cpu_fn, "cpu"), cfg)(
+            data[:b].cpu(), target[:b].cpu(), init_offsets=offsets)
+    steps = rounds * iters
+    if not all(len(v) == steps for v in (*its.values(), *grads.values())):
+        raise AssertionError(f"parity-geoa3: recorded {[len(v) for v in its.values()]} iterates and "
+                             f"{[len(v) for v in grads.values()]} gradients, expected {steps} each")
+    card_it, cpu_it = torch.stack(its["card"]), torch.stack(its["cpu"])
+    kept = []
+    for it_, adv in ((card_it, adv_g.cpu()), (cpu_it, adv_c)):
+        eq = (it_ == adv[None]).flatten(2).all(-1)
+        kept.append(torch.where(eq.any(0), eq.int().argmax(0), -1))
+    same = kept[0] == kept[1]
+    parted, lines, first_ok = round_partings(card_it, cpu_it, grads["card"], iters,
+                                             geoa3_choices(cpu_fn, data[:b].cpu()), grads["cpu"])
+    held_share = 1.0 - float(parted.float().mean())
+    diff = (adv_g.cpu() - adv_c).abs()
+    log(f"[parity-geoa3] card vs CPU, PointNet B={b}, {rounds}x{iters}: the CPU's own normals would differ from the "
+        f"card's by {diffs}; success card {succ_g.tolist()} cpu {succ_c.tolist()}; best_loss card "
+        f"{loss_g.cpu().tolist()} cpu {loss_c.tolist()}; kept step card {kept[0].tolist()} cpu {kept[1].tolist()} "
+        f"({int((~same).sum())} clouds differ); {int(parted.sum())} of {parted.numel()} points parted (> {PART_ATOL}), "
+        f"{held_share:.3f} never did (at least {GEO_HELD_SHARE}); the others max |diff| "
+        f"{float(diff[~parted].max()):.3e}" + "".join(f"; {w}" for w in lines))
+    if not torch.equal(succ_g.cpu(), succ_c):
+        raise AssertionError("parity-geoa3: success differs between the card and the CPU")
+    if not bool(succ_c.any()):
+        raise AssertionError("parity-geoa3: the short attack flipped no cloud: it tests no best tracking")
+    if not first_ok or held_share < GEO_HELD_SHARE:
+        raise AssertionError(f"parity-geoa3: nothing explains the first parting, or only {held_share:.3f} of "
+                             "the points never parted")
+    torch.testing.assert_close(loss_g.cpu()[same], loss_c[same], rtol=1e-4, atol=0.0)
+    held = same[:, None] & ~parted
+    torch.testing.assert_close(adv_g.cpu()[held], adv_c[held], rtol=0.0, atol=1e-5)
+    card_nrm = estimate_normal(data[:b])
+    nrm = {"cuda": card_nrm, "cpu": card_nrm.cpu()}  # the CPU on the card's normals, as in the attack
+    k_oris = {dev: kappa_ori(x, nrm[dev], GEO_K) for dev, x in (("cuda", data[:b]), ("cpu", data[:b].cpu()))}
+    loss = geoa3_loss(nrm, k_oris)
+    hold_grad_parity("parity-geoa3", [grad_parity(model_fn, cpu_fn, a.cuda(), data[:b], target[:b], loss)
+                                      for a in its["card"]])
+
+
 def pn2_path(name):
     """Victim, clean-prediction targets and the counted attack of one
     PointNet++ path; returns (model_fn, state, data, target, launches)."""
@@ -1451,13 +1874,28 @@ def main():
         phase_parity_dgcnn(dg_fn, dg_state, dg_data, dg_target)
     with phase_clock("profile-dgcnn"):
         phase_profile("profile-dgcnn", dg_fn, dg_data, dg_target)
+    # GeoA3 on PointNet (bench.py's geoa3): its kernels, the counted attack, card against CPU, the profile
+    geo_data, geo_labels = synthetic_data(8, 1, GEO_DATA, "cuda")
+    with phase_clock("kernels-geoa3"):
+        geo = phase_kernels_geoa3(geo_data)
+    geo_fn, geo_state = make_victim("PointNet", "cuda", geo_data, ("dropout",))
+    geo_target = victim_labels(geo_fn, geo_data, geo_labels, "slice-geoa3")
+    with phase_clock("slice-geoa3"):
+        geo_launches = run_geoa3("slice-geoa3", geo_fn, geo_data, geo_target)
+    with phase_clock("parity-geoa3"):
+        phase_parity_geoa3(geo_fn, geo_state, geo_data, geo_target)
+    with phase_clock("profile-geoa3"):
+        from pointcloudattack_tpu_torch.attacks.geoa3 import GeoA3Config, build_geoa3_attack
+
+        phase_profile("profile-geoa3", geo_fn, geo_data, geo_target,
+                      build_geoa3_attack(geo_fn, GeoA3Config(binary_max_steps=1, iter_max_steps=10)), "GeoA3 1x10")
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "pointcloudattack_tpu"))
     if loaded:
         raise AssertionError(f"the JAX side was imported: {loaded}")
 
     by_path = {"pointnet": {"chain_fwd": launches["fwd"], "chain_bwd": launches["bwd"]},
                "ssg": ssg[4], "msg": msg[4], "dgcnn": dg_launches, "knn": knn1, "knn_r5": knn5,
-               "knn_ssg": knn_ssg}
+               "knn_ssg": knn_ssg, "geoa3": geo_launches}
 
     def entry(name, key, source, replaces, launches_, err, ms, plain_ms, bnd, at, rows=None, **extra):
         """``rows``: the chain rows the bound charges (every row forward, the
@@ -1469,6 +1907,7 @@ def main():
 
     ssg_at = "sum over the shapes of one PointNet++ SSG forward (B=16, N=1024)"
     dg_at = "sum over the four EdgeConv stages of one DGCNN forward (B=16, N=1024, k=20)"
+    geo_at = f"one GeoA3 iteration's call on PointNet (B=8, N=1024, k={GEO_K})"
 
     def at_dgcnn(key):
         r = dg[key]
@@ -1494,6 +1933,12 @@ def main():
               dg["knn"]["plain_ms"], summed_bound(dg["knn"]), dg_at),
         entry("min_sqdist_rows", "min_rows", CHAMFER_SRC, TPU_CHAMFER, knn1["min_rows"], cham["err"], cham["ms"],
               cham["plain_ms"], cham["bound"], f"B={B} N=M={N}, one KNN iteration's Chamfer on PointNet"),
+        *(entry(name, key, src, tpu, geo_launches[key], geo[key]["err"], geo[key]["ms"], geo[key]["plain_ms"],
+                summed_bound(geo[key]), geo_at)
+          for name, key, src, tpu in (("kappa_knn_mean_fwd", "kappa_fwd", KAPPA_SRC, TPU_KAPPA_FWD),
+                                      ("kappa_knn_mean_bwd", "kappa_bwd", KAPPA_SRC, TPU_KAPPA_BWD),
+                                      ("min_sqdist_both_fwd", "both_fwd", BOTH_SRC, TPU_BOTH_FWD),
+                                      ("min_sqdist_both_bwd", "both_bwd", BOTH_SRC, TPU_BOTH_BWD))),
     ]}
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -1,7 +1,7 @@
-"""Command-line entry point: ``attack cw`` and ``attack knn``.
+"""Command-line entry point: ``attack cw``, ``attack knn`` and ``attack geoa3``.
 
 Counterpart of ``pointcloudattack_tpu/cli/main.py::cmd_attack`` for the
-``cw`` and ``knn`` families.  Run as
+``cw``, ``knn`` and ``geoa3`` families.  Run as
 
     python -m pointcloudattack_tpu_torch.cli attack cw --dataset synthetic \\
         --model PointNet --num_points 1024 --num_classes 40 \\
@@ -10,10 +10,12 @@ Counterpart of ``pointcloudattack_tpu/cli/main.py::cmd_attack`` for the
         --output_dir runs --save_adv
     python -m pointcloudattack_tpu_torch.cli attack knn --model PointNet \\
         --num_iter 500 --attack_lr 0.01 --nn_refresh 1 --num_samples 64
+    python -m pointcloudattack_tpu_torch.cli attack geoa3 --model PointNet \
+        --num_classes 40 --binary_step 10 --num_iter 500 --num_samples 8
 
 ``--model`` is ``PointNet``, ``PointNet++Ssg``, ``PointNet++Msg`` or
 ``DGCNN``.  ``--num_iter 0`` / ``--binary_step 0`` mean the family's
-reference default (C&W 10 x 500, KNN 2500).  ``--device`` defaults to
+reference default (C&W and GeoA3 10 x 500, KNN 2500).  ``--device`` defaults to
 ``cuda`` and never drops to the CPU; pass ``--device cpu`` to run the
 plain versions of the kernels.  Without ``--checkpoint`` the victim's
 weights are drawn from ``--seed``.
@@ -32,7 +34,7 @@ import torch
 
 from pointcloudattack_tpu_torch.data.synthetic import make_synthetic_clouds
 
-ATTACK_FAMILIES = ("cw", "knn")
+ATTACK_FAMILIES = ("cw", "knn", "geoa3")
 
 
 def _device(name: str) -> torch.device:
@@ -88,6 +90,20 @@ def _run_family(args, model_fn, data, target, noise_gen):
         )
         res = build_cw_attack(model_fn, cfg)(data, target, generator=noise_gen)
         return res.best_attack, res.success
+    if args.family == "geoa3":
+        from pointcloudattack_tpu_torch.attacks.geoa3 import GeoA3Config, build_geoa3_attack
+
+        cfg = GeoA3Config(
+            lr=args.attack_lr, binary_max_steps=args.binary_step or 10, iter_max_steps=args.num_iter or 500,
+            cls_loss_type=args.cls_loss_type, confidence=args.confidence, dis_loss_type=args.dis_loss_type,
+            dis_loss_weight=args.dis_loss_weight, is_cd_single_side=bool(args.is_cd_single_side),
+            hd_loss_weight=args.hd_loss_weight, curv_loss_weight=args.curv_loss_weight,
+            curv_loss_knn=args.curv_loss_knn, curv_knn_refresh=args.curv_knn_refresh,
+            initial_const=args.initial_const, use_lr_scheduler=bool(args.use_lr_scheduler),
+            use_jitter=bool(args.use_jitter), use_offset_proj=bool(args.use_offset_proj), cc_linf=args.cc_linf,
+        )
+        adv, _, success = build_geoa3_attack(model_fn, cfg)(data, target, generator=noise_gen)
+        return adv, success
     from pointcloudattack_tpu_torch.attacks.knn import KNNAttackConfig, build_knn_attack
 
     cfg = KNNAttackConfig(
@@ -178,11 +194,28 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_points", type=int, default=1024)
     p.add_argument("--num_classes", type=int, default=0, help="0 = 10")
     p.add_argument("--checkpoint", default="", help="reference-layout .pth state dict")
-    p.add_argument("--binary_step", type=int, default=0, help="cw: 0 = 10")
-    p.add_argument("--num_iter", type=int, default=0, help="0 = the family's default (cw 500, knn 2500)")
+    p.add_argument("--binary_step", type=int, default=0, help="cw, geoa3: 0 = 10")
+    p.add_argument("--num_iter", type=int, default=0,
+                   help="0 = the family's default (cw and geoa3 500, knn 2500)")
     p.add_argument("--attack_lr", type=float, default=1e-2)
     p.add_argument("--nn_refresh", type=int, default=1,
                    help="knn: refresh the Chamfer nearest-point index every R iterations (1 = the reference)")
+    # GeoA3's loss settings, the reference Eval_GeoA3 defaults
+    p.add_argument("--cls_loss_type", default="CE", choices=["CE", "Margin", "None"])
+    p.add_argument("--confidence", type=float, default=0.0, help="geoa3: margin confidence (Margin loss)")
+    p.add_argument("--dis_loss_type", default="CD", choices=["CD", "L2", "None"])
+    p.add_argument("--dis_loss_weight", type=float, default=1.0)
+    p.add_argument("--is_cd_single_side", type=int, default=0)
+    p.add_argument("--hd_loss_weight", type=float, default=0.1)
+    p.add_argument("--curv_loss_weight", type=float, default=1.0)
+    p.add_argument("--curv_loss_knn", type=int, default=16)
+    p.add_argument("--curv_knn_refresh", type=int, default=1,
+                   help="geoa3: 1 = the reference's per-iteration curvature kNN (others are not ported yet)")
+    p.add_argument("--initial_const", type=float, default=10.0)
+    p.add_argument("--use_lr_scheduler", type=int, default=0)
+    p.add_argument("--use_jitter", type=int, default=0, help="geoa3: not ported yet")
+    p.add_argument("--use_offset_proj", type=int, default=0, help="geoa3: project offsets on the clean normals")
+    p.add_argument("--cc_linf", type=float, default=0.0, help="geoa3: per-point offset length cap (0 = off)")
     p.add_argument("--kappa", type=float, default=30.0)
     p.add_argument("--budget", type=float, default=0.18)
     p.add_argument("--num_samples", type=int, default=0, help="0 = all")

@@ -30,54 +30,19 @@
 // shared load.  The [N, M] matrix never exists.  Ragged N and M are masked,
 // not padded with sentinel points.
 
-#include <cuda_runtime.h>
-
-#include <cmath>
-#include <cstddef>
+#include "sqdist_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 1024;  // y points per staged tile: 16 KB
+using pca::kRowMinThreads;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kRowMinThreads)
     min_rows_kernel(const float* __restrict__ x, const float* __restrict__ y, int N, int M,
                     float* __restrict__ mins, int* __restrict__ argmin) {
-  __shared__ float4 ys[kTile];
-  const int b = blockIdx.y, i = blockIdx.x * kThreads + threadIdx.x;
-  const float* xb = x + (size_t)b * N * 3;
-  const float* yb = y + (size_t)b * M * 3;
-  float x0 = 0.f, x1 = 0.f, x2 = 0.f;
-  if (i < N) {
-    x0 = xb[3 * i];
-    x1 = xb[3 * i + 1];
-    x2 = xb[3 * i + 2];
-  }
-  float best = INFINITY;  // an all-infinite row keeps index 0, as the plain version does
-  int arg = 0;
-  for (int j0 = 0; j0 < M; j0 += kTile) {
-    const int nj = min(kTile, M - j0);
-    __syncthreads();  // the previous tile's reads are done
-    for (int j = threadIdx.x; j < nj; j += kThreads) {
-      const float* p = yb + (size_t)(j0 + j) * 3;
-      ys[j] = make_float4(p[0], p[1], p[2], 0.f);
-    }
-    __syncthreads();
-    for (int j = 0; j < nj; ++j) {
-      const float4 q = ys[j];
-      const float dx = __fsub_rn(x0, q.x), dy = __fsub_rn(x1, q.y), dz = __fsub_rn(x2, q.z);
-      const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                __fmul_rn(dz, dz));
-      if (d < best) {
-        best = d;
-        arg = j0 + j;
-      }
-    }
-  }
-  if (i < N) {
-    mins[(size_t)b * N + i] = best;
-    argmin[(size_t)b * N + i] = arg;
-  }
+  __shared__ float4 ys[pca::kRowMinTile];
+  const int b = blockIdx.y;
+  pca::row_min_block(x + (size_t)b * N * 3, y + (size_t)b * M * 3, N, M, blockIdx.x * kRowMinThreads + threadIdx.x,
+                     ys, mins + (size_t)b * N, argmin + (size_t)b * N);
 }
 
 }  // namespace
@@ -92,8 +57,8 @@ int pca_min_rows(int device, const void* x, const void* y, int B, int N, int M, 
   if (B < 1 || B > 65535 || N < 1 || M < 1) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((N + kThreads - 1) / kThreads, B);
-  min_rows_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((N + kRowMinThreads - 1) / kRowMinThreads, B);
+  min_rows_kernel<<<grid, kRowMinThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(y), N, M,
       static_cast<float*>(mins), static_cast<int*>(argmin));
   return (int)cudaGetLastError();

@@ -4,17 +4,18 @@ Counterpart of ``pointcloudattack_tpu/losses/distance.py``: ``l2_dist``,
 the Chamfer and Hausdorff distances.  Channels-last ``[B, N, 3]`` in,
 per-example ``[B]`` out.
 
-Every Chamfer and Hausdorff term is a row min of ``ops/chamfer.py::
-min_sqdist_rows`` (the kernel on a CUDA tensor, its plain version on a CPU
-tensor), one call per direction: the JAX package's non-TPU branch.  The
-two-direction kernel (``min_sqdist_both``) belongs to the GeoA3 slice.
+A single direction of Chamfer or Hausdorff is a row min of
+``ops/chamfer.py::min_sqdist_rows``; both directions at once
+(``chamfer_both`` and GeoA3's bundle ``chamfer_hausdorff_nn``) come from one
+``min_sqdist_both`` call, as the JAX package routes them on the TPU.  Each
+is the kernel on a CUDA tensor and its plain version on a CPU tensor.
 """
 
 from __future__ import annotations
 
 import torch
 
-from pointcloudattack_tpu_torch.ops.chamfer import min_sqdist_rows
+from pointcloudattack_tpu_torch.ops.chamfer import min_sqdist_both, min_sqdist_rows
 
 
 def l2_dist(adv: torch.Tensor, ori: torch.Tensor) -> torch.Tensor:
@@ -28,7 +29,17 @@ def _min_rows(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def chamfer_both(adv: torch.Tensor, ori: torch.Tensor):
     """``(adv->ori, ori->adv)`` mean-of-min squared distances, each ``[B]``."""
-    return _min_rows(adv, ori).mean(dim=-1), _min_rows(ori, adv).mean(dim=-1)
+    row_min, col_min, _ = min_sqdist_both(adv, ori)
+    return row_min.mean(dim=-1), col_min.mean(dim=-1)
+
+
+def chamfer_hausdorff_nn(adv: torch.Tensor, ori: torch.Tensor):
+    """GeoA3's bundle from one two-direction call: ``(a2o [B], o2a [B],
+    hd [B], nn_idx [B, N])``, the symmetric Chamfer terms (mean of the
+    mins), the adv->ori Hausdorff (max of the same row mins) and each
+    adversarial point's nearest clean index (int32, no gradient)."""
+    row_min, col_min, nn_idx = min_sqdist_both(adv, ori)
+    return row_min.mean(dim=-1), col_min.mean(dim=-1), row_min.amax(dim=-1), nn_idx
 
 
 def chamfer_dist(adv: torch.Tensor, ori: torch.Tensor, method: str = "adv2ori") -> torch.Tensor:

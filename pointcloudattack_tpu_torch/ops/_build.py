@@ -146,6 +146,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     # device, x, y, B, N, M, mins, argmin, stream
     lib.pca_min_rows.argtypes = [ci, vp, vp, ci, ci, ci, vp, vp, vp]
     lib.pca_min_rows.restype = ci
+    # device, x, y, B, N, M, rmin, rarg, cmin, carg, stream
+    lib.pca_min_both_fwd.argtypes = [ci, vp, vp, ci, ci, ci, vp, vp, vp, vp, vp]
+    lib.pca_min_both_fwd.restype = ci
+    # device, x, y, rarg, carg, gr, gc, B, N, M, dx, dy, stream
+    lib.pca_min_both_bwd.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp]
+    lib.pca_min_both_bwd.restype = ci
+    # device, a, nrm, B, N, k, kap, picks, stream
+    lib.pca_kappa_fwd.argtypes = [ci, vp, vp, ci, ci, ci, vp, vp, vp]
+    lib.pca_kappa_fwd.restype = ci
+    # device, a, nrm, picks, dkap, B, N, k, e, ctr, dnrm, dadv, stream
+    lib.pca_kappa_bwd.argtypes = [ci, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp, vp, vp]
+    lib.pca_kappa_bwd.restype = ci
 
 
 def load_library() -> ctypes.CDLL:

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 
-def _dot_last(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def dot_last(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``sum_c a[..., c] * b[..., c]``, coordinates in ascending order."""
     out = a[..., 0] * b[..., 0]
     for c in range(1, a.shape[-1]):
@@ -21,12 +21,20 @@ def _dot_last(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def sum_neighbours(t: torch.Tensor) -> torch.Tensor:
+    """``t [B, N, k, ...]`` summed over ``k`` in ascending order."""
+    out = t[:, :, 0]
+    for j in range(1, t.shape[2]):
+        out = out + t[:, :, j]
+    return out
+
+
 def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """``x [..., N, C]``, ``y [..., M, C]`` -> ``[..., N, M]`` squared
     distances."""
-    xx = _dot_last(x, x)[..., :, None]  # [..., N, 1]
-    yy = _dot_last(y, y)[..., None, :]  # [..., 1, M]
-    xy = _dot_last(x[..., :, None, :], y[..., None, :, :])  # [..., N, M]
+    xx = dot_last(x, x)[..., :, None]  # [..., N, 1]
+    yy = dot_last(y, y)[..., None, :]  # [..., 1, M]
+    xy = dot_last(x[..., :, None, :], y[..., None, :, :])  # [..., N, M]
     return xx - 2.0 * xy + yy
 
 

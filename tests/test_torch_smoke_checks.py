@@ -88,3 +88,57 @@ def test_parting_refused_where_every_gradient_was_clear_of_zero():
     parted, _, unexplained = chip_smoke.parted_points(card, cpu, g, g)
     assert parted.nonzero().tolist() == [[0, 1], [1, 4]]
     assert sorted(unexplained) == [(0, 1), (1, 4)]
+
+
+def test_geoa3_bounds_charge_the_functions_least_work():
+    b, n, k = 8, 1024, 16
+    t, by = chip_smoke.kappa_bound(b, n, k)
+    flops = 9.0 * b * n * n + b * n * (k + 1) * np.log2(k + 1) + 11.0 * b * n * k + 5.0 * b * n
+    assert by == "operations" and np.isclose(t, flops / chip_smoke.PEAK_FLOPS * 1e3)
+    # the backward reads the inputs and the picks and writes two gradients: bytes bound it
+    t, by = chip_smoke.kappa_bwd_bound(b, n, k)
+    nbytes = 4.0 * (6 * b * n + b * n + b * n * k + 6 * b * n)
+    assert by == "bytes" and np.isclose(t, nbytes / chip_smoke.PEAK_BYTES * 1e3)
+    t, by = chip_smoke.both_bound(b, n, n)
+    assert by == "operations" and np.isclose(t, 10.0 * b * n * n / chip_smoke.PEAK_FLOPS * 1e3)
+    assert chip_smoke.both_bwd_bound(b, n, n)[1] == "bytes"
+
+
+def _rounds(rounds=2, iters=3, b=2, n=6, seed=1):
+    rng = np.random.RandomState(seed)
+    it = torch.from_numpy(rng.randn(rounds * iters, b, n, 3).astype(np.float32))
+    grads = [torch.from_numpy(rng.randn(b, n, 3).astype(np.float32)) + 2.0 for _ in range(rounds * iters)]
+    return it, grads
+
+
+def test_round_partings_explain_the_first_parting():
+    card, g = _rounds()
+    cpu = card.clone()
+    cpu[2, 1, 4, 0] += 1e-3  # round 0, step 2: point 4 of cloud 1
+    cpu[4:, 0, 2, 1] -= 1e-3  # round 1, step 4 (its second): point 2 of cloud 0
+    parted, lines, ok = chip_smoke.round_partings(card, cpu, g, 3)
+    assert parted.nonzero().tolist() == [[0, 2], [1, 4]] and not ok  # no gradient near 0: unexplained
+    g[1][1, 4, 0] = 1e-6  # rounding of 0 next to the cloud's largest, about 3
+    parted, lines, ok = chip_smoke.round_partings(card, cpu, g, 3)
+    assert ok and "round 0 cloud 1: 1 points part first at step 2" in lines[0]
+    # the two sides' gradients of the coordinate differ by more than GRAD_APART at an earlier step
+    g[1][1, 4, 0] = 2.0
+    g_cpu = [t.clone() for t in g]
+    assert not chip_smoke.round_partings(card, cpu, g, 3, g_cpu=g_cpu)[2]
+    g_cpu[0][1, 4, 0] = 2.0 * (1 + 2 * chip_smoke.GRAD_APART)
+    assert chip_smoke.round_partings(card, cpu, g, 3, g_cpu=g_cpu)[2]
+
+
+def test_round_partings_explain_a_parting_by_another_choice():
+    card, g = _rounds()
+    cpu = card.clone()
+    cpu[1:3, 0, 3, 2] += 1e-3  # round 0: point 3 of cloud 0 parts at step 1
+    same = lambda c, a: {"nearest": torch.zeros(1, dtype=torch.int64)}  # noqa: E731
+    assert not chip_smoke.round_partings(card, cpu, g, 3, same)[2]
+    other = lambda c, a: {"nearest": (a[0, 3, 2] > card[0, 0, 3, 2] + 5e-4).long().view(1)}  # noqa: E731
+    parted, lines, ok = chip_smoke.round_partings(card, cpu, g, 3, other)
+    assert not ok  # at step 0, before the parting, both sides still chose alike
+    cpu[0, 0, 3, 2] += 1e-6  # now step 0 differs by less than PART_ATOL, yet chooses otherwise
+    other = lambda c, a: {"nearest": (a[0, 3, 2] > card[0, 0, 3, 2]).long().view(1)}  # noqa: E731
+    parted, lines, ok = chip_smoke.round_partings(card, cpu, g, 3, other)
+    assert ok and "(0, 'nearest')" in lines[0]
