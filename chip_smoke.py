@@ -4,7 +4,7 @@ Run from the root of a checkout, on a machine with one H100:
 
     python3 chip_smoke.py
 
-It takes about four to six minutes, the kernel build included.
+It takes about six to seven minutes, the kernel build included.
 
 Phases, each raising on failure (nothing is caught; any failure exits
 non-zero and prints no result):
@@ -38,7 +38,7 @@ non-zero and prints no result):
               chain kernels, ASR > 0, s/batch over 3 reps after a warm-up.
 8. slice-msg  the same on PointNet++ MSG (bench.py's cw_msg clouds).
 9. parity-ssg / parity-msg  card against CPU, the CPU's max pools taking
-              the card's picks (``card_picks``): an SSG attack (B=4, 1 x 10)
+              the card's picks (``pick_hooks``): an SSG attack (B=4, 1 x 10)
               from the same weights and noise (success, best distance and
               adversarial clouds; then log-probs and the loss gradient cloud
               by cloud at each of the card's iterates); MSG log-probs and the
@@ -82,7 +82,29 @@ non-zero and prints no result):
               the kept step and best_loss, the clouds at points that never parted,
               and the loss gradient at each of the card's iterates.
 22. profile-geoa3  torch.profiler over 10 GeoA3 iterations.
-Each of phases 11-22 prints its seconds.
+23. kernels-curvenet  the grouped chain + max and chain + mean kernels against
+              their plain versions at the nine LPFA shapes of one CurveNet
+              forward (B=8, K=20, LeakyReLU 0.2), at a ragged G=1000, at K=7 and
+              with 2-layer chains, each with its time, the plain version's and
+              the bound; then each LPFA stage of the victim fused against the
+              unfused plain layer, forward and forward + input backward.
+24. slice-curvenet  C&W 1 x 100 on CurveNet at bench.py's cw_curvenet settings
+              (B=8, published widths): exact launch counts (kNN 9, FPS 2, group
+              max 1 and group mean 8 per forward, 1 + 8 per backward), ASR > 0,
+              every point within the budget, s/batch.
+25. parity-curvenet  C&W (B=2, 1 x 10) on the card and on the CPU, the CPU
+              taking the card's discrete choices and activation signs
+              (``curvenet_hooks``: the walk's starts and picks, the group-max,
+              masked max-pool and head picks, the side of 0 of every
+              activation's input): success, and the logits and the loss
+              gradient at each of the card's iterates; how many choices lay
+              near a tie, how many signs differ, and the gradient without
+              the signs replayed.
+26. profile-curvenet  torch.profiler over 10 CurveNet C&W iterations.
+27. slice-geoa3-curvenet  GeoA3 on CurveNet (BASELINE config 4) on bench.py's
+              geoa3 clouds, CE on the log-softmax of the logits, 2 rounds of 50
+              of their 500 iterations: exact launch counts, ASR > 0, s/batch.
+Each of phases 11-27 prints its seconds.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the per-kernel record.  The script imports nothing of JAX.
@@ -118,6 +140,10 @@ TPU_KAPPA_FWD = "pointcloudattack_tpu/ops/pallas/kappa_kernel.py:321"
 TPU_KAPPA_BWD = "pointcloudattack_tpu/ops/pallas/kappa_kernel.py:358"
 TPU_BOTH_FWD = "pointcloudattack_tpu/ops/pallas/chamfer_kernel.py:205"
 TPU_BOTH_BWD = "pointcloudattack_tpu/ops/pallas/chamfer_kernel.py:236"
+GROUP_SRC = "pointcloudattack_tpu_torch/csrc/group_chain.cu"
+TPU_GROUP_FWD = "pointcloudattack_tpu/ops/pallas/dense_max_kernel.py:439"
+TPU_GROUP_MEAN_FWD = "pointcloudattack_tpu/ops/pallas/dense_max_kernel.py:470"
+TPU_GROUP_BWD = "pointcloudattack_tpu/ops/pallas/dense_max_kernel.py:522"
 
 B, N, NUM_CLASSES = 64, 1024, 40
 SPINE = (3, 64, 128, 1024)
@@ -197,6 +223,25 @@ KAPPA_RTOL, KAPPA_GRAD_ATOL, BOTH_GRAD_ATOL = 1e-6, 1e-5, 1e-6
 # least GEO_HELD_SHARE of them must never part (on the CPU against the JAX
 # package 0.68 or more, tests/test_torch_geoa3.py)
 GEO_HELD_SHARE = 0.5
+# CurveNet: bench.py's cw_curvenet cell (bench.py:372-378), B=8,
+# make_synthetic_clouds(8, 1, 1024, seed=9), C&W 1 x 100, published widths
+# (k=20, the default curves, 40 classes); GeoA3 on it (BASELINE config 4) on
+# bench.py's geoa3 clouds, 2 rounds of 50 iterations cut from 10 x 500
+CN_DATA, CN_ITER, CN_B, CN_K, CN_SLOPE = 9, 100, 8, 20, 0.2
+CN_GEO_ROUNDS, CN_GEO_ITER = 2, 50
+# kernel launches per forward and per backward: kNN 9 (the initial LPFA and
+# each CIC), FPS 2 (to 256 and 64 points), one group max (the initial LPFA)
+# and 8 group means (the residual LPFAs)
+CN_LAUNCHES = ({"knn": 9, "fps": 2, "group_max_fwd": 1, "group_mean_fwd": 8},
+               {"group_max_bwd": 1, "group_mean_bwd": 8})
+# the LPFAs of one CurveNet forward at B=8, K=20: (G, input width, chain widths, pool)
+CURVENET_GROUP_SHAPES = {
+    "lpfa": (1024, 9, (32,), "max"),
+    "cic11": (1024, 16, (16,), "mean"), "cic12": (1024, 16, (16,), "mean"),
+    "cic21": (1024, 32, (32,), "mean"), "cic22": (1024, 32, (32,), "mean"),
+    "cic31": (256, 64, (64,), "mean"), "cic32": (256, 64, (64,), "mean"),
+    "cic41": (64, 128, (128,), "mean"), "cic42": (64, 128, (128,), "mean"),
+}
 FPS_SHAPES = ((1024, 512), (512, 128))  # (N, npoint) of SSG's (and MSG's) two SAs
 GROUP_ALL = {"ssg_sa3": (259, 256, 512, 1024), "msg_sa3": (643, 256, 512, 1024)}
 
@@ -309,8 +354,13 @@ def top2_gap(x, layers):
         if i:
             z = torch.relu(z)
         z = (z @ w + b - mean) * mul + beta
-    top = z.topk(2, dim=1).values
-    return top[:, 0] - top[:, 1]
+    return top2_margin(z, 1)
+
+
+def top2_margin(x, dim):
+    """The gap between the largest and the second largest along ``dim``."""
+    top = x.detach().topk(2, dim=dim).values
+    return top.select(dim, 0) - top.select(dim, 1)
 
 
 def time_ms(fn, reps=20, warmup=3):
@@ -695,13 +745,31 @@ def phase_kernels_pn2():
     return rec
 
 
+# BatchNorm updates in one forward, by model and module name, where not 1:
+# CurveNet's walk runs its agent_mlp at each of its 5 steps and its
+# momentum_mlp at each step after the first (the shared weights of the
+# reference's walk.py)
+BN_PASSES = {"CurveNet": {"walk.agent_mlp": 5, "walk.momentum_mlp": 4}}
+
+
+def bn_passes(model_name, module_name):
+    """How many times one forward of ``model_name`` updates the BatchNorm
+    at ``module_name`` in train mode."""
+    for part, n in BN_PASSES.get(model_name, {}).items():
+        if part in module_name:
+            return n
+    return 1
+
+
 def make_victim(name, device, clouds, drops):
     """``name`` with seeded random weights and the BatchNorm statistics of
     ``clouds`` (one train-mode pass at momentum 1): ``(model_fn, state)``.
 
     At its initial BatchNorm statistics a random victim gives every cloud
     nearly the same logits, and the attack moves none of them; with the
-    statistics of the data its logits follow the input.
+    statistics of the data its logits follow the input.  A BatchNorm that
+    one forward updates several times (``bn_passes``) keeps the statistics
+    of its last update.
     """
     import torch
     from torch import nn
@@ -718,9 +786,10 @@ def make_victim(name, device, clouds, drops):
         m.momentum = 1.0
     with torch.no_grad():
         model(clouds)
-    missed = [n for n, m in model.named_modules() if isinstance(m, nn.BatchNorm1d) and int(m.num_batches_tracked) != 1]
+    missed = [(n, int(m.num_batches_tracked)) for n, m in model.named_modules()
+              if isinstance(m, nn.BatchNorm1d) and int(m.num_batches_tracked) != bn_passes(name, n)]
     if missed:
-        raise AssertionError(f"{name}: the pass over the clouds missed the BatchNorms {missed}")
+        raise AssertionError(f"{name}: the pass over the clouds missed the BatchNorms {missed} (name, updates)")
     log(f"[victim] {name}: all {len(bns)} BatchNorms took the statistics of the {len(clouds)} clouds")
     for m in bns:
         m.momentum = 0.1
@@ -759,13 +828,15 @@ def _counters():
     from pointcloudattack_tpu_torch.ops import chamfer
     from pointcloudattack_tpu_torch.ops import fps as fps_mod
     from pointcloudattack_tpu_torch.ops import gather_chain as gc
+    from pointcloudattack_tpu_torch.ops import group_chain as gch
     from pointcloudattack_tpu_torch.ops import kappa
     from pointcloudattack_tpu_torch.ops import knn as knn_mod
 
     return {"fps": (fps_mod, "fps"), "gather_fwd": (gc, "fwd"), "gather_bwd": (gc, "bwd"),
             "chain_fwd": (cm, "fwd"), "chain_bwd": (cm, "bwd"), "knn": (knn_mod, "knn"),
             "min_rows": (chamfer, "min_rows"), "both_fwd": (chamfer, "both_fwd"), "both_bwd": (chamfer, "both_bwd"),
-            "kappa_fwd": (kappa, "kappa_fwd"), "kappa_bwd": (kappa, "kappa_bwd")}
+            "kappa_fwd": (kappa, "kappa_fwd"), "kappa_bwd": (kappa, "kappa_bwd"),
+            **{k: (gch, k) for k in ("group_max_fwd", "group_max_bwd", "group_mean_fwd", "group_mean_bwd")}}
 
 
 def reset_all():
@@ -882,48 +953,237 @@ def phase_slice(model_fn, data, target):
     return {"fwd": launches["chain_fwd"], "bwd": launches["chain_bwd"]}
 
 
+TIE_GAP = 1e-5  # a choice whose two best candidates lie this close is counted as near a tie
+
+
 @contextlib.contextmanager
-def card_picks():
-    """While open, each max pool run on the card records its picks (every
-    pooled column's winning row), and each max pool run on the CPU takes the
-    oldest recorded picks in place of its own first argmax, so that card and
-    CPU send every column's cotangent to the same row: a column whose two
-    best rows lie within f32 rounding otherwise may send it to another point
-    on each side.  Yields ``gaps``, a list that gets, for each pool the CPU
-    ran, how far below the CPU's own max the taken picks lie, per cloud."""
+def replay(hooks, take=None):
+    """While open, the functions that ``hooks`` names (kind -> (module,
+    attribute, on_card, on_cpu)) make their discrete choices on the card and
+    take them on the CPU.  A call whose first argument lies on the card runs
+    ``on_card(orig, *args) -> (result, choice)``, and the choice joins its
+    kind's queue.  A call on the CPU takes the oldest queued choice of its
+    kind (or ``take(kind)``, when given) and runs ``on_cpu(orig, choice,
+    *args) -> (result, gap, off)``, where per choice (cloud first) ``gap``
+    is how close the CPU's own choice came to a tie (None where none
+    applies) and ``off`` how far the taken choice lies from the CPU's own
+    (0 where they agree).  Yields ``stats``: kind -> {"calls", "choices",
+    "near" (gap <= TIE_GAP), "exact" (gap 0), "min_gap" (the smallest
+    nonzero), "other" (for each call, per cloud, the taken choices off the
+    CPU's own), "off" (the largest)}.  A choice the card made and the CPU
+    never took raises."""
+    queues = {k: [] for k in hooks}
+    stats = {k: {"calls": 0, "choices": 0, "near": 0, "exact": 0, "min_gap": float("inf"), "other": [],
+                 "off": 0.0} for k in hooks}
+    orig = {k: getattr(mod, name) for k, (mod, name, _, _) in hooks.items()}
+
+    def note(st, gap, off):
+        st["calls"] += 1
+        st["choices"] += off.numel()
+        st["other"].append((off > 0).reshape(off.shape[0], -1).sum(1))
+        st["off"] = max(st["off"], float(off.max()) if off.numel() else 0.0)
+        if gap is not None:
+            st["near"] += int((gap <= TIE_GAP).sum())
+            st["exact"] += int((gap == 0).sum())
+            pos = gap[gap > 0]
+            st["min_gap"] = min(st["min_gap"], float(pos.min()) if pos.numel() else float("inf"))
+
+    def patched(kind, on_card, on_cpu):
+        def fn(*args, **kw):
+            if args[0].is_cuda:
+                out, choice = on_card(orig[kind], *args, **kw)
+                queues[kind].append(choice.cpu())
+                return out
+            choice = take(kind) if take else queues[kind].pop(0)
+            out, gap, off = on_cpu(orig[kind], choice, *args, **kw)
+            note(stats[kind], None if gap is None else gap.detach(), off.detach())
+            return out
+        return fn
+
+    for k, (mod, name, on_card, on_cpu) in hooks.items():
+        setattr(mod, name, patched(k, on_card, on_cpu))
+    try:
+        yield stats
+    finally:
+        for k, (mod, name, _, _) in hooks.items():
+            setattr(mod, name, orig[k])
+    left = {k: len(v) for k, v in queues.items() if v}
+    if left:
+        raise AssertionError(f"choices the card made and the CPU never took: {left}")
+
+
+def pool_at(z, pick, axis):
+    """A max pool of ``z`` over ``axis`` that takes the rows ``pick``, as
+    ``replay``'s ``on_cpu`` returns it: ``((values, pick), gap, off)``."""
+    y = z.gather(axis, pick.long().unsqueeze(axis)).squeeze(axis)
+    return (y, pick), top2_margin(z, axis), z.detach().amax(axis) - y.detach()
+
+
+def pick_hooks():
+    """``replay`` hooks for the max pools of PointNet, PointNet++ and DGCNN:
+    the chain + max ("chain") and the gather + chain + max ("gather")
+    forwards, each choice every pooled column's winning row.  A column whose
+    two best rows lie within f32 rounding otherwise may send its cotangent
+    to another point on each side."""
     from pointcloudattack_tpu_torch.ops import chain_maxpool as cm
     from pointcloudattack_tpu_torch.ops import gather_chain as gc
 
-    orig_chain, orig_gather = cm.chain_maxpool_fwd, gc.gather_chain_fwd
-    picks, gaps = [], []
+    def card(orig, *args):
+        y, am = orig(*args)
+        return (y, am), am
 
-    def take(z, axis):  # z: the CPU's pre-pool values, pooled over ``axis``
-        pick = picks.pop(0)
-        y = z.gather(axis, pick.long().unsqueeze(axis)).squeeze(axis)
-        gaps.append((z.amax(axis) - y).flatten(1).amax(1))
-        return y, pick
+    def chain(orig, pick, x, layers):
+        return pool_at(gc._chain(x.float(), layers)[0], pick, 1)
 
-    def chain_fwd(x, layers):
-        if x.is_cuda:
-            y, idx = orig_chain(x, layers)
-            picks.append(idx.cpu())
-            return y, idx
-        return take(gc._chain(x.float(), layers)[0], 1)
+    def gather(orig, pick, src, centers, idx, layers, layout):
+        return pool_at(gc._chain(gc.gather_rows(src, centers, idx, layout), layers)[0], pick, 2)
 
-    def gather_fwd(src, centers, idx, layers, layout):
-        if src.is_cuda:
-            y, am = orig_gather(src, centers, idx, layers, layout)
-            picks.append(am.cpu())
-            return y, am
-        return take(gc._chain(gc.gather_rows(src, centers, idx, layout), layers)[0], 2)
+    return {"chain": (cm, "chain_maxpool_fwd", card, chain), "gather": (gc, "gather_chain_fwd", card, gather)}
 
-    cm.chain_maxpool_fwd, gc.gather_chain_fwd = chain_fwd, gather_fwd
-    try:
-        yield gaps
-    finally:
-        cm.chain_maxpool_fwd, gc.gather_chain_fwd = orig_chain, orig_gather
-    if picks:
-        raise AssertionError(f"{len(picks)} of the card's max pools found no CPU counterpart")
+
+def kernel_rows(x, layers, slope):
+    """The group kernels' own pre-activations ``z [B, G, K, C]`` of a
+    one-layer chain over ``x [B, G, K, C0]``: the max kernel over groups of
+    one row, whose pass over a row is the mean kernel's."""
+    import torch
+
+    from pointcloudattack_tpu_torch.ops import group_chain as gch
+
+    if len(layers) != 1:
+        raise ValueError(f"kernel_rows reads one layer's pre-activations, got {len(layers)} layers")
+    b, g, k, c0 = x.shape
+    with torch.no_grad():
+        z, _ = gch._fwd_kernel(x.detach().reshape(b, g * k, 1, c0).contiguous(),
+                               [tuple(t.detach() for t in layer) for layer in layers], slope, mean=False)
+    return z.reshape(b, g, k, -1)
+
+
+def curvenet_hooks(signs=True):
+    """``replay`` hooks for CurveNet's discrete choices: the walk's picks
+    ("pick", ``hard_pick``: [B, curves] indices), the curve starts
+    ("starts"), the masked max pools' and the head's max ("max",
+    ``max_pool``: a bool mask of the winning rows, the CPU taking their max
+    with its gradient split evenly among them, as ``amax``'s is among ties)
+    and the initial LPFA's group max ("group": the argmax rows).  A walk
+    pick, start or max-pool pick whose two best candidates lie within f32
+    rounding may otherwise go another way on each side, and a walk that
+    steps elsewhere changes every later feature.  With ``signs``, also the
+    slope each activation takes: the signs of every LeakyReLU's and ReLU's
+    input ("sign", ``leaky_relu``) and of the residual LPFAs' in-kernel
+    activation's ("mean", ``mlp_chain_groupmean``, read on the card from the
+    kernel's own pre-activations, ``kernel_rows``, which must give the
+    kernel's mean bit for bit).  A unit within rounding of 0 otherwise takes
+    slope 1 on one side and the other slope on the other."""
+    import torch
+
+    from pointcloudattack_tpu_torch.models import curvenet as cn
+    from pointcloudattack_tpu_torch.ops import group_chain as gch
+    from pointcloudattack_tpu_torch.ops.chain_maxpool import act
+    from pointcloudattack_tpu_torch.ops.pairwise import sum_neighbours
+
+    def same(orig, *args):
+        out = orig(*args)
+        return out, out
+
+    def pick(orig, p, y):
+        p, y = p.long(), y.detach()
+        return p, top2_margin(y, -1), y.amax(-1) - y.gather(-1, p[..., None])[..., 0]
+
+    def starts(orig, s, att, curve_num):
+        s, top = s.long(), att.detach().sort(dim=-1, descending=True).values
+        return s, top[:, curve_num - 1] - top[:, curve_num], top[:, curve_num - 1] - att.detach().gather(-1, s).amin(-1)
+
+    def max_card(orig, x, dim):
+        y = orig(x, dim)
+        return y, x.detach() == y.detach().unsqueeze(dim)
+
+    def max_cpu(orig, m, x, dim):
+        top = torch.where(m, x, float("-inf")).amax(dim).detach()
+        mean = torch.where(m, x, 0.0).sum(dim) / m.sum(dim)
+        # the winners' max, its gradient split evenly among them
+        return top + (mean - mean.detach()), top2_margin(x, dim), x.detach().amax(dim) - top
+
+    def group_card(orig, x, layers, slope=0.0):
+        y, am = orig(x, layers, slope)
+        return (y, am), am
+
+    def group_cpu(orig, am, x, layers, slope=0.0):
+        return pool_at(gch._chain(x, layers, slope)[0], am.to(torch.int32), 2)
+
+    def signed(pos, z, slope):
+        """z through the activation on the sides ``pos`` gives, with gap and off."""
+        zd = z.detach()
+        return torch.where(pos, z, slope * z), zd.abs(), torch.where(pos != (zd > 0), zd.abs(), 0.0)
+
+    def sign_card(orig, x, *slope):
+        return orig(x, *slope), x.detach() > 0
+
+    def sign_cpu(orig, pos, x, slope=cn.SLOPE):
+        return signed(pos, x, slope)
+
+    def mean_card(orig, x, layers, slope=0.0):
+        y = orig(x, layers, slope)
+        z, yd = kernel_rows(x, layers, slope), y.detach()
+        mine = sum_neighbours(act(z, slope))
+        mine = mine / torch.full_like(mine, x.shape[2])  # a true division, as the kernel's (not by a reciprocal)
+        if not torch.equal(mine, yd):
+            raise AssertionError(f"the group kernel's pre-activations miss its mean in {int((mine != yd).sum())} "
+                                 f"of {yd.numel()} outputs, by up to {float((mine - yd).abs().max()):.3e}")
+        return y, z > 0
+
+    def mean_cpu(orig, pos, x, layers, slope=0.0):
+        h, gap, off = signed(pos, gch._chain(x, layers, slope)[0], slope)
+        return sum_neighbours(h) / x.shape[2], gap, off
+
+    hooks = {"pick": (cn, "hard_pick", same, pick), "starts": (cn, "curve_starts", same, starts),
+             "max": (cn, "max_pool", max_card, max_cpu), "group": (gch, "chain_groupmax_fwd", group_card, group_cpu)}
+    if signs:
+        hooks.update({"sign": (cn, "leaky_relu", sign_card, sign_cpu),
+                      "mean": (cn, "mlp_chain_groupmean", mean_card, mean_cpu)})
+    return hooks
+
+
+def knn_hooks():
+    """``replay`` hooks for DGCNN's kNN ("knn": each point's neighbour
+    indices): the deeper stages' features differ by rounding between the
+    two sides, and a neighbour near the k-th may differ.  ``off`` is 1 for
+    each index set the CPU's own would change."""
+    from pointcloudattack_tpu_torch.models import dgcnn as dgcnn_mod
+
+    def card(orig, x, k):
+        idx = orig(x, k)
+        return idx, idx
+
+    def cpu(orig, idx, x, k):
+        return idx, None, (orig(x, k).sort(-1).values != idx.sort(-1).values).any(-1).float()
+
+    return {"knn": (dgcnn_mod, "knn", card, cpu)}
+
+
+def normal_hooks():
+    """``replay`` hooks for GeoA3's normal estimates ("normals"): a normal
+    of a nearly collinear 3-point neighbourhood is ill-conditioned, and the
+    card's and the CPU's eigensolvers (their acos and cos) may give it
+    differently.  ``off`` is, per cloud, the largest difference of the
+    CPU's own normals from the card's."""
+    from pointcloudattack_tpu_torch.attacks import geoa3 as geo_mod
+
+    def card(orig, pc, k=3):
+        nrm = orig(pc, k)
+        return nrm, nrm
+
+    def cpu(orig, nrm, pc, k=3):
+        return nrm, None, (orig(pc, k) - nrm).abs().flatten(1).amax(1)
+
+    return {"normals": (geo_mod, "estimate_normal", card, cpu)}
+
+
+def choice_line(stats):
+    """``replay``'s stats as one log line."""
+    return "; ".join(f"{k}: {st['choices']} choices in {st['calls']} calls, {st['near']} within {TIE_GAP} of a tie "
+                     f"({st['exact']} exact), smallest nonzero gap {st['min_gap']:.3e}, "
+                     f"{sum(int(n.sum()) for n in st['other'])} taken off the CPU's own, at most "
+                     f"{st['off']:.3e} from it" for k, st in stats.items() if st["calls"])
 
 
 def logp_ties(logp, target):
@@ -956,16 +1216,19 @@ def knn_loss(logp, a, o, t):
     return untargeted_logits_adv_loss(logp, t, KAPPA) + chamfer_dist(a, o) * a.shape[1]
 
 
-def grad_parity(model_fn, cpu_fn, adv, ori, target, loss_fn=cw_loss):
+def grad_parity(model_fn, cpu_fn, adv, ori, target, loss_fn=cw_loss, choices=None, signs=True):
     """Log-probs and the input gradient of ``loss_fn`` at ``adv``, on the
-    card and on the CPU, the CPU taking the card's picks.  Per cloud:
-    log-probs max|diff|, the gradient's relative L2 difference, the
-    log-prob tie gap (``logp_ties``, on the card) and how far below the
-    CPU's max the card's picks lie."""
+    card and on the CPU, the CPU taking the card's max-pool picks
+    (``pick_hooks``) and CurveNet's discrete choices, with ``signs`` its
+    activation signs too (``curvenet_hooks``), through ``replay``, whose
+    stats go to the list ``choices`` when given.  Per cloud: log-probs
+    max|diff|, the gradient's relative L2 difference, the log-prob tie gap
+    (``logp_ties``, on the card) and how far the taken choices lie from the
+    CPU's own, at most."""
     import torch
 
     outs = []
-    with card_picks() as gaps:
+    with replay({**pick_hooks(), **curvenet_hooks(signs)}) as stats:
         for fn, a0, o, t in ((model_fn, adv, ori, target), (cpu_fn, adv.cpu(), ori.cpu(), target.cpu())):
             a = a0.detach().clone().requires_grad_(True)
             logp = fn(a)
@@ -974,15 +1237,19 @@ def grad_parity(model_fn, cpu_fn, adv, ori, target, loss_fn=cw_loss):
             outs.append((logp.detach().cpu(), grad.cpu()))
     (lp_gpu, g_gpu), (lp_cpu, g_cpu) = outs
     g_rel = (g_gpu - g_cpu).flatten(1).norm(dim=1) / g_cpu.flatten(1).norm(dim=1)
+    if choices is not None:
+        choices.append(stats)
+    off = max((st["off"] for st in stats.values() if st["calls"]), default=0.0)
     return {"lp": (lp_gpu - lp_cpu).abs().amax(1), "grad": g_rel, "tie": logp_ties(lp_gpu, target.cpu()),
-            "pick": torch.stack(gaps).amax(0)}
+            "pick": torch.full_like(g_rel, off)}
 
 
 def hold_grad_parity(tag, steps, clean=True):
-    """Holds ``grad_parity`` results (one per step): picks within PICK_ATOL
-    of the CPU's max and log-probs within LOGP_ATOL everywhere; the gradient
-    within GRAD_REL at every (step, cloud) whose log-probs do not tie, and
-    with ``clean``, within GRAD_CLEAN at CLEAN_SHARE of them at least."""
+    """Holds ``grad_parity`` results (one per step): the taken choices
+    within PICK_ATOL of the CPU's own and log-probs within LOGP_ATOL
+    everywhere; the gradient within GRAD_REL at every (step, cloud) whose
+    log-probs do not tie, and with ``clean``, within GRAD_CLEAN at
+    CLEAN_SHARE of them at least."""
     import torch
 
     lp, g, tie, pick = (torch.stack([s[k] for s in steps]) for k in ("lp", "grad", "tie", "pick"))
@@ -990,7 +1257,7 @@ def hold_grad_parity(tag, steps, clean=True):
     held = g[~ties]
     share = float((held <= GRAD_CLEAN).float().mean()) if held.numel() else 0.0
     log(f"[{tag}] at {len(steps)} input(s) x {g.shape[1]} clouds, card vs CPU (the CPU taking the card's "
-        f"picks, which lie at most {float(pick.max()):.3e} below its max): log-probs max|diff| "
+        f"choices, which lie at most {float(pick.max()):.3e} from its own): log-probs max|diff| "
         f"{float(lp.max()):.3e}; loss gradient relative L2 difference per step and cloud "
         f"{[[float(f'{v:.3g}') for v in row] for row in g]}; log-prob tie gaps "
         f"{[[round(float(v), 6) for v in row] for row in tie]}; left out as ties (step, cloud): "
@@ -998,7 +1265,7 @@ def hold_grad_parity(tag, steps, clean=True):
         f"{float(held.max()) if held.numel() else float('nan'):.3e} (bound {GRAD_REL}), a share of "
         f"{share:.3f} within {GRAD_CLEAN}")
     if float(pick.max()) > PICK_ATOL or float(lp.max()) > LOGP_ATOL:
-        raise AssertionError(f"{tag}: card picks {float(pick.max()):.3e} below the CPU's max (> {PICK_ATOL}) "
+        raise AssertionError(f"{tag}: card choices {float(pick.max()):.3e} from the CPU's own (> {PICK_ATOL}) "
                              f"or log-probs {float(lp.max()):.3e} apart (> {LOGP_ATOL})")
     if not held.numel() or float(held.max()) > GRAD_REL:
         raise AssertionError(f"{tag}: loss gradients differ by more than {GRAD_REL} (or every step tied)")
@@ -1177,36 +1444,6 @@ def knn_inputs():
         yield seen
     finally:
         dgcnn_mod.knn = orig
-
-
-@contextlib.contextmanager
-def card_knn():
-    """While open, each kNN DGCNN runs on the card records its indices, and
-    each one it runs on the CPU takes the oldest recorded ones in place of
-    its own: the deeper stages' features differ by rounding between the two
-    sides, and a neighbour near the k-th may differ.  Yields ``diffs``, a
-    list that gets, for each kNN the CPU ran, how many of its own index sets
-    differ from the card's."""
-    from pointcloudattack_tpu_torch.models import dgcnn as dgcnn_mod
-
-    orig, picks, diffs = dgcnn_mod.knn, [], []
-
-    def knn(x, k):
-        idx = orig(x, k)
-        if x.is_cuda:
-            picks.append(idx.cpu())
-            return idx
-        card = picks.pop(0)
-        diffs.append(int((idx.sort(-1).values != card.sort(-1).values).any(-1).sum()))
-        return card
-
-    dgcnn_mod.knn = knn
-    try:
-        yield diffs
-    finally:
-        dgcnn_mod.knn = orig
-    if picks:
-        raise AssertionError(f"{len(picks)} of the card's kNN calls found no CPU counterpart")
 
 
 def edgeconv_fused_vs_unfused(model, inputs):
@@ -1502,8 +1739,9 @@ def phase_parity_dgcnn(model_fn, state, data, target):
     cpu_fn = make_model_fn(models.make_model("DGCNN", NUM_CLASSES), state, "cpu")
     ori = data[:b]
     adv = ori + 0.01 * torch.randn(ori.shape, generator=torch.Generator(device="cuda").manual_seed(3), device="cuda")
-    with card_knn() as diffs:
+    with replay(knn_hooks()) as stats:
         res = grad_parity(model_fn, cpu_fn, adv, ori, target[:b])
+    diffs = [int(n.sum()) for n in stats["knn"]["other"]]
     log(f"[parity-dgcnn] the CPU took the card's kNN indices at its {len(diffs)} EdgeConv stages; its own "
         f"would differ in {diffs} of the {b * N} index sets of each")
     if len(diffs) != 4:
@@ -1657,19 +1895,20 @@ def phase_kernels_geoa3(data):
     return rec
 
 
-def run_geoa3(tag, model_fn, data, target):
-    """GeoA3 (bench.py's geoa3 settings, GEO_ROUNDS x GEO_ITER), counted and
-    timed: per iteration one model forward and backward, the curvature
-    forward and backward and the bundle's forward and backward; per round
-    one more forward; once the normals' kNN, the clean cloud's curvature and
-    the final forward."""
+def run_geoa3(tag, model_fn, data, target, per_fwd, per_bwd, rounds=GEO_ROUNDS, iters=GEO_ITER):
+    """GeoA3 (bench.py's geoa3 settings, ``rounds`` x ``iters``), counted
+    and timed: per iteration one model forward and backward (launching
+    ``per_fwd`` and ``per_bwd``), the curvature forward and backward and the
+    bundle's forward and backward; per round one more forward; once the
+    normals' kNN, the clean cloud's curvature and the final forward."""
     import torch
 
     from pointcloudattack_tpu_torch.attacks.geoa3 import GeoA3Config, build_geoa3_attack
 
-    steps = GEO_ROUNDS * GEO_ITER
-    expect = {"chain_fwd": 2 * (steps + GEO_ROUNDS + 1), "chain_bwd": 2 * steps, "knn": 1, "kappa_fwd": 1 + steps,
-              "kappa_bwd": steps, "both_fwd": steps, "both_bwd": steps}
+    steps = rounds * iters
+    expect = {k: per_fwd.get(k, 0) * (steps + rounds + 1) + per_bwd.get(k, 0) * steps for k in {*per_fwd, *per_bwd}}
+    expect.update(knn=expect.get("knn", 0) + 1, kappa_fwd=1 + steps, kappa_bwd=steps, both_fwd=steps,
+                  both_bwd=steps)
 
     def check(res):
         adv, best_loss, succ = res
@@ -1679,39 +1918,8 @@ def run_geoa3(tag, model_fn, data, target):
         log(f"[{tag}] ASR {asr:.3f} ({int(succ.sum())}/{len(succ)}); max per-point move {moved:.4f}; "
             f"best constraint of the successes {[round(float(v), 8) for v in best_loss[succ]]}")
 
-    attack = build_geoa3_attack(model_fn, GeoA3Config(binary_max_steps=GEO_ROUNDS, iter_max_steps=GEO_ITER))
-    return counted_and_timed(tag, f"GeoA3 {GEO_ROUNDS}x{GEO_ITER}", attack, data, target, expect, check)
-
-
-@contextlib.contextmanager
-def card_normals():
-    """While open, each normal estimate GeoA3 runs on the card is recorded,
-    and each one it runs on the CPU takes the oldest recorded one in place of
-    its own: a normal of a nearly collinear 3-point neighbourhood is
-    ill-conditioned, and the card's and the CPU's eigensolvers (their acos
-    and cos) may give it differently.  Yields ``diffs``, a list that gets,
-    for each CPU estimate, the largest difference of its own normals from
-    the card's."""
-    from pointcloudattack_tpu_torch.attacks import geoa3 as geo_mod
-
-    orig, taken, diffs = geo_mod.estimate_normal, [], []
-
-    def estimate(pc, k=3):
-        nrm = orig(pc, k)
-        if pc.is_cuda:
-            taken.append(nrm.cpu())
-            return nrm
-        card = taken.pop(0)
-        diffs.append(float((nrm - card).abs().max()))
-        return card
-
-    geo_mod.estimate_normal = estimate
-    try:
-        yield diffs
-    finally:
-        geo_mod.estimate_normal = orig
-    if taken:
-        raise AssertionError(f"{len(taken)} of the card's normal estimates found no CPU counterpart")
+    attack = build_geoa3_attack(model_fn, GeoA3Config(binary_max_steps=rounds, iter_max_steps=iters))
+    return counted_and_timed(tag, f"GeoA3 {rounds}x{iters}", attack, data, target, expect, check)
 
 
 def geoa3_loss(normals, k_oris):
@@ -1733,7 +1941,7 @@ def geoa3_loss(normals, k_oris):
 def phase_parity_geoa3(model_fn, state, data, target):
     """GeoA3 (B=4, 2 rounds x 10 iterations) on the card and on the CPU from
     the same weights and start offsets, the CPU taking the card's normals
-    (``card_normals``).  Held: ``success`` identical; the step whose
+    (``normal_hooks``).  Held: ``success`` identical; the step whose
     iterate each side keeps, and where it is the same, ``best_loss`` within
     rtol 1e-4 and ``best_attack`` within 1e-5 at every point whose iterates
     never parted (by more than PART_ATOL); the run's first parting explained
@@ -1758,7 +1966,7 @@ def phase_parity_geoa3(model_fn, state, data, target):
     cpu_fn = make_model_fn(models.make_model("PointNet", NUM_CLASSES), state, "cpu")
     its, grads = {"card": [], "cpu": []}, {"card": [], "cpu": []}
     recording = lambda fn, side: recording_fn(fn, its[side], grads[side])  # noqa: E731
-    with card_normals() as diffs:
+    with replay(normal_hooks()) as normals:
         adv_g, loss_g, succ_g = build_geoa3_attack(recording(model_fn, "card"), cfg)(
             data[:b], target[:b], init_offsets=offsets.cuda())
         adv_c, loss_c, succ_c = build_geoa3_attack(recording(cpu_fn, "cpu"), cfg)(
@@ -1778,7 +1986,7 @@ def phase_parity_geoa3(model_fn, state, data, target):
     held_share = 1.0 - float(parted.float().mean())
     diff = (adv_g.cpu() - adv_c).abs()
     log(f"[parity-geoa3] card vs CPU, PointNet B={b}, {rounds}x{iters}: the CPU's own normals would differ from the "
-        f"card's by {diffs}; success card {succ_g.tolist()} cpu {succ_c.tolist()}; best_loss card "
+        f"card's by at most {normals['normals']['off']:.3e} over its {normals['normals']['calls']} estimates; success card {succ_g.tolist()} cpu {succ_c.tolist()}; best_loss card "
         f"{loss_g.cpu().tolist()} cpu {loss_c.tolist()}; kept step card {kept[0].tolist()} cpu {kept[1].tolist()} "
         f"({int((~same).sum())} clouds differ); {int(parted.sum())} of {parted.numel()} points parted (> {PART_ATOL}), "
         f"{held_share:.3f} never did (at least {GEO_HELD_SHARE}); the others max |diff| "
@@ -1799,6 +2007,292 @@ def phase_parity_geoa3(model_fn, state, data, target):
     loss = geoa3_loss(nrm, k_oris)
     hold_grad_parity("parity-geoa3", [grad_parity(model_fn, cpu_fn, a.cuda(), data[:b], target[:b], loss)
                                       for a in its["card"]])
+
+
+def group_case(seed, b, g, k, dims, device="cuda"):
+    """Seeded grouped rows ``x [b, g, k, dims[0]]``, layers and cotangent."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(b, g, k, dims[0]).astype(np.float32)).to(device)
+    layers = seeded_layers(rng, dims, device)
+    dy = torch.from_numpy(rng.randn(b, g, dims[-1]).astype(np.float32)).to(device)
+    return x, layers, dy
+
+
+def check_group(name, pool, x, layers, dy, slope=CN_SLOPE):
+    """The group chain kernel (``pool`` "max" or "mean") against its plain
+    version on one case, both on the card: y within Y_TOL; for the max the
+    argmax equal except at near ties and every card pick at most PICK_ATOL
+    below the plain max; dx within DX_TOL on the rows that carry a
+    cotangent (the max's winning rows, every row for the mean), except rows
+    with an activated pre-activation within EDGE of 0, which may take the
+    other slope on either side (counted).  Returns (errors, am_ref or None,
+    g, rows that carry a cotangent)."""
+    import torch
+
+    from pointcloudattack_tpu_torch.ops import group_chain as gch
+
+    b, ng, k, _ = x.shape
+    mul = layers[-1][3]
+    z, zs = gch._chain(x, layers, slope)
+    if pool == "max":
+        y, am = gch.chain_groupmax_fwd(x, layers, slope)
+        y_ref, am_ref = gch.chain_groupmax_plain(x, layers, slope)
+        near = top2_margin(z, 2) <= Y_TOL["atol"]
+        if int(((am != am_ref) & ~near).sum()):
+            raise AssertionError(f"{name}: argmax differs in {int(((am != am_ref) & ~near).sum())} columns "
+                                 "with a clear winner")
+        below = float((y_ref - z.gather(2, am.long().unsqueeze(2)).squeeze(2)).max())
+        if below > PICK_ATOL:
+            raise AssertionError(f"{name}: a card pick lies {below:.3e} below the plain max")
+        g = (dy * mul).contiguous()
+        dx = gch.chain_groupmax_bwd(x, layers, am_ref, g, slope)
+        dx_ref = gch.chain_groupmax_bwd_plain(x, layers, am_ref, g, slope)
+        carry = winners(am_ref, k)  # [B, G, K]
+        extra = (f"argmax equal except {int((am != am_ref).sum())} of {int(near.sum())} near-tie columns, "
+                 f"card picks at most {below:.3e} below the plain max; ")
+    else:
+        y, y_ref, am_ref = gch.chain_groupmean_fwd(x, layers, slope), gch.chain_groupmean_plain(x, layers, slope), None
+        g = (dy * mul / k).contiguous()
+        dx = gch.chain_groupmean_bwd(x, layers, g, slope)
+        dx_ref = gch.chain_groupmean_bwd_plain(x, layers, g, slope)
+        carry = torch.ones(x.shape[:3], dtype=torch.bool, device=x.device)
+        extra = ""
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y_ref, **Y_TOL)
+    edge = torch.zeros_like(carry)
+    for zl in zs + ([z] if pool == "mean" else []):  # the activated pre-activations
+        edge |= (zl.abs() <= EDGE).any(-1)
+    edge &= carry
+    torch.testing.assert_close(dx[~edge], dx_ref[~edge], **DX_TOL)
+    errs = {"y": float((y - y_ref).abs().max()), "dx": float((dx - dx_ref)[~edge].abs().max())}
+    log(f"[kernels-curvenet] {pool} {name} x {tuple(x.shape)} chain {[x.shape[-1]] + [l[0].shape[1] for l in layers]} "
+        f"slope {slope}: y max|err| {errs['y']:.3e}; {extra}{int(carry.sum())} of {carry.numel()} rows carry a "
+        f"cotangent, {int(edge.sum())} of them an activated unit within {EDGE} of 0 (left out); dx max|err| "
+        f"{errs['dx']:.3e} (all rows {float((dx - dx_ref).abs().max()):.3e})")
+    return errs, am_ref, g, int(carry.sum())
+
+
+def group_bound(b, g, k, dims, pool, carry=None):
+    """(bound_ms, bound_by) of a group chain forward or, with ``carry``
+    rows carrying a cotangent, of its backward, counted as ``chain_bound``
+    counts them: the forward's chain over every row; the max's backward
+    over the winning rows (``chain_bwd_flops``), the mean's over every row,
+    recomputed and run back; the pooled output (and the argmax) written or
+    read once, dx written once, and the rows read once where a pass needs
+    them: the max's one-layer backward (dx = g on the argmax rows times
+    W^T) needs none."""
+    rows = b * g * k
+    out = 4.0 * b * g * dims[-1] * (2 if pool == "max" else 1)
+    x_bytes = 4.0 * rows * dims[0]
+    if carry is None:
+        return bound(chain_flops(rows, dims), x_bytes + out + param_bytes(dims))
+    flops = chain_bwd_flops(carry, b * g, dims) if pool == "max" else 2 * chain_flops(rows, dims)
+    reads_x = pool == "mean" or len(dims) > 2
+    return bound(flops, (2 if reads_x else 1) * x_bytes + out + 2 * param_bytes(dims))
+
+
+def time_group(name, pool, x, layers, am, g, carry, slope=CN_SLOPE):
+    """Group kernel and plain times at one case, and the bounds."""
+    from pointcloudattack_tpu_torch.ops import group_chain as gch
+
+    wts = [layer[0].t().contiguous() for layer in layers]
+    if pool == "max":
+        fns = {"fwd_plain": lambda: gch.chain_groupmax_plain(x, layers, slope),
+               "fwd": lambda: gch.chain_groupmax_fwd(x, layers, slope),
+               "bwd_plain": lambda: gch.chain_groupmax_bwd_plain(x, layers, am, g, slope),
+               "bwd": lambda: gch.chain_groupmax_bwd(x, layers, am, g, slope, wts)}
+    else:
+        fns = {"fwd_plain": lambda: gch.chain_groupmean_plain(x, layers, slope),
+               "fwd": lambda: gch.chain_groupmean_fwd(x, layers, slope),
+               "bwd_plain": lambda: gch.chain_groupmean_bwd_plain(x, layers, g, slope),
+               "bwd": lambda: gch.chain_groupmean_bwd(x, layers, g, slope, wts)}
+    ms = time_pairs(fns)
+    b, ng, k, _ = x.shape
+    dims = [x.shape[-1]] + [layer[0].shape[1] for layer in layers]
+    b_fwd, b_bwd = group_bound(b, ng, k, dims, pool), group_bound(b, ng, k, dims, pool, carry)
+    log(f"[kernels-curvenet] {pool} {name} chain {dims}: forward {ms['fwd']:.4f} ms (plain {ms['fwd_plain']:.4f}, "
+        f"bound {b_fwd[0]:.5f} by {b_fwd[1]} over {b * ng * k} rows), backward {ms['bwd']:.4f} ms (plain "
+        f"{ms['bwd_plain']:.4f}, bound {b_bwd[0]:.5f} by {b_bwd[1]} over the {carry} rows with a cotangent)")
+    return ms, b_fwd, b_bwd
+
+
+def phase_kernels_curvenet():
+    """The group chain kernels at the nine LPFA shapes of one CurveNet
+    forward (B=8, K=20), then at a ragged G=1000, at K=7 and with a 2-layer
+    chain; the record's numbers sum the nine LPFAs of one forward (and
+    backward)."""
+    import torch
+
+    rec = new_record("group_max_fwd", "group_max_bwd", "group_mean_fwd", "group_mean_bwd")
+    for i, (name, (ng, c0, widths, pool)) in enumerate(CURVENET_GROUP_SHAPES.items()):
+        x, layers, dy = group_case(60 + i, CN_B, ng, CN_K, (c0, *widths))
+        errs, am, g, carry = check_group(name, pool, x, layers, dy)
+        ms, b_fwd, b_bwd = time_group(name, pool, x, layers, am, g, carry)
+        for key, e, m, p, bb, rows in ((f"group_{pool}_fwd", errs["y"], ms["fwd"], ms["fwd_plain"], b_fwd,
+                                        x.shape[0] * ng * CN_K),
+                                       (f"group_{pool}_bwd", errs["dx"], ms["bwd"], ms["bwd_plain"], b_bwd, carry)):
+            rec[key]["err"] = max(rec[key]["err"], e)
+            accumulate(rec[key], m, p, bb, rows)
+    for j, (name, b, ng, k, dims) in enumerate((("ragged G=1000", CN_B, 1000, CN_K, (9, 32)),
+                                                 ("ragged G=1000", CN_B, 1000, CN_K, (16, 16)),
+                                                 ("K=7", 4, 333, 7, (16, 24)),
+                                                 ("2 layers", 4, 256, CN_K, (9, 32, 32)),
+                                                 ("2 layers", 4, 256, CN_K, (32, 64, 32)))):
+        for pool in ("max", "mean"):
+            errs, *_ = check_group(name, pool, *group_case(80 + 2 * j + (pool == "mean"), b, ng, k, dims))
+            rec[f"group_{pool}_fwd"]["err"] = max(rec[f"group_{pool}_fwd"]["err"], errs["y"])
+            rec[f"group_{pool}_bwd"]["err"] = max(rec[f"group_{pool}_bwd"]["err"], errs["dx"])
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lpfa_inputs(model, model_fn, data):
+    """The (LPFA, x, xyz, idx) of the nine LPFAs of one forward of ``model``
+    (the victim behind ``model_fn``), each LPFA's neighbour indices
+    computed as it computes them."""
+    import torch
+
+    from pointcloudattack_tpu_torch.models.curvenet import LPFA
+    from pointcloudattack_tpu_torch.ops.knn import knn
+
+    seen, hooks = [], []
+    for m in model.modules():
+        if isinstance(m, LPFA):
+            hooks.append(m.register_forward_pre_hook(lambda mod, args: seen.append((mod, *args))))
+    try:
+        with torch.no_grad():
+            model_fn(data)
+    finally:
+        for h in hooks:
+            h.remove()
+    out = []
+    for lpfa, x, xyz, *rest in seen:
+        idx = rest[0] if rest and rest[0] is not None else knn(xyz, lpfa.k + 1)[:, :, : lpfa.k]
+        out.append((lpfa, x, xyz, idx))
+    return out
+
+
+def lpfa_fused_vs_unfused(inputs):
+    """Each LPFA stage both ways at the path's shapes: the neighbour rows,
+    then the fused group kernel (and LeakyReLU after the initial block's
+    max), against the unfused plain layer (the same rows, matmul, BN,
+    LeakyReLU, pool), forward and forward + input backward."""
+    import torch
+
+    for i, (lpfa, x, xyz, idx) in enumerate(inputs):
+        fused = lambda a, p: lpfa(a, p, idx)  # noqa: E731
+        unfused = lambda a, p: lpfa.unfused(lpfa.rows(a, p, idx))  # noqa: E731
+        torch.testing.assert_close(fused(x, xyz), unfused(x, xyz), **Y_TOL)
+        leaves = [t.clone().requires_grad_(True) if t is not None else None for t in (x, xyz)]
+        wrt = [t for t in leaves if t is not None]
+        ms = time_pairs({
+            "unfused": lambda: unfused(x, xyz), "fused": lambda: fused(x, xyz),
+            "fused_fb": lambda: torch.autograd.grad(fused(*leaves).sum(), wrt),
+            "unfused_fb": lambda: torch.autograd.grad(unfused(*leaves).sum(), wrt),
+        }, reps=10)
+        kind = "initial (max)" if lpfa.initial else "residual (mean)"
+        log(f"[kernels-curvenet] LPFA {i} {kind} xyz {tuple(xyz.shape)} k={lpfa.k} -> "
+            f"{lpfa.mlp[-1][1].num_features}: fused forward {ms['fused']:.4f} ms, unfused plain "
+            f"{ms['unfused']:.4f} ms; forward + input backward fused {ms['fused_fb']:.4f} ms, unfused "
+            f"{ms['unfused_fb']:.4f} ms")
+    torch.cuda.empty_cache()
+
+
+def phase_parity_curvenet(model_fn, state, data, target):
+    """C&W (B=2, 1 x 10) on CurveNet on the card and on the CPU from the
+    same weights and noise, the CPU taking the card's discrete choices and
+    activation signs (``curvenet_hooks``: the walk's starts and picks, the
+    group-max, masked max-pool and head picks, and which side of 0 each
+    activation's input lies on) in the attack and at each of the card's
+    iterates.  Held: ``success`` identical; at each of the card's iterates
+    the logits within LOGP_ATOL and the loss gradient under PointNet++'s
+    rule (``hold_grad_parity``).  Logged beside it: per (iterate, cloud),
+    how many activation inputs lie on the other side of 0 on the CPU than
+    on the card, and the gradient's difference with every choice but those
+    signs replayed.  The attacks' iterates are logged, not held: a relative
+    gradient difference d moves Adam's steps about lr * d apart."""
+    import numpy as np
+    import torch
+
+    from pointcloudattack_tpu_torch import models
+    from pointcloudattack_tpu_torch.attacks.cw import CWPerturbConfig, build_cw_attack
+    from pointcloudattack_tpu_torch.utils.apply import make_model_fn
+
+    b = 2
+    cfg = CWPerturbConfig(binary_step=1, num_iter=10, kappa=KAPPA, budget=BUDGET)
+    noise = torch.from_numpy(np.random.RandomState(5).randn(1, b, N, 3).astype(np.float32))
+    cpu_fn = make_model_fn(models.make_model("CurveNet", NUM_CLASSES), state, "cpu")
+    its, grads = {"card": [], "cpu": []}, {"card": [], "cpu": []}
+    recording = lambda fn, side: recording_fn(fn, its[side], grads[side])  # noqa: E731
+    with replay(curvenet_hooks()) as stats:
+        res_gpu = build_cw_attack(recording(model_fn, "card"), cfg)(data[:b], target[:b], init_noise=noise.cuda())
+        res_cpu = build_cw_attack(recording(cpu_fn, "cpu"), cfg)(data[:b].cpu(), target[:b].cpu(), init_noise=noise)
+    if not all(len(v) == cfg.num_iter for v in (*its.values(), *grads.values())):
+        raise AssertionError(f"parity-curvenet: recorded {[len(v) for v in its.values()]} iterates and "
+                             f"{[len(v) for v in grads.values()]} gradients, expected {cfg.num_iter} each")
+    apart = (torch.stack(its["card"]) - torch.stack(its["cpu"])).abs().flatten(2).amax(-1)  # [S, b]
+    log(f"[parity-curvenet] card vs CPU, CurveNet B={b} 1x10: success card {res_gpu.success.tolist()} cpu "
+        f"{res_cpu.success.tolist()}; best_dist card {res_gpu.best_dist.tolist()} cpu {res_cpu.best_dist.tolist()}; "
+        f"iterates max |diff| per step and cloud {[[float(f'{v:.3g}') for v in row] for row in apart]}; in the "
+        f"attacks the CPU took the card's choices: {choice_line(stats)}")
+    if not torch.equal(res_gpu.success.cpu(), res_cpu.success):
+        raise AssertionError("parity-curvenet: success differs between the card and the CPU")
+    if not bool(res_cpu.success.any()):
+        raise AssertionError("parity-curvenet: the short attack flipped no cloud")
+    at, steps, unsigned = [], [], []
+    for a in its["card"]:
+        steps.append(grad_parity(model_fn, cpu_fn, a.cuda(), data[:b], target[:b], choices=at))
+        unsigned.append(grad_parity(model_fn, cpu_fn, a.cuda(), data[:b], target[:b], signs=False)["grad"])
+    log(f"[parity-curvenet] at the card's first iterate the CPU took the card's choices: {choice_line(at[0])}")
+    flips = torch.stack([sum(n for k in ("sign", "mean") for n in st[k]["other"]) for st in at])  # [S, b]
+    unsigned = torch.stack(unsigned)
+    near = sum(st[k]["near"] for st in at for k in st)
+    log(f"[parity-curvenet] over the {len(at)} iterates, {near} of "
+        f"{sum(st[k]['choices'] for st in at for k in st)} choices and activation inputs lay within {TIE_GAP} of a "
+        f"tie or of 0 on the CPU ({sum(st[k]['exact'] for st in at for k in st)} exact); activation inputs on the "
+        f"other side of 0 than on the card, per iterate and cloud, {flips.tolist()} (each at most "
+        f"{max(st[k]['off'] for st in at for k in ('sign', 'mean')):.3e} from 0); with every choice but these signs "
+        f"replayed, the loss gradient's relative L2 difference {[[float(f'{v:.3g}') for v in row] for row in unsigned]}"
+        f", {float((unsigned <= GRAD_CLEAN).float().mean()):.3f} of the pairs within {GRAD_CLEAN} (of those with no "
+        f"input on the other side, {float((unsigned[flips == 0] <= GRAD_CLEAN).float().mean()):.3f})")
+    hold_grad_parity("parity-curvenet", steps)
+
+
+def curvenet_path(name="CurveNet"):
+    """The CurveNet victim on bench.py's cw_curvenet clouds, its LPFA stages
+    both ways, its counted C&W and GeoA3 attacks, card against CPU and the
+    profile; returns the launch counts of C&W and of GeoA3."""
+    import torch
+
+    from pointcloudattack_tpu_torch import models
+    from pointcloudattack_tpu_torch.utils.apply import make_model_fn
+
+    data, labels = synthetic_data(8, 1, CN_DATA, "cuda")
+    fn, state = make_victim(name, "cuda", data, ("dp1",))
+    target = victim_labels(fn, data, labels, "slice-curvenet")
+    model = models.make_model(name, NUM_CLASSES)
+    model_fn = make_model_fn(model, state, "cuda")  # the victim again, its LPFAs to be timed alone
+    with phase_clock("kernels-curvenet (LPFA stages)"):
+        lpfa_fused_vs_unfused(lpfa_inputs(model, model_fn, data))
+    per_fwd, per_bwd = CN_LAUNCHES
+    with phase_clock("slice-curvenet"):
+        cw = run_attack("slice-curvenet", fn, data, target, CN_ITER, per_fwd, per_bwd)
+    with phase_clock("parity-curvenet"):
+        phase_parity_curvenet(fn, state, data, target)
+    with phase_clock("profile-curvenet"):
+        phase_profile("profile-curvenet", fn, data, target)
+    # GeoA3 on CurveNet (BASELINE config 4): bench.py's geoa3 clouds, CE on the log-softmax of the logits
+    geo_data, geo_labels = synthetic_data(8, 1, GEO_DATA, "cuda")
+    geo_fn, _ = make_victim(name, "cuda", geo_data, ("dp1",))
+    logp_fn = lambda x: torch.log_softmax(geo_fn(x), dim=-1)  # noqa: E731
+    geo_target = victim_labels(logp_fn, geo_data, geo_labels, "slice-geoa3-curvenet")
+    with phase_clock("slice-geoa3-curvenet"):
+        geo = run_geoa3("slice-geoa3-curvenet", logp_fn, geo_data, geo_target, per_fwd, per_bwd,
+                        CN_GEO_ROUNDS, CN_GEO_ITER)
+    return cw, geo
 
 
 def pn2_path(name):
@@ -1881,7 +2375,7 @@ def main():
     geo_fn, geo_state = make_victim("PointNet", "cuda", geo_data, ("dropout",))
     geo_target = victim_labels(geo_fn, geo_data, geo_labels, "slice-geoa3")
     with phase_clock("slice-geoa3"):
-        geo_launches = run_geoa3("slice-geoa3", geo_fn, geo_data, geo_target)
+        geo_launches = run_geoa3("slice-geoa3", geo_fn, geo_data, geo_target, {"chain_fwd": 2}, {"chain_bwd": 2})
     with phase_clock("parity-geoa3"):
         phase_parity_geoa3(geo_fn, geo_state, geo_data, geo_target)
     with phase_clock("profile-geoa3"):
@@ -1889,13 +2383,17 @@ def main():
 
         phase_profile("profile-geoa3", geo_fn, geo_data, geo_target,
                       build_geoa3_attack(geo_fn, GeoA3Config(binary_max_steps=1, iter_max_steps=10)), "GeoA3 1x10")
+    # CurveNet (bench.py's cw_curvenet; GeoA3 on it, BASELINE config 4): its kernels, then its paths
+    with phase_clock("kernels-curvenet"):
+        cnk = phase_kernels_curvenet()
+    cn_cw, cn_geo = curvenet_path()
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "pointcloudattack_tpu"))
     if loaded:
         raise AssertionError(f"the JAX side was imported: {loaded}")
 
     by_path = {"pointnet": {"chain_fwd": launches["fwd"], "chain_bwd": launches["bwd"]},
                "ssg": ssg[4], "msg": msg[4], "dgcnn": dg_launches, "knn": knn1, "knn_r5": knn5,
-               "knn_ssg": knn_ssg, "geoa3": geo_launches}
+               "knn_ssg": knn_ssg, "geoa3": geo_launches, "curvenet": cn_cw, "geoa3_curvenet": cn_geo}
 
     def entry(name, key, source, replaces, launches_, err, ms, plain_ms, bnd, at, rows=None, **extra):
         """``rows``: the chain rows the bound charges (every row forward, the
@@ -1908,6 +2406,8 @@ def main():
     ssg_at = "sum over the shapes of one PointNet++ SSG forward (B=16, N=1024)"
     dg_at = "sum over the four EdgeConv stages of one DGCNN forward (B=16, N=1024, k=20)"
     geo_at = f"one GeoA3 iteration's call on PointNet (B=8, N=1024, k={GEO_K})"
+    cn_at = {"max": f"the initial LPFA of one CurveNet forward (B={CN_B}, N=1024, K={CN_K}, 9 -> 32)",
+             "mean": f"sum over the eight residual LPFAs of one CurveNet forward (B={CN_B}, K={CN_K})"}
 
     def at_dgcnn(key):
         r = dg[key]
@@ -1939,6 +2439,12 @@ def main():
                                       ("kappa_knn_mean_bwd", "kappa_bwd", KAPPA_SRC, TPU_KAPPA_BWD),
                                       ("min_sqdist_both_fwd", "both_fwd", BOTH_SRC, TPU_BOTH_FWD),
                                       ("min_sqdist_both_bwd", "both_bwd", BOTH_SRC, TPU_BOTH_BWD))),
+        *(entry(name, key, GROUP_SRC, tpu, cn_cw[key], cnk[key]["err"], cnk[key]["ms"], cnk[key]["plain_ms"],
+                summed_bound(cnk[key]), cn_at[pool], cnk[key]["rows"])
+          for name, key, tpu, pool in (("chain_groupmax_fwd", "group_max_fwd", TPU_GROUP_FWD, "max"),
+                                       ("chain_groupmax_bwd", "group_max_bwd", TPU_GROUP_BWD, "max"),
+                                       ("chain_groupmean_fwd", "group_mean_fwd", TPU_GROUP_MEAN_FWD, "mean"),
+                                       ("chain_groupmean_bwd", "group_mean_bwd", TPU_GROUP_BWD, "mean"))),
     ]}
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(smi)

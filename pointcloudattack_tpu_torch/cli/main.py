@@ -13,9 +13,11 @@ Counterpart of ``pointcloudattack_tpu/cli/main.py::cmd_attack`` for the
     python -m pointcloudattack_tpu_torch.cli attack geoa3 --model PointNet \
         --num_classes 40 --binary_step 10 --num_iter 500 --num_samples 8
 
-``--model`` is ``PointNet``, ``PointNet++Ssg``, ``PointNet++Msg`` or
-``DGCNN``.  ``--num_iter 0`` / ``--binary_step 0`` mean the family's
-reference default (C&W and GeoA3 10 x 500, KNN 2500).  ``--device`` defaults to
+``--model`` is ``PointNet``, ``PointNet++Ssg``, ``PointNet++Msg``,
+``DGCNN`` or ``CurveNet`` (whose raw logits the attacks see as
+log-probs, as the JAX CLI normalises them).  ``--num_iter 0`` /
+``--binary_step 0`` mean the family's reference default (C&W and GeoA3
+10 x 500, KNN 2500).  ``--device`` defaults to
 ``cuda`` and never drops to the CPU; pass ``--device cpu`` to run the
 plain versions of the kernels.  Without ``--checkpoint`` the victim's
 weights are drawn from ``--seed``.
@@ -45,6 +47,17 @@ def _device(name: str) -> torch.device:
             "(pass --device cpu to run the plain CPU versions)"
         )
     return dev
+
+
+def _normalize_output(fn, model_name: str):
+    """Raw-logit models (CurveNet) -> log-probs, so that CE-based attack
+    losses stay right (margin losses are shift-invariant), as the JAX CLI's
+    ``_normalize_output`` does."""
+    from pointcloudattack_tpu_torch import models
+
+    if models.OUTPUT_KIND[model_name] != "logits":
+        return fn
+    return lambda x: torch.log_softmax(fn(x), dim=-1)
 
 
 def imperceptibility_metrics(adv: torch.Tensor, ori: torch.Tensor) -> dict:
@@ -138,7 +151,7 @@ def cmd_attack(args) -> float:
             f"no --checkpoint: {args.model} weights drawn from seed {args.seed}",
             file=sys.stderr,
         )
-    model_fn = make_model_fn(model, state, dev)
+    model_fn = _normalize_output(make_model_fn(model, state, dev), args.model)
 
     noise_gen = torch.Generator(device=dev).manual_seed(args.seed)
     t0 = time.time()
@@ -190,7 +203,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("attack")
     p.add_argument("family", choices=list(ATTACK_FAMILIES), help="attack family")
     p.add_argument("--dataset", default="synthetic", choices=["synthetic"])
-    p.add_argument("--model", default="PointNet", choices=["PointNet", "PointNet++Ssg", "PointNet++Msg", "DGCNN"])
+    p.add_argument("--model", default="PointNet",
+                   choices=["PointNet", "PointNet++Ssg", "PointNet++Msg", "DGCNN", "CurveNet"])
     p.add_argument("--num_points", type=int, default=1024)
     p.add_argument("--num_classes", type=int, default=0, help="0 = 10")
     p.add_argument("--checkpoint", default="", help="reference-layout .pth state dict")

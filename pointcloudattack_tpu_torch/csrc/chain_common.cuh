@@ -1,5 +1,6 @@
-// Shared device code of the per-point Dense -> eval-BatchNorm (-> ReLU)
-// chain kernels (chain_maxpool.cu, gather_chain.cu) for Hopper (sm_90a).
+// Shared device code of the per-point Dense -> eval-BatchNorm (-> ReLU or
+// LeakyReLU) chain kernels (chain_maxpool.cu, gather_chain.cu,
+// group_chain.cu) for Hopper (sm_90a).
 //
 // A block owns a tile of T = 8 * TM rows and runs the whole chain on it.
 // Activations stay in shared memory, stored transposed ([C][T]) so that a
@@ -11,7 +12,9 @@
 // 256-column passes.  Rows of a tile fall into segments of `seg` rows (the
 // whole tile for a max over points, one group's K neighbours for a max over
 // K); a segment starts at a multiple of TM, so each warp's rows lie in one
-// segment.
+// segment.  The activation between layers is max(z, slope * z): ReLU at
+// slope 0 (Chain's default), LeakyReLU otherwise, as the JAX package's
+// dense_max_kernel.py::_act.
 
 #pragma once
 
@@ -40,7 +43,21 @@ struct Chain {
   const float* mean[kMaxLayers];
   const float* mul[kMaxLayers];
   const float* beta[kMaxLayers];
+  float slope;  // the activation's negative slope, in [0, 1]; 0 = ReLU
 };
+
+// The activation, max(z, slope * z); at slope 0 exactly fmaxf(z, 0).
+__device__ __forceinline__ float act_fwd(float z, float slope) {
+  return slope == 0.f ? fmaxf(z, 0.f) : fmaxf(z, slope * z);
+}
+
+// The cotangent dh through the activation of the hidden value h (h > 0
+// exactly where its input z > 0, for slope >= 0), times the layer's mul:
+// (dh or slope * dh) * mu, as _act_bwd then the mul; at slope 0 exactly
+// the ReLU's h > 0 ? dh * mu : 0.
+__device__ __forceinline__ float act_bwd_mul(float h, float dh, float mu, float slope) {
+  return h > 0.f ? dh * mu : (slope == 0.f ? 0.f : (slope * dh) * mu);
+}
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
 
@@ -215,7 +232,7 @@ __device__ __forceinline__ void layer_pass(const float* aT, int K,
   else layer_pass_tn<TM, 2>(aT, K, Bg, ncols, wtile, epi);
 }
 
-// Dense + eval-BN (+ ReLU) into a shared [C][T] activation buffer.
+// Dense + eval-BN + activation into a shared [C][T] activation buffer.
 template <int TM>
 __device__ __forceinline__ void hidden_layer(const Chain& ch, int l,
                                              const float* in, float* out,
@@ -234,7 +251,7 @@ __device__ __forceinline__ void hidden_layer(const Chain& ch, int l,
       float h[TM];
 #pragma unroll
       for (int i = 0; i < TM; ++i)
-        h[i] = fmaxf((acc[i][j] + bb - mm) * mu + be, 0.f);
+        h[i] = act_fwd((acc[i][j] + bb - mm) * mu + be, ch.slope);
       store_rows<TM>(out + c * T + warp * TM, h);
     }
   });
@@ -327,19 +344,92 @@ struct HitRow {
   int key;
 };
 
-// The chain backward on a tile.  act[0] ([dims[0]][T]) holds the input
-// rows, and the tables that hits(r) points into are filled, both before the
-// call.  It recomputes act[1..L-1] (their signs are the ReLU masks), takes
-// the cotangent through the last layer, then runs the other layers backward
-// as small dense products through the masks and mul factors.  store(r, k, v)
-// receives the input cotangent of row r, column k, once for each pair.
+// The layers below the last, backward.  gin ([dims[L-1]][T]) holds the
+// cotangent at layer L-2's matmul output (mask and mul applied); for each
+// layer l = L-2 .. 0 it forms dh_l = c_l @ W_l^T, then layer l-1's mask and
+// mul, and store(r, k, v) receives the input cotangent of row r, column k,
+// once for each pair.  act[l] holds layer l's input (its signs are the
+// masks); gout is scratch of the widest hidden layer.  With L == 1 it does
+// nothing.
+template <int TM, class Store>
+__device__ __forceinline__ void chain_bwd_hidden(const Chain& ch, float* const* act, float* gin,
+                                                 float* gout, float* wtile, Store store) {
+  constexpr int T = 8 * TM;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int l = ch.L - 2; l >= 0; --l) {
+    const int C = ch.dims[l];
+    layer_pass<TM>(gin, ch.dims[l + 1], ch.wt[l], C, wtile, [&](int c0, auto& acc) {
+      constexpr int TN = sizeof(acc[0]) / sizeof(float);
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int c = c0 + chunk_col<TN>(lane, j);
+        if (c >= C) continue;
+        if (l > 0) {
+          const float mu = ch.mul[l - 1][c];
+          float hv[TM], v[TM];
+          load_rows<TM>(act[l] + c * T + warp * TM, hv);
+#pragma unroll
+          for (int i = 0; i < TM; ++i) v[i] = act_bwd_mul(hv[i], acc[i][j], mu, ch.slope);
+          store_rows<TM>(gout + c * T + warp * TM, v);
+        } else {
+#pragma unroll
+          for (int i = 0; i < TM; ++i) store(warp * TM + i, c, acc[i][j]);
+        }
+      }
+    });
+    float* t = gin; gin = gout; gout = t;
+  }
+}
+
+// The chain backward from a dense cotangent: gout ([C_L][T], C_L * T
+// floats) holds, before the call, the cotangent at the last layer's matmul
+// output of every tile row.  One layer pass multiplies it by W_L^T, then
+// the other layers run backward (chain_bwd_hidden), with act, gin, wtile
+// and store as there.
+template <int TM, class Store>
+__device__ __forceinline__ void chain_bwd_dense(const Chain& ch, float* const* act, float* gin,
+                                                float* gout, float* wtile, Store store) {
+  constexpr int T = 8 * TM;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int L = ch.L, CL = ch.dims[L], Cm = ch.dims[L - 1];
+  const float* wtL = ch.wt[L - 1];  // [CL][Cm]: column c of W_L is row c
+  layer_pass<TM>(gout, CL, wtL, Cm, wtile, [&](int c0, auto& acc) {
+    constexpr int TN = sizeof(acc[0]) / sizeof(float);
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int k = c0 + chunk_col<TN>(lane, j);
+      if (k >= Cm) continue;
+      if (L == 1) {
+#pragma unroll
+        for (int i = 0; i < TM; ++i) store(warp * TM + i, k, acc[i][j]);
+      } else {
+        // through layer L-2's mask and mul
+        const float mu = ch.mul[L - 2][k];
+        float hv[TM], v[TM];
+        load_rows<TM>(act[L - 1] + k * T + warp * TM, hv);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) v[i] = act_bwd_mul(hv[i], acc[i][j], mu, ch.slope);
+        store_rows<TM>(gin + k * T + warp * TM, v);
+      }
+    }
+  });
+  chain_bwd_hidden<TM>(ch, act, gin, gout, wtile, store);
+}
+
+// The chain backward on a tile whose last layer is max-pooled.  act[0]
+// ([dims[0]][T]) holds the input rows, and the tables that hits(r) points
+// into are filled, both before the call.  It recomputes act[1..L-1] (their
+// signs are the masks), takes the cotangent through the last layer, then
+// runs the other layers backward as small dense products through the masks
+// and mul factors.  store(r, k, v) receives the input cotangent of row r,
+// column k, once for each pair.
 //
 // Through the last layer, each output column has one winning row.  Sparse
 // (kDense false): one row per warp, a ballot over idx finds the columns the
 // row won, in ascending order, and adds g[c] * W_L[:, c]; cheap when the
 // winners spread over many rows.  Dense (kDense true): the one-hot
 // cotangent [C_L][T] goes into gout (which then holds C_L * T floats) and
-// one layer pass multiplies it by W_L^T; it costs as much as the forward's
+// chain_bwd_dense multiplies it by W_L^T; it costs as much as the forward's
 // last layer, however the winners fall (a row that wins every column, as a
 // group of one repeated point does, would leave one warp with all the
 // sparse work).
@@ -353,34 +443,15 @@ __device__ __forceinline__ void chain_bwd_tile(const Chain& ch, float* const* ac
   for (int l = 0; l < L - 1; ++l) hidden_layer<TM>(ch, l, act[l], act[l + 1], wtile);
   __syncthreads();
 
-  const int Cm = ch.dims[L - 1];
-  const float* wtL = ch.wt[L - 1];  // [CL][Cm]: column c of W_L is row c
   if constexpr (kDense) {
     for_tile<TM>(CL, [&](int r, int c) {
       const HitRow h = hits(r);
       gout[c * T + r] = (h.idx && h.idx[c] == h.key) ? h.g[c] : 0.f;
     });
-    layer_pass<TM>(gout, CL, wtL, Cm, wtile, [&](int c0, auto& acc) {
-      constexpr int TN = sizeof(acc[0]) / sizeof(float);
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int k = c0 + chunk_col<TN>(lane, j);
-        if (k >= Cm) continue;
-        if (L == 1) {
-#pragma unroll
-          for (int i = 0; i < TM; ++i) store(warp * TM + i, k, acc[i][j]);
-        } else {
-          // through layer L-2's ReLU mask and mul
-          const float mu = ch.mul[L - 2][k];
-          float hv[TM], v[TM];
-          load_rows<TM>(act[L - 1] + k * T + warp * TM, hv);
-#pragma unroll
-          for (int i = 0; i < TM; ++i) v[i] = (hv[i] > 0.f) ? acc[i][j] * mu : 0.f;
-          store_rows<TM>(gin + k * T + warp * TM, v);
-        }
-      }
-    });
+    chain_bwd_dense<TM>(ch, act, gin, gout, wtile, store);
   } else {
+    const int Cm = ch.dims[L - 1];
+    const float* wtL = ch.wt[L - 1];  // [CL][Cm]: column c of W_L is row c
     for (int r = warp; r < T; r += kWarps) {
       const HitRow h = hits(r);
       float rowacc[kMaxRowWidth / 32];
@@ -410,41 +481,17 @@ __device__ __forceinline__ void chain_bwd_tile(const Chain& ch, float* const* ac
           if (k < Cm) store(r, k, rowacc[q]);
         }
       } else {
-        // through layer L-2's ReLU mask and mul: cotangent at its matmul output
+        // through layer L-2's mask and mul: cotangent at its matmul output
         const float* hl = act[L - 1];
         const float* mu = ch.mul[L - 2];
 #pragma unroll
         for (int q = 0; q < kMaxRowWidth / 32; ++q) {
           const int k = q * 32 + lane;
-          if (k < Cm) gin[k * T + r] = (hl[k * T + r] > 0.f) ? rowacc[q] * mu[k] : 0.f;
+          if (k < Cm) gin[k * T + r] = act_bwd_mul(hl[k * T + r], rowacc[q], mu[k], ch.slope);
         }
       }
     }
-  }
-
-  // Dense layers backward: dh_l = c_l @ W_l^T, then mask and mul of layer l-1.
-  for (int l = L - 2; l >= 0; --l) {
-    const int C = ch.dims[l];
-    layer_pass<TM>(gin, ch.dims[l + 1], ch.wt[l], C, wtile, [&](int c0, auto& acc) {
-      constexpr int TN = sizeof(acc[0]) / sizeof(float);
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int c = c0 + chunk_col<TN>(lane, j);
-        if (c >= C) continue;
-        if (l > 0) {
-          const float mu = ch.mul[l - 1][c];
-          float hv[TM], v[TM];
-          load_rows<TM>(act[l] + c * T + warp * TM, hv);
-#pragma unroll
-          for (int i = 0; i < TM; ++i) v[i] = (hv[i] > 0.f) ? acc[i][j] * mu : 0.f;
-          store_rows<TM>(gout + c * T + warp * TM, v);
-        } else {
-#pragma unroll
-          for (int i = 0; i < TM; ++i) store(warp * TM + i, c, acc[i][j]);
-        }
-      }
-    });
-    float* t = gin; gin = gout; gout = t;
+    chain_bwd_hidden<TM>(ch, act, gin, gout, wtile, store);
   }
 }
 

@@ -4,8 +4,8 @@ The sources under ``pointcloudattack_tpu_torch/csrc/`` are compiled with
 ``nvcc`` into one shared library with a plain C interface, at first use,
 and loaded with ``ctypes``.  Each ``.cu`` source compiles in its own
 ``nvcc`` process, all started together, and one more links the objects
-(17.8 s on an H100 machine, where one ``nvcc`` call compiling them one
-after another took 29.3 s; ``chip_smoke.py`` times both).
+(35.2 s on an H100 machine, where one ``nvcc`` call compiling them one
+after another took 76.9 s; ``chip_smoke.py`` times both).
 The library lands in
 ``pointcloudattack_tpu_torch/_build/<hash>/libpca_kernels.so``, keyed on a
 hash of the sources and the compiler flags, so an edited source rebuilds
@@ -111,7 +111,7 @@ def _compile(out: Path) -> str:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    vp, ci = ctypes.c_void_p, ctypes.c_int
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.pca_chain_smem.argtypes = [ci, vp, ci, ci]
     lib.pca_chain_smem.restype = ctypes.c_size_t
     lib.pca_chain_max_smem.argtypes = []
@@ -152,6 +152,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     # device, x, y, rarg, carg, gr, gc, B, N, M, dx, dy, stream
     lib.pca_min_both_bwd.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp]
     lib.pca_min_both_bwd.restype = ci
+    # L, dims, K, tm, bwd
+    lib.pca_group_smem.argtypes = [ci, vp, ci, ci, ci]
+    lib.pca_group_smem.restype = ctypes.c_size_t
+    # device, x, B, G, K, L, dims, params, slope, mean, y, am, tm, stream
+    lib.pca_group_fwd.argtypes = [ci, vp, ci, ci, ci, ci, vp, vp, cf, ci, vp, vp, ci, vp]
+    lib.pca_group_fwd.restype = ci
+    # device, x, B, G, K, L, dims, params, wts, slope, mean, am, g, dx, tm, stream
+    lib.pca_group_bwd.argtypes = [ci, vp, ci, ci, ci, ci, vp, vp, vp, cf, ci, vp, vp, vp, ci, vp]
+    lib.pca_group_bwd.restype = ci
     # device, a, nrm, B, N, k, kap, picks, stream
     lib.pca_kappa_fwd.argtypes = [ci, vp, vp, ci, ci, ci, vp, vp, vp]
     lib.pca_kappa_fwd.restype = ci

@@ -45,6 +45,18 @@ def reset_launches() -> None:
 # ---------------------------------------------------------------------------
 
 
+def act(z: torch.Tensor, slope: float = 0.0) -> torch.Tensor:
+    """The chain's activation ``max(z, slope * z)``: ReLU at slope 0,
+    LeakyReLU(slope) otherwise, as the JAX package's ``_act``."""
+    return torch.relu(z) if slope == 0.0 else torch.maximum(z, slope * z)
+
+
+def act_bwd(dh: torch.Tensor, h: torch.Tensor, slope: float = 0.0) -> torch.Tensor:
+    """The cotangent ``dh`` through ``act``, given its input or output ``h``
+    (both are positive exactly where the input is), as ``_act_bwd``."""
+    return torch.where(h > 0, dh, 0.0 if slope == 0.0 else slope * dh)
+
+
 def chain_maxpool_plain(x: torch.Tensor, layers: Sequence[Layer]):
     """Plain forward: ``(y [B, C_L] f32, idx [B, C_L] int32)``.
 
@@ -55,7 +67,7 @@ def chain_maxpool_plain(x: torch.Tensor, layers: Sequence[Layer]):
     z = x.float()
     for i, (w, b, mean, mul, beta) in enumerate(layers):
         if i:
-            z = torch.relu(z)
+            z = act(z)
         z = (z @ w + b - mean) * mul + beta
     y = z.amax(dim=1)
     n = z.shape[1]
@@ -81,7 +93,7 @@ def chain_maxpool_bwd_plain(
     with torch.no_grad():
         h, hs = x.float(), []
         for w, b_, mean, mul, beta in layers[:-1]:
-            h = torch.relu((h @ w + b_ - mean) * mul + beta)
+            h = act((h @ w + b_ - mean) * mul + beta)
             hs.append(h)
         b, n, _ = x.shape
         w_last = layers[-1][0].float()
@@ -91,7 +103,7 @@ def chain_maxpool_bwd_plain(
             1, idx.long()[:, :, None].expand(b, cl, cm), contrib
         )
         for i in range(len(layers) - 2, -1, -1):
-            c = torch.where(hs[i] > 0, dh, 0.0) * layers[i][3]
+            c = act_bwd(dh, hs[i]) * layers[i][3]
             dh = c @ layers[i][0].float().t()
         return dh
 

@@ -162,11 +162,70 @@ def dgcnn_spec() -> _Spec:
     return s
 
 
+# CIC blocks of model/curvenet.py:21-39: (name, in_ch, out_ch, stage);
+# curve_config (model/curvenet.py:5-8) runs curves in stages 1-2 for
+# 'default' and only in stage 1 for 'long'.
+_CURVENET_CICS = [
+    ("cic11", 32, 64, 0),
+    ("cic12", 64, 64, 0),
+    ("cic21", 64, 128, 1),
+    ("cic22", 128, 128, 1),
+    ("cic31", 128, 256, 2),
+    ("cic32", 256, 256, 2),
+    ("cic41", 256, 512, 3),
+    ("cic42", 512, 512, 3),
+]
+_CURVENET_HAS_CURVE = {"default": (True, True, False, False),
+                       "long": (True, False, False, False)}
+
+
+def curvenet_spec(setting: str = "default") -> _Spec:
+    """model/curvenet.py CurveNet layout: 1x1 convs wrapped with their
+    BatchNorm in ``nn.Sequential`` (``<mod>.0`` / ``<mod>.1``), the Walk's
+    MLPs at ``cicXY.curvegrouping.walk.{agent,momentum}_mlp``."""
+    s = _Spec()
+    s.dense("lpfa.mlp.0.0", ("lpfa", "mlp0", "Dense_0"), kind="conv2d")
+    s.bn("lpfa.mlp.0.1", ("lpfa", "mlp0", "BatchNorm_0"))
+    has_curve = _CURVENET_HAS_CURVE[setting]
+    for name, cin, cout, stage in _CURVENET_CICS:
+        s.dense(f"{name}.conv1.0", (name, "conv1", "Dense_0"))
+        s.bn(f"{name}.conv1.1", (name, "conv1", "BatchNorm_0"))
+        if has_curve[stage]:
+            cg, walk = (name, "curvegrouping"), f"{name}.curvegrouping.walk"
+            s.dense(f"{name}.curvegrouping.att", cg + ("att",))
+            s.dense(f"{walk}.agent_mlp.0", cg + ("walk", "agent_mlp", "Dense_0"), kind="conv2d")
+            s.bn(f"{walk}.agent_mlp.1", cg + ("walk", "agent_mlp", "BatchNorm_0"))
+            s.dense(f"{walk}.momentum_mlp.0", cg + ("walk", "momentum_mlp", "Dense_0"))
+            s.bn(f"{walk}.momentum_mlp.1", cg + ("walk", "momentum_mlp", "BatchNorm_0"))
+            ca = (name, "curveaggregation")
+            for conv in ("conva", "convb", "convc", "convn", "convl"):
+                s.dense(f"{name}.curveaggregation.{conv}", ca + (conv,))
+            s.dense(f"{name}.curveaggregation.convd.0", ca + ("convd",))
+            s.bn(f"{name}.curveaggregation.convd.1", ca + ("convd_bn",))
+            s.dense(f"{name}.curveaggregation.line_conv_att", ca + ("line_conv_att",), kind="conv2d")
+        s.dense(f"{name}.lpfa.xyz2feature.0", (name, "lpfa", "xyz2feature"), kind="conv2d")
+        s.bn(f"{name}.lpfa.xyz2feature.1", (name, "lpfa", "xyz2feature_bn"))
+        s.dense(f"{name}.lpfa.mlp.0.0", (name, "lpfa", "mlp0", "Dense_0"), kind="conv2d")
+        s.bn(f"{name}.lpfa.mlp.0.1", (name, "lpfa", "mlp0", "BatchNorm_0"))
+        s.dense(f"{name}.conv2.0", (name, "conv2", "Dense_0"))
+        s.bn(f"{name}.conv2.1", (name, "conv2", "BatchNorm_0"))
+        if cin != cout:
+            s.dense(f"{name}.shortcut.0", (name, "shortcut", "Dense_0"))
+            s.bn(f"{name}.shortcut.1", (name, "shortcut", "BatchNorm_0"))
+    s.dense("conv0.0", ("conv0",))
+    s.bn("conv0.1", ("bn0",))
+    s.dense("conv1", ("conv1",), kind="lin")
+    s.bn("bn1", ("bn1",))
+    s.dense("conv2", ("conv2",), kind="lin")
+    return s
+
+
 SPECS = {
     "PointNet": pointnet_spec,
     "PointNet++Ssg": pointnet2_ssg_spec,
     "PointNet++Msg": pointnet2_msg_spec,
     "DGCNN": dgcnn_spec,
+    "CurveNet": curvenet_spec,
 }
 
 
@@ -174,7 +233,7 @@ def state_dict_from_flax(model_name: str, variables: Mapping, **kw) -> dict[str,
     """The JAX model's variables (numpy arrays) -> the port's state dict.
 
     ``model_name`` is a key of ``SPECS``; ``kw`` goes to its spec
-    (``feature_transform`` for PointNet).
+    (``feature_transform`` for PointNet, ``setting`` for CurveNet).
     """
     if model_name not in SPECS:
         raise KeyError(f"no weight spec for {model_name!r}; choose from {sorted(SPECS)}")

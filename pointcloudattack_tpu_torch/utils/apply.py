@@ -13,7 +13,9 @@ def make_model_fn(
     state: Mapping[str, torch.Tensor] | None,
     device: torch.device | str,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
-    """Eval-mode forward closure: ``x [B, N, 3] -> log-probs [B, K]``.
+    """Eval-mode forward closure: ``x [B, N, 3] -> [B, K]``, the model's
+    first output: log-probs, or raw logits for CurveNet
+    (``models.OUTPUT_KIND``), as in the JAX package.
 
     Loads ``state`` (a reference-layout state dict, strictly) when given,
     moves the model to ``device``, puts it in eval mode (BatchNorm uses its

@@ -185,11 +185,13 @@ def test_port_imports_no_jax():
         "pointcloudattack_tpu_torch.ops.knn",
         "pointcloudattack_tpu_torch.ops.chamfer",
         "pointcloudattack_tpu_torch.ops.kappa",
+        "pointcloudattack_tpu_torch.ops.group_chain",
         "pointcloudattack_tpu_torch.geometry.eig3",
         "pointcloudattack_tpu_torch.geometry.normals",
         "pointcloudattack_tpu_torch.attacks.geoa3",
         "pointcloudattack_tpu_torch.models",
         "pointcloudattack_tpu_torch.models.dgcnn",
+        "pointcloudattack_tpu_torch.models.curvenet",
         "pointcloudattack_tpu_torch.losses.geometry",
         "pointcloudattack_tpu_torch.attacks.knn",
         "pointcloudattack_tpu_torch.models.common",

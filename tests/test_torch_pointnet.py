@@ -172,4 +172,4 @@ def test_make_model_draws_weights_from_the_generator():
     # the STNs start at the identity transform, as the JAX model does
     assert torch.count_nonzero(sds[0]["feat.stn.fc3.weight"]) == 0
     with pytest.raises(KeyError):
-        models.make_model("CurveNet", NUM_CLASSES)  # not ported yet
+        models.make_model("NoSuchModel", NUM_CLASSES)  # not a model

@@ -142,3 +142,124 @@ def test_round_partings_explain_a_parting_by_another_choice():
     other = lambda c, a: {"nearest": (a[0, 3, 2] > card[0, 0, 3, 2]).long().view(1)}  # noqa: E731
     parted, lines, ok = chip_smoke.round_partings(card, cpu, g, 3, other)
     assert ok and "(0, 'nearest')" in lines[0]
+
+
+def test_group_bound_counts_the_chain_as_chain_bound_does():
+    b, g, k, dims = 8, 1024, 20, (9, 32)
+    rows = b * g * k
+    fwd = chip_smoke.group_bound(b, g, k, dims, "max")
+    want = chip_smoke.bound(chip_smoke.chain_flops(rows, dims),
+                            4.0 * rows * 9 + 2 * 4.0 * b * g * 32 + chip_smoke.param_bytes(dims))
+    assert fwd == want
+    # the max's backward charges the winning rows and, at one layer, reads no rows; the mean's runs every
+    # row twice and reads them
+    win = 5000
+    assert chip_smoke.group_bound(b, g, k, dims, "max", win)[0] == chip_smoke.bound(
+        chip_smoke.chain_bwd_flops(win, b * g, dims), 4.0 * rows * 9 + 2 * 4.0 * b * g * 32
+        + 2 * chip_smoke.param_bytes(dims))[0]
+    two = (9, 32, 32)
+    assert chip_smoke.group_bound(b, g, k, two, "max", win)[0] == chip_smoke.bound(
+        chip_smoke.chain_bwd_flops(win, b * g, two), 2 * 4.0 * rows * 9 + 2 * 4.0 * b * g * 32
+        + 2 * chip_smoke.param_bytes(two))[0]
+    mean = chip_smoke.group_bound(b, g, k, (16, 16), "mean", rows)
+    assert mean == chip_smoke.bound(2 * chip_smoke.chain_flops(rows, (16, 16)),
+                                    2 * 4.0 * rows * 16 + 4.0 * b * g * 16 + 2 * chip_smoke.param_bytes((16, 16)))
+    assert mean[1] == "bytes"  # 16 -> 16 over 20-row groups moves more than it computes
+    assert chip_smoke.group_bound(b, 64, k, (128, 128), "mean", b * 64 * k)[1] == "operations"
+
+
+def test_bn_passes_count_the_walk_batchnorms():
+    assert chip_smoke.bn_passes("CurveNet", "cic11.curvegrouping.walk.agent_mlp.1") == 5
+    assert chip_smoke.bn_passes("CurveNet", "cic22.curvegrouping.walk.momentum_mlp.1") == 4
+    assert chip_smoke.bn_passes("CurveNet", "cic22.lpfa.mlp.0.1") == 1
+    assert chip_smoke.bn_passes("DGCNN", "walk.agent_mlp") == 1
+
+
+def test_make_victim_checks_each_batchnorms_updates():
+    """make_victim's train pass over CurveNet updates the walk's BatchNorms
+    5 and 4 times and every other once; a count of 1 for all would fail."""
+    x = torch.from_numpy((np.random.RandomState(2).randn(2, 1024, 3) * 0.5).astype(np.float32))
+    fn, state = chip_smoke.make_victim("CurveNet", "cpu", x, ("dp1",))
+    counts = {k.removesuffix(".num_batches_tracked"): int(v) for k, v in state.items()
+              if k.endswith("num_batches_tracked")}
+    assert counts["cic11.curvegrouping.walk.agent_mlp.1"] == 5
+    assert counts["cic21.curvegrouping.walk.momentum_mlp.1"] == 4
+    assert {v for k, v in counts.items() if "walk" not in k} == {1}
+    assert fn(x).shape == (2, chip_smoke.NUM_CLASSES)
+
+
+def test_replayed_choices_take_the_given_choices():
+    """CurveNet on the CPU replaying its own recorded choices and activation
+    signs (``replay`` with ``curvenet_hooks``) gives the same logits and
+    input gradient, each taken choice 0 from its own; walk picks that are
+    other candidates change the curves, and the replay reports how far below
+    the best they lie; flipped signs move the gradient and are counted for
+    their cloud.  The masked max pools count their repeated rows (a short
+    ball's padding) as exact ties."""
+    from pointcloudattack_tpu_torch import models
+    from pointcloudattack_tpu_torch.ops import group_chain as gch
+    from pointcloudattack_tpu_torch.utils.apply import make_model_fn
+
+    model = models.make_model("CurveNet", 10, generator=torch.Generator().manual_seed(0), k=8)
+    fn = make_model_fn(model, None, "cpu")
+    curves = []
+    model.cic11.curvegrouping.walk.register_forward_hook(lambda m, a, out: curves.append(out.detach()))
+    x = torch.from_numpy((np.random.RandomState(3).randn(1, 1024, 3) * 0.5).astype(np.float32))
+    hooks = chip_smoke.curvenet_hooks()
+    orig = {k: getattr(mod, name) for k, (mod, name, _, _) in hooks.items()}
+    rec = {k: [] for k in hooks}
+    choice_of = {"pick": lambda out, y: out, "starts": lambda out, att, n: out,
+                 "max": lambda out, t, d: t.detach() == out.detach().unsqueeze(d),
+                 "group": lambda out, *args: out[1], "sign": lambda out, t, *slope: t.detach() > 0,
+                 "mean": lambda out, t, layers, slope: gch._chain(t.detach(), layers, slope)[0] > 0}
+
+    def recording(kind):
+        def run(*args):
+            out = orig[kind](*args)
+            rec[kind].append(choice_of[kind](out, *args))
+            return out
+        return run
+
+    def logits_and_grad():
+        a = x.clone().requires_grad_(True)
+        logits = fn(a)
+        return logits.detach(), torch.autograd.grad(logits[0, 0] - logits[0, 1], a)[0]
+
+    for k, (mod, name, _, _) in hooks.items():
+        setattr(mod, name, recording(k))
+    try:
+        want, g_want = logits_and_grad()
+    finally:
+        for k, (mod, name, _, _) in hooks.items():
+            setattr(mod, name, orig[k])
+    # 2 head ReLUs, the initial LPFA's output, and in each of the 8 CICs conv1, the LPFA's rows and the
+    # output, plus the curve aggregation in the 4 that walk
+    assert {k: len(v) for k, v in rec.items()} == {"pick": 20, "starts": 4, "max": 3, "group": 1, "sign": 31,
+                                                   "mean": 8}
+
+    def replayed(queues):
+        with chip_smoke.replay(hooks, lambda kind: queues[kind].pop(0)) as stats:
+            got, g = logits_and_grad()
+        assert not any(queues.values())
+        return got, g, stats
+
+    got, g_got, stats = replayed({k: list(v) for k, v in rec.items()})
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    assert float((g_got - g_want).norm() / g_want.norm()) <= 1e-6
+    assert all(st["off"] == 0 for st in stats.values()) and stats["pick"]["choices"] == 20 * 100
+    assert stats["max"]["exact"] > 0 and stats["max"]["near"] >= stats["max"]["exact"]
+    assert stats["sign"]["calls"] == 31 and stats["mean"]["calls"] == 8
+    assert "within 1e-05 of a tie" in chip_smoke.choice_line(stats)
+    queues = {k: list(v) for k, v in rec.items()}
+    queues["pick"][0] = (queues["pick"][0] + 1) % 8  # another neighbour at the first step of the first walk
+    _, _, stats = replayed(queues)
+    assert stats["pick"]["off"] > 0
+    assert float((curves[-1] - curves[0]).abs().max()) > 1e-2  # the first walk went elsewhere
+    queues = {k: list(v) for k, v in rec.items()}
+    first = queues["mean"][0].clone()  # the first residual LPFA's activation signs
+    near = first.flatten().clone()
+    near[:40] = ~near[:40]
+    queues["mean"][0] = near.view_as(first)
+    _, g_flip, stats = replayed(queues)
+    assert int(stats["mean"]["other"][0][0]) == 40 and stats["mean"]["off"] > 0
+    assert float((g_flip - g_want).norm() / g_want.norm()) > 1e-6

@@ -3,7 +3,8 @@ against the JAX package's exporter (train/torch_port.py::export_checkpoint).
 
 The port keeps its own numpy-only copy of the torch-name <-> flax-path
 specs, so that it imports nothing of the JAX package.  For flax-initialised
-PointNet, PointNet++ SSG and MSG variables (DGCNN's: tests/test_torch_dgcnn.py)
+PointNet, PointNet++ SSG and MSG variables (DGCNN's: tests/test_torch_dgcnn.py;
+CurveNet's: tests/test_torch_curvenet.py)
 the copy must give the same keys, shapes and values as
 ``export_checkpoint``, exactly.  The exported dicts load strictly into the
 port's models.
@@ -57,6 +58,6 @@ def test_exported_state_dict_loads_strictly(variables, name, kw):
 
 
 def test_unknown_model_raises():
-    assert sorted(SPECS) == ["DGCNN", "PointNet", "PointNet++Msg", "PointNet++Ssg"]
+    assert sorted(SPECS) == ["CurveNet", "DGCNN", "PointNet", "PointNet++Msg", "PointNet++Ssg"]
     with pytest.raises(KeyError, match="no weight spec"):
-        state_dict_from_flax("CurveNet", {})
+        state_dict_from_flax("NoSuchModel", {})
