@@ -4,7 +4,7 @@ Run from the root of a checkout, on a machine with one H100:
 
     python3 chip_smoke.py
 
-It takes about six to seven minutes, the kernel build included.
+It takes about seven to nine minutes, the kernel build included.
 
 Phases, each raising on failure (nothing is caught; any failure exits
 non-zero and prints no result):
@@ -104,7 +104,22 @@ non-zero and prints no result):
 27. slice-geoa3-curvenet  GeoA3 on CurveNet (BASELINE config 4) on bench.py's
               geoa3 clouds, CE on the log-softmax of the logits, 2 rounds of 50
               of their 500 iterations: exact launch counts, ASR > 0, s/batch.
-Each of phases 11-27 prints its seconds.
+Phases 23-27 run last; after phase 22 come
+22a. slice-geoa3-r4  GeoA3 as in phase 20 with the curvature's neighbour set
+              cached for 4 iterations (curv_knn_refresh 4): exact launch counts
+              (the given-set curvature kernels once an iteration, the selecting
+              one once a run, a kNN at each refresh), ASR > 0, s/batch.
+22b. slice-geoa3-partial  GeoA3's partial mode on the same cell (2 x 100, a
+              patch of 16 points every 50 iterations, curv_knn_refresh 4, an
+              FPS subsample of 512 for the evaluation): exact launch counts (FPS
+              included), ASR > 0, s/batch.
+22c. parity-geoa3-refresh  phase 21 at curv_knn_refresh 4, and again with the
+              jitter, the CPU also taking the card's cached sets and jitter.
+22d. profile-geoa3-r4  torch.profiler over 10 GeoA3 iterations at
+              curv_knn_refresh 4.
+Phase 19 also holds the curvature kernels on a given neighbour set (a stale
+set from the kNN kernel, exact collisions, a ragged N=1000).  Each of phases
+11-27 prints its seconds.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the per-kernel record.  The script imports nothing of JAX.
@@ -138,6 +153,8 @@ KAPPA_SRC = "pointcloudattack_tpu_torch/csrc/kappa.cu"
 BOTH_SRC = "pointcloudattack_tpu_torch/csrc/min_sqdist_both.cu"
 TPU_KAPPA_FWD = "pointcloudattack_tpu/ops/pallas/kappa_kernel.py:321"
 TPU_KAPPA_BWD = "pointcloudattack_tpu/ops/pallas/kappa_kernel.py:358"
+TPU_KAPPA_IDX_FWD = "pointcloudattack_tpu/ops/pallas/kappa_kernel.py:500"
+TPU_KAPPA_IDX_BWD = "pointcloudattack_tpu/ops/pallas/kappa_kernel.py:525"
 TPU_BOTH_FWD = "pointcloudattack_tpu/ops/pallas/chamfer_kernel.py:205"
 TPU_BOTH_BWD = "pointcloudattack_tpu/ops/pallas/chamfer_kernel.py:236"
 GROUP_SRC = "pointcloudattack_tpu_torch/csrc/group_chain.cu"
@@ -213,6 +230,12 @@ DGCNN_GATHER_SHAPES = {
 # make_synthetic_clouds(8, 1, 1024, seed=5), CE loss, Chamfer + 0.1 Hausdorff
 # + curvature (k=16), 10 binary rounds of 500 iterations, cut to 100
 GEO_DATA, GEO_ROUNDS, GEO_ITER, GEO_K = 5, 10, 100, 16
+# the same cell with the curvature's neighbour set cached for GEO_REFRESH
+# iterations (curv_knn_refresh); and GeoA3's partial mode on it: 2 rounds of
+# 100 iterations, a new patch of PARTIAL_RANGE points every PARTIAL_REFRESH
+# iterations, evaluated on a farthest-point subsample of PARTIAL_NPOINT
+GEO_REFRESH = 4
+PARTIAL_ROUNDS, PARTIAL_ITER, PARTIAL_REFRESH, PARTIAL_RANGE, PARTIAL_NPOINT = 2, 100, 50, 16, 512
 # the kernels against their plain versions: kappa rtol 1e-6, its gradients
 # atol 1e-5, the two-direction bundle's gradients atol 1e-6 (all designed to
 # be bit-equal to the plain version on the CPU; the log says whether they are)
@@ -836,6 +859,7 @@ def _counters():
             "chain_fwd": (cm, "fwd"), "chain_bwd": (cm, "bwd"), "knn": (knn_mod, "knn"),
             "min_rows": (chamfer, "min_rows"), "both_fwd": (chamfer, "both_fwd"), "both_bwd": (chamfer, "both_bwd"),
             "kappa_fwd": (kappa, "kappa_fwd"), "kappa_bwd": (kappa, "kappa_bwd"),
+            "kappa_idx_fwd": (kappa, "kappa_idx_fwd"), "kappa_idx_bwd": (kappa, "kappa_idx_bwd"),
             **{k: (gch, k) for k in ("group_max_fwd", "group_max_bwd", "group_mean_fwd", "group_mean_bwd")}}
 
 
@@ -1143,12 +1167,15 @@ def curvenet_hooks(signs=True):
     return hooks
 
 
-def knn_hooks():
-    """``replay`` hooks for DGCNN's kNN ("knn": each point's neighbour
-    indices): the deeper stages' features differ by rounding between the
-    two sides, and a neighbour near the k-th may differ.  ``off`` is 1 for
-    each index set the CPU's own would change."""
-    from pointcloudattack_tpu_torch.models import dgcnn as dgcnn_mod
+def knn_hooks(mod=None):
+    """``replay`` hooks for the kNN that ``mod`` calls, DGCNN's by default
+    (GeoA3's cached curvature sets: ``losses.geometry``) ("knn": each
+    point's neighbour indices): the deeper stages' features (or the
+    iterates) differ by rounding between the two sides, and a neighbour near
+    the k-th may differ.  ``off`` is 1 for each index set the CPU's own
+    would change."""
+    if mod is None:
+        from pointcloudattack_tpu_torch.models import dgcnn as mod
 
     def card(orig, x, k):
         idx = orig(x, k)
@@ -1157,7 +1184,7 @@ def knn_hooks():
     def cpu(orig, idx, x, k):
         return idx, None, (orig(x, k).sort(-1).values != idx.sort(-1).values).any(-1).float()
 
-    return {"knn": (dgcnn_mod, "knn", card, cpu)}
+    return {"knn": (mod, "knn", card, cpu)}
 
 
 def normal_hooks():
@@ -1176,6 +1203,24 @@ def normal_hooks():
         return nrm, None, (orig(pc, k) - nrm).abs().flatten(1).amax(1)
 
     return {"normals": (geo_mod, "estimate_normal", card, cpu)}
+
+
+def jitter_hooks():
+    """``replay`` hooks for GeoA3's tangent-plane jitter ("jitter"): the
+    CPU takes the card's draw (its own generator's numbers are others).
+    ``off`` is 0: there is no own choice to hold it to."""
+    import torch
+
+    from pointcloudattack_tpu_torch.attacks import geoa3 as geo_mod
+
+    def card(orig, pc, *args, **kw):
+        jit = orig(pc, *args, **kw)
+        return jit, jit
+
+    def cpu(orig, jit, pc, *args, **kw):
+        return jit, None, torch.zeros(pc.shape[0])
+
+    return {"jitter": (geo_mod, "estimate_perpendicular_jitter", card, cpu)}
 
 
 def choice_line(stats):
@@ -1770,6 +1815,15 @@ def kappa_bwd_bound(b, n, k):
     return bound(46.0 * b * n * k, 4.0 * (2 * 3 * b * n + b * n + b * n * k + 2 * 3 * b * n))
 
 
+def kappa_idx_bound(b, n, k):
+    """(bound_ms, bound_by) of one curvature forward on a given neighbour
+    set: per edge 8 operations for the distance and 11 for its contribution,
+    5 a row for n_i . a_i; the indices, adv and the normals read once, kappa
+    written once.  (The backward is ``kappa_bwd_bound``'s work on the given
+    set.)"""
+    return bound(19.0 * b * n * k + 5.0 * b * n, 4.0 * (b * n * k + 2 * 3 * b * n + b * n))
+
+
 def both_bound(b, n, m):
     """(bound_ms, bound_by) of one two-direction forward: 8 operations a
     pair for the distance and a compare each for the row and the column
@@ -1821,6 +1875,48 @@ def check_kappa(tag, name, a, nrm, dk):
     return max(e for e, _ in res.values())
 
 
+def check_kappa_idx(tag, name, a, nrm, idx, dk):
+    """The curvature kernels on a given neighbour set ``idx`` against the
+    plain versions on the CPU on one input: kappa within KAPPA_RTOL, dadv
+    and dnormal within KAPPA_GRAD_ATOL.  Returns the max |diff| over them."""
+    from pointcloudattack_tpu_torch.ops import chamfer, kappa
+
+    kap = kappa.kappa_idx_fwd(a, nrm, idx, GEO_K)
+    dadv, dnrm = kappa.kappa_bwd(a, nrm, idx, dk, GEO_K, counter="kappa_idx_bwd")
+    kap_p = kappa.kappa_idx_plain(a.cpu(), nrm.cpu(), idx.cpu(), GEO_K)
+    dadv_p, dnrm_p = kappa.kappa_bwd_plain(a.cpu(), nrm.cpu(), idx.cpu(), dk.cpu(), GEO_K)
+    res = {"kappa": _same(tag, "kappa (given set)", kap, kap_p, rtol=KAPPA_RTOL, atol=0.0),
+           "dadv": _same(tag, "dadv (given set)", dadv, dadv_p, rtol=0.0, atol=KAPPA_GRAD_ATOL),
+           "dnormal": _same(tag, "dnormal (given set)", dnrm, dnrm_p, rtol=0.0, atol=KAPPA_GRAD_ATOL)}
+    zero = int((chamfer.exact_sqdist(a, a).gather(-1, idx.long()) == 0).sum())
+    log(f"[{tag}] kappa_knn_mean_from_idx {name} {tuple(a.shape)} k={GEO_K}: max |diff| "
+        + ", ".join(f"{k} {e:.3e} ({'bit-equal' if eq else 'not bit-equal'})" for k, (e, eq) in res.items())
+        + f"; {zero} given neighbours at distance 0, all finite")
+    return max(e for e, _ in res.values())
+
+
+def stale_idx(adv, data, moved=8):
+    """``data``'s own neighbour sets (the kNN kernel on the card, k =
+    GEO_K), stale on the iterate ``adv``; the same iterate with the fifth
+    neighbour of ``moved`` rows of cloud 0 (every 7th, no centre itself
+    moved) moved exactly onto its centre; and those rows."""
+    from pointcloudattack_tpu_torch.losses.geometry import self_knn_idx
+
+    idx = self_knn_idx(data, GEO_K).contiguous()
+    hit = adv.clone()
+    rows, taken = [], set()
+    for i in range(0, adv.shape[1], 7):
+        j = int(idx[0, i, 4])
+        if j in taken or j in rows or i in taken:
+            continue
+        hit[0, j] = hit[0, i]
+        rows.append(i)
+        taken.add(j)
+        if len(rows) == moved:
+            break
+    return idx, hit.contiguous(), rows
+
+
 def check_both(tag, name, x, y, gr, gc):
     """The two-direction kernels against the plain versions on the CPU on
     one input: both mins and argmins bit for bit, dx and dy within
@@ -1844,8 +1940,10 @@ def phase_kernels_geoa3(data):
     """The curvature and the two-direction kernels at GeoA3's shapes, on an
     iterate a few steps in (clean clouds plus 1e-3 noise) with the normals
     of each point's nearest clean point, at a ragged N=1000, and with every
-    point twice (kappa) or 4 times (the bundle's y); times beside the
-    plain versions' (on the card) and the bounds."""
+    point twice (kappa) or 4 times (the bundle's y); the curvature on a
+    given neighbour set (the clean clouds' own, from the kNN kernel) on an
+    iterate 1e-2 away, with 8 exact collisions and at a ragged N=1000; times
+    beside the plain versions' (on the card) and the bounds."""
     import numpy as np
     import torch
 
@@ -1862,7 +1960,7 @@ def phase_kernels_geoa3(data):
     dk = dev(rng.randn(b, n) * 1e-3)
     gr, gc = dev(rng.rand(b, n)), dev(rng.rand(b, n))
     half = lambda t: torch.cat([t[:, : n // 2]] * 2, dim=1).contiguous()  # noqa: E731
-    rec = new_record("kappa_fwd", "kappa_bwd", "both_fwd", "both_bwd")
+    rec = new_record("kappa_fwd", "kappa_bwd", "kappa_idx_fwd", "kappa_idx_bwd", "both_fwd", "both_bwd")
     err_k = max(check_kappa("kernels-geoa3", f"B={b} N={n}", adv, nrm, dk),
                 check_kappa("kernels-geoa3", "ragged N=1000", adv[:, :1000].contiguous(), nrm[:, :1000].contiguous(),
                             dk[:, :1000].contiguous()),
@@ -1871,13 +1969,28 @@ def phase_kernels_geoa3(data):
     err_b = max(check_both("kernels-geoa3", f"B={b} N=M={n}", adv, data, gr, gc),
                 check_both("kernels-geoa3", "ragged N=M=1000, every y point 4 times", adv[:, :1000].contiguous(), dup,
                            gr[:, :1000].contiguous(), gc[:, :1000].contiguous()))
+    # the curvature on a given set: the clean clouds' sets on the iterate 1e-2 from them (stale), with
+    # exact collisions, and at a ragged N=1000
+    moved = (data + dev(rng.randn(b, n, 3) * 1e-2)).contiguous()
+    idx, hit, _ = stale_idx(moved, data)
+    idx_r = stale_idx(moved[:, :1000].contiguous(), data[:, :1000].contiguous())[0]
+    err_i = max(check_kappa_idx("kernels-geoa3", f"B={b} N={n} stale set", moved, nrm, idx, dk),
+                check_kappa_idx("kernels-geoa3", "8 exact collisions", hit, nrm, idx, dk),
+                check_kappa_idx("kernels-geoa3", "ragged N=1000", moved[:, :1000].contiguous(),
+                                nrm[:, :1000].contiguous(), idx_r, dk[:, :1000].contiguous()))
     for key in ("kappa_fwd", "kappa_bwd"):
         rec[key]["err"] = err_k
+    for key in ("kappa_idx_fwd", "kappa_idx_bwd"):
+        rec[key]["err"] = err_i
     for key in ("both_fwd", "both_bwd"):
         rec[key]["err"] = err_b
     _, picks = kappa.kappa_fwd(adv, nrm, GEO_K)
     fwd = chamfer.both_fwd(adv, data)
     ms = time_pairs({
+        "kappa_idx_fwd_plain": lambda: kappa.kappa_idx_plain(moved, nrm, idx, GEO_K),
+        "kappa_idx_fwd": lambda: kappa.kappa_idx_fwd(moved, nrm, idx, GEO_K),
+        "kappa_idx_bwd_plain": lambda: kappa.kappa_bwd_plain(moved, nrm, idx, dk, GEO_K),
+        "kappa_idx_bwd": lambda: kappa.kappa_bwd(moved, nrm, idx, dk, GEO_K, counter="kappa_idx_bwd"),
         "kappa_fwd_plain": lambda: kappa.kappa_plain(adv, nrm, GEO_K),
         "kappa_fwd": lambda: kappa.kappa_fwd(adv, nrm, GEO_K),
         "kappa_bwd_plain": lambda: kappa.kappa_bwd_plain(adv, nrm, picks, dk, GEO_K),
@@ -1888,6 +2001,7 @@ def phase_kernels_geoa3(data):
         "both_bwd": lambda: chamfer.both_bwd(adv, data, fwd[1], fwd[3], gr, gc),
     }, reps=10)
     for key, bnd in (("kappa_fwd", kappa_bound(b, n, GEO_K)), ("kappa_bwd", kappa_bwd_bound(b, n, GEO_K)),
+                     ("kappa_idx_fwd", kappa_idx_bound(b, n, GEO_K)), ("kappa_idx_bwd", kappa_bwd_bound(b, n, GEO_K)),
                      ("both_fwd", both_bound(b, n, n)), ("both_bwd", both_bwd_bound(b, n, n))):
         accumulate(rec[key], ms[key], ms[f"{key}_plain"], bnd)
         log(f"[kernels-geoa3] {key} [{b},{n},3] k={GEO_K}: kernel {ms[key]:.4f} ms, plain {ms[f'{key}_plain']:.4f} ms, "
@@ -1895,20 +2009,34 @@ def phase_kernels_geoa3(data):
     return rec
 
 
-def run_geoa3(tag, model_fn, data, target, per_fwd, per_bwd, rounds=GEO_ROUNDS, iters=GEO_ITER):
-    """GeoA3 (bench.py's geoa3 settings, ``rounds`` x ``iters``), counted
+def run_geoa3(tag, model_fn, data, target, per_fwd, per_bwd, rounds=GEO_ROUNDS, iters=GEO_ITER, refresh=1):
+    """GeoA3 (bench.py's geoa3 settings, ``rounds`` x ``iters``, the
+    curvature's neighbour set cached for ``refresh`` iterations), counted
     and timed: per iteration one model forward and backward (launching
-    ``per_fwd`` and ``per_bwd``), the curvature forward and backward and the
-    bundle's forward and backward; per round one more forward; once the
-    normals' kNN, the clean cloud's curvature and the final forward."""
-    import torch
-
+    ``per_fwd`` and ``per_bwd``), the curvature forward and backward (on the
+    cached set when ``refresh`` > 1: the given-set kernels, and a kNN at
+    each refresh) and the bundle's forward and backward; per round one more
+    forward; once the normals' kNN, the clean cloud's curvature and the
+    final forward."""
     from pointcloudattack_tpu_torch.attacks.geoa3 import GeoA3Config, build_geoa3_attack
 
     steps = rounds * iters
     expect = {k: per_fwd.get(k, 0) * (steps + rounds + 1) + per_bwd.get(k, 0) * steps for k in {*per_fwd, *per_bwd}}
     expect.update(knn=expect.get("knn", 0) + 1, kappa_fwd=1 + steps, kappa_bwd=steps, both_fwd=steps,
                   both_bwd=steps)
+    if refresh > 1:
+        expect.update(knn=expect["knn"] + rounds * -(-iters // refresh), kappa_fwd=1, kappa_bwd=0,
+                      kappa_idx_fwd=steps, kappa_idx_bwd=steps)
+    attack = build_geoa3_attack(model_fn, GeoA3Config(binary_max_steps=rounds, iter_max_steps=iters,
+                                                      curv_knn_refresh=refresh))
+    what = f"GeoA3 {rounds}x{iters}" + (f" curv_knn_refresh {refresh}" if refresh > 1 else "")
+    return counted_and_timed(tag, what, attack, data, target, expect, geoa3_check(tag, data))
+
+
+def geoa3_check(tag, data):
+    """``check`` of a GeoA3 result: finite clouds of the input's shape, ASR
+    > 0 and finite best constraints where a cloud flipped."""
+    import torch
 
     def check(res):
         adv, best_loss, succ = res
@@ -1918,64 +2046,117 @@ def run_geoa3(tag, model_fn, data, target, per_fwd, per_bwd, rounds=GEO_ROUNDS, 
         log(f"[{tag}] ASR {asr:.3f} ({int(succ.sum())}/{len(succ)}); max per-point move {moved:.4f}; "
             f"best constraint of the successes {[round(float(v), 8) for v in best_loss[succ]]}")
 
-    attack = build_geoa3_attack(model_fn, GeoA3Config(binary_max_steps=rounds, iter_max_steps=iters))
-    return counted_and_timed(tag, f"GeoA3 {rounds}x{iters}", attack, data, target, expect, check)
+    return check
 
 
-def geoa3_loss(normals, k_oris):
+def run_geoa3_partial(tag, model_fn, data, target, per_fwd, per_bwd):
+    """GeoA3's partial mode (PARTIAL_ROUNDS x PARTIAL_ITER, a patch of
+    PARTIAL_RANGE points every PARTIAL_REFRESH iterations, the curvature's
+    set cached for GEO_REFRESH, evaluated on a PARTIAL_NPOINT farthest-point
+    subsample), counted and timed: per iteration the loss forward and
+    backward, the subsample's FPS and forward, the given-set curvature and
+    the bundle; a kNN at each refresh of the set; per round one more
+    forward; once the normals' kNN, the clean cloud's curvature and the
+    final forward."""
+    from pointcloudattack_tpu_torch.attacks.geoa3_partial import GeoA3PartialConfig, build_geoa3_partial_attack
+
+    rounds, iters = PARTIAL_ROUNDS, PARTIAL_ITER
+    steps = rounds * iters
+    expect = {k: per_fwd.get(k, 0) * (2 * steps + rounds + 1) + per_bwd.get(k, 0) * steps
+              for k in {*per_fwd, *per_bwd}}
+    expect.update(knn=expect.get("knn", 0) + 1 + rounds * -(-iters // GEO_REFRESH), kappa_fwd=1,
+                  kappa_idx_fwd=steps, kappa_idx_bwd=steps, both_fwd=steps, both_bwd=steps,
+                  fps=expect.get("fps", 0) + steps)
+    cfg = GeoA3PartialConfig(binary_max_steps=rounds, iter_max_steps=iters, curv_knn_refresh=GEO_REFRESH,
+                             knn_range=PARTIAL_RANGE, refresh_iters=PARTIAL_REFRESH, subsample_npoint=PARTIAL_NPOINT)
+    what = (f"GeoA3 partial {rounds}x{iters} (patches of {PARTIAL_RANGE} every {PARTIAL_REFRESH}, curv_knn_refresh "
+            f"{GEO_REFRESH}, subsample {PARTIAL_NPOINT})")
+    return counted_and_timed(tag, what, build_geoa3_partial_attack(model_fn, cfg), data, target, expect,
+                             geoa3_check(tag, data))
+
+
+def geoa3_loss(normals, k_oris, cached=False):
     """GeoA3's first-round loss (CE plus 10 x the constraint) as a
     ``grad_parity`` loss, each side on its own normals and clean curvature
-    (``normals`` / ``k_oris``: device type -> tensor)."""
+    (``normals`` / ``k_oris``: device type -> tensor); with ``cached``, the
+    curvature on the card's neighbour set of the input (the given-set
+    kernels), which the CPU then takes."""
     from pointcloudattack_tpu_torch.attacks.geoa3 import GeoA3Config, _constraint_loss, _make_cls_fn
+    from pointcloudattack_tpu_torch.losses.geometry import self_knn_idx
 
     cfg = GeoA3Config()
     cls = _make_cls_fn(cfg)
+    shared = {}
 
     def loss(logp, a, o, t):
         dev = a.device.type
-        return cls(logp, t) + cfg.initial_const * _constraint_loss(a, o, normals[dev], k_oris[dev], cfg)
+        idx = None
+        if cached:
+            if a.is_cuda:
+                shared["idx"] = self_knn_idx(a, cfg.curv_loss_knn).contiguous()
+            idx = shared["idx"].to(a.device)
+        return cls(logp, t) + cfg.initial_const * _constraint_loss(a, o, normals[dev], k_oris[dev], cfg, self_idx=idx)
 
     return loss
 
 
-def phase_parity_geoa3(model_fn, state, data, target):
-    """GeoA3 (B=4, 2 rounds x 10 iterations) on the card and on the CPU from
-    the same weights and start offsets, the CPU taking the card's normals
-    (``normal_hooks``).  Held: ``success`` identical; the step whose
-    iterate each side keeps, and where it is the same, ``best_loss`` within
-    rtol 1e-4 and ``best_attack`` within 1e-5 at every point whose iterates
-    never parted (by more than PART_ATOL); the run's first parting explained
-    (``round_partings``: after a gradient within TINY_GRAD of 0, or after
-    the two sides' iterates chose other neighbours, nearest points or
-    max-pool picks, ``geoa3_choices``), and at least
-    GEO_HELD_SHARE of the points never parted; and at each of the card's
-    iterates the loss gradient, the CPU taking the card's picks
-    (``hold_grad_parity``)."""
+def phase_parity_geoa3(model_fn, state, data, target, tag="parity-geoa3", **kw):
+    """GeoA3 (B=4, 2 rounds x 10 iterations, with the GeoA3Config settings
+    ``kw``) on the card and on the CPU from the same weights and start
+    offsets, the CPU taking the card's normals (``normal_hooks``) and, where
+    the settings make them, its cached curvature sets (``knn_hooks`` on
+    ``losses.geometry``) and its jitter (``jitter_hooks``).  Held:
+    ``success`` identical; the step whose iterate each side keeps (under
+    jitter the bare iterate, which the second forward evaluates), and where
+    it is the same, ``best_loss`` within rtol 1e-4 and ``best_attack``
+    within 1e-5 at every point whose iterates never parted (by more than
+    PART_ATOL); the run's first parting explained (``round_partings``: after
+    a gradient within TINY_GRAD of 0, or GRAD_APART apart between the sides,
+    or after the two sides' iterates chose other neighbours, nearest points
+    or max-pool picks, ``geoa3_choices``), and at least GEO_HELD_SHARE of
+    the points never parted; and at each of the card's iterates the loss
+    gradient, the CPU taking the card's picks (``hold_grad_parity``; with a
+    cached set, the curvature on the card's set of that input)."""
     import numpy as np
     import torch
 
     from pointcloudattack_tpu_torch import models
     from pointcloudattack_tpu_torch.attacks.geoa3 import GeoA3Config, build_geoa3_attack
     from pointcloudattack_tpu_torch.geometry.normals import estimate_normal
+    from pointcloudattack_tpu_torch.losses import geometry as geo_losses
     from pointcloudattack_tpu_torch.losses.geometry import kappa_ori
     from pointcloudattack_tpu_torch.utils.apply import make_model_fn
 
     b, rounds, iters = 4, 2, 10
-    cfg = GeoA3Config(binary_max_steps=rounds, iter_max_steps=iters)
+    cfg = GeoA3Config(binary_max_steps=rounds, iter_max_steps=iters, **kw)
+    cached, jitter = cfg.curv_knn_refresh > 1, cfg.use_jitter
     offsets = torch.from_numpy((np.random.RandomState(6).randn(rounds, b, N, 3) * 1e-3).astype(np.float32))
     cpu_fn = make_model_fn(models.make_model("PointNet", NUM_CLASSES), state, "cpu")
-    its, grads = {"card": [], "cpu": []}, {"card": [], "cpu": []}
-    recording = lambda fn, side: recording_fn(fn, its[side], grads[side])  # noqa: E731
-    with replay(normal_hooks()) as normals:
+    calls, grads = {"card": [], "cpu": []}, {"card": [], "cpu": []}
+
+    def recording(fn, side):  # every victim call's input, and the gradient at each loss forward's
+        def run(a):
+            calls[side].append(a.detach().cpu())
+            if a.requires_grad:
+                a.register_hook(lambda g: grads[side].append(g.detach().cpu()))
+            return fn(a)
+        return run
+
+    hooks = {**normal_hooks(), **(knn_hooks(geo_losses) if cached else {}), **(jitter_hooks() if jitter else {})}
+    with replay(hooks) as taken:
         adv_g, loss_g, succ_g = build_geoa3_attack(recording(model_fn, "card"), cfg)(
             data[:b], target[:b], init_offsets=offsets.cuda())
         adv_c, loss_c, succ_c = build_geoa3_attack(recording(cpu_fn, "cpu"), cfg)(
             data[:b].cpu(), target[:b].cpu(), init_offsets=offsets)
-    steps = rounds * iters
-    if not all(len(v) == steps for v in (*its.values(), *grads.values())):
-        raise AssertionError(f"parity-geoa3: recorded {[len(v) for v in its.values()]} iterates and "
-                             f"{[len(v) for v in grads.values()]} gradients, expected {steps} each")
-    card_it, cpu_it = torch.stack(its["card"]), torch.stack(its["cpu"])
+    steps, per = rounds * iters, 2 if jitter else 1  # under jitter each iteration evaluates the bare cloud too
+    its = {}
+    for side, rec in calls.items():
+        if len(rec) != rounds * (per * iters + 1) + 1 or len(grads[side]) != steps:
+            raise AssertionError(f"{tag}: recorded {len(rec)} victim calls and {len(grads[side])} gradients on the "
+                                 f"{side}, expected {rounds * (per * iters + 1) + 1} and {steps}")
+        its[side] = torch.stack([rec[r * (per * iters + 1) + per * i + per - 1] for r in range(rounds)
+                                 for i in range(iters)])
+    card_it, cpu_it = its["card"], its["cpu"]
     kept = []
     for it_, adv in ((card_it, adv_g.cpu()), (cpu_it, adv_c)):
         eq = (it_ == adv[None]).flatten(2).all(-1)
@@ -1985,18 +2166,18 @@ def phase_parity_geoa3(model_fn, state, data, target):
                                              geoa3_choices(cpu_fn, data[:b].cpu()), grads["cpu"])
     held_share = 1.0 - float(parted.float().mean())
     diff = (adv_g.cpu() - adv_c).abs()
-    log(f"[parity-geoa3] card vs CPU, PointNet B={b}, {rounds}x{iters}: the CPU's own normals would differ from the "
-        f"card's by at most {normals['normals']['off']:.3e} over its {normals['normals']['calls']} estimates; success card {succ_g.tolist()} cpu {succ_c.tolist()}; best_loss card "
+    log(f"[{tag}] card vs CPU, PointNet B={b}, {rounds}x{iters} {kw}: the CPU took the card's {choice_line(taken)}; "
+        f"success card {succ_g.tolist()} cpu {succ_c.tolist()}; best_loss card "
         f"{loss_g.cpu().tolist()} cpu {loss_c.tolist()}; kept step card {kept[0].tolist()} cpu {kept[1].tolist()} "
         f"({int((~same).sum())} clouds differ); {int(parted.sum())} of {parted.numel()} points parted (> {PART_ATOL}), "
         f"{held_share:.3f} never did (at least {GEO_HELD_SHARE}); the others max |diff| "
         f"{float(diff[~parted].max()):.3e}" + "".join(f"; {w}" for w in lines))
     if not torch.equal(succ_g.cpu(), succ_c):
-        raise AssertionError("parity-geoa3: success differs between the card and the CPU")
+        raise AssertionError(f"{tag}: success differs between the card and the CPU")
     if not bool(succ_c.any()):
-        raise AssertionError("parity-geoa3: the short attack flipped no cloud: it tests no best tracking")
+        raise AssertionError(f"{tag}: the short attack flipped no cloud: it tests no best tracking")
     if not first_ok or held_share < GEO_HELD_SHARE:
-        raise AssertionError(f"parity-geoa3: nothing explains the first parting, or only {held_share:.3f} of "
+        raise AssertionError(f"{tag}: nothing explains the first parting, or only {held_share:.3f} of "
                              "the points never parted")
     torch.testing.assert_close(loss_g.cpu()[same], loss_c[same], rtol=1e-4, atol=0.0)
     held = same[:, None] & ~parted
@@ -2004,9 +2185,9 @@ def phase_parity_geoa3(model_fn, state, data, target):
     card_nrm = estimate_normal(data[:b])
     nrm = {"cuda": card_nrm, "cpu": card_nrm.cpu()}  # the CPU on the card's normals, as in the attack
     k_oris = {dev: kappa_ori(x, nrm[dev], GEO_K) for dev, x in (("cuda", data[:b]), ("cpu", data[:b].cpu()))}
-    loss = geoa3_loss(nrm, k_oris)
-    hold_grad_parity("parity-geoa3", [grad_parity(model_fn, cpu_fn, a.cuda(), data[:b], target[:b], loss)
-                                      for a in its["card"]])
+    loss = geoa3_loss(nrm, k_oris, cached)
+    hold_grad_parity(tag, [grad_parity(model_fn, cpu_fn, a.cuda(), data[:b], target[:b], loss)
+                           for a in card_it])
 
 
 def group_case(seed, b, g, k, dims, device="cuda"):
@@ -2383,6 +2564,23 @@ def main():
 
         phase_profile("profile-geoa3", geo_fn, geo_data, geo_target,
                       build_geoa3_attack(geo_fn, GeoA3Config(binary_max_steps=1, iter_max_steps=10)), "GeoA3 1x10")
+    # the rest of GeoA3 on the same cell: the cached curvature set, the partial mode, the jitter
+    with phase_clock("slice-geoa3-r4"):
+        geo_r4 = run_geoa3("slice-geoa3-r4", geo_fn, geo_data, geo_target, {"chain_fwd": 2}, {"chain_bwd": 2},
+                           refresh=GEO_REFRESH)
+    with phase_clock("slice-geoa3-partial"):
+        geo_partial = run_geoa3_partial("slice-geoa3-partial", geo_fn, geo_data, geo_target, {"chain_fwd": 2},
+                                        {"chain_bwd": 2})
+    with phase_clock("parity-geoa3-refresh"):
+        phase_parity_geoa3(geo_fn, geo_state, geo_data, geo_target, "parity-geoa3-refresh",
+                           curv_knn_refresh=GEO_REFRESH)
+        phase_parity_geoa3(geo_fn, geo_state, geo_data, geo_target, "parity-geoa3-refresh-jitter",
+                           curv_knn_refresh=GEO_REFRESH, use_jitter=True, jitter_refresh_iters=4)
+    with phase_clock("profile-geoa3-r4"):
+        phase_profile("profile-geoa3-r4", geo_fn, geo_data, geo_target,
+                      build_geoa3_attack(geo_fn, GeoA3Config(binary_max_steps=1, iter_max_steps=10,
+                                                             curv_knn_refresh=GEO_REFRESH)),
+                      f"GeoA3 1x10 curv_knn_refresh {GEO_REFRESH}")
     # CurveNet (bench.py's cw_curvenet; GeoA3 on it, BASELINE config 4): its kernels, then its paths
     with phase_clock("kernels-curvenet"):
         cnk = phase_kernels_curvenet()
@@ -2393,7 +2591,8 @@ def main():
 
     by_path = {"pointnet": {"chain_fwd": launches["fwd"], "chain_bwd": launches["bwd"]},
                "ssg": ssg[4], "msg": msg[4], "dgcnn": dg_launches, "knn": knn1, "knn_r5": knn5,
-               "knn_ssg": knn_ssg, "geoa3": geo_launches, "curvenet": cn_cw, "geoa3_curvenet": cn_geo}
+               "knn_ssg": knn_ssg, "geoa3": geo_launches, "geoa3_r4": geo_r4, "geoa3_partial": geo_partial,
+               "curvenet": cn_cw, "geoa3_curvenet": cn_geo}
 
     def entry(name, key, source, replaces, launches_, err, ms, plain_ms, bnd, at, rows=None, **extra):
         """``rows``: the chain rows the bound charges (every row forward, the
@@ -2439,6 +2638,11 @@ def main():
                                       ("kappa_knn_mean_bwd", "kappa_bwd", KAPPA_SRC, TPU_KAPPA_BWD),
                                       ("min_sqdist_both_fwd", "both_fwd", BOTH_SRC, TPU_BOTH_FWD),
                                       ("min_sqdist_both_bwd", "both_bwd", BOTH_SRC, TPU_BOTH_BWD))),
+        *(entry(name, key, KAPPA_SRC, tpu, geo_r4[key], geo[key]["err"], geo[key]["ms"], geo[key]["plain_ms"],
+                summed_bound(geo[key]), f"one GeoA3 iteration's call on PointNet at curv_knn_refresh {GEO_REFRESH} "
+                f"(B=8, N=1024, k={GEO_K}, a stale set)")
+          for name, key, tpu in (("kappa_knn_mean_from_idx_fwd", "kappa_idx_fwd", TPU_KAPPA_IDX_FWD),
+                                 ("kappa_knn_mean_from_idx_bwd", "kappa_idx_bwd", TPU_KAPPA_IDX_BWD))),
         *(entry(name, key, GROUP_SRC, tpu, cn_cw[key], cnk[key]["err"], cnk[key]["ms"], cnk[key]["plain_ms"],
                 summed_bound(cnk[key]), cn_at[pool], cnk[key]["rows"])
           for name, key, tpu, pool in (("chain_groupmax_fwd", "group_max_fwd", TPU_GROUP_FWD, "max"),

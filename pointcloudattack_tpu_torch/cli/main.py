@@ -1,7 +1,7 @@
-"""Command-line entry point: ``attack cw``, ``attack knn`` and ``attack geoa3``.
+"""Command-line entry point: ``attack cw``, ``knn``, ``geoa3`` and ``geoa3-partial``.
 
 Counterpart of ``pointcloudattack_tpu/cli/main.py::cmd_attack`` for the
-``cw``, ``knn`` and ``geoa3`` families.  Run as
+``cw``, ``knn``, ``geoa3`` and ``geoa3-partial`` families.  Run as
 
     python -m pointcloudattack_tpu_torch.cli attack cw --dataset synthetic \\
         --model PointNet --num_points 1024 --num_classes 40 \\
@@ -10,14 +10,21 @@ Counterpart of ``pointcloudattack_tpu/cli/main.py::cmd_attack`` for the
         --output_dir runs --save_adv
     python -m pointcloudattack_tpu_torch.cli attack knn --model PointNet \\
         --num_iter 500 --attack_lr 0.01 --nn_refresh 1 --num_samples 64
-    python -m pointcloudattack_tpu_torch.cli attack geoa3 --model PointNet \
-        --num_classes 40 --binary_step 10 --num_iter 500 --num_samples 8
+    python -m pointcloudattack_tpu_torch.cli attack geoa3 --model PointNet \\
+        --num_classes 40 --binary_step 10 --num_iter 500 --num_samples 8 \\
+        --curv_knn_refresh 4 --use_jitter 1
+    python -m pointcloudattack_tpu_torch.cli attack geoa3-partial \\
+        --model PointNet --knn_range 16 --refresh_iters 50 \\
+        --subsample_npoint 512 --curv_knn_refresh 4
 
 ``--model`` is ``PointNet``, ``PointNet++Ssg``, ``PointNet++Msg``,
 ``DGCNN`` or ``CurveNet`` (whose raw logits the attacks see as
 log-probs, as the JAX CLI normalises them).  ``--num_iter 0`` /
 ``--binary_step 0`` mean the family's reference default (C&W and GeoA3
-10 x 500, KNN 2500).  ``--device`` defaults to
+10 x 500, KNN 2500).  ``geoa3-partial`` takes the settings the JAX CLI
+passes it: the step size, the rounds and iterations, the classification
+loss and its confidence, ``--curv_knn_refresh``, ``--knn_range``,
+``--refresh_iters`` and ``--subsample_npoint``.  ``--device`` defaults to
 ``cuda`` and never drops to the CPU; pass ``--device cpu`` to run the
 plain versions of the kernels.  Without ``--checkpoint`` the victim's
 weights are drawn from ``--seed``.
@@ -36,7 +43,7 @@ import torch
 
 from pointcloudattack_tpu_torch.data.synthetic import make_synthetic_clouds
 
-ATTACK_FAMILIES = ("cw", "knn", "geoa3")
+ATTACK_FAMILIES = ("cw", "knn", "geoa3", "geoa3-partial")
 
 
 def _device(name: str) -> torch.device:
@@ -116,6 +123,16 @@ def _run_family(args, model_fn, data, target, noise_gen):
             use_jitter=bool(args.use_jitter), use_offset_proj=bool(args.use_offset_proj), cc_linf=args.cc_linf,
         )
         adv, _, success = build_geoa3_attack(model_fn, cfg)(data, target, generator=noise_gen)
+        return adv, success
+    if args.family == "geoa3-partial":
+        from pointcloudattack_tpu_torch.attacks.geoa3_partial import GeoA3PartialConfig, build_geoa3_partial_attack
+
+        cfg = GeoA3PartialConfig(
+            lr=args.attack_lr, binary_max_steps=args.binary_step or 10, iter_max_steps=args.num_iter or 500,
+            cls_loss_type=args.cls_loss_type, confidence=args.confidence, curv_knn_refresh=args.curv_knn_refresh,
+            knn_range=args.knn_range, refresh_iters=args.refresh_iters, subsample_npoint=args.subsample_npoint,
+        )
+        adv, _, success = build_geoa3_partial_attack(model_fn, cfg)(data, target, generator=noise_gen)
         return adv, success
     from pointcloudattack_tpu_torch.attacks.knn import KNNAttackConfig, build_knn_attack
 
@@ -208,7 +225,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_points", type=int, default=1024)
     p.add_argument("--num_classes", type=int, default=0, help="0 = 10")
     p.add_argument("--checkpoint", default="", help="reference-layout .pth state dict")
-    p.add_argument("--binary_step", type=int, default=0, help="cw, geoa3: 0 = 10")
+    p.add_argument("--binary_step", type=int, default=0, help="cw, geoa3, geoa3-partial: 0 = 10")
     p.add_argument("--num_iter", type=int, default=0,
                    help="0 = the family's default (cw and geoa3 500, knn 2500)")
     p.add_argument("--attack_lr", type=float, default=1e-2)
@@ -224,12 +241,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--curv_loss_weight", type=float, default=1.0)
     p.add_argument("--curv_loss_knn", type=int, default=16)
     p.add_argument("--curv_knn_refresh", type=int, default=1,
-                   help="geoa3: 1 = the reference's per-iteration curvature kNN (others are not ported yet)")
+                   help="geoa3: recompute the curvature's neighbour set every R iterations "
+                        "(1 = the reference's per-iteration kNN)")
     p.add_argument("--initial_const", type=float, default=10.0)
     p.add_argument("--use_lr_scheduler", type=int, default=0)
-    p.add_argument("--use_jitter", type=int, default=0, help="geoa3: not ported yet")
+    p.add_argument("--use_jitter", type=int, default=0,
+                   help="geoa3: jitter the loss's input in each point's tangent plane")
     p.add_argument("--use_offset_proj", type=int, default=0, help="geoa3: project offsets on the clean normals")
     p.add_argument("--cc_linf", type=float, default=0.0, help="geoa3: per-point offset length cap (0 = off)")
+    p.add_argument("--knn_range", type=int, default=16, help="geoa3-partial: points in a patch")
+    p.add_argument("--refresh_iters", type=int, default=50,
+                   help="geoa3-partial: iterations between patch refreshes")
+    p.add_argument("--subsample_npoint", type=int, default=0,
+                   help="geoa3-partial: evaluate on a farthest-point subsample of this size (0 = off)")
     p.add_argument("--kappa", type=float, default=30.0)
     p.add_argument("--budget", type=float, default=0.18)
     p.add_argument("--num_samples", type=int, default=0, help="0 = all")

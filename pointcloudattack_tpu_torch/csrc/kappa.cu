@@ -1,14 +1,18 @@
-// GeoA3's curvature term for Hopper (sm_90a): a self-kNN and the mean
-// |unit(a_j - a_i) . n_i| over each point's k neighbours, forward and
-// backward.  Plain C interface, loaded with ctypes by
-// pointcloudattack_tpu_torch/ops/kappa.py.
+// GeoA3's curvature term for Hopper (sm_90a): the mean |unit(a_j - a_i) .
+// n_i| over each point's k neighbours, forward and backward, with the
+// neighbours chosen by an in-kernel self-kNN or given by the caller.  Plain
+// C interface, loaded with ctypes by pointcloudattack_tpu_torch/ops/kappa.py.
 //
 // Replaces the TPU kernels pointcloudattack_tpu/ops/pallas/kappa_kernel.py::
 // _kappa_fwd (pallas_call at :321, body _kappa_fwd_kernel, the default pick
 // loop) and _kappa_bwd (pallas_call at :358, body _kappa_bwd_kernel and
 // _bwd_scatter_core), reached from kappa_knn_mean (:390): once per GeoA3
 // attack on the clean cloud and, under grad, once per iteration on the
-// adversarial one.
+// adversarial one.  And, for a given [B, N, k] neighbour set (GeoA3's
+// curv_knn_refresh > 1 cache and its partial mode), _kappa_idx_fwd
+// (pallas_call at :500, body _kappa_idx_fwd_kernel) and _kappa_idx_bwd
+// (pallas_call at :525, body _kappa_idx_bwd_kernel), reached from
+// kappa_knn_mean_from_idx (:554): under grad, once per iteration.
 //
 // Forward.  For a [B, N, 3] and normals n [B, N, 3]: each row's k + 1
 // smallest (distance, index) pairs in lexicographic order, the first (the
@@ -17,6 +21,16 @@
 // over the k kept picks j in pick order, a pick at distance 0 adding 0.  It
 // writes kappa [B, N] and the k picks [B, N, k] int32, which the backward
 // reads in place of the TPU kernel's four boundary scalars.
+//
+// Forward on a given neighbour set idx [B, N, k] int32: the same sum over
+// the row's k columns in slot order (a repeated index adds once per slot),
+// each edge formed exactly as above from sqdist3 of the two points.  The
+// TPU kernel rebuilt the set as an [R, N] column mask with k compare passes
+// over every column, O(N^2) work per cloud for N k edges, because Mosaic
+// has no gather; here a thread a row reads its k indices and gathers each
+// a_j from the cloud, staged in shared memory (12 KB at N = 1024).  Indices
+// are the caller's precondition, as in the JAX package: in [0, N).  An
+// index outside it reads nothing and adds 0, in both directions.
 //
 // Backward.  With w = dkappa_i / k, s = sign(num), num = n_i . a_j -
 // n_i . a_i, rn = sqrt(d_ij), rr = rn + 1e-12, for each kept pick at d > 0:
@@ -39,7 +53,10 @@
 // least one compare a pair, and its contributions 131 K edges: about 76 M
 // operations, 0.001 ms at the FP32 rate, against 0.3 MB of input and
 // output.  The backward is 131 K edges of about 40 operations and the
-// N * k index compares of each pulled point.  Latency bounds both here.
+// N * k index compares of each pulled point.  The given-set forward is the
+// same 131 K edges alone, about 2.6 M operations against 0.72 MB of indices,
+// points, normals and kappa: bytes bound it, at about 0.0002 ms.  Latency
+// bounds all three here: one launch is some 0.005 ms.
 //
 // What the design does about it.
 //   * Forward: a block owns 8 rows of one cloud and keeps their 8 x N exact
@@ -48,10 +65,13 @@
 //     smallest pair above pass t-1's, as csrc/knn.cu selects; the row's lane
 //     0 then forms the k contributions from the stored distance and the
 //     neighbour's coordinates.
-//   * Backward: a thread a row forms its k edge terms, writes them to a
-//     [B, N, k, 3] scratch and sums the row's own side; then a thread a
-//     point pulls the edges that point at it, scanning the cloud's picks
-//     staged in shared memory: no atomics.
+//   * Given-set forward: a block owns 256 rows of one cloud and stages the
+//     cloud's coordinates in shared memory; a thread a row forms its k
+//     edges (edge_term, shared with the selecting forward) and sums them.
+//   * Backward, for both forwards: a thread a row forms its k edge terms,
+//     writes them to a [B, N, k, 3] scratch and sums the row's own side;
+//     then a thread a point pulls the edges that point at it, scanning the
+//     cloud's picks (or given indices) staged in shared memory: no atomics.
 
 #include "sqdist_common.cuh"
 
@@ -80,6 +100,14 @@ __device__ __forceinline__ bool before(float v, int i, float bv, int bi) {
 // n . p, summed in ascending coordinate order, each product and sum rounded.
 __device__ __forceinline__ float dot3(const float* n, const float* p) {
   return __fadd_rn(__fadd_rn(__fmul_rn(n[0], p[0]), __fmul_rn(n[1], p[1])), __fmul_rn(n[2], p[2]));
+}
+
+// One edge's contribution |n_i . a_j - n_i . a_i| / (sqrt(d) + 1e-12), with
+// mii = n_i . a_i and d = sqdist3(a_i, a_j); 0 where d = 0.
+__device__ __forceinline__ float edge_term(const float* ni, const float* aj, float mii, float d) {
+  if (!(d > 0.f)) return 0.f;
+  const float num = __fsub_rn(dot3(ni, aj), mii);
+  return __fdiv_rn(fabsf(num), __fadd_rn(__fsqrt_rn(d), kEps));
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -143,16 +171,42 @@ __global__ void __launch_bounds__(kThreads)
   float acc = 0.f;
   for (int t = 1; t <= k; ++t) {
     const int j = pk[t];
-    const float dj = d[j];
-    float c = 0.f;
-    if (dj > 0.f) {
-      const float num = __fsub_rn(dot3(ni, ab + 3 * j), mii);
-      c = __fdiv_rn(fabsf(num), __fadd_rn(__fsqrt_rn(dj), kEps));
-    }
+    const float c = edge_term(ni, ab + 3 * j, mii, d[j]);
     acc = t == 1 ? c : __fadd_rn(acc, c);
     out[t - 1] = j;
   }
   kap[(size_t)b * N + row] = __fdiv_rn(acc, (float)k);
+}
+
+// One thread a row of the given set: kappa_i over the k indices idx[i, :],
+// in slot order.  The block's 256 rows lie in one cloud, whose points it
+// stages in shared memory first.
+__global__ void __launch_bounds__(kThreads)
+    kappa_idx_fwd_kernel(const float* __restrict__ a, const float* __restrict__ nrm, const int* __restrict__ idx,
+                         int N, int k, float* __restrict__ kap) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* pts = reinterpret_cast<float*>(smem);  // [N][3]
+  const int b = blockIdx.y, i = blockIdx.x * kThreads + threadIdx.x;
+  const float* ab = a + (size_t)b * N * 3;
+  for (int q = threadIdx.x; q < 3 * N; q += kThreads) pts[q] = ab[q];
+  __syncthreads();
+  if (i >= N) return;
+  const size_t r = (size_t)b * N + i;
+  const float* ai = pts + 3 * i;
+  const float* ni = nrm + r * 3;
+  const float mii = dot3(ni, ai);
+  const int* ix = idx + r * k;
+  float acc = 0.f;
+  for (int t = 0; t < k; ++t) {
+    const int j = ix[t];
+    float c = 0.f;
+    if (j >= 0 && j < N) {
+      const float* aj = pts + 3 * j;
+      c = edge_term(ni, aj, mii, pca::sqdist3(ai[0], ai[1], ai[2], aj[0], aj[1], aj[2]));
+    }
+    acc = t == 0 ? c : __fadd_rn(acc, c);
+  }
+  kap[r] = __fdiv_rn(acc, (float)k);
 }
 
 // One thread a row: its k edge terms into e [B, N, k, 3], the row's own
@@ -172,6 +226,11 @@ __global__ void __launch_bounds__(kThreads)
   float c[3] = {0.f, 0.f, 0.f}, dn[3] = {0.f, 0.f, 0.f};
   for (int t = 0; t < k; ++t) {
     const int j = picks[(size_t)r * k + t];
+    float* et = e + ((size_t)r * k + t) * 3;
+    if (j < 0 || j >= N) {  // a given index outside the cloud: no edge
+      et[0] = et[1] = et[2] = 0.f;
+      continue;
+    }
     const float* aj = ab + 3 * j;
     const float d = pca::sqdist3(ai[0], ai[1], ai[2], aj[0], aj[1], aj[2]);
     const float num = __fsub_rn(dot3(ni, aj), mii);
@@ -182,7 +241,6 @@ __global__ void __launch_bounds__(kThreads)
       alpha = __fdiv_rn(ws, rr);
       beta = __fdiv_rn(-__fmul_rn(ws, num), __fmul_rn(__fmul_rn(rr, rr), rn));
     }
-    float* et = e + ((size_t)r * k + t) * 3;
 #pragma unroll
     for (int q = 0; q < 3; ++q) {
       const float v = __fsub_rn(aj[q], ai[q]);
@@ -258,7 +316,24 @@ int pca_kappa_fwd(int device, const void* a, const void* nrm, int B, int N, int 
   return (int)cudaGetLastError();
 }
 
-// a, nrm [B, N, 3] f32; picks [B, N, k] int32 from the forward; dkap [B, N]
+// a, nrm [B, N, 3] f32; idx [B, N, k] int32, the given neighbours; kap
+// [B, N] f32.  1 <= k <= 64, k + 1 <= N <= 4096.  Returns a cudaError_t code
+// (0 on success).
+int pca_kappa_idx_fwd(int device, const void* a, const void* nrm, const void* idx, int B, int N, int k, void* kap,
+                      void* stream) {
+  if (B < 1 || B > 65535 || k < 1 || k > kMaxK || k + 1 > N || N > kMaxPoints) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = sizeof(float) * 3 * (size_t)N;  // at most 48 KB: no opt-in needed
+  const dim3 grid((N + kThreads - 1) / kThreads, B);
+  kappa_idx_fwd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(nrm), static_cast<const int*>(idx), N, k,
+      static_cast<float*>(kap));
+  return (int)cudaGetLastError();
+}
+
+// a, nrm [B, N, 3] f32; picks [B, N, k] int32 from the forward (or the given
+// neighbours); dkap [B, N]
 // f32; e [B, N, k, 3] and ctr [B, N, 3] f32 scratch; dnrm and dadv [B, N, 3]
 // f32 outputs.  Returns a cudaError_t code (0 on success).
 int pca_kappa_bwd(int device, const void* a, const void* nrm, const void* picks, const void* dkap, int B, int N,

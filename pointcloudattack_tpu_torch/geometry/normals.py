@@ -1,9 +1,11 @@
-"""Point-cloud normals by local PCA.
+"""Point-cloud normals and tangent-plane jitter by local PCA.
 
-Counterpart of ``pointcloudattack_tpu/geometry/normals.py::_local_cov`` and
-``estimate_normal``: each point's ``k`` nearest neighbours (self excluded)
-through ``ops/knn.py::knn`` (the kNN kernel on a CUDA tensor), their
-covariance, and its smallest eigenvector by the closed-form 3x3 solver.
+Counterpart of ``pointcloudattack_tpu/geometry/normals.py::_local_cov``,
+``estimate_normal`` and ``estimate_perpendicular_jitter``: each point's
+``k`` nearest neighbours (self excluded) through ``ops/knn.py::knn`` (the
+kNN kernel on a CUDA tensor), their covariance, and its eigenvectors by the
+closed-form 3x3 solver: the smallest is the normal, the two largest span
+the tangent plane that the jitter moves in.
 """
 
 from __future__ import annotations
@@ -40,3 +42,24 @@ def estimate_normal(pc: torch.Tensor, k: int = 3) -> torch.Tensor:
     normal = sym_eigh_3x3(cov)[1][..., :, 0]
     sign = -torch.sign((normal * nbr_sum).sum(dim=-1, keepdim=True))
     return torch.where(sign == 0.0, 1.0, sign) * normal
+
+
+def jitter_from_noise(pc: torch.Tensor, k: int, a1: torch.Tensor, a2: torch.Tensor, clip: float = 0.05):
+    """``[B, N, 3]``, detached: each point's largest and second largest
+    local-covariance eigenvectors scaled by ``a1`` and ``a2 [B, N, 1]``,
+    each product clipped to ``[-clip, clip]`` per coordinate, summed."""
+    cov, _ = _local_cov(pc.detach(), k)
+    vecs = sym_eigh_3x3(cov)[1]  # ascending eigenvalues
+    v1, v2 = vecs[..., :, 2], vecs[..., :, 1]
+    return torch.clamp(v1 * a1, -clip, clip) + torch.clamp(v2 * a2, -clip, clip)
+
+
+def estimate_perpendicular_jitter(pc: torch.Tensor, k: int, generator: torch.Generator | None = None,
+                                  sigma: float = 0.01, clip: float = 0.05) -> torch.Tensor:
+    """Random jitter in each point's tangent plane, ``[B, N, 3]``: the
+    ``jitter_from_noise`` of two ``sigma N(0, 1)`` draws per point from
+    ``generator``."""
+    b, n, _ = pc.shape
+    a1, a2 = (sigma * torch.randn((b, n, 1), generator=generator, device=pc.device, dtype=pc.dtype)
+              for _ in range(2))
+    return jitter_from_noise(pc, k, a1, a2, clip)

@@ -13,15 +13,26 @@ or an exact copy of it at a lower index), with 0 where ``d_ij == 0``.  The
 gradient reaches both ``adv`` and ``normal``; the backward reads the ``k``
 picks the forward kept.
 
+``kappa_knn_mean_from_idx`` is the counterpart of ``kappa_knn_mean_from_idx``
+in the same JAX file (its TPU kernels ``_kappa_idx_fwd`` / ``_kappa_idx_bwd``):
+the same mean over a GIVEN neighbour set ``idx [B, N, k]`` (GeoA3's cached
+set at ``curv_knn_refresh > 1``, and its partial mode), summed in slot
+order, so an index repeated in a row adds once per slot, as the JAX
+package's gather route does.  The indices are the caller's precondition:
+in ``[0, N)`` (the plain version raises on others; the kernel reads
+nothing outside the cloud and adds 0 for them).  Gradients reach ``adv``
+and ``normal``, none ``idx``; the backward is ``kappa_knn_mean``'s, on
+``idx`` in place of the picks.
+
 Numerics: the exact per-coordinate distance, a stable sort (the picks of
 the TPU kernel and of the CUDA kernel's lexicographic selection, ties and
 duplicates included), the numerator as ``n.a_j - n.a_i`` and every sum in a
-fixed order, each operation rounded on its own.  The CUDA kernel
-(``csrc/kappa.cu``) computes the same bits as the plain version below on
+fixed order, each operation rounded on its own.  The CUDA kernels
+(``csrc/kappa.cu``) compute the same bits as the plain versions below on
 the CPU, the backward's scatter in the order of ``index_add_`` there.
 
-On a CUDA tensor ``kappa_knn_mean`` launches the kernels; on a CPU tensor
-it runs the plain versions.
+On a CUDA tensor both functions launch the kernels; on a CPU tensor they
+run the plain versions.
 """
 
 from __future__ import annotations
@@ -35,7 +46,7 @@ from pointcloudattack_tpu_torch.ops.pairwise import dot_last, sum_neighbours
 
 # Kernel launches since the last reset.  Bumped only where a kernel is
 # launched, never by the plain versions.
-LAUNCHES = {"kappa_fwd": 0, "kappa_bwd": 0}
+LAUNCHES = {"kappa_fwd": 0, "kappa_bwd": 0, "kappa_idx_fwd": 0, "kappa_idx_bwd": 0}
 
 EPS = 1e-12
 MAX_POINTS = 4096  # the forward keeps 8 rows of N distances in shared memory
@@ -54,14 +65,31 @@ def _sqrt(d: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(d.double()).float()
 
 
+def _edge_mean(adv, normal, aj, d, k: int) -> torch.Tensor:
+    """``(1/k) sum_t |n_i . a_j - n_i . a_i| / (sqrt(d) + 1e-12)`` over the
+    ``k`` neighbours ``aj [B, N, k, 3]`` at squared distances ``d [B, N,
+    k]``, an edge at ``d == 0`` adding 0, summed in slot order."""
+    num = dot_last(normal[:, :, None, :], aj) - dot_last(normal, adv)[..., None]
+    c = torch.where(d > 0, num.abs() / (_sqrt(d) + EPS), 0.0)
+    return sum_neighbours(c) / k
+
+
 def kappa_plain(adv: torch.Tensor, normal: torch.Tensor, k: int):
     """Plain forward: ``(kappa [B, N], picks [B, N, k] int32)``."""
     adv, normal = adv.float(), normal.float()
     d, order = torch.sort(exact_sqdist(adv, adv), dim=-1, stable=True)
     d, picks = d[..., 1 : k + 1], order[..., 1 : k + 1]
-    num = dot_last(normal[:, :, None, :], index_points(adv, picks)) - dot_last(normal, adv)[..., None]
-    c = torch.where(d > 0, num.abs() / (_sqrt(d) + EPS), 0.0)
-    return sum_neighbours(c) / k, picks.to(torch.int32)
+    return _edge_mean(adv, normal, index_points(adv, picks), d, k), picks.to(torch.int32)
+
+
+def kappa_idx_plain(adv: torch.Tensor, normal: torch.Tensor, idx: torch.Tensor, k: int) -> torch.Tensor:
+    """Plain forward on the given neighbours ``idx [B, N, k]``: ``kappa
+    [B, N]``, each edge's distance in ``exact_sqdist``'s form."""
+    adv, normal = adv.float(), normal.float()
+    aj = index_points(adv, idx)  # [B, N, k, 3]
+    diff = adv[:, :, None, :] - aj
+    d = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1] + diff[..., 2] * diff[..., 2]
+    return _edge_mean(adv, normal, aj, d, k)
 
 
 def kappa_bwd_plain(adv, normal, picks, dkap, k: int):
@@ -115,13 +143,35 @@ def _kappa_fwd_kernel(adv: torch.Tensor, normal: torch.Tensor, k: int):
     return kap, picks
 
 
-def _kappa_bwd_kernel(adv, normal, picks, dkap, k: int):
+def _check_side(adv, what, tensors) -> None:
+    """Each ``(name, t, shape, dtype)`` a contiguous ``dtype`` tensor of
+    ``shape`` on ``adv``'s device."""
+    for name, t, shape, dt in tensors:
+        if t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous() or t.device != adv.device:
+            raise ValueError(f"{what} takes a contiguous {dt} {list(shape)} {name} on {adv.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()} on {t.device}")
+
+
+def _kappa_idx_fwd_kernel(adv: torch.Tensor, normal: torch.Tensor, idx: torch.Tensor, k: int) -> torch.Tensor:
     _check(adv, normal, k)
     b, n, _ = adv.shape
-    for name, t, shape, dt in (("picks", picks, (b, n, k), torch.int32), ("dkappa", dkap, (b, n), torch.float32)):
-        if t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous() or t.device != adv.device:
-            raise ValueError(f"kappa backward kernel takes a contiguous {dt} {list(shape)} {name} on {adv.device}, "
-                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    _check_side(adv, "kappa_knn_mean_from_idx kernel", (("idx", idx, (b, n, k), torch.int32),))
+    lib = _build.load_library()
+    kap = torch.empty((b, n), dtype=torch.float32, device=adv.device)
+    with torch.cuda.device(adv.device):
+        stream = torch.cuda.current_stream(adv.device).cuda_stream
+        rc = lib.pca_kappa_idx_fwd(adv.device.index, adv.data_ptr(), normal.data_ptr(), idx.data_ptr(), b, n, k,
+                                   kap.data_ptr(), stream)
+    _build.check(lib, rc, "kappa_knn_mean_from_idx forward launch")
+    LAUNCHES["kappa_idx_fwd"] += 1
+    return kap
+
+
+def _kappa_bwd_kernel(adv, normal, picks, dkap, k: int, counter: str):
+    _check(adv, normal, k)
+    b, n, _ = adv.shape
+    _check_side(adv, "kappa backward kernel", (("picks", picks, (b, n, k), torch.int32),
+                                               ("dkappa", dkap, (b, n), torch.float32)))
     lib = _build.load_library()
     e = torch.empty((b, n, k, 3), dtype=torch.float32, device=adv.device)
     ctr, dnrm, dadv = (torch.empty_like(adv) for _ in range(3))
@@ -131,7 +181,7 @@ def _kappa_bwd_kernel(adv, normal, picks, dkap, k: int):
                                dkap.data_ptr(), b, n, k, e.data_ptr(), ctr.data_ptr(), dnrm.data_ptr(),
                                dadv.data_ptr(), stream)
     _build.check(lib, rc, "kappa backward launch")
-    LAUNCHES["kappa_bwd"] += 1
+    LAUNCHES[counter] += 1
     return dadv, dnrm
 
 
@@ -145,11 +195,22 @@ def kappa_fwd(adv: torch.Tensor, normal: torch.Tensor, k: int):
     raise ValueError(f"kappa_knn_mean: no implementation for device {adv.device}")
 
 
-def kappa_bwd(adv, normal, picks, dkap, k: int):
-    """``(dadv, dnormal)``: the kernel for CUDA tensors, the plain version
+def kappa_idx_fwd(adv: torch.Tensor, normal: torch.Tensor, idx: torch.Tensor, k: int) -> torch.Tensor:
+    """``kappa`` on the given neighbours: the kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    if adv.is_cuda:
+        return _kappa_idx_fwd_kernel(adv.contiguous(), normal.contiguous(), idx, k)
+    if adv.device.type == "cpu":
+        return kappa_idx_plain(adv, normal, idx, k)
+    raise ValueError(f"kappa_knn_mean_from_idx: no implementation for device {adv.device}")
+
+
+def kappa_bwd(adv, normal, picks, dkap, k: int, counter: str = "kappa_bwd"):
+    """``(dadv, dnormal)``: the kernel for CUDA tensors (its launch counted
+    under ``counter``: ``kappa_idx_bwd`` on a given set), the plain version
     for CPU tensors."""
     if adv.is_cuda:
-        return _kappa_bwd_kernel(adv.contiguous(), normal.contiguous(), picks, dkap.float().contiguous(), k)
+        return _kappa_bwd_kernel(adv.contiguous(), normal.contiguous(), picks, dkap.float().contiguous(), k, counter)
     if adv.device.type == "cpu":
         return kappa_bwd_plain(adv, normal, picks, dkap, k)
     raise ValueError(f"kappa_knn_mean: no implementation for device {adv.device}")
@@ -176,3 +237,31 @@ def kappa_knn_mean(adv: torch.Tensor, normal: torch.Tensor, k: int) -> torch.Ten
     """``adv [B, N, 3]``, ``normal [B, N, 3]`` -> ``kappa [B, N]``,
     differentiable in both."""
     return KappaKnnMean.apply(adv, normal, k)
+
+
+class KappaKnnMeanFromIdx(torch.autograd.Function):
+    """``kappa [B, N]`` on the given neighbours; ``idx`` takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, adv, normal, idx, k):
+        kap = kappa_idx_fwd(adv.detach(), normal.detach(), idx, k)
+        ctx.save_for_backward(adv, normal, idx)
+        ctx.k = k
+        return kap
+
+    @staticmethod
+    def backward(ctx, dkap):
+        adv, normal, idx = ctx.saved_tensors
+        dadv, dnrm = kappa_bwd(adv.detach(), normal.detach(), idx, dkap, ctx.k, counter="kappa_idx_bwd")
+        return (dadv if ctx.needs_input_grad[0] else None), (dnrm if ctx.needs_input_grad[1] else None), None, None
+
+
+def kappa_knn_mean_from_idx(adv: torch.Tensor, normal: torch.Tensor, idx: torch.Tensor, k: int) -> torch.Tensor:
+    """``adv [B, N, 3]``, ``normal [B, N, 3]``, ``idx [B, N, k]`` (each
+    row's neighbours, in ``[0, N)``) -> ``kappa [B, N]``, differentiable in
+    ``adv`` and ``normal``.  Raises ``ValueError`` unless ``idx`` has
+    exactly ``k`` columns, as the JAX function does."""
+    if idx.shape[-1] != k:
+        raise ValueError(f"idx has {idx.shape[-1]} neighbour columns but k={k}; "
+                         "kappa_knn_mean_from_idx uses exactly k columns")
+    return KappaKnnMeanFromIdx.apply(adv, normal, idx.detach().to(torch.int32).contiguous(), k)

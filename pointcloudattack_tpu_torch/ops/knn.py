@@ -12,6 +12,11 @@ same order, so the kernel and the plain version give the same indices.
 
 On a CUDA tensor ``knn`` launches the kernel; on a CPU tensor it runs the
 plain version.  Indices carry no gradient.
+
+``knn_points`` is the counterpart of the JAX package's ``knn_points``
+(distances and indices of one cloud's neighbours in another): plain
+PyTorch on every device, as the JAX package computes it with
+``lax.top_k`` outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -68,3 +73,16 @@ def knn(x: torch.Tensor, k: int) -> torch.Tensor:
     if x.device.type == "cpu":
         return knn_plain(x, k)
     raise ValueError(f"knn: no implementation for device {x.device}")
+
+
+def knn_points(x: torch.Tensor, y: torch.Tensor, k: int, exclude_self: bool = False):
+    """``(dists [B, N, k], idx [B, N, k] int32)``: the squared distances
+    (``pairwise_sqdist``) of each ``x [B, N, C]`` point's ``k`` nearest
+    ``y [B, M, C]`` points, ascending, ties to the lower index (a stable
+    sort: the order of ``lax.top_k`` on the negated distances).  With
+    ``exclude_self`` the first of ``k + 1`` is dropped (``x`` is ``y``).
+    The distances carry the gradient; the indices none."""
+    kk = k + 1 if exclude_self else k
+    d, idx = torch.sort(pairwise_sqdist(x, y), dim=-1, stable=True)
+    first = 1 if exclude_self else 0
+    return d[..., first:kk], idx[..., first:kk].to(torch.int32)

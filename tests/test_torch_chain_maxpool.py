@@ -22,6 +22,9 @@ from pointcloudattack_tpu.ops.pallas.dense_max_kernel import (
 )
 from pointcloudattack_tpu_torch.ops import chain_maxpool as cm
 from test_torch_chain_maxpool_cuda import NARROW, PATH, inputs, make_layers, to_torch
+from torch_threads import threads
+
+torch_threads = threads(1)  # tests/torch_threads.py says why
 
 
 def to_jax(layers):

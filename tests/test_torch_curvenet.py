@@ -54,6 +54,9 @@ from test_torch_pointnet import perturb
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402  (its choice replay and gradient rule)
+from torch_threads import threads  # noqa: E402
+
+torch_threads = threads(1)  # tests/torch_threads.py says why
 
 NUM_CLASSES, N, K, B = 10, 1024, 8, 2
 ATOL = 1e-5
@@ -419,7 +422,8 @@ def test_short_cw_attack_matches_jax(curvenet):
     sd = {k: t.detach().clone() for k, t in tm.state_dict().items()}
     jv = torch_port.port_curvenet({k: t.numpy() for k, t in sd.items()})
     fn = make_model_fn(models.make_model("CurveNet", NUM_CLASSES, k=K), sd, "cpu")
-    target = np.asarray(j_make_model_fn(jm, jv)(jnp.asarray(x))).argmax(-1)  # the clean predictions
+    with torch.no_grad():  # the clean predictions (the port's forward: JAX's would be a compile of its own)
+        target = fn(torch.from_numpy(x)).argmax(-1).numpy()
     kw = dict(binary_step=1, num_iter=5, kappa=30.0, budget=0.18, attack_lr=0.05)
     key = jax.random.PRNGKey(7)
     noise = np.stack([np.asarray(jax.random.normal(k, x.shape, jnp.float32)) for k in jax.random.split(key, 1)])

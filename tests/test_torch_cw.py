@@ -38,6 +38,9 @@ from pointcloudattack_tpu_torch.train.weights import state_dict_from_flax
 from pointcloudattack_tpu_torch.utils.apply import make_model_fn
 
 from test_torch_pointnet import NUM_CLASSES, NUM_POINTS, perturb
+from torch_threads import threads
+
+torch_threads = threads(1)  # tests/torch_threads.py says why
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -189,6 +192,7 @@ def test_port_imports_no_jax():
         "pointcloudattack_tpu_torch.geometry.eig3",
         "pointcloudattack_tpu_torch.geometry.normals",
         "pointcloudattack_tpu_torch.attacks.geoa3",
+        "pointcloudattack_tpu_torch.attacks.geoa3_partial",
         "pointcloudattack_tpu_torch.models",
         "pointcloudattack_tpu_torch.models.dgcnn",
         "pointcloudattack_tpu_torch.models.curvenet",

@@ -36,6 +36,9 @@ from pointcloudattack_tpu_torch.ops.fps import farthest_point_sample, fps_plain
 from pointcloudattack_tpu_torch.ops.gather import index_points
 from pointcloudattack_tpu_torch.ops.grouping import sample_and_group, sample_and_group_all
 from pointcloudattack_tpu_torch.ops.pairwise import pairwise_sqdist
+from torch_threads import threads
+
+torch_threads = threads(1)  # tests/torch_threads.py says why
 
 NEAR_ULP = 4
 

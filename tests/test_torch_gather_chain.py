@@ -22,6 +22,9 @@ import torch
 from pointcloudattack_tpu.ops.pallas import gather_chain_kernel as jgc
 from pointcloudattack_tpu_torch.ops import gather_chain as gc
 from test_torch_chain_maxpool_cuda import make_layers, to_torch
+from torch_threads import threads
+
+torch_threads = threads(1)  # tests/torch_threads.py says why
 
 SSG1 = (("diff", 0, 3, 0),)
 

@@ -9,9 +9,10 @@ file imports no JAX, so it runs on a machine without it:
 
 The checks come from ``chip_smoke.py``: the curvature's picks equal, kappa
 within ``KAPPA_RTOL`` and its gradients within ``KAPPA_GRAD_ATOL``
-(``check_kappa``); the two-direction bundle's mins and argmins bit for bit
-and its gradients within ``BOTH_GRAD_ATOL`` (``check_both``), each against
-the plain version on the CPU.
+(``check_kappa``, and ``check_kappa_idx`` on a given neighbour set); the
+two-direction bundle's mins and argmins bit for bit and its gradients within
+``BOTH_GRAD_ATOL`` (``check_both``), each against the plain version on the
+CPU.
 """
 
 import sys
@@ -23,7 +24,9 @@ import torch
 
 from pointcloudattack_tpu_torch import models
 from pointcloudattack_tpu_torch.attacks.geoa3 import GeoA3Config, build_geoa3_attack
+from pointcloudattack_tpu_torch.attacks.geoa3_partial import GeoA3PartialConfig, build_geoa3_partial_attack
 from pointcloudattack_tpu_torch.ops import chain_maxpool as cm
+from pointcloudattack_tpu_torch.ops import fps as fps_mod
 from pointcloudattack_tpu_torch.ops import chamfer, kappa
 from pointcloudattack_tpu_torch.ops import knn as knn_mod
 from pointcloudattack_tpu_torch.utils.apply import make_model_fn
@@ -59,7 +62,44 @@ def test_kappa_kernels_match_plain_on_card(cuda_device, b, n, k, copies, monkeyp
     nrm = unit(rand(n + 1, b, n, 3))
     kappa.reset_launches()
     chip_smoke.check_kappa("test", f"{b}x{n} k={k} x{copies}", a, nrm, rand(n + 2, b, n))
-    assert kappa.LAUNCHES == {"kappa_fwd": 1, "kappa_bwd": 1}
+    assert kappa.LAUNCHES == {"kappa_fwd": 1, "kappa_bwd": 1, "kappa_idx_fwd": 0, "kappa_idx_bwd": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,k,case", [(8, 1024, 16, "stale"), (8, 1024, 16, "collide"), (2, 1000, 16, "stale"),
+                                        (3, 17, 16, "stale"), (2, 4096, 8, "stale"), (1, 130, 64, "stale"),
+                                        (2, 256, 5, "repeat")])
+def test_kappa_from_idx_kernels_match_plain_on_card(cuda_device, b, n, k, case, monkeypatch):
+    """GeoA3's shape on a stale set (the clean cloud's, on an iterate 1e-2
+    away) and with exact collisions, a ragged N, k + 1 = N, the largest N and
+    k, and an index repeated in a row (it adds once per slot)."""
+    monkeypatch.setattr(chip_smoke, "GEO_K", k)
+    data = rand(n, b, n, 3, scale=0.5)
+    moved = (data + rand(n + 3, b, n, 3, scale=1e-2)).contiguous()
+    idx, hit, _ = chip_smoke.stale_idx(moved, data)
+    if case == "repeat":
+        idx[:, :, 1] = idx[:, :, 0]
+    nrm = unit(rand(n + 1, b, n, 3))
+    kappa.reset_launches()
+    chip_smoke.check_kappa_idx("test", f"{b}x{n} k={k} {case}", hit if case == "collide" else moved, nrm,
+                               idx.contiguous(), rand(n + 2, b, n))
+    assert kappa.LAUNCHES == {"kappa_fwd": 0, "kappa_bwd": 0, "kappa_idx_fwd": 1, "kappa_idx_bwd": 1}
+
+
+@pytest.mark.cuda
+def test_kappa_from_idx_autograd_on_card_matches_cpu(cuda_device):
+    a = rand(0, 2, 300, 3, scale=0.5)
+    nrm = unit(rand(1, 2, 300, 3))
+    w = rand(2, 2, 300)
+    idx = knn_mod.knn(a, 17)[..., 1:]  # not contiguous: the function makes it so
+    grads = []
+    for dev in ("cuda", "cpu"):
+        ta = a.to(dev).clone().requires_grad_(True)
+        tn = nrm.to(dev).clone().requires_grad_(True)
+        (kappa.kappa_knn_mean_from_idx(ta, tn, idx.to(dev), 16) * w.to(dev)).sum().backward()
+        grads.append((ta.grad.cpu(), tn.grad.cpu()))
+    for g, c in zip(*grads):
+        torch.testing.assert_close(g, c, rtol=0.0, atol=chip_smoke.KAPPA_GRAD_ATOL)
 
 
 @pytest.mark.cuda
@@ -83,6 +123,13 @@ def test_kappa_kernel_rejects_what_it_does_not_take(cuda_device):
         a = rand(0, 1, n, 3)
         with pytest.raises(ValueError, match="kappa kernel takes"):
             kappa.kappa_fwd(a, unit(rand(1, 1, n, 3)), k)
+        with pytest.raises(ValueError, match="kappa kernel takes"):
+            kappa.kappa_idx_fwd(a, unit(rand(1, 1, n, 3)), torch.zeros(1, n, k, dtype=torch.int32, device="cuda"), k)
+    a, nrm = rand(0, 1, 64, 3), unit(rand(1, 1, 64, 3))
+    for idx in (torch.zeros(1, 64, 8, dtype=torch.int64, device="cuda"), torch.zeros(1, 64, 8, dtype=torch.int32),
+                torch.zeros(1, 64, 16, dtype=torch.int32, device="cuda")[..., ::2]):
+        with pytest.raises(ValueError, match="from_idx kernel takes"):
+            kappa.kappa_idx_fwd(a, nrm, idx, 8)
 
 
 @pytest.mark.cuda
@@ -111,7 +158,35 @@ def test_geoa3_runs_on_the_kernels(cuda_device):
         generator=torch.Generator(device=cuda_device).manual_seed(0))
     steps = rounds * iters
     assert knn_mod.LAUNCHES["knn"] == 1
-    assert kappa.LAUNCHES == {"kappa_fwd": 1 + steps, "kappa_bwd": steps}
+    assert kappa.LAUNCHES == {"kappa_fwd": 1 + steps, "kappa_bwd": steps, "kappa_idx_fwd": 0, "kappa_idx_bwd": 0}
     assert chamfer.LAUNCHES == {"min_rows": 0, "both_fwd": steps, "both_bwd": steps}
     assert cm.LAUNCHES == {"fwd": 2 * (steps + rounds + 1), "bwd": 2 * steps}
+    assert adv.shape == x.shape and bool(torch.isfinite(adv).all()) and loss.shape == (4,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("partial", [False, True], ids=["full-r2-jitter", "partial-r2-subsample"])
+def test_geoa3_refresh_jitter_and_partial_run_on_the_kernels(cuda_device, partial):
+    model = models.make_model("PointNet", 40, generator=torch.Generator().manual_seed(0))
+    fn = make_model_fn(model, None, cuda_device)
+    x = rand(3, 4, 1024, 3, scale=0.5)
+    rounds, iters = 2, 5
+    kw = dict(binary_max_steps=rounds, iter_max_steps=iters, curv_knn_refresh=2)
+    if partial:
+        attack = build_geoa3_partial_attack(fn, GeoA3PartialConfig(refresh_iters=3, subsample_npoint=512, **kw))
+    else:
+        attack = build_geoa3_attack(fn, GeoA3Config(use_jitter=True, jitter_refresh_iters=3, **kw))
+    for mod in (cm, chamfer, kappa, knn_mod, fps_mod):
+        mod.reset_launches()
+    adv, loss, succ = attack(x, torch.zeros(4, dtype=torch.long, device=cuda_device),
+                             generator=torch.Generator(device=cuda_device).manual_seed(0))
+    steps = rounds * iters
+    # the normals, a cached set at iterations 0, 2 and 4 of each round, and (full mode) the jitter's
+    # covariance at iterations 0 and 3
+    assert knn_mod.LAUNCHES["knn"] == 1 + rounds * 3 + (0 if partial else rounds * 2)
+    assert kappa.LAUNCHES == {"kappa_fwd": 1, "kappa_bwd": 0, "kappa_idx_fwd": steps, "kappa_idx_bwd": steps}
+    assert chamfer.LAUNCHES == {"min_rows": 0, "both_fwd": steps, "both_bwd": steps}
+    # the loss forward and the evaluation's (of the bare cloud, or of the subsample) each iteration
+    assert cm.LAUNCHES == {"fwd": 2 * (2 * steps + rounds + 1), "bwd": 2 * steps}
+    assert fps_mod.LAUNCHES["fps"] == (steps if partial else 0)
     assert adv.shape == x.shape and bool(torch.isfinite(adv).all()) and loss.shape == (4,)

@@ -14,7 +14,20 @@ interpret-mode kernels do not run (the TPU's row blocks), so the JAX
 package's CPU paths hold the port there: the curvature oracle, and the
 dense ``xx - 2xy + yy`` bundle, whose distances differ from the exact ones
 by rounding (atol 1e-5).
+
+The curvature on a given neighbour set (``kappa_knn_mean_from_idx``) is
+held to the interpret-mode TPU kernel (f32-exact here: its body is
+elementwise) and to the JAX package's CPU gather route (``_neighbour_offsets``
+and ``_masked_unit_projection`` on the same indices, which normalises each
+offset before projecting): kappa atol 1e-6, both gradients atol 1e-5, on a
+stale set (taken on the cloud, the cloud then moved by about 1e-2), with a
+cached neighbour moved onto its centre (it adds 0, its gradient finite),
+and at a ragged N=1000 against the gather route alone, whose gradients
+there lie within 1e-5 of their largest entry (``hold_gather_route``).
 """
+
+import sys
+from pathlib import Path
 
 import numpy as np
 import jax
@@ -22,11 +35,18 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from pointcloudattack_tpu.losses import geometry as jgeo
 from pointcloudattack_tpu.losses.distance import chamfer_hausdorff_nn as j_bundle
 from pointcloudattack_tpu.ops.pallas import chamfer_kernel as CK
 from pointcloudattack_tpu.ops.pallas import kappa_kernel as KK
 from pointcloudattack_tpu_torch.losses.distance import chamfer_hausdorff_nn
 from pointcloudattack_tpu_torch.ops import chamfer, kappa
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (its stale neighbour sets)
+from torch_threads import threads  # noqa: E402
+
+torch_threads = threads(1)  # tests/torch_threads.py says why
 
 K = 16
 
@@ -56,13 +76,14 @@ def port_kappa(a, nr, w):
     kappa.reset_launches()
     kap = kappa.kappa_knn_mean(ta, tn, K)
     (kap * torch.from_numpy(w)).sum().backward()
-    assert kappa.LAUNCHES == {"kappa_fwd": 0, "kappa_bwd": 0}  # the plain versions on the CPU
+    assert kappa.LAUNCHES == {"kappa_fwd": 0, "kappa_bwd": 0, "kappa_idx_fwd": 0,
+                              "kappa_idx_bwd": 0}  # the plain versions on the CPU
     return kap.detach().numpy(), kappa.kappa_plain(torch.from_numpy(a), torch.from_numpy(nr), K)[1].numpy(), \
         ta.grad.numpy(), tn.grad.numpy()
 
 
 def jax_grads(fn, a, nr, w):
-    return [np.asarray(g) for g in jax.grad(lambda x, n: jnp.sum(fn(x, n) * w), argnums=(0, 1))(
+    return [np.asarray(g) for g in jax.jit(jax.grad(lambda x, n: jnp.sum(fn(x, n) * w), argnums=(0, 1)))(
         jnp.asarray(a), jnp.asarray(nr))]
 
 
@@ -130,6 +151,81 @@ def test_kappa_plain_backward_matches_autograd_through_the_plain_forward():
     (proj.mean(-1) * torch.from_numpy(w).double()).sum().backward()
     np.testing.assert_allclose(da, ta.grad.numpy(), rtol=0, atol=1e-5 * np.abs(da).max())
     np.testing.assert_allclose(dn, tn.grad.numpy(), rtol=0, atol=1e-5 * np.abs(dn).max())
+
+
+def stale_set(seed, n, collide=False):
+    """A cloud moved by about 1e-2 after its neighbour sets were taken, the
+    sets, and with ``collide`` the 8 rows whose fifth cached neighbour was
+    then moved exactly onto its centre (``chip_smoke.stale_idx``)."""
+    a, nr, w = cloud(seed, 2, n)
+    moved = a + (np.random.RandomState(seed + 50).randn(*a.shape) * 1e-2).astype(np.float32)
+    idx, hit, rows = chip_smoke.stale_idx(torch.from_numpy(moved), torch.from_numpy(a))
+    return (hit.numpy(), nr, w, idx, rows) if collide else (moved, nr, w, idx, [])
+
+
+def port_kappa_idx(a, nr, idx, w):
+    ta = torch.from_numpy(a).requires_grad_(True)
+    tn = torch.from_numpy(nr).requires_grad_(True)
+    kappa.reset_launches()
+    kap = kappa.kappa_knn_mean_from_idx(ta, tn, idx, K)
+    (kap * torch.from_numpy(w)).sum().backward()
+    assert kappa.LAUNCHES == {"kappa_fwd": 0, "kappa_bwd": 0, "kappa_idx_fwd": 0,
+                              "kappa_idx_bwd": 0}  # the plain versions on the CPU
+    return kap.detach().numpy(), ta.grad.numpy(), tn.grad.numpy()
+
+
+def jax_gather_route(a, nr, idx):
+    """The JAX package's CPU route for a given set: the offsets gathered,
+    each normalised, projected and masked at exact collisions."""
+    return jgeo._masked_unit_projection(jgeo._neighbour_offsets(a, a, idx), nr)
+
+
+def hold_gather_route(kap, grads, a, nr, w, idx, relative=False):
+    """kappa atol 1e-6, the gradients atol 1e-5 or, with ``relative``, 1e-5
+    of their largest entry (the route differentiates ``unit(v) . n``,
+    another formula, which at a cloud's closest pairs rounds some 30 ulp
+    apart: 1.5e-5 at the ragged cloud's largest gradient, 10.7)."""
+    fn = lambda x, n: jax_gather_route(x, n, jnp.asarray(idx.numpy()))  # noqa: E731
+    np.testing.assert_allclose(kap, np.asarray(fn(jnp.asarray(a), jnp.asarray(nr))), rtol=0, atol=1e-6)
+    for g, j in zip(grads, jax_grads(fn, a, nr, w)):
+        np.testing.assert_allclose(g, j, rtol=0, atol=1e-5 * (np.abs(j).max() if relative else 1.0))
+
+
+@pytest.mark.parametrize("collide", [False, True], ids=["stale", "collision"])
+def test_kappa_from_idx_matches_the_interpret_kernel_and_the_gather_route(collide):
+    a, nr, w, idx, rows = stale_set(8, 256, collide)
+    kap, da, dn = port_kappa_idx(a, nr, idx, w)
+    itp = lambda x, n: KK.kappa_knn_mean_from_idx(x, n, jnp.asarray(idx.numpy()), K, True)  # noqa: E731
+    np.testing.assert_allclose(kap, np.asarray(itp(jnp.asarray(a), jnp.asarray(nr))), rtol=0, atol=1e-6)
+    for g, j in zip((da, dn), jax_grads(itp, a, nr, w)):
+        np.testing.assert_allclose(g, j, rtol=0, atol=1e-5)
+    hold_gather_route(kap, (da, dn), a, nr, w, idx)
+    d = exact_sqdist(a, a)[np.arange(2)[:, None, None], np.arange(256)[None, :, None], idx.numpy()]
+    assert len(rows) == (8 if collide else 0) and (d[0, rows, 4] == 0).all()
+    assert (d == 0).sum() >= 8 if collide else (d > 0).all()
+    assert np.isfinite(da).all() and np.isfinite(dn).all()
+    if collide:  # the collided edge adds 0: kappa is the other edges' sum over k
+        v = a[0][idx[0, rows].numpy()] - a[0, rows][:, None]
+        num = np.abs((v * nr[0, rows][:, None]).sum(-1))
+        dd = d[0, rows]
+        want = np.where(dd > 0, num / (np.sqrt(np.where(dd > 0, dd, 1.0)) + kappa.EPS), 0.0).sum(-1) / K
+        np.testing.assert_allclose(kap[0, rows], want, rtol=1e-5, atol=0)
+    # on its own selection's picks it is the selecting curvature, bit for bit
+    picks = kappa.kappa_plain(torch.from_numpy(a), torch.from_numpy(nr), K)[1]
+    np.testing.assert_array_equal(kappa.kappa_idx_plain(torch.from_numpy(a), torch.from_numpy(nr), picks, K).numpy(),
+                                  kappa.kappa_plain(torch.from_numpy(a), torch.from_numpy(nr), K)[0].numpy())
+
+
+def test_kappa_from_idx_ragged_n_matches_the_gather_route():
+    a, nr, w, idx, _ = stale_set(9, 1000)
+    kap, da, dn = port_kappa_idx(a, nr, idx, w)
+    hold_gather_route(kap, (da, dn), a, nr, w, idx, relative=True)
+
+
+def test_kappa_from_idx_takes_exactly_k_columns():
+    a = torch.zeros(1, 32, 3)
+    with pytest.raises(ValueError, match="exactly k columns"):
+        kappa.kappa_knn_mean_from_idx(a, a, torch.zeros(1, 32, K - 1, dtype=torch.int32), K)
 
 
 def bundle_inputs(seed, b, n, m):

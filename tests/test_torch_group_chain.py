@@ -27,6 +27,9 @@ from pointcloudattack_tpu.ops.pallas.dense_max_kernel import (
     reference_mlp_chain_groupmean,
 )
 from pointcloudattack_tpu_torch.ops import group_chain as gch
+from torch_threads import threads
+
+torch_threads = threads(1)  # tests/torch_threads.py says why
 
 ATOL = 1e-5
 

@@ -42,6 +42,9 @@ from pointcloudattack_tpu_torch.train.weights import state_dict_from_flax
 from pointcloudattack_tpu_torch.utils.apply import make_model_fn
 
 from test_torch_pointnet import perturb
+from torch_threads import threads
+
+torch_threads = threads(1)  # tests/torch_threads.py says why
 
 NUM_CLASSES = 10
 

@@ -29,6 +29,9 @@ from pointcloudattack_tpu.ops.pallas import chamfer_kernel as CK
 from pointcloudattack_tpu.ops.pallas.knn_kernel import knn_pallas
 from pointcloudattack_tpu_torch.ops import chamfer
 from pointcloudattack_tpu_torch.ops import knn as knn_mod
+from torch_threads import threads
+
+torch_threads = threads(1)  # tests/torch_threads.py says why
 
 KNN_TOL = 1e-4  # f32 rounding of xx - 2xy + yy at C <= 64 and unit-scale inputs
 ROW_TOL = 1e-5

@@ -30,6 +30,9 @@ from pointcloudattack_tpu.geometry.normals import estimate_normal as j_estimate_
 from pointcloudattack_tpu_torch.geometry import normals
 from pointcloudattack_tpu_torch.geometry.eig3 import sym_eigh_3x3
 from pointcloudattack_tpu_torch.ops import knn as knn_mod
+from torch_threads import threads
+
+torch_threads = threads(1)  # tests/torch_threads.py says why
 
 EIG_ERR = 1.5e-5
 

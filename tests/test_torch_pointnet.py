@@ -32,6 +32,9 @@ from pointcloudattack_tpu_torch.models.common import (
 from pointcloudattack_tpu_torch.ops import chain_maxpool as cm
 from pointcloudattack_tpu_torch.train.weights import state_dict_from_flax
 from pointcloudattack_tpu_torch.utils.apply import make_model_fn
+from torch_threads import threads
+
+torch_threads = threads(1)  # tests/torch_threads.py says why
 
 NUM_CLASSES, NUM_POINTS = 3, 64
 

@@ -56,6 +56,9 @@ from test_torch_pointnet import perturb
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import GRAD_CLEAN, GRAD_REL  # noqa: E402  (the card-against-CPU gradient bounds)
+from torch_threads import threads  # noqa: E402
+
+torch_threads = threads(2)  # tests/torch_threads.py says why
 
 NUM_CLASSES, NUM_POINTS, B = 10, 1024, 2
 NAMES = ["PointNet++Ssg", "PointNet++Msg"]

@@ -19,6 +19,9 @@ from pointcloudattack_tpu_torch.ops.knn import knn_plain
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402  (its bounds and its parting rule)
+from torch_threads import threads  # noqa: E402
+
+torch_threads = threads(1)  # tests/torch_threads.py says why
 
 
 def test_knn_bound_charges_one_compare_a_pair():
@@ -263,3 +266,71 @@ def test_replayed_choices_take_the_given_choices():
     _, g_flip, stats = replayed(queues)
     assert int(stats["mean"]["other"][0][0]) == 40 and stats["mean"]["off"] > 0
     assert float((g_flip - g_want).norm() / g_want.norm()) > 1e-6
+
+
+def test_kappa_idx_bound_charges_the_given_set():
+    """The given-set forward reads the indices, the points and the normals
+    and writes kappa: bytes bound it at GeoA3's shape (about 0.0002 ms)."""
+    b, n, k = 8, 1024, 16
+    t, by = chip_smoke.kappa_idx_bound(b, n, k)
+    nbytes = 4.0 * (b * n * k + 6 * b * n + b * n)
+    assert by == "bytes" and np.isclose(t, nbytes / chip_smoke.PEAK_BYTES * 1e3) and 1.5e-4 < t < 3e-4
+    assert 19.0 * b * n * k / chip_smoke.PEAK_FLOPS * 1e3 < t
+
+
+def test_geoa3_hooks_replay_the_cached_sets_and_the_jitter():
+    """GeoA3 at curv_knn_refresh 2 with jitter, on the CPU, replaying its
+    own cached neighbour sets and jitter (``knn_hooks`` on the curvature's
+    module, ``jitter_hooks``) gives the same result; another jitter moves
+    it, and sets other than its own are counted."""
+    from pointcloudattack_tpu_torch import models
+    from pointcloudattack_tpu_torch.attacks import geoa3 as geo_mod
+    from pointcloudattack_tpu_torch.losses import geometry as geo_losses
+    from pointcloudattack_tpu_torch.utils.apply import make_model_fn
+
+    fn = make_model_fn(models.make_model("PointNet", 10, generator=torch.Generator().manual_seed(0)), None, "cpu")
+    x = torch.from_numpy((np.random.RandomState(4).randn(2, 64, 3) * 0.5).astype(np.float32))
+    cfg = geo_mod.GeoA3Config(binary_max_steps=2, iter_max_steps=3, curv_knn_refresh=2, use_jitter=True,
+                              jitter_refresh_iters=2)
+    offsets = torch.from_numpy((np.random.RandomState(5).randn(2, 2, 64, 3) * 1e-3).astype(np.float32))
+    hooks = {**chip_smoke.knn_hooks(geo_losses), **chip_smoke.jitter_hooks()}
+    rec = {k: [] for k in hooks}
+    orig = {k: getattr(mod, name) for k, (mod, name, _, _) in hooks.items()}
+
+    def recording(kind):
+        def run(*args, **kw):
+            out = orig[kind](*args, **kw)
+            rec[kind].append(out)
+            return out
+        return run
+
+    def attack(gen=None):
+        return geo_mod.build_geoa3_attack(fn, cfg)(x, torch.zeros(2, dtype=torch.long), generator=gen,
+                                                   init_offsets=offsets)
+
+    for k, (mod, name, _, _) in hooks.items():
+        setattr(mod, name, recording(k))
+    try:
+        want = attack(torch.Generator().manual_seed(1))
+    finally:
+        for k, (mod, name, _, _) in hooks.items():
+            setattr(mod, name, orig[k])
+    assert [len(rec["knn"]), len(rec["jitter"])] == [2 * 2, 2 * 2]  # iterations 0 and 2 of each round
+
+    def replayed(queues):
+        with chip_smoke.replay(hooks, lambda kind: queues[kind].pop(0)) as stats:
+            got = attack(torch.Generator().manual_seed(2))  # other draws: the jitter must come from the queue
+        assert not any(queues.values())
+        return got, stats
+
+    got, stats = replayed({k: list(v) for k, v in rec.items()})
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert stats["knn"]["off"] == 0 and stats["knn"]["calls"] == 4 and stats["jitter"]["calls"] == 4
+    queues = {k: list(v) for k, v in rec.items()}
+    queues["jitter"][0] = queues["jitter"][0] * 2.0
+    queues["knn"][1] = queues["knn"][1].flip(-1)  # the same sets in another order: not off
+    queues["knn"][2] = queues["knn"][2].roll(1, dims=1)  # other points' sets
+    got, stats = replayed(queues)
+    assert not torch.equal(got[0], want[0]) and stats["knn"]["off"] == 1
+    assert sum(int(n.sum()) for n in stats["knn"]["other"]) > 0

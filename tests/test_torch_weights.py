@@ -18,6 +18,9 @@ from pointcloudattack_tpu import models as jmodels
 from pointcloudattack_tpu.train.torch_port import export_checkpoint, export_pointnet
 from pointcloudattack_tpu_torch import models
 from pointcloudattack_tpu_torch.train.weights import SPECS, state_dict_from_flax
+from torch_threads import threads
+
+torch_threads = threads(1)  # tests/torch_threads.py says why
 
 CASES = [
     ("PointNet", {}),
