@@ -4,7 +4,7 @@ Run from the root of a checkout, on a machine with one H100:
 
     python3 chip_smoke.py
 
-It takes about seven to nine minutes, the kernel build included.
+It takes about nine to ten minutes, the kernel build included.
 
 Phases, each raising on failure (nothing is caught; any failure exits
 non-zero and prints no result):
@@ -17,10 +17,16 @@ non-zero and prints no result):
               PointNet's spine shape (B=64, N=1024, 3 -> 64 -> 128 -> 1024) and
               at a ragged N=1000; forward and backward times beside the plain
               version's.  Then the PointNet++ kernels at every shape the SSG
-              and MSG paths give them (B=16, N=1024): FPS bit for bit, the
-              gather + chain + max forward and backward, and the chain at the
-              group-all widths (259 and 643 inputs, N=128), each with its
-              time, the plain version's and the bound.
+              and MSG paths give them (B=16, N=1024): FPS bit for bit and the
+              chain at the group-all widths (259 and 643 inputs, N=128), each
+              with its time, the plain version's and the bound.
+3a. kernels-ballq  the ball query + gather + chain + max kernel at every set
+              abstraction of SSG and MSG (B=16, N=1024), at a ragged N=1000, at
+              N=100 < K=128, with empty and overfull balls and on a cloud snapped
+              to a 1/16 grid: the slots equal query_ball_point's bit for bit, y
+              and the argmax equal the gather kernel's on them, then
+              check_gather's rules; times beside the plain version's, those of
+              query_ball_point then the gather kernel, and the bound.
 4. slice      the headline attack: untargeted C&W on PointNet, f32, B=64,
               N=1024, 40 classes, kappa 30, budget 0.18, 1 x 200 Adam steps,
               seeded random weights with BatchNorm statistics taken from the
@@ -34,11 +40,14 @@ non-zero and prints no result):
               kernel time by name and the device's idle share.
 7. slice-ssg  C&W 1 x 100 on PointNet++ SSG, B=16, N=1024, 40 classes, kappa
               30, budget 0.18, on the 16 clouds of bench.py's cw_ssg cell, with
-              a victim made as in phase 4; launch counts of FPS, gather and
-              chain kernels, ASR > 0, s/batch over 3 reps after a warm-up.
+              a victim made as in phase 4; launch counts of FPS, ball and
+              chain kernels, ASR > 0, s/batch over 3 reps after a warm-up; the
+              first step's gradient twice on the card.
 8. slice-msg  the same on PointNet++ MSG (bench.py's cw_msg clouds).
 9. parity-ssg / parity-msg  card against CPU, the CPU's max pools taking
-              the card's picks (``pick_hooks``): an SSG attack (B=4, 1 x 10)
+              the card's picks and the sides of 0 of the chains' hidden units
+              and of the ReLUs after the pools and in the head (``pick_hooks``,
+              ``relu_hooks``): an SSG attack (B=4, 1 x 10)
               from the same weights and noise (success, best distance and
               adversarial clouds; then log-probs and the loss gradient cloud
               by cloud at each of the card's iterates); MSG log-probs and the
@@ -86,8 +95,9 @@ non-zero and prints no result):
               their plain versions at the nine LPFA shapes of one CurveNet
               forward (B=8, K=20, LeakyReLU 0.2), at a ragged G=1000, at K=7 and
               with 2-layer chains, each with its time, the plain version's and
-              the bound; then each LPFA stage of the victim fused against the
-              unfused plain layer, forward and forward + input backward.
+              the bound; then each LPFA stage of the victim on the grouped route
+              and on the gather route against the unfused plain layer, forward
+              and forward + input backward.
 24. slice-curvenet  C&W 1 x 100 on CurveNet at bench.py's cw_curvenet settings
               (B=8, published widths): exact launch counts (kNN 9, FPS 2, group
               max 1 and group mean 8 per forward, 1 + 8 per backward), ASR > 0,
@@ -118,8 +128,19 @@ Phases 23-27 run last; after phase 22 come
 22d. profile-geoa3-r4  torch.profiler over 10 GeoA3 iterations at
               curv_knn_refresh 4.
 Phase 19 also holds the curvature kernels on a given neighbour set (a stale
-set from the kNN kernel, exact collisions, a ragged N=1000).  Each of phases
-11-27 prints its seconds.
+set from the kNN kernel, exact collisions, a ragged N=1000).  CurveNet's
+gather route (``fused_gather=True``) adds:
+23a. kernels-gather-curvenet  the gather mean (rows activated, LeakyReLU 0.2)
+              at the eight residual LPFA shapes of one CurveNet forward (B=8,
+              K=20) and the slope-0.2 gather max at the initial LPFA, then a
+              ragged N=1000 and 2-layer chains, under check_group's rules; the LPFA
+              stages of phase 23 also run on the gather route.
+24a. slice-curvenet-gather  C&W 1 x 100 on CurveNet's gather route: exact launch
+              counts (the gather max 1 and mean 8 per forward, 1 + 8 per backward,
+              the group kernels 0), ASR > 0, then both routes in turns.
+25a. parity-curvenet-gather  phase 25 on the gather route, the CPU also taking
+              the gather means' signs.
+Each of phases 11-27 prints its seconds.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the per-kernel record.  The script imports nothing of JAX.
@@ -168,19 +189,21 @@ BINARY_STEP, NUM_ITER, KAPPA, BUDGET = 1, 200, 30.0, 0.18
 Y_TOL = dict(rtol=1e-5, atol=1e-4)  # 128-term f32 sums in another order
 DX_TOL = dict(rtol=1e-4, atol=1e-4)
 EDGE = 1e-5  # a hidden unit this close to 0 may take either side of its ReLU
-# PointNet++ card against CPU, the CPU taking the card's max-pool picks:
-# log-probs, and for each step and cloud the loss gradient's relative L2
-# difference.  Most pairs agree to rounding (about 7e-7), but 35-50% of an
-# SSG attack's (step, cloud) pairs differ by 1e-5 to 1.3e-2 (two runs of
-# this script on an H100), as a hidden unit of a winning row within rounding
-# of 0, whose ReLU opens on one side only, would make them.  So every pair
-# is held within GRAD_REL, which a gather backward that dropped or negated
-# dctr, or dropped dsrc, exceeds 5 times over, and at least CLEAN_SHARE of an
-# attack's pairs within GRAD_CLEAN, which a fault on every step cannot meet
-# however small (tests/test_torch_pointnet2.py).  A pair whose two best
-# non-target log-probs (or the target's and the best other's) lie within
-# LOGP_ATOL may follow another class on either side: it is named, left out.
-LOGP_ATOL, GRAD_REL, GRAD_CLEAN, CLEAN_SHARE = 1e-4, 5e-2, 1e-5, 0.25
+# Card against CPU, the CPU taking the card's discrete choices: log-probs,
+# and for each step and cloud the loss gradient's relative L2 difference.
+# With the max-pool picks alone, 35-50% of an SSG attack's (step, cloud)
+# pairs differed by 1e-5 to 1.3e-2 and one by 0.198 (runs of this script on
+# an H100): a hidden unit of a winning row, a pooled feature or a head unit
+# within rounding of 0 opens on one side only.  The CPU now takes those
+# sides from the card too (``pick_hooks``, ``relu_hooks``,
+# ``curvenet_hooks``), and every pair of every parity phase agreed within
+# 1.3e-6.  Every pair is held within GRAD_CLEAN, which a gather backward
+# that dropped, negated or scaled by 1.001 either of its two input
+# gradients exceeds on every pair (tests/test_torch_pointnet2.py).  A pair
+# whose two best non-target log-probs (or the target's and the best
+# other's) lie within LOGP_ATOL may follow another class on either side:
+# it is named, left out.
+LOGP_ATOL, GRAD_CLEAN = 1e-4, 1e-5
 PICK_ATOL = Y_TOL["atol"]  # a card pick lies at most this far below the CPU's max
 PART_ATOL = 1e-5  # a cloud's card and CPU iterates further apart than this have parted
 # KNN on PointNet, card against CPU: at most PART_SHARE of the points may
@@ -193,13 +216,14 @@ GRAD_APART = 1e-3  # a coordinate's two gradients this far apart, relative, move
 # PointNet++: bench.py's cw_ssg / cw_msg cells (8 classes x 2 clouds)
 PN2_B, PN2_ITER = 16, 100
 PN2_DATA = {"PointNet++Ssg": 6, "PointNet++Msg": 12}  # make_synthetic_clouds seeds
-# kernel launches per forward and per backward on each path
+# kernel launches per forward and per backward on each path: the ball
+# kernel at each neighbourhood set abstraction (MSG: each radius)
 PN2_LAUNCHES = {
-    "PointNet++Ssg": ({"fps": 2, "gather_fwd": 2, "chain_fwd": 1}, {"gather_bwd": 2, "chain_bwd": 1}),
-    "PointNet++Msg": ({"fps": 2, "gather_fwd": 6, "chain_fwd": 1}, {"gather_bwd": 6, "chain_bwd": 1}),
+    "PointNet++Ssg": ({"fps": 2, "ball_fwd": 2, "chain_fwd": 1}, {"ball_bwd": 2, "chain_bwd": 1}),
+    "PointNet++Msg": ({"fps": 2, "ball_fwd": 6, "chain_fwd": 1}, {"ball_bwd": 6, "chain_bwd": 1}),
 }
 # (n, npoint, radius, K, feature width, layout, chain widths) at B=16: every
-# gather call of the two paths; the SSG ones make up one SSG forward
+# ball kernel call of the two paths; the SSG ones make up one SSG forward
 GATHER_SHAPES = {
     "ssg_sa1": (1024, 512, 0.2, 32, 0, "ssg", (64, 64, 128)),
     "ssg_sa2": (512, 128, 0.4, 64, 128, "ssg", (128, 128, 256)),
@@ -265,6 +289,28 @@ CURVENET_GROUP_SHAPES = {
     "cic31": (256, 64, (64,), "mean"), "cic32": (256, 64, (64,), "mean"),
     "cic41": (64, 128, (128,), "mean"), "cic42": (64, 128, (128,), "mean"),
 }
+# The ball kernel at every GATHER_SHAPES set abstraction, then at these
+# cases in the same format with a last field for what is done to the cloud: "far" moves
+# every fourth center 10 away (an empty ball) with a radius that overfills
+# the others, "grid" snaps the cloud to a 1/16 grid, so that many squared
+# distances equal the squared radius exactly
+BALL_EDGE_SHAPES = {
+    "ragged N=1000": (1000, 256, 0.2, 32, 0, "ssg", (32, 64), None),
+    "N=100 < K=128": (100, 32, 0.4, 128, 0, "msg", (32, 64), None),
+    "empty and overfull": (1024, 128, 1.0, 32, 0, "ssg", (32, 64), "far"),
+    "grid 1/16, radius 0.25": (1024, 256, 0.25, 32, 0, "ssg", (32, 64), "grid"),
+}
+# CurveNet's gather route (fused_gather=True): the initial LPFA's gather max
+# and the eight residual LPFAs' gather means, per forward and per backward
+CN_GATHER_LAUNCHES = ({"knn": 9, "fps": 2, "gather_fwd": 1, "gather_mean_fwd": 8},
+                      {"gather_bwd": 1, "gather_mean_bwd": 8})
+# the residual LPFAs of one CurveNet forward at B=8, K=20: (N, C), one layer C -> C
+CURVENET_GATHER_SHAPES = {
+    "cic11": (1024, 16), "cic12": (1024, 16), "cic21": (1024, 32), "cic22": (1024, 32),
+    "cic31": (256, 64), "cic32": (256, 64), "cic41": (64, 128), "cic42": (64, 128),
+}
+CN_INITIAL_LAYOUT = (("center", 0, 3), ("pass", 0, 3), ("diff", 0, 3, 0))
+TURNS = 2  # timed runs of each arm of a route comparison, in turns (A, B, A, B)
 FPS_SHAPES = ((1024, 512), (512, 128))  # (N, npoint) of SSG's (and MSG's) two SAs
 GROUP_ALL = {"ssg_sa3": (259, 256, 512, 1024), "msg_sa3": (643, 256, 512, 1024)}
 
@@ -475,11 +521,11 @@ def phase_kernels():
             "bound_fwd": bf, "bound_bwd": bb}
 
 
-def gather_case(seed, n, npoint, radius, k, feat, kind, widths):
+def gather_case(seed, n, npoint, radius, k, feat, kind, widths, how=None):
     """src, centers and idx as a set abstraction makes them on the card
     (FPS, then the ball query, whose short balls repeat their first index),
     or as an EdgeConv does (``kind`` "dgcnn"), with seeded layers and
-    cotangent."""
+    cotangent; ``how`` as in BALL_EDGE_SHAPES."""
     import numpy as np
     import torch
 
@@ -491,6 +537,8 @@ def gather_case(seed, n, npoint, radius, k, feat, kind, widths):
 
     rng = np.random.RandomState(seed)
     xyz = torch.from_numpy((rng.randn(PN2_B, n, 3) * 0.5).astype(np.float32)).cuda()
+    if how == "grid":
+        xyz = torch.round(xyz * 16) / 16
     if kind == "dgcnn":  # an EdgeConv: centers are the source rows, idx their kNN
         src = torch.from_numpy(rng.randn(PN2_B, n, feat).astype(np.float32)).cuda() if feat else xyz
         c = src.shape[-1]
@@ -499,6 +547,8 @@ def gather_case(seed, n, npoint, radius, k, feat, kind, widths):
         dy = torch.from_numpy(rng.randn(PN2_B, npoint, widths[-1]).astype(np.float32)).cuda()
         return src, new_xyz, idx, layers, layout, dy
     new_xyz = index_points(xyz, farthest_point_sample(xyz, npoint)).contiguous()
+    if how == "far":
+        new_xyz[:, ::4] += 10.0
     idx = query_ball_point(radius, k, xyz, new_xyz)
     if feat:
         src = torch.cat([xyz, torch.from_numpy(rng.randn(PN2_B, n, feat).astype(np.float32)).cuda()], -1)
@@ -511,18 +561,19 @@ def gather_case(seed, n, npoint, radius, k, feat, kind, widths):
     return src, new_xyz, idx, layers, layout, dy
 
 
-def check_gather(name, src, ctr, idx, layers, layout, dy):
-    """Gather kernel against plain on one case; returns (errors, am_ref, g,
-    winning rows)."""
+def check_gather(name, src, ctr, idx, layers, layout, dy, slope=0.0):
+    """Gather kernel (the max) against plain on one case; returns (errors,
+    am_ref, g, winning rows)."""
     import torch
 
     from pointcloudattack_tpu_torch.ops import gather_chain as gc
+    from pointcloudattack_tpu_torch.ops.chain_maxpool import act
 
-    y, am = gc.gather_chain_fwd(src, ctr, idx, layers, layout)
-    y_ref, am_ref = gc.gather_chain_plain(src, ctr, idx, layers, layout)
+    y, am = gc.gather_chain_fwd(src, ctr, idx, layers, layout, slope)
+    y_ref, am_ref = gc.gather_chain_plain(src, ctr, idx, layers, layout, slope)
     torch.cuda.synchronize()
     torch.testing.assert_close(y, y_ref, **Y_TOL)
-    z, _ = gc._chain(gc.gather_rows(src, ctr, idx, layout), layers)
+    z, _ = gc._chain(gc.gather_rows(src, ctr, idx, layout), layers, slope)
     top = z.topk(2, dim=2).values
     near = (top[:, :, 0] - top[:, :, 1]) <= Y_TOL["atol"]
     wrong = (am != am_ref) & ~near
@@ -530,23 +581,36 @@ def check_gather(name, src, ctr, idx, layers, layout, dy):
         raise AssertionError(f"{name}: argmax differs in {int(wrong.sum())} columns with a clear winner")
     del z, top
     g = (dy * layers[-1][3]).contiguous()
-    dsrc, dctr = gc.gather_chain_bwd(src, ctr, idx, layers, layout, am_ref, g)
-    dsrc_ref, dctr_ref = gc.gather_chain_bwd_plain(src, ctr, idx, layers, layout, am_ref, g)
+    dsrc, dctr = gc.gather_chain_bwd(src, ctr, idx, layers, layout, am_ref, g, slope=slope)
+    dsrc_ref, dctr_ref = gc.gather_chain_bwd_plain(src, ctr, idx, layers, layout, am_ref, g, slope)
     torch.cuda.synchronize()
     # A winning row (the only rows with a cotangent) whose hidden
-    # pre-activation lies within EDGE of 0 may fall on the other side of a
-    # ReLU on either side (sums in another order): the points it gathered
-    # (dsrc) and its group (dctr) are left out, and counted.
-    b, n = src.shape[:2]
+    # pre-activation lies within EDGE of 0 may fall on the other side of an
+    # activation on either side (sums in another order): the points it
+    # gathered (dsrc) and its group (dctr) are left out, and counted.
     win = winners(am_ref, idx.shape[2])
     edge = torch.zeros_like(win)
     h, z = gc.gather_rows(src, ctr, idx, layout), None  # one layer (DGCNN) has no hidden unit
     for w, b_, mean, mul, beta in layers[:-1]:
         z = (h @ w + b_ - mean) * mul + beta
         edge |= (z.abs() <= EDGE).any(-1)
-        h = torch.relu(z)
+        h = act(z, slope)
     del h, z
-    edge &= win
+    errs = hold_gather_grads(name, f"src {tuple(src.shape)} G={idx.shape[1]} K={idx.shape[2]}: y max|err| "
+                             f"{float((y - y_ref).abs().max()):.3e}, argmax equal except {int((am != am_ref).sum())} "
+                             f"of {int(near.sum())} near-tie columns; {int(win.sum())} of {win.numel()} rows win a "
+                             f"column, {int((edge & win).sum())} of them hold a hidden unit within {EDGE} of 0",
+                             idx, edge & win, dsrc, dctr, dsrc_ref, dctr_ref)
+    return {"y": float((y - y_ref).abs().max()), **errs}, am_ref, g, int(win.sum())
+
+
+def hold_gather_grads(name, head, idx, edge, dsrc, dctr, dsrc_ref, dctr_ref):
+    """dsrc and dctr within DX_TOL of the plain version's, leaving out the
+    points that the ``edge`` rows ``[B, G, K]`` gathered and their groups;
+    logs ``head`` and the errors; returns them."""
+    import torch
+
+    b, n = dsrc.shape[:2]
     pts = torch.zeros(b * n, dtype=torch.bool, device=idx.device)
     pts[(idx.long() + torch.arange(b, device=idx.device)[:, None, None] * n)[edge]] = True
     pts, grp = pts.view(b, n), edge.any(-1)
@@ -554,18 +618,14 @@ def check_gather(name, src, ctr, idx, layers, layout, dy):
     torch.testing.assert_close(dctr[~grp], dctr_ref[~grp], **DX_TOL)
     if not float(dctr_ref.abs().max()) > 0:
         raise AssertionError(f"{name}: dctr is 0 everywhere, so its check sees nothing")
-    errs = {"y": float((y - y_ref).abs().max()), "dsrc": float((dsrc - dsrc_ref)[~pts].abs().max()),
-            "dctr": float((dctr - dctr_ref)[~grp].abs().max())}
-    off_tol = lambda a, r: int((~torch.isclose(a, r, **DX_TOL)).any(-1).sum())
-    log(f"[kernels] gather {name}: src {tuple(src.shape)} G={idx.shape[1]} K={idx.shape[2]}: y max|err| "
-        f"{errs['y']:.3e}, argmax equal except {int((am != am_ref).sum())} of {int(near.sum())} near-tie "
-        f"columns; {int(win.sum())} of {win.numel()} rows win a column, {int(edge.sum())} of them hold a "
-        f"hidden unit within {EDGE} of 0; dsrc and dctr held on the other {1 - float(pts.float().mean()):.4f} "
+    errs = {"dsrc": float((dsrc - dsrc_ref)[~pts].abs().max()), "dctr": float((dctr - dctr_ref)[~grp].abs().max())}
+    off_tol = lambda a, r: int((~torch.isclose(a, r, **DX_TOL)).any(-1).sum())  # noqa: E731
+    log(f"[kernels] gather {name}: {head}; dsrc and dctr held on the other {1 - float(pts.float().mean()):.4f} "
         f"of the points and {1 - float(grp.float().mean()):.4f} of the groups: max|err| {errs['dsrc']:.3e} "
         f"and {errs['dctr']:.3e}; beyond the tolerance, all among those left out: {off_tol(dsrc, dsrc_ref)} "
         f"points, {off_tol(dctr, dctr_ref)} groups (all-element max|err| "
         f"{float((dsrc - dsrc_ref).abs().max()):.3e} and {float((dctr - dctr_ref).abs().max()):.3e})")
-    return errs, am_ref, g, int(win.sum())
+    return errs
 
 
 def gather_fwd_flops(n, b, ng, k, layout, dims) -> float:
@@ -584,28 +644,291 @@ def gather_fwd_flops(n, b, ng, k, layout, dims) -> float:
     return 2.0 * b * dims[1] * (n * src_w + ng * ctr_w) + rows * dims[1] + chain_flops(rows, dims[1:])
 
 
-def time_gather(name, widths, src, ctr, idx, layers, layout, am, g, win):
-    """Gather kernel and plain times at one case, and the bounds."""
-    from pointcloudattack_tpu_torch.ops import gather_chain as gc
-
-    wts = [layer[0].t().contiguous() for layer in layers]
-    ms = time_pairs({
-        "fwd_plain": lambda: gc.gather_chain_plain(src, ctr, idx, layers, layout),
-        "fwd": lambda: gc.gather_chain_fwd(src, ctr, idx, layers, layout),
-        "bwd_plain": lambda: gc.gather_chain_bwd_plain(src, ctr, idx, layers, layout, am, g),
-        "bwd": lambda: gc.gather_chain_bwd(src, ctr, idx, layers, layout, am, g, wts),
-    })
+def gather_bounds(src, ctr, idx, layout, dims, win):
+    """(forward, backward) (bound_ms, bound_by) of the gather max at one
+    case: ``gather_fwd_flops`` forward, the ``win`` winning rows backward."""
     b, ng, k = idx.shape
-    dims = (gc.layout_width(layout), *widths)
     io = 4.0 * (src.numel() + ctr.numel() + idx.numel())
     pools = 4.0 * b * ng * dims[-1]
     b_fwd = bound(gather_fwd_flops(src.shape[1], b, ng, k, layout, dims), io + param_bytes(dims) + 2 * pools)
     b_bwd = bound(chain_bwd_flops(win, b * ng, dims),
                   io + 2 * param_bytes(dims) + 2 * pools + 4.0 * (src.numel() + ctr.numel()))
+    return b_fwd, b_bwd
+
+
+def time_gather(name, widths, src, ctr, idx, layers, layout, am, g, win, slope=0.0):
+    """Gather kernel and plain times at one case, and the bounds."""
+    from pointcloudattack_tpu_torch.ops import gather_chain as gc
+
+    wts = [layer[0].t().contiguous() for layer in layers]
+    ms = time_pairs({
+        "fwd_plain": lambda: gc.gather_chain_plain(src, ctr, idx, layers, layout, slope),
+        "fwd": lambda: gc.gather_chain_fwd(src, ctr, idx, layers, layout, slope),
+        "bwd_plain": lambda: gc.gather_chain_bwd_plain(src, ctr, idx, layers, layout, am, g, slope),
+        "bwd": lambda: gc.gather_chain_bwd(src, ctr, idx, layers, layout, am, g, wts, slope),
+    })
+    b, ng, k = idx.shape
+    dims = (gc.layout_width(layout), *widths)
+    b_fwd, b_bwd = gather_bounds(src, ctr, idx, layout, dims, win)
     log(f"[kernels] gather {name} chain {dims}: forward {ms['fwd']:.4f} ms (plain {ms['fwd_plain']:.4f}, "
         f"bound {b_fwd[0]:.4f} by {b_fwd[1]} over {b * ng * k} rows), backward {ms['bwd']:.4f} ms (plain "
         f"{ms['bwd_plain']:.4f}, bound {b_bwd[0]:.4f} by {b_bwd[1]} over the {win} winning rows)")
     return ms, b_fwd, b_bwd
+
+
+def ball_scan_pairs(xyz, ctr, radius, k) -> float:
+    """The (ball, point) pairs the ball query must test on these inputs:
+    each ball's points in index order up to its K-th member, or all N when
+    it holds fewer."""
+    import torch
+
+    from pointcloudattack_tpu_torch.ops.ball_query import ball_r2
+    from pointcloudattack_tpu_torch.ops.pairwise import pairwise_sqdist
+
+    inside = pairwise_sqdist(ctr[..., :3], xyz) <= float(ball_r2(radius))  # [B, G, N]
+    count = inside.int().cumsum(-1)
+    n = xyz.shape[1]
+    reach = torch.where(count[..., -1] >= k, (count < k).sum(-1) + 1, torch.full_like(count[..., -1], n))
+    return float(reach.sum())
+
+
+def check_ball(name, src, ctr, layers, layout, radius, k, dy):
+    """The ball route's forward kernel on one case: its slots equal
+    ``query_ball_point``'s bit for bit, its y and argmax equal the gather
+    kernel's on those slots bit for bit (the same rows, the same chain),
+    and the gather kernels hold to the plain version under
+    ``check_gather``'s rules, the backward on the slots being the ball
+    route's.  Returns (errors, am_ref, g, winning rows, slots)."""
+    import torch
+
+    from pointcloudattack_tpu_torch.ops import gather_chain as gc
+    from pointcloudattack_tpu_torch.ops.ball_query import ball_r2, query_ball_point
+    from pointcloudattack_tpu_torch.ops.pairwise import pairwise_sqdist
+
+    xyz = src[..., :3].contiguous()
+    y, am, idx = gc.ball_gather_chain_fwd(src, ctr, xyz, layers, layout, radius, k)
+    want = query_ball_point(radius, k, xyz, ctr[..., :3])
+    torch.cuda.synchronize()
+    if not torch.equal(idx, want):
+        bad = (idx != want).any(-1)
+        raise AssertionError(f"ball {name}: the kernel's slots differ from query_ball_point's in {int(bad.sum())} "
+                             f"of {bad.numel()} balls")
+    y_idx, am_idx = gc.gather_chain_fwd(src, ctr, idx, layers, layout)
+    if not (torch.equal(y, y_idx) and torch.equal(am, am_idx)):
+        raise AssertionError(f"ball {name}: y or the argmax differ from the gather kernel's on the same slots")
+    sqr = pairwise_sqdist(ctr[..., :3], xyz)
+    r2 = float(ball_r2(radius))
+    members = (sqr <= r2).sum(-1)
+    log(f"[kernels-ballq] {name}: xyz {tuple(xyz.shape)} G={ctr.shape[1]} radius {radius} K={k}: slots bit-equal "
+        f"to query_ball_point's; y and argmax bit-equal to the gather kernel's; balls empty "
+        f"{int((members == 0).sum())}, short {int(((members > 0) & (members < k)).sum())}, full "
+        f"{int((members >= k).sum())} of {members.numel()}; {int((sqr == r2).sum())} (ball, point) pairs exactly "
+        f"on the radius")
+    errs, am_ref, g, win = check_gather(f"{name} (ball slots)", src, ctr, idx, layers, layout, dy)
+    return errs, am_ref, g, win, idx
+
+
+def time_ball(name, widths, src, ctr, layers, layout, radius, k, am, g, win, idx):
+    """The ball route's forward against its plain version and against the
+    index route (``query_ball_point``, then the gather kernel); its backward
+    (the gather backward on the slots, counted as ``ball_bwd``) against the
+    plain one; and the bounds: the index route's, with the ball query's 9
+    operations a tested pair forward and its slots written once."""
+    from pointcloudattack_tpu_torch.ops import gather_chain as gc
+    from pointcloudattack_tpu_torch.ops.ball_query import query_ball_point
+
+    xyz = src[..., :3].contiguous()
+    wts = [layer[0].t().contiguous() for layer in layers]
+    ms = time_pairs({
+        "fwd_plain": lambda: gc.ball_gather_chain_plain(src, ctr, xyz, layers, layout, radius, k),
+        "fwd": lambda: gc.ball_gather_chain_fwd(src, ctr, xyz, layers, layout, radius, k),
+        "fwd_index": lambda: gc.gather_chain_fwd(src, ctr, query_ball_point(radius, k, xyz, ctr[..., :3]), layers,
+                                                 layout),
+        "bwd_plain": lambda: gc.gather_chain_bwd_plain(src, ctr, idx, layers, layout, am, g),
+        "bwd": lambda: gc.gather_chain_bwd(src, ctr, idx, layers, layout, am, g, wts, counter="ball_bwd"),
+    })
+    dims = (gc.layout_width(layout), *widths)
+    _, b_bwd = gather_bounds(src, ctr, idx, layout, dims, win)
+    pairs = ball_scan_pairs(xyz, ctr, radius, k)
+    flops = gather_fwd_flops(src.shape[1], *idx.shape, layout, dims) + 9.0 * pairs
+    b, ng, _ = idx.shape
+    nbytes = (4.0 * (src.numel() + ctr.numel() + xyz.numel() + 2 * idx.numel() + 2 * b * ng * dims[-1])
+              + param_bytes(dims))
+    b_fwd = bound(flops, nbytes)
+    log(f"[kernels-ballq] {name} chain {dims}: forward {ms['fwd']:.4f} ms (plain {ms['fwd_plain']:.4f}, index route "
+        f"{ms['fwd_index']:.4f}: query_ball_point then the gather kernel; bound {b_fwd[0]:.4f} by {b_fwd[1]}, "
+        f"{pairs:.0f} (ball, point) pairs tested), backward {ms['bwd']:.4f} ms (plain {ms['bwd_plain']:.4f}, bound "
+        f"{b_bwd[0]:.4f} by {b_bwd[1]} over the {win} winning rows)")
+    return ms, b_fwd, b_bwd
+
+
+def phase_kernels_ballq():
+    """The ball route at every set abstraction of one SSG and one MSG forward
+    (B=16, N=1024), then at BALL_EDGE_SHAPES; the record's numbers sum the
+    shapes of one SSG forward (and backward)."""
+    import torch
+
+    rec = new_record("ball_fwd", "ball_bwd")
+    cases = [(name, shape + (None,)) for name, shape in GATHER_SHAPES.items()] + list(BALL_EDGE_SHAPES.items())
+    for i, (name, shape) in enumerate(cases):
+        src, ctr, _, layers, layout, dy = gather_case(120 + i, *shape)
+        radius, k = shape[2], shape[3]
+        errs, am, g, win, idx = check_ball(name, src, ctr, layers, layout, radius, k, dy)
+        rec["ball_fwd"]["err"] = max(rec["ball_fwd"]["err"], errs["y"])
+        rec["ball_bwd"]["err"] = max(rec["ball_bwd"]["err"], errs["dsrc"], errs["dctr"])
+        if name in GATHER_SHAPES:
+            ms, b_fwd, b_bwd = time_ball(name, shape[6], src, ctr, layers, layout, radius, k, am, g, win, idx)
+            if name.startswith("ssg"):  # one SSG forward / backward
+                b, ng, _ = idx.shape
+                accumulate(rec["ball_fwd"], ms["fwd"], ms["fwd_plain"], b_fwd, b * ng * k)
+                accumulate(rec["ball_bwd"], ms["bwd"], ms["bwd_plain"], b_bwd, win)
+                rec["ball_fwd"]["index_ms"] = rec["ball_fwd"].get("index_ms", 0.0) + ms["fwd_index"]
+        del src, ctr, layers, am, g, idx
+        torch.cuda.empty_cache()
+    return rec
+
+
+def lpfa_gather_case(seed, b, n, c, k, widths, device="cuda"):
+    """A residual LPFA's gather inputs: sources S and centers T ``[b, n,
+    c]``, the kNN ``idx [b, n, k]`` of a seeded cloud (each point's own
+    row first), seeded layers and cotangent."""
+    import numpy as np
+    import torch
+
+    from pointcloudattack_tpu_torch.ops.knn import knn
+
+    rng = np.random.RandomState(seed)
+    xyz = torch.from_numpy((rng.randn(b, n, 3) * 0.5).astype(np.float32)).to(device)
+    src = torch.from_numpy(rng.randn(b, n, c).astype(np.float32)).to(device)
+    ctr = torch.from_numpy(rng.randn(b, n, c).astype(np.float32)).to(device)
+    idx = knn(xyz, k + 1)[:, :, :k].contiguous()
+    layers = seeded_layers(rng, (c, *widths), device)
+    dy = torch.from_numpy(rng.randn(b, n, widths[-1]).astype(np.float32)).to(device)
+    return src, ctr, idx, layers, dy
+
+
+def check_gather_mean(name, src, ctr, idx, layers, layout, dy, slope=CN_SLOPE, pre_act=True):
+    """The gather mean kernel against its plain version on one case, both on
+    the card, under ``check_group``'s rules: y within Y_TOL; dsrc and dctr
+    within DX_TOL, leaving out the points and groups of rows with an
+    activated pre-activation within EDGE of 0 (the built rows with
+    ``pre_act``, every layer's output), which may take the other slope on
+    either side (counted).  Returns (errors, g)."""
+    import torch
+
+    from pointcloudattack_tpu_torch.ops import gather_chain as gc
+    from pointcloudattack_tpu_torch.ops.chain_maxpool import act
+
+    y = gc.gather_chain_mean_fwd(src, ctr, idx, layers, layout, slope, pre_act)
+    y_ref = gc.gather_chain_mean_plain(src, ctr, idx, layers, layout, slope, pre_act)
+    k = idx.shape[2]
+    g = (dy * layers[-1][3] / k).contiguous()
+    dsrc, dctr = gc.gather_chain_mean_bwd(src, ctr, idx, layers, layout, g, slope=slope, pre_act=pre_act)
+    dsrc_ref, dctr_ref = gc.gather_chain_mean_bwd_plain(src, ctr, idx, layers, layout, g, slope, pre_act)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y_ref, **Y_TOL)
+    h = gc.gather_rows(src, ctr, idx, layout)
+    edge = (h.abs() <= EDGE).any(-1) if pre_act else torch.zeros(idx.shape, dtype=torch.bool, device=idx.device)
+    h = act(h, slope) if pre_act else h
+    for w, b_, mean, mul, beta in layers:
+        z = (h @ w + b_ - mean) * mul + beta
+        edge |= (z.abs() <= EDGE).any(-1)
+        h = act(z, slope)
+    del h, z
+    dims = [gc.layout_width(layout)] + [layer[0].shape[1] for layer in layers]
+    errs = hold_gather_grads(f"mean {name}", f"src {tuple(src.shape)} G={idx.shape[1]} K={k} chain {dims} slope "
+                             f"{slope} pre_act {pre_act}: y max|err| {float((y - y_ref).abs().max()):.3e}; "
+                             f"{int(edge.sum())} of {edge.numel()} rows hold an activated unit within {EDGE} of 0",
+                             idx, edge, dsrc, dctr, dsrc_ref, dctr_ref)
+    return {"y": float((y - y_ref).abs().max()), **errs}, g
+
+
+def gather_mean_bounds(src, ctr, idx, layout, dims):
+    """(forward, backward) (bound_ms, bound_by) of the gather mean with
+    ``pre_act`` (the rows' activation leaves no factoring of the first
+    layer): the chain over every row forward; recomputed and run back over
+    every row backward; src, centers and idx read once, the pooled output
+    written (read, backward) once, dsrc and dctr written once."""
+    b, ng, k = idx.shape
+    rows = b * ng * k
+    io = 4.0 * (src.numel() + ctr.numel() + idx.numel())
+    out = 4.0 * b * ng * dims[-1]
+    b_fwd = bound(chain_flops(rows, dims), io + out + param_bytes(dims))
+    b_bwd = bound(2 * chain_flops(rows, dims), io + out + 4.0 * (src.numel() + ctr.numel()) + 2 * param_bytes(dims))
+    return b_fwd, b_bwd
+
+
+def time_gather_mean(name, src, ctr, idx, layers, layout, g, slope=CN_SLOPE, pre_act=True):
+    """Gather mean kernel and plain times at one case, and the bounds."""
+    from pointcloudattack_tpu_torch.ops import gather_chain as gc
+
+    wts = [layer[0].t().contiguous() for layer in layers]
+    ms = time_pairs({
+        "fwd_plain": lambda: gc.gather_chain_mean_plain(src, ctr, idx, layers, layout, slope, pre_act),
+        "fwd": lambda: gc.gather_chain_mean_fwd(src, ctr, idx, layers, layout, slope, pre_act),
+        "bwd_plain": lambda: gc.gather_chain_mean_bwd_plain(src, ctr, idx, layers, layout, g, slope, pre_act),
+        "bwd": lambda: gc.gather_chain_mean_bwd(src, ctr, idx, layers, layout, g, wts, slope, pre_act),
+    })
+    dims = [gc.layout_width(layout)] + [layer[0].shape[1] for layer in layers]
+    b_fwd, b_bwd = gather_mean_bounds(src, ctr, idx, layout, dims)
+    b, ng, k = idx.shape
+    log(f"[kernels-gather-curvenet] mean {name} chain {dims}: forward {ms['fwd']:.4f} ms (plain "
+        f"{ms['fwd_plain']:.4f}, bound {b_fwd[0]:.5f} by {b_fwd[1]} over {b * ng * k} rows), backward "
+        f"{ms['bwd']:.4f} ms (plain {ms['bwd_plain']:.4f}, bound {b_bwd[0]:.5f} by {b_bwd[1]})")
+    return ms, b_fwd, b_bwd
+
+
+def phase_kernels_gather_curvenet():
+    """The gather kernel on CurveNet's gather route: the mean with
+    ``pre_act`` at the eight residual LPFA shapes of one CurveNet forward
+    (B=8, K=20, LeakyReLU 0.2), the slope-0.2 max at the initial LPFA, then
+    both at a ragged N=1000 and with a 2-layer chain; the record's numbers
+    sum the eight residual LPFAs (the mean) and give the initial LPFA (the
+    max)."""
+    import numpy as np
+    import torch
+
+    from pointcloudattack_tpu_torch.ops.knn import knn
+
+    rec = new_record("mean_fwd", "mean_bwd", "slope_fwd", "slope_bwd")
+    for i, (name, (n, c)) in enumerate(CURVENET_GATHER_SHAPES.items()):
+        src, ctr, idx, layers, dy = lpfa_gather_case(140 + i, CN_B, n, c, CN_K, (c,))
+        layout = (("diff", 0, c, 0),)
+        errs, g = check_gather_mean(name, src, ctr, idx, layers, layout, dy)
+        ms, b_fwd, b_bwd = time_gather_mean(name, src, ctr, idx, layers, layout, g)
+        rows = CN_B * n * CN_K
+        for key, e, m, p, bb in (("mean_fwd", errs["y"], ms["fwd"], ms["fwd_plain"], b_fwd),
+                                 ("mean_bwd", max(errs["dsrc"], errs["dctr"]), ms["bwd"], ms["bwd_plain"], b_bwd)):
+            rec[key]["err"] = max(rec[key]["err"], e)
+            accumulate(rec[key], m, p, bb, rows)
+    # the initial LPFA: the points are sources and centers, LeakyReLU 0.2 (one layer: no hidden activation)
+    rng = np.random.RandomState(150)
+    xyz = torch.from_numpy((rng.randn(CN_B, N, 3) * 0.5).astype(np.float32)).cuda()
+    idx = knn(xyz, CN_K + 1)[:, :, :CN_K].contiguous()
+    layers = seeded_layers(rng, (9, 32), "cuda")
+    dy = torch.from_numpy(rng.randn(CN_B, N, 32).astype(np.float32)).cuda()
+    errs, am, g, win = check_gather("lpfa (initial, slope 0.2)", xyz, xyz, idx, layers, CN_INITIAL_LAYOUT, dy, CN_SLOPE)
+    ms, b_fwd, b_bwd = time_gather("lpfa (initial, slope 0.2)", (32,), xyz, xyz, idx, layers, CN_INITIAL_LAYOUT, am,
+                                   g, win, CN_SLOPE)
+    for key, e, m, p, bb, rows in (("slope_fwd", errs["y"], ms["fwd"], ms["fwd_plain"], b_fwd, CN_B * N * CN_K),
+                                   ("slope_bwd", max(errs["dsrc"], errs["dctr"]), ms["bwd"], ms["bwd_plain"], b_bwd,
+                                    win)):
+        rec[key]["err"] = max(rec[key]["err"], e)
+        accumulate(rec[key], m, p, bb, rows)
+    # a ragged N=1000 and 2-layer chains, the mean (pre_act) and the slope-0.2 max
+    for j, (name, n, c, widths) in enumerate((("ragged N=1000", 1000, 32, (32,)), ("2 layers", 256, 32, (64, 32)))):
+        src, ctr, idx, layers, dy = lpfa_gather_case(160 + j, CN_B, n, c, CN_K, widths)
+        layout = (("diff", 0, c, 0),)
+        errs, _ = check_gather_mean(name, src, ctr, idx, layers, layout, dy)
+        rec["mean_fwd"]["err"] = max(rec["mean_fwd"]["err"], errs["y"])
+        rec["mean_bwd"]["err"] = max(rec["mean_bwd"]["err"], errs["dsrc"], errs["dctr"])
+        pts = src[..., :3].contiguous()
+        layers = seeded_layers(np.random.RandomState(170 + j), (9, *widths), "cuda")
+        errs, *_ = check_gather(f"{name} (slope 0.2)", pts, pts, idx, layers, CN_INITIAL_LAYOUT, dy, CN_SLOPE)
+        rec["slope_fwd"]["err"] = max(rec["slope_fwd"]["err"], errs["y"])
+        rec["slope_bwd"]["err"] = max(rec["slope_bwd"]["err"], errs["dsrc"], errs["dctr"])
+    torch.cuda.empty_cache()
+    return rec
 
 
 def knn_bound(b, n, c, k):
@@ -717,7 +1040,7 @@ def phase_kernels_pn2():
     from pointcloudattack_tpu_torch.ops import chain_maxpool as cm
     from pointcloudattack_tpu_torch.ops import fps as fps_mod
 
-    rec = new_record("fps", "gather_fwd", "gather_bwd")
+    rec = new_record("fps")
     for n, npoint in FPS_SHAPES:
         xyz = torch.from_numpy((np.random.RandomState(n).randn(PN2_B, n, 3) * 0.5).astype(np.float32)).cuda()
         start = torch.zeros(PN2_B, dtype=torch.int32, device="cuda")
@@ -738,20 +1061,6 @@ def phase_kernels_pn2():
         log(f"[kernels] fps [{PN2_B},{n},3] -> {npoint}: bit-equal to the plain version (also with "
             f"every point 4 times); kernel {ms['kernel']:.4f} ms ({ms['kernel'] * 1e3 / npoint:.3f} us "
             f"per step), plain {ms['plain']:.4f} ms, bound {t:.5f} ms by {by}")
-    for i, (name, shape) in enumerate(GATHER_SHAPES.items()):
-        case = gather_case(20 + i, *shape)
-        errs, am, g, win = check_gather(name, *case)
-        ms, b_fwd, b_bwd = time_gather(name, shape[6], *case[:5], am, g, win)
-        b, ng, k = case[2].shape
-        for key, e, m, p, bb, rows in (
-            ("gather_fwd", errs["y"], ms["fwd"], ms["fwd_plain"], b_fwd, b * ng * k),
-            ("gather_bwd", max(errs["dsrc"], errs["dctr"]), ms["bwd"], ms["bwd_plain"], b_bwd, win),
-        ):
-            rec[key]["err"] = max(rec[key]["err"], e)
-            if name.startswith("ssg"):  # one SSG forward / backward
-                accumulate(rec[key], m, p, bb, rows)
-        del case, am, g
-        torch.cuda.empty_cache()
     for i, (name, dims) in enumerate(GROUP_ALL.items()):
         err_y, err_dx, (x, layers, idx, g, win) = check_chain(cm, PN2_B, 128, seed=30 + i, dims=dims)
         wts = [layer[0].t().contiguous() for layer in layers]
@@ -856,6 +1165,8 @@ def _counters():
     from pointcloudattack_tpu_torch.ops import knn as knn_mod
 
     return {"fps": (fps_mod, "fps"), "gather_fwd": (gc, "fwd"), "gather_bwd": (gc, "bwd"),
+            "gather_mean_fwd": (gc, "mean_fwd"), "gather_mean_bwd": (gc, "mean_bwd"), "ball_fwd": (gc, "ball_fwd"),
+            "ball_bwd": (gc, "ball_bwd"),
             "chain_fwd": (cm, "fwd"), "chain_bwd": (cm, "bwd"), "knn": (knn_mod, "knn"),
             "min_rows": (chamfer, "min_rows"), "both_fwd": (chamfer, "both_fwd"), "both_bwd": (chamfer, "both_bwd"),
             "kappa_fwd": (kappa, "kappa_fwd"), "kappa_bwd": (kappa, "kappa_bwd"),
@@ -895,10 +1206,10 @@ def per_path(iters, per_fwd, per_step):
     return {k: per_fwd.get(k, 0) * (iters + 1) + per_step.get(k, 0) * iters for k in {*per_fwd, *per_step}}
 
 
-def counted_and_timed(tag, what, attack, data, target, expect, check):
+def counted_and_timed(tag, what, attack, data, target, expect, check, reps=3):
     """The counted main-path run (also the warm-up), whose launches must be
     ``expect`` (0 for a kernel it does not name), then ``check(result)``,
-    then three fenced timed reps; returns the launch counts."""
+    then ``reps`` fenced timed reps; returns the launch counts."""
     import torch
 
     gen = torch.Generator(device="cuda")
@@ -920,7 +1231,10 @@ def counted_and_timed(tag, what, attack, data, target, expect, check):
     if launches != want:
         raise AssertionError(f"{tag}: launch counts {launches} != expected {want}")
     check(res)
-    times = [run(2 + i)[1] for i in range(3)]
+    if not reps:
+        log(f"[{tag}] {what} B={b} N={data.shape[1]}: warm-up {t_warm:.4f} s")
+        return launches
+    times = [run(2 + i)[1] for i in range(reps)]
     tmin, tmean = min(times), sum(times) / len(times)
     log(f"[{tag}] {what} B={b} N={data.shape[1]}: warm-up {t_warm:.4f} s; "
         f"timed {[round(t, 6) for t in times]} s/batch; min {tmin:.6f} s "
@@ -928,13 +1242,18 @@ def counted_and_timed(tag, what, attack, data, target, expect, check):
     return launches
 
 
-def run_attack(tag, model_fn, data, target, num_iter, per_fwd, per_bwd):
-    """C&W 1 x ``num_iter``, counted and timed; returns the launch counts."""
-    import torch
-
+def cw_attack(model_fn, num_iter):
+    """C&W ``BINARY_STEP`` x ``num_iter`` at the headline's kappa and budget."""
     from pointcloudattack_tpu_torch.attacks.cw import CWPerturbConfig, build_cw_attack
 
-    cfg = CWPerturbConfig(binary_step=BINARY_STEP, num_iter=num_iter, kappa=KAPPA, budget=BUDGET)
+    return build_cw_attack(model_fn, CWPerturbConfig(binary_step=BINARY_STEP, num_iter=num_iter, kappa=KAPPA,
+                                                     budget=BUDGET))
+
+
+def run_attack(tag, model_fn, data, target, num_iter, per_fwd, per_bwd, reps=3):
+    """C&W 1 x ``num_iter``, counted and timed (``reps`` timed runs);
+    returns the launch counts."""
+    import torch
 
     def check(res):
         succ = res.success
@@ -944,8 +1263,36 @@ def run_attack(tag, model_fn, data, target, num_iter, per_fwd, per_bwd):
         log(f"[{tag}] ASR {asr:.3f} ({int(succ.sum())}/{len(succ)}); max per-point move {moved:.4f}; "
             f"mean best L2 of successes {float(res.best_dist[succ].mean()):.5f}")
 
-    return counted_and_timed(tag, f"CW {BINARY_STEP}x{num_iter}", build_cw_attack(model_fn, cfg), data, target,
-                             per_path(BINARY_STEP * num_iter, per_fwd, per_bwd), check)
+    return counted_and_timed(tag, f"CW {BINARY_STEP}x{num_iter}", cw_attack(model_fn, num_iter), data, target,
+                             per_path(BINARY_STEP * num_iter, per_fwd, per_bwd), check, reps)
+
+
+def in_turns(tag, arms, data, target, num_iter, turns=TURNS):
+    """C&W 1 x ``num_iter`` through each of ``arms`` (name -> model_fn, each
+    warmed up already) on the same clouds and seeds, timed in turns (A, B,
+    A, B, ...), so that the host's drift falls on both alike; logs each
+    arm's s/batch min and mean and the ratio of the mins; returns {name:
+    [seconds]}."""
+    import torch
+
+    attacks = {name: cw_attack(fn, num_iter) for name, fn in arms.items()}
+    gen = torch.Generator(device="cuda")
+    times = {name: [] for name in arms}
+    for t in range(turns):
+        for name, attack in attacks.items():
+            gen.manual_seed(2 + t)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            attack(data, target, generator=gen)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+    b = data.shape[0]
+    first, second = list(arms)[:2]
+    log(f"[{tag}] CW {BINARY_STEP}x{num_iter} B={b} in turns ({', '.join(arms)}, ...): "
+        + "; ".join(f"{name} {[round(t, 6) for t in ts]} s/batch, min {min(ts):.6f} ({b / min(ts):.3f} clouds/s), "
+                    f"mean {sum(ts) / len(ts):.6f}" for name, ts in times.items())
+        + f"; {second} / {first} min {min(times[second]) / min(times[first]):.4f}")
+    return times
 
 
 def run_knn(tag, model_fn, data, target, num_iter, nn_refresh, per_fwd, per_step):
@@ -1016,7 +1363,7 @@ def replay(hooks, take=None):
         def fn(*args, **kw):
             if args[0].is_cuda:
                 out, choice = on_card(orig[kind], *args, **kw)
-                queues[kind].append(choice.cpu())
+                queues[kind].append(tuple(c.cpu() for c in choice) if isinstance(choice, tuple) else choice.cpu())
                 return out
             choice = take(kind) if take else queues[kind].pop(0)
             out, gap, off = on_cpu(orig[kind], choice, *args, **kw)
@@ -1043,26 +1390,138 @@ def pool_at(z, pick, axis):
     return (y, pick), top2_margin(z, axis), z.detach().amax(axis) - y.detach()
 
 
+def card_chain(rows, layers, slope, y, dim):
+    """A fused chain + max's choices on the card, read from the group kernel
+    over groups of one row, a layer at a time (``kernel_rows``: the same
+    products in the same order as every fused chain kernel): the first row
+    of ``rows [B, G, K, C0]`` attaining each pooled column's max over
+    ``dim`` (1: the max over G of a chain over points, K being 1; 2: over
+    K), held to give the fused op's ``y`` bit for bit, then the sides of 0
+    of the hidden pre-activations, one ``[B, G, K, C_l]`` bool a hidden
+    layer: ``(picks, *sides)``."""
+    import torch
+
+    from pointcloudattack_tpu_torch.ops.chain_maxpool import act
+
+    with torch.no_grad():
+        h, sides = rows.detach(), []
+        for layer in layers[:-1]:
+            z = kernel_rows(h, [layer], slope)
+            sides.append(z > 0)
+            h = act(z, slope)
+        z = kernel_rows(h, [layers[-1]], slope)
+        z = z[:, :, 0] if dim == 1 else z
+        yd = y.detach()
+        if not torch.equal(z.amax(dim), yd):
+            raise AssertionError(f"the kernels' pre-activations miss the fused pool in "
+                                 f"{int((z.amax(dim) != yd).sum())} of {yd.numel()} outputs")
+        at = torch.arange(z.shape[dim], device=z.device, dtype=torch.int32).view((-1,) + (1,) * (z.dim() - dim - 1))
+        picks = torch.where(z == yd.unsqueeze(dim), at, z.shape[dim]).amin(dim).to(torch.int32)
+    return (picks, *sides)
+
+
+def signed_chain(h, layers, slope, sides):
+    """The chain's last pre-activation over ``h``, each hidden layer through
+    the activation on the side of 0 that ``sides`` gives (none given: the
+    CPU's own sides), with per cloud the gaps to 0 and how far the taken
+    sides lie from the CPU's own: ``(z, gaps, offs)``."""
+    import torch
+
+    gaps, offs = [], []
+    for i, (w, b, mean, mul, beta) in enumerate(layers):
+        z = (h @ w + b - mean) * mul + beta
+        if i == len(layers) - 1:
+            return z, gaps, offs
+        zd = z.detach()
+        side = sides[i].reshape(zd.shape) if sides else zd > 0
+        h = torch.where(side, z, slope * z)
+        gaps.append(zd.abs().flatten(1))
+        offs.append(torch.where(side != (zd > 0), zd.abs(), 0.0).flatten(1))
+
+
 def pick_hooks():
-    """``replay`` hooks for the max pools of PointNet, PointNet++ and DGCNN:
-    the chain + max ("chain") and the gather + chain + max ("gather")
-    forwards, each choice every pooled column's winning row.  A column whose
-    two best rows lie within f32 rounding otherwise may send its cotangent
-    to another point on each side."""
-    from pointcloudattack_tpu_torch.ops import chain_maxpool as cm
+    """``replay`` hooks for the fused chain + max ops where the models call
+    them: the chain + max over points ("chain": PointNet's and PointNet++'s
+    ``PointMLP``), the gather + chain + max ("gather_dgcnn": DGCNN's
+    EdgeConvs; "gather_curvenet": CurveNet's initial LPFA on its gather
+    route) and its ball route ("ball": PointNet++'s set abstractions).  Each choice is every pooled column's winning row and the
+    sides of 0 of the chain's hidden pre-activations (``card_chain``), and
+    for the ball route its slots, which must be the CPU's own.  The CPU
+    runs the chain in plain differentiable ops on the card's choices, so
+    its backward takes them too.  A column whose two best rows, or a hidden
+    unit of a winning row and 0, lie within f32 rounding may otherwise send
+    the cotangent elsewhere on each side."""
+    import torch
+
+    from pointcloudattack_tpu_torch.models import common
+    from pointcloudattack_tpu_torch.models import curvenet as cn
+    from pointcloudattack_tpu_torch.models import dgcnn
     from pointcloudattack_tpu_torch.ops import gather_chain as gc
+    from pointcloudattack_tpu_torch.ops.ball_query import query_ball_point
 
-    def card(orig, *args):
-        y, am = orig(*args)
-        return (y, am), am
+    def pooled(z, pick, axis, gaps, offs):
+        (y, _), gap, off = pool_at(z, pick, axis)
+        b = z.shape[0]
+        return y, torch.cat([gap.reshape(b, -1), *gaps], 1), torch.cat([off.reshape(b, -1), *offs], 1)
 
-    def chain(orig, pick, x, layers):
-        return pool_at(gc._chain(x.float(), layers)[0], pick, 1)
+    def chain_card(orig, x, layers):
+        y = orig(x, layers)
+        return y, card_chain(x[:, :, None, :], layers, 0.0, y, 1)
 
-    def gather(orig, pick, src, centers, idx, layers, layout):
-        return pool_at(gc._chain(gc.gather_rows(src, centers, idx, layout), layers)[0], pick, 2)
+    def chain(orig, choice, x, layers):
+        pick, *sides = choice
+        z, gaps, offs = signed_chain(x.float(), layers, 0.0, sides)
+        return pooled(z, pick, 1, gaps, offs)
 
-    return {"chain": (cm, "chain_maxpool_fwd", card, chain), "gather": (gc, "gather_chain_fwd", card, gather)}
+    def gather_card(orig, src, centers, idx, layers, layout, slope=0.0):
+        y = orig(src, centers, idx, layers, layout, slope)
+        return y, card_chain(gc.gather_rows(src.detach(), centers.detach(), idx, layout), layers, slope, y, 2)
+
+    def gather(orig, choice, src, centers, idx, layers, layout, slope=0.0):
+        pick, *sides = choice
+        z, gaps, offs = signed_chain(gc.gather_rows(src, centers, idx, layout), layers, slope, sides)
+        return pooled(z, pick, 2, gaps, offs)
+
+    def ball_card(orig, src, centers, xyz, layers, layout, radius, nsample, slope=0.0):
+        y = orig(src, centers, xyz, layers, layout, radius, nsample, slope)
+        idx = query_ball_point(radius, nsample, xyz.detach(), centers.detach()[..., :3])  # the kernel's slots
+        return y, (idx, *card_chain(gc.gather_rows(src.detach(), centers.detach(), idx, layout), layers, slope, y, 2))
+
+    def ball(orig, choice, src, centers, xyz, layers, layout, radius, nsample, slope=0.0):
+        """The card's picks and sides on the CPU's own slots, which must be
+        the card's: a cloud with a slot that differs counts 1 in ``off``."""
+        slots, pick, *sides = choice
+        idx = query_ball_point(radius, nsample, xyz, centers[..., :3])
+        z, gaps, offs = signed_chain(gc.gather_rows(src, centers, idx, layout), layers, slope, sides)
+        y, gap, off = pooled(z, pick, 2, gaps, offs)
+        return y, gap, off + (idx != slots).flatten(1).any(1, keepdim=True).float()
+
+    return {"chain": (common, "mlp_chain_maxpool", chain_card, chain),
+            "gather_dgcnn": (dgcnn, "gather_chain_groupmax", gather_card, gather),
+            "gather_curvenet": (cn, "gather_chain_groupmax", gather_card, gather),
+            "ball": (common, "ball_gather_chain_groupmax", ball_card, ball)}
+
+
+def relu_hooks():
+    """``replay`` hooks for the ReLUs after PointNet's and PointNet++'s fused
+    max pools ("relu", ``models/common.py::relu``) and in PointNet++'s head
+    ("head_relu", ``models/pointnet2.py``'s name for it): the side of 0 of
+    each input.  A pooled feature or a head unit within rounding of 0
+    otherwise opens on one side only and moves the whole cloud's
+    gradient."""
+    import torch
+
+    from pointcloudattack_tpu_torch.models import common
+    from pointcloudattack_tpu_torch.models import pointnet2 as pn2
+
+    def card(orig, x):
+        return orig(x), x.detach() > 0
+
+    def cpu(orig, pos, x):
+        xd = x.detach()
+        return torch.where(pos, x, 0.0 * x), xd.abs(), torch.where(pos != (xd > 0), xd.abs(), 0.0)
+
+    return {"relu": (common, "relu", card, cpu), "head_relu": (pn2, "relu", card, cpu)}
 
 
 def kernel_rows(x, layers, slope):
@@ -1082,7 +1541,7 @@ def kernel_rows(x, layers, slope):
     return z.reshape(b, g, k, -1)
 
 
-def curvenet_hooks(signs=True):
+def curvenet_hooks(signs=True, gather=False):
     """``replay`` hooks for CurveNet's discrete choices: the walk's picks
     ("pick", ``hard_pick``: [B, curves] indices), the curve starts
     ("starts"), the masked max pools' and the head's max ("max",
@@ -1097,10 +1556,15 @@ def curvenet_hooks(signs=True):
     activation's ("mean", ``mlp_chain_groupmean``, read on the card from the
     kernel's own pre-activations, ``kernel_rows``, which must give the
     kernel's mean bit for bit).  A unit within rounding of 0 otherwise takes
-    slope 1 on one side and the other slope on the other."""
+    slope 1 on one side and the other slope on the other.  With ``gather``
+    (CurveNet's gather route), also the gather means' signs ("gmean",
+    ``gather_chain_groupmean``: of the built rows before their activation
+    and of the layer's output, read as for "mean"); the initial LPFA's max
+    there is ``pick_hooks``' "gather_curvenet"."""
     import torch
 
     from pointcloudattack_tpu_torch.models import curvenet as cn
+    from pointcloudattack_tpu_torch.ops import gather_chain as gc
     from pointcloudattack_tpu_torch.ops import group_chain as gch
     from pointcloudattack_tpu_torch.ops.chain_maxpool import act
     from pointcloudattack_tpu_torch.ops.pairwise import sum_neighbours
@@ -1145,15 +1609,37 @@ def curvenet_hooks(signs=True):
     def sign_cpu(orig, pos, x, slope=cn.SLOPE):
         return signed(pos, x, slope)
 
-    def mean_card(orig, x, layers, slope=0.0):
-        y = orig(x, layers, slope)
+    def mean_signs(x, layers, slope, y):
+        """The kernel's own pre-activations over the rows ``x``, held to give
+        its mean ``y`` bit for bit."""
         z, yd = kernel_rows(x, layers, slope), y.detach()
         mine = sum_neighbours(act(z, slope))
         mine = mine / torch.full_like(mine, x.shape[2])  # a true division, as the kernel's (not by a reciprocal)
         if not torch.equal(mine, yd):
-            raise AssertionError(f"the group kernel's pre-activations miss its mean in {int((mine != yd).sum())} "
+            raise AssertionError(f"the kernel's pre-activations miss its mean in {int((mine != yd).sum())} "
                                  f"of {yd.numel()} outputs, by up to {float((mine - yd).abs().max()):.3e}")
-        return y, z > 0
+        return z
+
+    def mean_card(orig, x, layers, slope=0.0):
+        y = orig(x, layers, slope)
+        return y, mean_signs(x, layers, slope, y) > 0
+
+    def gmean_card(orig, src, centers, idx, layers, layout, slope=0.0, pre_act=False):
+        y = orig(src, centers, idx, layers, layout, slope, pre_act)
+        with torch.no_grad():
+            rows = gc.gather_rows(src, centers, idx, layout)
+            z = mean_signs(act(rows, slope) if pre_act else rows, layers, slope, y)
+        return y, torch.cat([rows > 0, z > 0], -1)
+
+    def gmean_cpu(orig, pos, src, centers, idx, layers, layout, slope=0.0, pre_act=False):
+        rows = gc.gather_rows(src, centers, idx, layout)
+        c0 = rows.shape[-1]
+        if pre_act:
+            h, gap0, off0 = signed(pos[..., :c0], rows, slope)
+        else:
+            h, gap0, off0 = rows, rows.detach().abs(), torch.zeros_like(rows)
+        h, gap1, off1 = signed(pos[..., c0:], gch._chain(h, layers, slope)[0], slope)
+        return sum_neighbours(h) / idx.shape[2], torch.cat([gap0, gap1], -1), torch.cat([off0, off1], -1)
 
     def mean_cpu(orig, pos, x, layers, slope=0.0):
         h, gap, off = signed(pos, gch._chain(x, layers, slope)[0], slope)
@@ -1164,6 +1650,8 @@ def curvenet_hooks(signs=True):
     if signs:
         hooks.update({"sign": (cn, "leaky_relu", sign_card, sign_cpu),
                       "mean": (cn, "mlp_chain_groupmean", mean_card, mean_cpu)})
+        if gather:
+            hooks["gmean"] = (cn, "gather_chain_groupmean", gmean_card, gmean_cpu)
     return hooks
 
 
@@ -1261,11 +1749,12 @@ def knn_loss(logp, a, o, t):
     return untargeted_logits_adv_loss(logp, t, KAPPA) + chamfer_dist(a, o) * a.shape[1]
 
 
-def grad_parity(model_fn, cpu_fn, adv, ori, target, loss_fn=cw_loss, choices=None, signs=True):
+def grad_parity(model_fn, cpu_fn, adv, ori, target, loss_fn=cw_loss, choices=None, signs=True, gather=False):
     """Log-probs and the input gradient of ``loss_fn`` at ``adv``, on the
     card and on the CPU, the CPU taking the card's max-pool picks
-    (``pick_hooks``) and CurveNet's discrete choices, with ``signs`` its
-    activation signs too (``curvenet_hooks``), through ``replay``, whose
+    and their chains' hidden signs (``pick_hooks``) and CurveNet's discrete
+    choices, with ``signs`` the signs of the other activations' inputs too
+    (``relu_hooks``, ``curvenet_hooks``), through ``replay``, whose
     stats go to the list ``choices`` when given.  Per cloud: log-probs
     max|diff|, the gradient's relative L2 difference, the log-prob tie gap
     (``logp_ties``, on the card) and how far the taken choices lie from the
@@ -1273,7 +1762,7 @@ def grad_parity(model_fn, cpu_fn, adv, ori, target, loss_fn=cw_loss, choices=Non
     import torch
 
     outs = []
-    with replay({**pick_hooks(), **curvenet_hooks(signs)}) as stats:
+    with replay({**pick_hooks(), **(relu_hooks() if signs else {}), **curvenet_hooks(signs, gather)}) as stats:
         for fn, a0, o, t in ((model_fn, adv, ori, target), (cpu_fn, adv.cpu(), ori.cpu(), target.cpu())):
             a = a0.detach().clone().requires_grad_(True)
             logp = fn(a)
@@ -1289,33 +1778,28 @@ def grad_parity(model_fn, cpu_fn, adv, ori, target, loss_fn=cw_loss, choices=Non
             "pick": torch.full_like(g_rel, off)}
 
 
-def hold_grad_parity(tag, steps, clean=True):
+def hold_grad_parity(tag, steps):
     """Holds ``grad_parity`` results (one per step): the taken choices
     within PICK_ATOL of the CPU's own and log-probs within LOGP_ATOL
-    everywhere; the gradient within GRAD_REL at every (step, cloud) whose
-    log-probs do not tie, and with ``clean``, within GRAD_CLEAN at
-    CLEAN_SHARE of them at least."""
+    everywhere; the gradient within GRAD_CLEAN at every (step, cloud) whose
+    log-probs do not tie."""
     import torch
 
     lp, g, tie, pick = (torch.stack([s[k] for s in steps]) for k in ("lp", "grad", "tie", "pick"))
     ties = tie <= LOGP_ATOL
     held = g[~ties]
-    share = float((held <= GRAD_CLEAN).float().mean()) if held.numel() else 0.0
     log(f"[{tag}] at {len(steps)} input(s) x {g.shape[1]} clouds, card vs CPU (the CPU taking the card's "
         f"choices, which lie at most {float(pick.max()):.3e} from its own): log-probs max|diff| "
         f"{float(lp.max()):.3e}; loss gradient relative L2 difference per step and cloud "
         f"{[[float(f'{v:.3g}') for v in row] for row in g]}; log-prob tie gaps "
         f"{[[round(float(v), 6) for v in row] for row in tie]}; left out as ties (step, cloud): "
         f"{[tuple(ix) for ix in ties.nonzero().tolist()]}; of the other {held.numel()}, max "
-        f"{float(held.max()) if held.numel() else float('nan'):.3e} (bound {GRAD_REL}), a share of "
-        f"{share:.3f} within {GRAD_CLEAN}")
+        f"{float(held.max()) if held.numel() else float('nan'):.3e} (bound {GRAD_CLEAN})")
     if float(pick.max()) > PICK_ATOL or float(lp.max()) > LOGP_ATOL:
         raise AssertionError(f"{tag}: card choices {float(pick.max()):.3e} from the CPU's own (> {PICK_ATOL}) "
                              f"or log-probs {float(lp.max()):.3e} apart (> {LOGP_ATOL})")
-    if not held.numel() or float(held.max()) > GRAD_REL:
-        raise AssertionError(f"{tag}: loss gradients differ by more than {GRAD_REL} (or every step tied)")
-    if clean and share < CLEAN_SHARE:
-        raise AssertionError(f"{tag}: only {share:.3f} of the gradients agree within {GRAD_CLEAN}")
+    if not held.numel() or float(held.max()) > GRAD_CLEAN:
+        raise AssertionError(f"{tag}: loss gradients differ by more than {GRAD_CLEAN} (or every step tied)")
 
 
 def recording_fn(fn, its, grads):
@@ -1422,8 +1906,7 @@ def phase_parity_msg(model_fn, state, data, target):
     ori = data[:b]
     adv = ori + 0.01 * torch.randn(ori.shape, generator=torch.Generator(device="cuda").manual_seed(3),
                                    device="cuda")
-    # two pairs are too few for the share within GRAD_CLEAN (SSG's attack holds it)
-    hold_grad_parity("parity-msg", [grad_parity(model_fn, cpu_fn, adv, ori, target[:b])], clean=False)
+    hold_grad_parity("parity-msg", [grad_parity(model_fn, cpu_fn, adv, ori, target[:b])])
 
 
 def phase_profile(tag, model_fn, data, target, attack=None, what="CW 1x10"):
@@ -1791,7 +2274,7 @@ def phase_parity_dgcnn(model_fn, state, data, target):
         f"would differ in {diffs} of the {b * N} index sets of each")
     if len(diffs) != 4:
         raise AssertionError(f"parity-dgcnn: the CPU ran {len(diffs)} kNNs, expected 4")
-    hold_grad_parity("parity-dgcnn", [res], clean=False)
+    hold_grad_parity("parity-dgcnn", [res])
 
 
 def kappa_bound(b, n, k):
@@ -2357,32 +2840,44 @@ def lpfa_inputs(model, model_fn, data):
 
 
 def lpfa_fused_vs_unfused(inputs):
-    """Each LPFA stage both ways at the path's shapes: the neighbour rows,
+    """Each LPFA stage three ways at the path's shapes: the neighbour rows,
     then the fused group kernel (and LeakyReLU after the initial block's
-    max), against the unfused plain layer (the same rows, matmul, BN,
-    LeakyReLU, pool), forward and forward + input backward."""
+    max); the gather route (``fused_gather``: the gather kernel on the
+    points, or on the folded sources); and the unfused plain layer (the
+    same rows, matmul, BN, LeakyReLU, pool), forward and forward + input
+    backward; each route's output within Y_TOL of the unfused layer's."""
     import torch
 
     for i, (lpfa, x, xyz, idx) in enumerate(inputs):
-        fused = lambda a, p: lpfa(a, p, idx)  # noqa: E731
+        def fused(a, p, gather=False):
+            lpfa.fused_gather = gather
+            try:
+                return lpfa(a, p, idx)
+            finally:
+                lpfa.fused_gather = False
+
         unfused = lambda a, p: lpfa.unfused(lpfa.rows(a, p, idx))  # noqa: E731
-        torch.testing.assert_close(fused(x, xyz), unfused(x, xyz), **Y_TOL)
+        want = unfused(x, xyz)
+        torch.testing.assert_close(fused(x, xyz), want, **Y_TOL)
+        torch.testing.assert_close(fused(x, xyz, True), want, **Y_TOL)
         leaves = [t.clone().requires_grad_(True) if t is not None else None for t in (x, xyz)]
         wrt = [t for t in leaves if t is not None]
         ms = time_pairs({
             "unfused": lambda: unfused(x, xyz), "fused": lambda: fused(x, xyz),
+            "gather": lambda: fused(x, xyz, True),
+            "gather_fb": lambda: torch.autograd.grad(fused(*leaves, True).sum(), wrt),
             "fused_fb": lambda: torch.autograd.grad(fused(*leaves).sum(), wrt),
             "unfused_fb": lambda: torch.autograd.grad(unfused(*leaves).sum(), wrt),
         }, reps=10)
         kind = "initial (max)" if lpfa.initial else "residual (mean)"
         log(f"[kernels-curvenet] LPFA {i} {kind} xyz {tuple(xyz.shape)} k={lpfa.k} -> "
-            f"{lpfa.mlp[-1][1].num_features}: fused forward {ms['fused']:.4f} ms, unfused plain "
-            f"{ms['unfused']:.4f} ms; forward + input backward fused {ms['fused_fb']:.4f} ms, unfused "
-            f"{ms['unfused_fb']:.4f} ms")
+            f"{lpfa.mlp[-1][1].num_features}: fused forward {ms['fused']:.4f} ms, gather route {ms['gather']:.4f} "
+            f"ms, unfused plain {ms['unfused']:.4f} ms; forward + input backward fused {ms['fused_fb']:.4f} ms, "
+            f"gather route {ms['gather_fb']:.4f} ms, unfused {ms['unfused_fb']:.4f} ms")
     torch.cuda.empty_cache()
 
 
-def phase_parity_curvenet(model_fn, state, data, target):
+def phase_parity_curvenet(model_fn, state, data, target, tag="parity-curvenet", gather=False):
     """C&W (B=2, 1 x 10) on CurveNet on the card and on the CPU from the
     same weights and noise, the CPU taking the card's discrete choices and
     activation signs (``curvenet_hooks``: the walk's starts and picks, the
@@ -2394,7 +2889,9 @@ def phase_parity_curvenet(model_fn, state, data, target):
     how many activation inputs lie on the other side of 0 on the CPU than
     on the card, and the gradient's difference with every choice but those
     signs replayed.  The attacks' iterates are logged, not held: a relative
-    gradient difference d moves Adam's steps about lr * d apart."""
+    gradient difference d moves Adam's steps about lr * d apart.  With
+    ``gather``, both sides run the gather route and the CPU also takes the
+    gather means' signs."""
     import numpy as np
     import torch
 
@@ -2405,47 +2902,50 @@ def phase_parity_curvenet(model_fn, state, data, target):
     b = 2
     cfg = CWPerturbConfig(binary_step=1, num_iter=10, kappa=KAPPA, budget=BUDGET)
     noise = torch.from_numpy(np.random.RandomState(5).randn(1, b, N, 3).astype(np.float32))
-    cpu_fn = make_model_fn(models.make_model("CurveNet", NUM_CLASSES), state, "cpu")
+    cpu_fn = make_model_fn(models.make_model("CurveNet", NUM_CLASSES, fused_gather=gather), state, "cpu")
     its, grads = {"card": [], "cpu": []}, {"card": [], "cpu": []}
     recording = lambda fn, side: recording_fn(fn, its[side], grads[side])  # noqa: E731
-    with replay(curvenet_hooks()) as stats:
+    with replay({**pick_hooks(), **curvenet_hooks(gather=gather)}) as stats:
         res_gpu = build_cw_attack(recording(model_fn, "card"), cfg)(data[:b], target[:b], init_noise=noise.cuda())
         res_cpu = build_cw_attack(recording(cpu_fn, "cpu"), cfg)(data[:b].cpu(), target[:b].cpu(), init_noise=noise)
     if not all(len(v) == cfg.num_iter for v in (*its.values(), *grads.values())):
-        raise AssertionError(f"parity-curvenet: recorded {[len(v) for v in its.values()]} iterates and "
+        raise AssertionError(f"{tag}: recorded {[len(v) for v in its.values()]} iterates and "
                              f"{[len(v) for v in grads.values()]} gradients, expected {cfg.num_iter} each")
     apart = (torch.stack(its["card"]) - torch.stack(its["cpu"])).abs().flatten(2).amax(-1)  # [S, b]
-    log(f"[parity-curvenet] card vs CPU, CurveNet B={b} 1x10: success card {res_gpu.success.tolist()} cpu "
+    log(f"[{tag}] card vs CPU, CurveNet B={b} 1x10: success card {res_gpu.success.tolist()} cpu "
         f"{res_cpu.success.tolist()}; best_dist card {res_gpu.best_dist.tolist()} cpu {res_cpu.best_dist.tolist()}; "
         f"iterates max |diff| per step and cloud {[[float(f'{v:.3g}') for v in row] for row in apart]}; in the "
         f"attacks the CPU took the card's choices: {choice_line(stats)}")
     if not torch.equal(res_gpu.success.cpu(), res_cpu.success):
-        raise AssertionError("parity-curvenet: success differs between the card and the CPU")
+        raise AssertionError(f"{tag}: success differs between the card and the CPU")
     if not bool(res_cpu.success.any()):
-        raise AssertionError("parity-curvenet: the short attack flipped no cloud")
+        raise AssertionError(f"{tag}: the short attack flipped no cloud")
     at, steps, unsigned = [], [], []
     for a in its["card"]:
-        steps.append(grad_parity(model_fn, cpu_fn, a.cuda(), data[:b], target[:b], choices=at))
+        steps.append(grad_parity(model_fn, cpu_fn, a.cuda(), data[:b], target[:b], choices=at, gather=gather))
         unsigned.append(grad_parity(model_fn, cpu_fn, a.cuda(), data[:b], target[:b], signs=False)["grad"])
-    log(f"[parity-curvenet] at the card's first iterate the CPU took the card's choices: {choice_line(at[0])}")
-    flips = torch.stack([sum(n for k in ("sign", "mean") for n in st[k]["other"]) for st in at])  # [S, b]
+    log(f"[{tag}] at the card's first iterate the CPU took the card's choices: {choice_line(at[0])}")
+    signed_kinds = [k for k in ("sign", "mean", "gmean") if k in at[0]]
+    flips = torch.stack([sum(n for k in signed_kinds for n in st[k]["other"]) for st in at])  # [S, b]
     unsigned = torch.stack(unsigned)
     near = sum(st[k]["near"] for st in at for k in st)
-    log(f"[parity-curvenet] over the {len(at)} iterates, {near} of "
+    log(f"[{tag}] over the {len(at)} iterates, {near} of "
         f"{sum(st[k]['choices'] for st in at for k in st)} choices and activation inputs lay within {TIE_GAP} of a "
         f"tie or of 0 on the CPU ({sum(st[k]['exact'] for st in at for k in st)} exact); activation inputs on the "
         f"other side of 0 than on the card, per iterate and cloud, {flips.tolist()} (each at most "
-        f"{max(st[k]['off'] for st in at for k in ('sign', 'mean')):.3e} from 0); with every choice but these signs "
+        f"{max(st[k]['off'] for st in at for k in signed_kinds):.3e} from 0); with every choice but these signs "
         f"replayed, the loss gradient's relative L2 difference {[[float(f'{v:.3g}') for v in row] for row in unsigned]}"
         f", {float((unsigned <= GRAD_CLEAN).float().mean()):.3f} of the pairs within {GRAD_CLEAN} (of those with no "
         f"input on the other side, {float((unsigned[flips == 0] <= GRAD_CLEAN).float().mean()):.3f})")
-    hold_grad_parity("parity-curvenet", steps)
+    hold_grad_parity(tag, steps)
 
 
 def curvenet_path(name="CurveNet"):
     """The CurveNet victim on bench.py's cw_curvenet clouds, its LPFA stages
-    both ways, its counted C&W and GeoA3 attacks, card against CPU and the
-    profile; returns the launch counts of C&W and of GeoA3."""
+    every way, its counted C&W and GeoA3 attacks, card against CPU and the
+    profile, and C&W on the gather route (counted, in turns with the grouped
+    route, card against CPU); returns the launch counts of C&W, of GeoA3
+    and of C&W on the gather route."""
     import torch
 
     from pointcloudattack_tpu_torch import models
@@ -2463,6 +2963,13 @@ def curvenet_path(name="CurveNet"):
         cw = run_attack("slice-curvenet", fn, data, target, CN_ITER, per_fwd, per_bwd)
     with phase_clock("parity-curvenet"):
         phase_parity_curvenet(fn, state, data, target)
+    # the gather route (fused_gather=True) on the same victim and clouds
+    gather_fn = make_model_fn(models.make_model(name, NUM_CLASSES, fused_gather=True), state, "cuda")
+    with phase_clock("slice-curvenet-gather"):
+        cw_gather = run_attack("slice-curvenet-gather", gather_fn, data, target, CN_ITER, *CN_GATHER_LAUNCHES, reps=0)
+        in_turns("slice-curvenet-gather", {"grouped route": fn, "gather route": gather_fn}, data, target, CN_ITER)
+    with phase_clock("parity-curvenet-gather"):
+        phase_parity_curvenet(gather_fn, state, data, target, "parity-curvenet-gather", gather=True)
     with phase_clock("profile-curvenet"):
         phase_profile("profile-curvenet", fn, data, target)
     # GeoA3 on CurveNet (BASELINE config 4): bench.py's geoa3 clouds, CE on the log-softmax of the logits
@@ -2473,7 +2980,7 @@ def curvenet_path(name="CurveNet"):
     with phase_clock("slice-geoa3-curvenet"):
         geo = run_geoa3("slice-geoa3-curvenet", logp_fn, geo_data, geo_target, per_fwd, per_bwd,
                         CN_GEO_ROUNDS, CN_GEO_ITER)
-    return cw, geo
+    return cw, geo, cw_gather
 
 
 def pn2_path(name):
@@ -2486,6 +2993,33 @@ def pn2_path(name):
     per_fwd, per_bwd = PN2_LAUNCHES[name]
     launches = run_attack(tag, model_fn, data, target, PN2_ITER, per_fwd, per_bwd)
     return model_fn, state, data, target, launches
+
+
+def loss_grad(fn, a, ori, target):
+    """(log-probs, the CW loss's input gradient) of ``fn`` at ``a``."""
+    import torch
+
+    a = a.detach().clone().requires_grad_(True)
+    logp = fn(a)
+    (g,) = torch.autograd.grad(cw_loss(logp, a, ori, target).sum(), a)
+    return logp.detach(), g
+
+
+def first_step_spread(tag, fn, data, target):
+    """Two card runs of the first step of the attack ``tag`` times: the CW
+    loss's input gradient at its first iterate (the clouds plus the start
+    noise of seed 1), twice; logs their largest difference, which only the
+    order of the gather backward's dsrc atomicAdds can make (ROADMAP
+    Queue 3 item 1); returns it."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    a0 = data + torch.randn(data.shape, generator=gen, device="cuda") * 1e-7
+    (_, g1), (_, g2) = (loss_grad(fn, a0, data, target) for _ in range(2))
+    d = float((g1 - g2).abs().max())
+    log(f"[{tag}] the first step's loss gradient, two runs on the card: max |diff| {d:.3e} (largest |gradient| "
+        f"{float(g1.abs().max()):.3e}; {int((g1 != g2).sum())} of {g1.numel()} coordinates differ)")
+    return d
 
 
 def main():
@@ -2504,6 +3038,8 @@ def main():
     phase_build()
     k = phase_kernels()
     pn2 = phase_kernels_pn2()
+    with phase_clock("kernels-ballq"):
+        ballq = phase_kernels_ballq()
     clouds, labels = synthetic_data(NUM_CLASSES, 2, 0, "cuda")
     model_fn, state = make_victim("PointNet", "cuda", clouds, ("dropout",))
     data = clouds[:B]
@@ -2513,6 +3049,7 @@ def main():
     phase_profile("profile", model_fn, data, target)
 
     ssg = pn2_path("PointNet++Ssg")
+    first_step_spread("slice-ssg", ssg[0], ssg[2], ssg[3])
     msg = pn2_path("PointNet++Msg")
     attack_parity("parity-ssg", "PointNet++Ssg", ssg[0], ssg[1], ssg[2], ssg[3], 4, may_part=True)
     phase_parity_msg(*msg[:4])
@@ -2584,7 +3121,9 @@ def main():
     # CurveNet (bench.py's cw_curvenet; GeoA3 on it, BASELINE config 4): its kernels, then its paths
     with phase_clock("kernels-curvenet"):
         cnk = phase_kernels_curvenet()
-    cn_cw, cn_geo = curvenet_path()
+    with phase_clock("kernels-gather-curvenet"):
+        cng = phase_kernels_gather_curvenet()
+    cn_cw, cn_geo, cn_gather = curvenet_path()
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "pointcloudattack_tpu"))
     if loaded:
         raise AssertionError(f"the JAX side was imported: {loaded}")
@@ -2592,7 +3131,7 @@ def main():
     by_path = {"pointnet": {"chain_fwd": launches["fwd"], "chain_bwd": launches["bwd"]},
                "ssg": ssg[4], "msg": msg[4], "dgcnn": dg_launches, "knn": knn1, "knn_r5": knn5,
                "knn_ssg": knn_ssg, "geoa3": geo_launches, "geoa3_r4": geo_r4, "geoa3_partial": geo_partial,
-               "curvenet": cn_cw, "geoa3_curvenet": cn_geo}
+               "curvenet": cn_cw, "geoa3_curvenet": cn_geo, "curvenet_gather": cn_gather}
 
     def entry(name, key, source, replaces, launches_, err, ms, plain_ms, bnd, at, rows=None, **extra):
         """``rows``: the chain rows the bound charges (every row forward, the
@@ -2607,11 +3146,10 @@ def main():
     geo_at = f"one GeoA3 iteration's call on PointNet (B=8, N=1024, k={GEO_K})"
     cn_at = {"max": f"the initial LPFA of one CurveNet forward (B={CN_B}, N=1024, K={CN_K}, 9 -> 32)",
              "mean": f"sum over the eight residual LPFAs of one CurveNet forward (B={CN_B}, K={CN_K})"}
-
-    def at_dgcnn(key):
-        r = dg[key]
-        return {"at_dgcnn": {"at": dg_at, "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                             "bound_by": summed_bound(r)[1], "bound_rows": r["rows"], "max_abs_err": r["err"]}}
+    gather_at = {"mean_fwd": cn_at["mean"] + ", gather route (pre_act, LeakyReLU 0.2)",
+                 "mean_bwd": cn_at["mean"] + ", gather route (pre_act, LeakyReLU 0.2)",
+                 "slope_fwd": cn_at["max"] + ", gather route (LeakyReLU 0.2)",
+                 "slope_bwd": cn_at["max"] + ", gather route (LeakyReLU 0.2)"}
 
     record = {"kernels": [
         entry("chain_maxpool_fwd", "chain_fwd", KERNEL_SRC, TPU_FWD, launches["fwd"], k["err_y"],
@@ -2622,12 +3160,10 @@ def main():
               k["rows_bwd"]),
         entry("fps", "fps", FPS_SRC, TPU_FPS, ssg[4]["fps"], pn2["fps"]["err"], pn2["fps"]["ms"],
               pn2["fps"]["plain_ms"], summed_bound(pn2["fps"]), ssg_at),
-        entry("gather_chain_fwd", "gather_fwd", GATHER_SRC, TPU_GATHER_FWD, ssg[4]["gather_fwd"],
-              pn2["gather_fwd"]["err"], pn2["gather_fwd"]["ms"], pn2["gather_fwd"]["plain_ms"],
-              summed_bound(pn2["gather_fwd"]), ssg_at, pn2["gather_fwd"]["rows"], **at_dgcnn("gather_fwd")),
-        entry("gather_chain_bwd", "gather_bwd", GATHER_SRC, TPU_GATHER_BWD, ssg[4]["gather_bwd"],
-              pn2["gather_bwd"]["err"], pn2["gather_bwd"]["ms"], pn2["gather_bwd"]["plain_ms"],
-              summed_bound(pn2["gather_bwd"]), ssg_at, pn2["gather_bwd"]["rows"], **at_dgcnn("gather_bwd")),
+        *(entry(name, key, GATHER_SRC, tpu, dg_launches[key], dg[key]["err"], dg[key]["ms"], dg[key]["plain_ms"],
+                summed_bound(dg[key]), dg_at, dg[key]["rows"])
+          for name, key, tpu in (("gather_chain_fwd", "gather_fwd", TPU_GATHER_FWD),
+                                 ("gather_chain_bwd", "gather_bwd", TPU_GATHER_BWD))),
         entry("knn", "knn", KNN_SRC, TPU_KNN, dg_launches["knn"], dg["knn"]["err"], dg["knn"]["ms"],
               dg["knn"]["plain_ms"], summed_bound(dg["knn"]), dg_at),
         entry("min_sqdist_rows", "min_rows", CHAMFER_SRC, TPU_CHAMFER, knn1["min_rows"], cham["err"], cham["ms"],
@@ -2649,6 +3185,19 @@ def main():
                                        ("chain_groupmax_bwd", "group_max_bwd", TPU_GROUP_BWD, "max"),
                                        ("chain_groupmean_fwd", "group_mean_fwd", TPU_GROUP_MEAN_FWD, "mean"),
                                        ("chain_groupmean_bwd", "group_mean_bwd", TPU_GROUP_BWD, "mean"))),
+        *(entry(name, key, GATHER_SRC, tpu, cn_gather[key], cng[r]["err"], cng[r]["ms"], cng[r]["plain_ms"],
+                summed_bound(cng[r]), gather_at[r], cng[r]["rows"])
+          for name, key, tpu, r in (("gather_chain_groupmean_fwd", "gather_mean_fwd", TPU_GATHER_FWD, "mean_fwd"),
+                                    ("gather_chain_groupmean_bwd", "gather_mean_bwd", TPU_GATHER_BWD, "mean_bwd"),
+                                    ("gather_chain_fwd_slope", "gather_fwd", TPU_GATHER_FWD, "slope_fwd"),
+                                    ("gather_chain_bwd_slope", "gather_bwd", TPU_GATHER_BWD, "slope_bwd"))),
+        entry("ball_gather_chain_fwd", "ball_fwd", GATHER_SRC, TPU_GATHER_FWD, ssg[4]["ball_fwd"],
+              ballq["ball_fwd"]["err"], ballq["ball_fwd"]["ms"], ballq["ball_fwd"]["plain_ms"],
+              summed_bound(ballq["ball_fwd"]), ssg_at + ", ball route", ballq["ball_fwd"]["rows"],
+              index_route_ms=ballq["ball_fwd"]["index_ms"]),
+        entry("ball_gather_chain_bwd", "ball_bwd", GATHER_SRC, TPU_GATHER_BWD, ssg[4]["ball_bwd"],
+              ballq["ball_bwd"]["err"], ballq["ball_bwd"]["ms"], ballq["ball_bwd"]["plain_ms"],
+              summed_bound(ballq["ball_bwd"]), ssg_at + ", ball route", ballq["ball_bwd"]["rows"]),
     ]}
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -1,23 +1,38 @@
-// Neighbour gather + per-point Dense -> eval-BatchNorm (-> ReLU) chain +
-// max over each group's K neighbours, and its input gradients, for Hopper
-// (sm_90a).  Plain C interface, loaded with ctypes by
+// Neighbour gather + per-point Dense -> eval-BatchNorm -> activation chain
+// + a max or a mean over each group's K neighbours, and its input
+// gradients; and the same max with the ball query run inside the launch,
+// for Hopper (sm_90a).  Plain C interface, loaded with ctypes by
 // pointcloudattack_tpu_torch/ops/gather_chain.py.
 //
 // Replaces the TPU kernels of pointcloudattack_tpu/ops/pallas/gather_chain_kernel.py:
-//   forward  _gather_fwd_pallas (pallas_call at :550, body _gather_fwd_kernel)
+//   forward  _gather_fwd_pallas (pallas_call at :550, bodies _gather_fwd_kernel
+//            and _gather_mean_fwd_kernel)
 //   backward _gather_bwd_pallas (pallas_call at :641, body _gather_bwd_kernel)
-// reached through gather_chain_groupmax (max pool).  For src [B, N, Cs],
-// centers [B, G, Cc] and idx [B, G, K] it builds each group's K rows from
-// a layout of segments, in order:
+// reached through gather_chain_groupmax (max pool), gather_chain_groupmean
+// (mean pool) and ball_gather_chain_groupmax (the ball query in the kernel,
+// _make_ball_gather_op, _ball_slots).  For src [B, N, Cs], centers
+// [B, G, Cc] and idx [B, G, K] it builds each group's K rows from a layout
+// of segments, in order:
 //   diff   (lo, hi, ctr_lo): src[idx, lo:hi] - centers[g, ctr_lo:ctr_lo+w]
 //   pass   (lo, hi):         src[idx, lo:hi]
 //   center (lo, hi):         centers[g, lo:hi], the same on every row
-// runs the chain on the rows (ReLU between layers, none after the last) and
-// returns y [B, G, C_L], the max over K, with am [B, G, C_L] int32, the
-// lowest k attaining it.  The backward takes g = dy * mul_L and returns
-// dsrc [B, N, Cs] (diff and pass columns, scattered by idx) and dctr
-// [B, G, Cc] (center columns summed over K, diff columns summed over K with
-// a minus sign).
+// with pre_act, applies the activation to the built rows, and runs the
+// chain on them with the activation max(z, slope * z) (ReLU at slope 0,
+// LeakyReLU otherwise) between layers.  Max pool: none after the last
+// layer; y [B, G, C_L] is the max over K, with am [B, G, C_L] int32, the
+// lowest k attaining it.  Mean pool: every layer activated, y the sum of
+// the K rows in ascending k, divided by K; no argmax.  The backward takes
+// g = dy * mul_L (max) or dy * mul_L / K (mean) and returns dsrc [B, N, Cs]
+// (diff and pass columns, scattered by idx) and dctr [B, G, Cc] (center
+// columns summed over K, diff columns summed over K with a minus sign);
+// with pre_act the row cotangent is first masked by the rows' sign.
+//
+// The ball route takes xyz [B, N, 3] and a radius in place of idx: each
+// group's K slots are the first K points in index order whose squared
+// distance to the group's center (centers[..., :3]) is <= r2, a short ball
+// padded with its first member (point 0 when the ball is empty), as
+// ops/ball_query.py::query_ball_point picks them.  The forward writes the
+// slots out as idx [B, G, K]; its backward is the index route's on them.
 //
 // What bounds it on this card.  Per call the chain is 2 * B*G*K * sum of
 // C_l*C_l+1 flops: 1.2 GFLOP at PointNet++ SSG's first SA (16 x 512 x 32
@@ -27,6 +42,11 @@
 // unfused version writes the grouped [B, G, K, C0] rows and every layer's
 // [B, G, K, C] map to device memory and reads them back (268 MB for SSG's
 // second SA's 256-wide last layer alone); this kernel writes none of them.
+// CurveNet's residual LPFAs (one layer C -> C, C = 16 to 128, K = 20) read
+// only the sources, the centers and the indices: 2 * K * C * C flops a
+// group against about 8 * C + 4 * K bytes, so operations bound them too.
+// The ball query adds 9 operations per (group, point) it scans: 0.08 GFLOP
+// at SSG's first SA, little beside the chain.
 //
 // What the design does about it.
 //   * The grouped rows never exist in device memory: a block loads the f32
@@ -35,24 +55,39 @@
 //     matrix unit).  Odd input widths (3, 131, 323) are the depth of the
 //     first layer's product and are masked there, with no padded copy.
 //   * The chain is chain_common.cuh's register-tiled f32 layer pass, shared
-//     with chain_maxpool.cu.
+//     with chain_maxpool.cu and group_chain.cu, with its slope.
 //   * A block owns a tile of T = 8 * TM rows: T / K whole groups when
 //     K <= T (K a multiple of TM, so each warp's rows lie in one group), or
-//     one chunk of T rows of a group when K > T.  Chunked groups write a
-//     (max, first argmax) partial per chunk; a second small kernel reduces
-//     them in chunk order with a strict '>', so ties keep the lowest k,
-//     deterministically.
-//   * Backward: recompute the rows and the ReLU masks, put the cotangent on
-//     each column's argmax row and take it through the last layer as a
-//     dense one-hot product (a group whose K rows repeat one point has one
-//     row that wins every column; a sparse expansion leaves that row's warp
-//     all the work: it measured 1.5-8.6x slower than this at PointNet++'s
-//     shapes on an H100), run back through the layers, then split the row
-//     cotangent by the layout.  dctr is summed per group
-//     in row order and written once per group (per chunk, then summed in
-//     chunk order by a second kernel): deterministic.  dsrc takes f32
-//     atomicAdd from every row that gathered a point; the order of those
-//     adds changes from run to run, so dsrc may vary in its last bits
+//     one chunk of T rows of a group when K > T (max pool only).  Chunked
+//     groups write a (max, first argmax) partial per chunk; a second small
+//     kernel reduces them in chunk order with a strict '>', so ties keep
+//     the lowest k, deterministically.  The mean's last layer goes to a
+//     padded shared [C_L][T + 1] buffer, and one thread per (group, column)
+//     sums the group's rows in ascending k, as group_chain.cu does.
+//   * The ball query (the TPU kernel rebuilt a [gpb*K, N] one-hot from a
+//     lane cumsum in both directions, on every block): the block stages the
+//     cloud in shared memory 512 points at a time with each point's norm,
+//     and one warp per group takes 32 points a step in index order: each
+//     lane's distance replays ops/pairwise.py::pairwise_sqdist bit for bit
+//     (xx, xy and yy summed over coordinates 0, 1, 2 with __fmul_rn and
+//     __fadd_rn, then (xx - 2*xy) + yy, no FMA contraction), a ballot marks
+//     the members and a popcount of the lower lanes gives each its slot.  A
+//     group stops once its K slots are full, the block once all its groups
+//     are.  A chunked group rescans in each of its chunks (the same
+//     arithmetic, so the same slots); chunk 0 writes the slots out, and the
+//     backward reads them there instead of scanning again.
+//   * Backward: recompute the rows and the activation masks; the max puts
+//     the cotangent on each column's argmax row, the mean recomputes the
+//     last layer and puts act'(z_L) * g on every row; either [C_L][T]
+//     cotangent runs back through W_L^T as a dense product (a group whose K
+//     rows repeat one point has one row that wins every column; a sparse
+//     expansion leaves that row's warp all the work: it measured 1.5-8.6x
+//     slower than this at PointNet++'s shapes on an H100), then through the
+//     layers, then the row cotangent is split by the layout.  dctr is summed
+//     per group in row order and written once per group (per chunk, then
+//     summed in chunk order by a second kernel): deterministic.  dsrc takes
+//     f32 atomicAdd from every row that gathered a point; the order of
+//     those adds changes from run to run, so dsrc may vary in its last bits
 //     (about 1e-7 relative per duplicated index).  A deterministic scatter
 //     is left for a later change.
 
@@ -63,6 +98,7 @@ namespace {
 using namespace pca;
 
 constexpr int kMaxSegs = 4;
+constexpr int kBallTile = 512;  // cloud points staged at a time by the ball query
 enum SegKind { kDiff = 0, kPass = 1, kCenter = 2 };
 
 struct Layout {
@@ -79,6 +115,14 @@ struct Groups {
   int seg;     // rows of one group in a tile: min(K, T)
   int gpb;     // groups per tile: T / K when K <= T, else 1
   int chunks;  // tiles per group: ceil(K / T) when K > T, else 1
+};
+
+// The ball query's inputs: the cloud's points, the squared radius, and
+// where the slots go ([B, G, K]).
+struct Ball {
+  const float* xyz;
+  float r2;
+  int* idx_out;
 };
 
 Groups make_groups(int N, int G, int K, int Cs, int Cc, int tm) {
@@ -114,72 +158,188 @@ __device__ __forceinline__ int find_seg(const Layout& lay, int col, int& j) {
   return s;
 }
 
-// The group rows of block bx, cloud b, into the shared [C0][T] tile xT.
-template <int TM>
+// The group rows of block bx, cloud b, into the shared [C0][T] tile xT;
+// pidx(g, k) is the point row k of group g gathers.  With pre_act the
+// rows go through the activation.
+template <int TM, class Pidx>
 __device__ __forceinline__ void build_rows(const float* __restrict__ src,
-                                           const float* __restrict__ ctr,
-                                           const int* __restrict__ idx, const Groups& q,
-                                           const Layout& lay, int C0, int b, int bx, float* xT) {
+                                           const float* __restrict__ ctr, const Groups& q,
+                                           const Layout& lay, int C0, int b, int bx, int pre_act,
+                                           float slope, Pidx pidx, float* xT) {
   fill_tile<TM>(C0, [&](int r, int col) {
     int g, k, j;
     if (!tile_row(q, bx, r, g, k)) return 0.f;
     const int s = find_seg(lay, col, j);
     const float* crow = ctr + ((size_t)b * q.G + g) * q.Cc;
-    if (lay.kind[s] == kCenter) return crow[lay.lo[s] + j];
-    const int p = idx[((size_t)b * q.G + g) * q.K + k];
-    const float v = src[((size_t)b * q.N + p) * q.Cs + lay.lo[s] + j];
-    return lay.kind[s] == kDiff ? __fsub_rn(v, crow[lay.ctr[s] + j]) : v;
+    float v;
+    if (lay.kind[s] == kCenter) {
+      v = crow[lay.lo[s] + j];
+    } else {
+      v = src[((size_t)b * q.N + pidx(g, k)) * q.Cs + lay.lo[s] + j];
+      if (lay.kind[s] == kDiff) v = __fsub_rn(v, crow[lay.ctr[s] + j]);
+    }
+    return pre_act ? act_fwd(v, slope) : v;
   }, xT);
 }
 
-template <int TM>
+// The ball query of the ng groups from g0 of cloud b into idx_s ([ng][K]),
+// by the block: the cloud staged kBallTile points at a time into pts (x, y,
+// z and the norm yy), one warp per group taking 32 points a step in index
+// order.  The squared distance is pairwise_sqdist's, (xx - 2*xy) + yy with
+// each sum over the coordinates in order, every operation rounded on its
+// own; a point is a member when it is <= r2.  Slots past the ball's
+// members repeat its first member, or point 0 when it has none.  cnt_s
+// ([ng] ints) is scratch.  Ends with a barrier.
+__device__ __forceinline__ void ball_slots(const Ball& ball, const float* __restrict__ ctr,
+                                           const Groups& q, int b, int g0, int ng, float4* pts,
+                                           int* cnt_s, int* idx_s) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int K = q.K;
+  for (int e = tid; e < ng; e += kThreads) cnt_s[e] = 0;
+  for (int p0 = 0; p0 < q.N; p0 += kBallTile) {
+    __syncthreads();  // cnt_s settled, the last tile's points read
+    bool done = true;
+    for (int lg = 0; lg < ng; ++lg) done = done && cnt_s[lg] >= K;
+    if (done) break;
+    const int np = min(kBallTile, q.N - p0);
+    for (int e = tid; e < np; e += kThreads) {
+      const float* p = ball.xyz + ((size_t)b * q.N + p0 + e) * 3;
+      const float x = p[0], y = p[1], z = p[2];
+      pts[e] = make_float4(x, y, z, __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z)));
+    }
+    __syncthreads();
+    for (int lg = warp; lg < ng; lg += kWarps) {
+      int cnt = cnt_s[lg];  // the same in every lane
+      const float* c = ctr + ((size_t)b * q.G + g0 + lg) * q.Cc;
+      const float cx = c[0], cy = c[1], cz = c[2];
+      const float xx = __fadd_rn(__fadd_rn(__fmul_rn(cx, cx), __fmul_rn(cy, cy)), __fmul_rn(cz, cz));
+      for (int j0 = 0; j0 < np && cnt < K; j0 += 32) {
+        const int j = j0 + lane;
+        bool in = false;
+        if (j < np) {
+          const float4 p = pts[j];
+          const float xy = __fadd_rn(__fadd_rn(__fmul_rn(cx, p.x), __fmul_rn(cy, p.y)), __fmul_rn(cz, p.z));
+          in = __fadd_rn(__fsub_rn(xx, __fmul_rn(2.f, xy)), p.w) <= ball.r2;
+        }
+        const unsigned bits = __ballot_sync(0xffffffffu, in);
+        const int slot = cnt + __popc(bits & ((1u << lane) - 1u));
+        if (in && slot < K) idx_s[lg * K + slot] = p0 + j;
+        cnt += __popc(bits);
+      }
+      __syncwarp();  // every lane has read cnt_s[lg]
+      if (lane == 0) cnt_s[lg] = cnt;
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < ng * K; e += kThreads) {
+    const int lg = e / K, total = cnt_s[lg];
+    // slot 0 is a member whenever total > 0, and is never written here
+    if (e % K >= total) idx_s[e] = total > 0 ? idx_s[lg * K] : 0;
+  }
+  __syncthreads();
+}
+
+// The forward.  kMean: the mean pool, y written directly (K <= T); else the
+// max pool into part_v / part_i (y and am when a group is one chunk).
+// kBall: the slots come from the ball query and chunk 0 writes them to
+// ball.idx_out; idx is unused.
+template <int TM, bool kMean, bool kBall>
 __global__ void __launch_bounds__(kThreads, 2)
     gather_fwd_kernel(const float* __restrict__ src, const float* __restrict__ ctr,
-                      const int* __restrict__ idx, Groups q, Layout lay, Chain ch,
-                      float* __restrict__ part_v, int* __restrict__ part_i) {
-  constexpr int T = 8 * TM;
+                      const int* __restrict__ idx, Groups q, Layout lay, Chain ch, int pre_act,
+                      Ball ball, float* __restrict__ part_v, int* __restrict__ part_i) {
+  constexpr int T = 8 * TM, TP = T + 1;
   extern __shared__ __align__(16) unsigned char smem[];
   const int bx = blockIdx.x, b = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int L = ch.L, C0 = ch.dims[0], C = ch.dims[L];
+  const int g0 = (bx / q.chunks) * q.gpb, chunk = bx % q.chunks;
+  const int ng = min(q.gpb, q.G - g0);
 
   int maxw = C0;
   for (int l = 1; l < L; ++l) maxw = max(maxw, ch.dims[l]);
   float* cur = reinterpret_cast<float*>(smem);
   float* nxt = cur + (size_t)maxw * T;
   float* wtile = nxt + (size_t)maxw * T;
-  float* red_v = wtile + kKTile * kChunk;
+  float* red_v = wtile + kKTile * kChunk;  // mean: the [C][TP] last layer
   int* red_i = reinterpret_cast<int*>(red_v + kWarps * kChunk);
+  unsigned char* tail = reinterpret_cast<unsigned char*>(red_v) +
+                        (kMean ? align16(sizeof(float) * C * TP) : 2 * align16(sizeof(float) * kWarps * kChunk));
 
-  build_rows<TM>(src, ctr, idx, q, lay, C0, b, bx, cur);
-  const int g0 = (bx / q.chunks) * q.gpb, chunk = bx % q.chunks;
-  chain_fwd_max<TM>(
-      ch, cur, nxt, wtile, red_v, red_i, q.seg,
-      [&](int r) {
-        int g, k;
-        return tile_row(q, bx, r, g, k) ? k : -1;
-      },
-      [&](int s, int c, float v, int a) {
-        const int g = g0 + s;
-        if (s >= q.gpb || g >= q.G) return;
-        const size_t o = (((size_t)b * q.G + g) * q.chunks + chunk) * C + c;
-        part_v[o] = v;
-        part_i[o] = a;
-      });
+  if constexpr (kBall) {
+    float4* pts = reinterpret_cast<float4*>(tail);
+    int* idx_s = reinterpret_cast<int*>(pts + kBallTile);
+    int* cnt_s = idx_s + align16(sizeof(int) * q.gpb * q.K) / sizeof(int);
+    ball_slots(ball, ctr, q, b, g0, ng, pts, cnt_s, idx_s);
+    if (chunk == 0)
+      for (int e = threadIdx.x; e < ng * q.K; e += kThreads)
+        ball.idx_out[((size_t)b * q.G + g0) * q.K + e] = idx_s[e];
+    build_rows<TM>(src, ctr, q, lay, C0, b, bx, pre_act, ch.slope,
+                   [&](int g, int k) { return idx_s[(g - g0) * q.K + k]; }, cur);
+  } else {
+    build_rows<TM>(src, ctr, q, lay, C0, b, bx, pre_act, ch.slope,
+                   [&](int g, int k) { return idx[((size_t)b * q.G + g) * q.K + k]; }, cur);
+  }
+
+  if constexpr (kMean) {
+    float* zs = red_v;
+    for (int l = 0; l < L - 1; ++l) {
+      hidden_layer<TM>(ch, l, cur, nxt, wtile);
+      float* t = cur; cur = nxt; nxt = t;
+    }
+    const int l = L - 1;
+    layer_pass<TM>(cur, ch.dims[l], ch.w[l], C, wtile, [&](int c0, auto& acc) {
+      constexpr int TN = sizeof(acc[0]) / sizeof(float);
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int c = c0 + chunk_col<TN>(lane, j);
+        if (c >= C) continue;
+        const float bb = ch.b[l][c], mm = ch.mean[l][c], mu = ch.mul[l][c], be = ch.beta[l][c];
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+          zs[c * TP + warp * TM + i] = act_fwd((acc[i][j] + bb - mm) * mu + be, ch.slope);
+      }
+    });
+    __syncthreads();
+    // one thread per (group, column), the group's rows in ascending k
+    for (int e = threadIdx.x; e < ng * C; e += kThreads) {
+      const int s = e / C, c = e % C;
+      const float* col = zs + c * TP + s * q.K;
+      float sum = col[0];
+      for (int k = 1; k < q.K; ++k) sum += col[k];
+      part_v[((size_t)b * q.G + g0 + s) * C + c] = sum / (float)q.K;
+    }
+  } else {
+    chain_fwd_max<TM>(
+        ch, cur, nxt, wtile, red_v, red_i, q.seg,
+        [&](int r) {
+          int g, k;
+          return tile_row(q, bx, r, g, k) ? k : -1;
+        },
+        [&](int s, int c, float v, int a) {
+          const int g = g0 + s;
+          if (s >= q.gpb || g >= q.G) return;
+          const size_t o = (((size_t)b * q.G + g) * q.chunks + chunk) * C + c;
+          part_v[o] = v;
+          part_i[o] = a;
+        });
+  }
 }
 
-template <int TM>
+template <int TM, bool kMean>
 __global__ void __launch_bounds__(kThreads)
     gather_bwd_kernel(const float* __restrict__ src, const float* __restrict__ ctr,
-                      const int* __restrict__ idx, Groups q, Layout lay, Chain ch,
+                      const int* __restrict__ idx, Groups q, Layout lay, Chain ch, int pre_act,
                       const int* __restrict__ am, const float* __restrict__ g,
                       float* __restrict__ dsrc, float* __restrict__ dctr_part) {
   constexpr int T = 8 * TM;
   extern __shared__ __align__(16) unsigned char smem[];
   const int bx = blockIdx.x, b = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int L = ch.L, C0 = ch.dims[0], CL = ch.dims[L];
   const int g0 = (bx / q.chunks) * q.gpb, chunk = bx % q.chunks;
 
-  // act[0] = rows, act[l] = h_l (post-ReLU output of layer l-1), l < L
+  // act[0] = rows, act[l] = h_l (the activated output of layer l-1), l < L
   float* act[kMaxLayers];
   float* p = reinterpret_cast<float*>(smem);
   int maxg = 1;
@@ -189,28 +349,61 @@ __global__ void __launch_bounds__(kThreads)
     if (l > 0) maxg = max(maxg, ch.dims[l]);
   }
   float* gin = p;
-  float* gout = gin + (size_t)maxg * T;  // also the one-hot [CL][T] cotangent
+  float* gout = gin + (size_t)maxg * T;  // also the [CL][T] cotangent
   float* wtile = gout + (size_t)max(maxg, CL) * T;
   int* am_s = reinterpret_cast<int*>(wtile + kKTile * kChunk);
   float* g_s = reinterpret_cast<float*>(am_s) + align16(q.gpb * CL * sizeof(int)) / sizeof(float);
 
-  build_rows<TM>(src, ctr, idx, q, lay, C0, b, bx, act[0]);
+  build_rows<TM>(src, ctr, q, lay, C0, b, bx, pre_act, ch.slope,
+                 [&](int gg, int k) { return idx[((size_t)b * q.G + gg) * q.K + k]; }, act[0]);
   for (int e = threadIdx.x; e < q.gpb * CL; e += kThreads) {
     const int gg = g0 + e / CL;
     const size_t o = ((size_t)b * q.G + gg) * CL + e % CL;
-    am_s[e] = gg < q.G ? am[o] : -1;
+    if (!kMean) am_s[e] = gg < q.G ? am[o] : -1;
     g_s[e] = gg < q.G ? g[o] : 0.f;
   }
-  float* drow = act[0];  // the row cotangent replaces the rows, column by column
-  chain_bwd_tile<TM, true>(
-      ch, act, gin, gout, wtile,
-      [&](int r) {
-        int gg, k;
-        if (!tile_row(q, bx, r, gg, k)) return HitRow{nullptr, nullptr, 0};
-        const int lg = r / q.seg;
-        return HitRow{am_s + lg * CL, g_s + lg * CL, k};
-      },
-      [&](int r, int k, float v) { drow[k * T + r] = v; });
+  // the row cotangent replaces the rows, column by column; with pre_act
+  // through the rows' activation (the activated row has the raw row's sign)
+  float* drow = act[0];
+  auto store = [&](int r, int k, float v) {
+    float* d = drow + k * T + r;
+    *d = pre_act ? act_bwd_mul(*d, v, 1.f, ch.slope) : v;
+  };
+  if constexpr (kMean) {
+    for (int l = 0; l < L - 1; ++l) hidden_layer<TM>(ch, l, act[l], act[l + 1], wtile);
+    __syncthreads();
+    // recompute the last layer: every row's cotangent is act'(z_L) * g
+    const int l = L - 1;
+    layer_pass<TM>(act[l], ch.dims[l], ch.w[l], CL, wtile, [&](int c0, auto& acc) {
+      constexpr int TN = sizeof(acc[0]) / sizeof(float);
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int c = c0 + chunk_col<TN>(lane, j);
+        if (c >= CL) continue;
+        const float bb = ch.b[l][c], mm = ch.mean[l][c], mu = ch.mul[l][c], be = ch.beta[l][c];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const int r = warp * TM + i;
+          int gg, k;
+          const float z = (acc[i][j] + bb - mm) * mu + be;
+          gout[c * T + r] = tile_row(q, bx, r, gg, k)
+                                ? act_bwd_mul(z, g_s[(r / q.seg) * CL + c], 1.f, ch.slope)
+                                : 0.f;
+        }
+      }
+    });
+    chain_bwd_dense<TM>(ch, act, gin, gout, wtile, store);
+  } else {
+    chain_bwd_tile<TM, true>(
+        ch, act, gin, gout, wtile,
+        [&](int r) {
+          int gg, k;
+          if (!tile_row(q, bx, r, gg, k)) return HitRow{nullptr, nullptr, 0};
+          const int lg = r / q.seg;
+          return HitRow{am_s + lg * CL, g_s + lg * CL, k};
+        },
+        store);
+  }
   __syncthreads();
 
   // diff and pass columns scatter into dsrc
@@ -257,17 +450,31 @@ __global__ void sum_chunks_kernel(const float* __restrict__ part, int chunks, in
   out[e] = acc;
 }
 
-size_t gather_smem(int L, const int* dims, int K, int tm, int bwd) {
+// Dynamic shared memory of one block.  Forward: chain_common.cuh's forward
+// buffers, the mean's [C_L][T + 1] last layer in place of the max's
+// partials, and for the ball query the staged points, the slots and the
+// counts.  Backward: the dense backward's buffers.
+size_t gather_smem(int L, const int* dims, int K, int tm, int bwd, int mean, int ball) {
   const int T = 8 * tm;
-  return chain_smem_bytes(L, dims, tm, bwd, K <= T ? T / K : 1, true);
+  const int gpb = K <= T ? T / K : 1;
+  if (bwd) return chain_smem_bytes(L, dims, tm, 1, gpb, true);
+  int maxw = dims[0];
+  for (int l = 1; l < L; ++l) maxw = dims[l] > maxw ? dims[l] : maxw;
+  size_t s = 2 * align16(sizeof(float) * maxw * T) + align16(sizeof(float) * kKTile * kChunk);
+  s += mean ? align16(sizeof(float) * dims[L] * (T + 1)) : 2 * align16(sizeof(float) * kWarps * kChunk);
+  if (ball) s += sizeof(float4) * kBallTile + align16(sizeof(int) * gpb * K) + align16(sizeof(int) * gpb);
+  return s;
 }
 
 int check_gather(int B, int N, int G, int K, int Cs, int Cc, int nseg, const int* seg, int L,
-                 const int* dims, int tm, int bwd, Layout* lay) {
+                 const int* dims, float slope, int mean, int ball, int tm, int bwd, Layout* lay) {
   if (B < 1 || B > 65535 || N < 1 || G < 1 || K < 1 || Cs < 1 || Cc < 1) return 1;
   if (L < 1 || L > kMaxLayers || nseg < 1 || nseg > kMaxSegs) return 1;
+  if (!(slope >= 0.f && slope <= 1.f)) return 1;
   if (tm != 8 && tm != 4 && tm != 2) return 1;
   if (K <= 8 * tm && K % tm) return 1;  // a warp's rows must lie in one group
+  if (mean && K > 8 * tm) return 1;     // the mean takes whole groups
+  if (ball && Cc < 3) return 1;         // the ball centers are centers[..., :3]
   for (int l = 0; l <= L; ++l)
     if (dims[l] < 1) return 1;
   if (bwd && dims[L - 1] > kMaxRowWidth) return 1;
@@ -282,33 +489,68 @@ int check_gather(int B, int N, int G, int K, int Cs, int Cc, int nseg, const int
     c0 += hi - lo;
   }
   if (c0 != dims[0]) return 1;
-  if (gather_smem(L, dims, K, tm, bwd) > kMaxSmem) return 1;
+  if (gather_smem(L, dims, K, tm, bwd, mean, ball) > kMaxSmem) return 1;
   return 0;
 }
 
-template <int TM>
+template <int TM, bool kMean, bool kBall>
 cudaError_t launch_gather_fwd(const float* src, const float* ctr, const int* idx, int B,
-                              const Groups& q, const Layout& lay, const Chain& ch,
-                              float* pv, int* pi, size_t smem, cudaStream_t s) {
-  cudaError_t e = cudaFuncSetAttribute(gather_fwd_kernel<TM>,
+                              const Groups& q, const Layout& lay, const Chain& ch, int pre_act,
+                              const Ball& ball, float* pv, int* pi, size_t smem, cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(gather_fwd_kernel<TM, kMean, kBall>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(q.chunks * ((q.G + q.gpb - 1) / q.gpb), B);
-  gather_fwd_kernel<TM><<<grid, kThreads, smem, s>>>(src, ctr, idx, q, lay, ch, pv, pi);
+  gather_fwd_kernel<TM, kMean, kBall><<<grid, kThreads, smem, s>>>(src, ctr, idx, q, lay, ch, pre_act,
+                                                                    ball, pv, pi);
   return cudaGetLastError();
 }
 
-template <int TM>
+template <bool kMean, bool kBall>
+cudaError_t dispatch_fwd(int tm, const float* src, const float* ctr, const int* idx, int B,
+                         const Groups& q, const Layout& lay, const Chain& ch, int pre_act,
+                         const Ball& ball, float* pv, int* pi, size_t smem, cudaStream_t s) {
+  switch (tm) {
+    case 8: return launch_gather_fwd<8, kMean, kBall>(src, ctr, idx, B, q, lay, ch, pre_act, ball, pv, pi, smem, s);
+    case 4: return launch_gather_fwd<4, kMean, kBall>(src, ctr, idx, B, q, lay, ch, pre_act, ball, pv, pi, smem, s);
+    default: return launch_gather_fwd<2, kMean, kBall>(src, ctr, idx, B, q, lay, ch, pre_act, ball, pv, pi, smem, s);
+  }
+}
+
+template <int TM, bool kMean>
 cudaError_t launch_gather_bwd(const float* src, const float* ctr, const int* idx, int B,
-                              const Groups& q, const Layout& lay, const Chain& ch,
+                              const Groups& q, const Layout& lay, const Chain& ch, int pre_act,
                               const int* am, const float* g, float* dsrc, float* dctr_part,
                               size_t smem, cudaStream_t s) {
-  cudaError_t e = cudaFuncSetAttribute(gather_bwd_kernel<TM>,
+  cudaError_t e = cudaFuncSetAttribute(gather_bwd_kernel<TM, kMean>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(q.chunks * ((q.G + q.gpb - 1) / q.gpb), B);
-  gather_bwd_kernel<TM><<<grid, kThreads, smem, s>>>(src, ctr, idx, q, lay, ch, am, g, dsrc,
-                                                     dctr_part);
+  gather_bwd_kernel<TM, kMean><<<grid, kThreads, smem, s>>>(src, ctr, idx, q, lay, ch, pre_act, am, g,
+                                                            dsrc, dctr_part);
+  return cudaGetLastError();
+}
+
+template <bool kMean>
+cudaError_t dispatch_bwd(int tm, const float* src, const float* ctr, const int* idx, int B,
+                         const Groups& q, const Layout& lay, const Chain& ch, int pre_act,
+                         const int* am, const float* g, float* dsrc, float* dctr_part, size_t smem,
+                         cudaStream_t s) {
+  switch (tm) {
+    case 8: return launch_gather_bwd<8, kMean>(src, ctr, idx, B, q, lay, ch, pre_act, am, g, dsrc, dctr_part, smem, s);
+    case 4: return launch_gather_bwd<4, kMean>(src, ctr, idx, B, q, lay, ch, pre_act, am, g, dsrc, dctr_part, smem, s);
+    default: return launch_gather_bwd<2, kMean>(src, ctr, idx, B, q, lay, ch, pre_act, am, g, dsrc, dctr_part, smem, s);
+  }
+}
+
+// The max forward's epilogue when a group spans several chunks: the
+// partials reduced in chunk order into y and am.
+cudaError_t reduce_chunks(const Groups& q, int B, int C, float* pv, int* pi, void* y, void* am,
+                          cudaStream_t s) {
+  if (q.chunks == 1) return cudaSuccess;
+  const int total = B * q.G * C;
+  argmax_reduce_kernel<float><<<(total + 255) / 256, 256, 0, s>>>(
+      pv, pi, q.chunks, C, total, static_cast<float*>(y), static_cast<int*>(am));
   return cudaGetLastError();
 }
 
@@ -316,68 +558,102 @@ cudaError_t launch_gather_bwd(const float* src, const float* ctr, const int* idx
 
 extern "C" {
 
-// Dynamic shared memory one block needs at TM = tm; the caller picks the
-// largest tm that fits pca_chain_max_smem() (and divides K when K <= 8*tm).
-size_t pca_gather_smem(int L, const int* dims, int K, int tm, int bwd) {
-  return gather_smem(L, dims, K, tm, bwd);
+// Dynamic shared memory one block needs at TM = tm (mean: the mean pool;
+// ball: the ball query's forward); the caller picks the largest tm that
+// fits pca_chain_max_smem() (and divides K when K <= 8*tm; 8*tm >= K for
+// the mean).
+size_t pca_gather_smem(int L, const int* dims, int K, int tm, int bwd, int mean, int ball) {
+  return gather_smem(L, dims, K, tm, bwd, mean, ball);
 }
 
 // device: the CUDA device index of every pointer and the stream.
 // src [B, N, Cs] f32, ctr [B, G, Cc] f32, idx [B, G, K] int32 in [0, N);
 // seg: nseg segments of 4 ints (kind 0 diff / 1 pass / 2 center, lo, hi,
 // ctr_lo); dims [L+1] with dims[0] the layout's width; params as in
-// pca_chain_fwd.  With chunks = ceil(K / (8*tm)) > 1 (K > 8*tm), part_v /
-// part_i are scratch [B, G, chunks, C_L]; otherwise they are unused.  y /
-// am [B, G, C_L].  Returns a cudaError_t code (0 on success).
+// pca_chain_fwd; slope in [0, 1]; pre_act: activate the built rows; mean:
+// 0 max pool, 1 mean pool (K <= 8*tm).  Max: with chunks = ceil(K / (8*tm))
+// > 1 (K > 8*tm), part_v / part_i are scratch [B, G, chunks, C_L];
+// otherwise they are unused; y / am [B, G, C_L].  Mean: y [B, G, C_L]; am,
+// part_v and part_i unused.  Returns a cudaError_t code (0 on success).
 int pca_gather_fwd(int device, const void* src, const void* ctr, const void* idx, int B, int N,
                    int G, int K, int Cs, int Cc, int nseg, const int* seg, int L,
-                   const int* dims, const void* const* params, void* part_v, void* part_i,
-                   void* y, void* am, int tm, void* stream) {
+                   const int* dims, const void* const* params, float slope, int pre_act, int mean,
+                   void* part_v, void* part_i, void* y, void* am, int tm, void* stream) {
   Layout lay;
-  if (check_gather(B, N, G, K, Cs, Cc, nseg, seg, L, dims, tm, 0, &lay))
+  if (check_gather(B, N, G, K, Cs, Cc, nseg, seg, L, dims, slope, mean, 0, tm, 0, &lay))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const Groups q = make_groups(N, G, K, Cs, Cc, tm);
-  const Chain ch = make_chain(L, dims, params, nullptr);
-  const size_t smem = gather_smem(L, dims, K, tm, 0);
+  Chain ch = make_chain(L, dims, params, nullptr);
+  ch.slope = slope;
+  const size_t smem = gather_smem(L, dims, K, tm, 0, mean, 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sf = static_cast<const float*>(src);
   const float* cf = static_cast<const float*>(ctr);
   const int* ii = static_cast<const int*>(idx);
+  const Ball none = {nullptr, 0.f, nullptr};
+  if (mean)
+    return (int)dispatch_fwd<true, false>(tm, sf, cf, ii, B, q, lay, ch, pre_act, none,
+                                          static_cast<float*>(y), nullptr, smem, s);
   // one chunk per group: the tiles write y and am directly
   float* pv = static_cast<float*>(q.chunks > 1 ? part_v : y);
   int* pi = static_cast<int*>(q.chunks > 1 ? part_i : am);
-  switch (tm) {
-    case 8: e = launch_gather_fwd<8>(sf, cf, ii, B, q, lay, ch, pv, pi, smem, s); break;
-    case 4: e = launch_gather_fwd<4>(sf, cf, ii, B, q, lay, ch, pv, pi, smem, s); break;
-    default: e = launch_gather_fwd<2>(sf, cf, ii, B, q, lay, ch, pv, pi, smem, s); break;
-  }
-  if (e != cudaSuccess || q.chunks == 1) return (int)e;
-  const int total = B * G * dims[L];
-  argmax_reduce_kernel<float><<<(total + 255) / 256, 256, 0, s>>>(
-      pv, pi, q.chunks, dims[L], total, static_cast<float*>(y), static_cast<int*>(am));
-  return (int)cudaGetLastError();
+  e = dispatch_fwd<false, false>(tm, sf, cf, ii, B, q, lay, ch, pre_act, none, pv, pi, smem, s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)reduce_chunks(q, B, dims[L], pv, pi, y, am, s);
 }
 
-// src, ctr, idx, seg, dims, params as in pca_gather_fwd; wts: per layer W_l
-// transposed, [dims[l+1], dims[l]] row-major; am int32 and g = dy * mul_L,
-// both [B, G, C_L].  dsrc [B, N, Cs] must hold zeros (the kernel adds into
-// it).  With chunks > 1, dctr_part is scratch [B, G, chunks, Cc]; otherwise
-// it is unused.  dctr [B, G, Cc].  Returns a cudaError_t code.
-int pca_gather_bwd(int device, const void* src, const void* ctr, const void* idx, int B, int N,
-                   int G, int K, int Cs, int Cc, int nseg, const int* seg, int L,
-                   const int* dims, const void* const* params, const void* const* wts,
-                   const void* am, const void* g, void* dsrc, void* dctr_part, void* dctr,
-                   int tm, void* stream) {
+// The max forward with the ball query in the launch.  src, ctr, seg, dims,
+// params, slope, part_v, part_i, y and am as in pca_gather_fwd (max pool,
+// no pre_act); xyz [B, N, 3] f32, the cloud the balls are taken from;
+// r2 the squared radius (float32 of the double radius * radius); the
+// balls' centers are ctr[..., :3] (Cc >= 3).  idx [B, G, K] int32
+// receives the slots.  Returns a cudaError_t code.
+int pca_ball_gather_fwd(int device, const void* src, const void* ctr, const void* xyz, float r2,
+                        int B, int N, int G, int K, int Cs, int Cc, int nseg, const int* seg, int L,
+                        const int* dims, const void* const* params, float slope, void* part_v,
+                        void* part_i, void* y, void* am, void* idx, int tm, void* stream) {
   Layout lay;
-  if (check_gather(B, N, G, K, Cs, Cc, nseg, seg, L, dims, tm, 1, &lay))
+  if (check_gather(B, N, G, K, Cs, Cc, nseg, seg, L, dims, slope, 0, 1, tm, 0, &lay))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const Groups q = make_groups(N, G, K, Cs, Cc, tm);
-  const Chain ch = make_chain(L, dims, params, wts);
-  const size_t smem = gather_smem(L, dims, K, tm, 1);
+  Chain ch = make_chain(L, dims, params, nullptr);
+  ch.slope = slope;
+  const size_t smem = gather_smem(L, dims, K, tm, 0, 0, 1);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Ball ball = {static_cast<const float*>(xyz), r2, static_cast<int*>(idx)};
+  float* pv = static_cast<float*>(q.chunks > 1 ? part_v : y);
+  int* pi = static_cast<int*>(q.chunks > 1 ? part_i : am);
+  e = dispatch_fwd<false, true>(tm, static_cast<const float*>(src), static_cast<const float*>(ctr), nullptr,
+                                B, q, lay, ch, 0, ball, pv, pi, smem, s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)reduce_chunks(q, B, dims[L], pv, pi, y, am, s);
+}
+
+// src, ctr, idx, seg, dims, params, slope, pre_act, mean as in
+// pca_gather_fwd; wts: per layer W_l transposed, [dims[l+1], dims[l]]
+// row-major; g [B, G, C_L]: dy * mul_L (max) or dy * mul_L / K (mean); am
+// int32 [B, G, C_L] (max; unused for the mean).  dsrc [B, N, Cs] must hold
+// zeros (the kernel adds into it).  With chunks > 1, dctr_part is scratch
+// [B, G, chunks, Cc]; otherwise it is unused.  dctr [B, G, Cc].  Returns a
+// cudaError_t code.
+int pca_gather_bwd(int device, const void* src, const void* ctr, const void* idx, int B, int N,
+                   int G, int K, int Cs, int Cc, int nseg, const int* seg, int L,
+                   const int* dims, const void* const* params, const void* const* wts, float slope,
+                   int pre_act, int mean, const void* am, const void* g, void* dsrc, void* dctr_part,
+                   void* dctr, int tm, void* stream) {
+  Layout lay;
+  if (check_gather(B, N, G, K, Cs, Cc, nseg, seg, L, dims, slope, mean, 0, tm, 1, &lay))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const Groups q = make_groups(N, G, K, Cs, Cc, tm);
+  Chain ch = make_chain(L, dims, params, wts);
+  ch.slope = slope;
+  const size_t smem = gather_smem(L, dims, K, tm, 1, mean, 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sf = static_cast<const float*>(src);
   const float* cf = static_cast<const float*>(ctr);
@@ -386,11 +662,8 @@ int pca_gather_bwd(int device, const void* src, const void* ctr, const void* idx
   const float* gf = static_cast<const float*>(g);
   float* ds = static_cast<float*>(dsrc);
   float* dp = static_cast<float*>(q.chunks > 1 ? dctr_part : dctr);
-  switch (tm) {
-    case 8: e = launch_gather_bwd<8>(sf, cf, ii, B, q, lay, ch, ai, gf, ds, dp, smem, s); break;
-    case 4: e = launch_gather_bwd<4>(sf, cf, ii, B, q, lay, ch, ai, gf, ds, dp, smem, s); break;
-    default: e = launch_gather_bwd<2>(sf, cf, ii, B, q, lay, ch, ai, gf, ds, dp, smem, s); break;
-  }
+  e = mean ? dispatch_bwd<true>(tm, sf, cf, ii, B, q, lay, ch, pre_act, ai, gf, ds, dp, smem, s)
+           : dispatch_bwd<false>(tm, sf, cf, ii, B, q, lay, ch, pre_act, ai, gf, ds, dp, smem, s);
   if (e != cudaSuccess || q.chunks == 1) return (int)e;
   const int total = B * G * Cc;
   sum_chunks_kernel<<<(total + 255) / 256, 256, 0, s>>>(dp, q.chunks, Cc, total,

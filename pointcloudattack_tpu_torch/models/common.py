@@ -18,7 +18,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from pointcloudattack_tpu_torch.ops.chain_maxpool import mlp_chain_maxpool
-from pointcloudattack_tpu_torch.ops.gather_chain import gather_chain_groupmax, gather_rows
+from pointcloudattack_tpu_torch.ops.gather_chain import ball_gather_chain_groupmax
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    """The ReLU after a fused max pool (and in PointNet++'s head): a
+    module-level name, so that a caller can record the signs of its input
+    on one device and replay them on another."""
+    return torch.relu(x)
 
 
 class PointConv(nn.Module):
@@ -81,8 +88,8 @@ class PointMLP:
     the pool (ReLU and max commute).  In eval mode a pooled ``[B, N, C]``
     input runs the whole stack as one fused chain (``mlp_chain_maxpool``:
     the kernel on a CUDA tensor, its plain version on a CPU tensor); in
-    train mode the layers run unfused.  ``group_max`` runs the stack over
-    gathered neighbour groups with a max over each group.
+    train mode the layers run unfused.  ``ball_group_max`` runs the stack
+    over radius balls with a max over each ball (eval mode).
     """
 
     def __init__(
@@ -104,23 +111,22 @@ class PointMLP:
             for conv, bn in self.pairs
         ]
 
-    def group_max(self, src, centers, idx, layout, train: bool = False) -> torch.Tensor:
-        """The stack over each group's rows, then the max over the group:
-        ``[B, G, C_L]``.  The rows are built from ``src [B, N, Cs]``,
-        ``centers [B, G, Cc]`` and ``idx [B, G, K]`` by ``layout`` (see
-        ``ops/gather_chain.py``).  In eval mode the gather, the stack and
-        the max run as one fused op (``gather_chain_groupmax``: the kernel
-        on a CUDA tensor, its plain version on a CPU tensor); in train mode
-        the stack runs unfused over the ``[B, G, K, C0]`` rows."""
-        if train:
-            return self(gather_rows(src, centers, idx, layout), train=True).amax(dim=2)
-        y = gather_chain_groupmax(src, centers, idx, self.fused_layers(), layout)
-        return torch.relu(y) if self.relu_last else y
+    def ball_group_max(self, src, centers, xyz, layout, radius: float, nsample: int) -> torch.Tensor:
+        """The stack over each ball's rows, then the max over the ball:
+        ``[B, G, C_L]``.  The balls are ``query_ball_point``'s, of ``xyz [B,
+        N, 3]`` around ``centers[..., :3]``; the rows are built from ``src
+        [B, N, Cs]`` and ``centers [B, G, Cc]`` by ``layout`` (see
+        ``ops/gather_chain.py``).  The ball query, the gather, the stack and
+        the max run as one fused op (``ball_gather_chain_groupmax``: the
+        kernel on a CUDA tensor, its plain version on a CPU tensor); eval
+        mode only."""
+        y = ball_gather_chain_groupmax(src, centers, xyz, self.fused_layers(), layout, radius, nsample)
+        return relu(y) if self.relu_last else y
 
     def __call__(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if self.pool_max and not train and x.dim() == 3:
             y = mlp_chain_maxpool(x, self.fused_layers())
-            return torch.relu(y) if self.relu_last else y
+            return relu(y) if self.relu_last else y
         n = len(self.pairs)
         for i, (lin, bn) in enumerate(self.pairs):
             last = i == n - 1

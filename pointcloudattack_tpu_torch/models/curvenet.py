@@ -14,9 +14,14 @@ neighbour rows as one fused op (``ops/group_chain.py``): the initial block
 a chain + max over k (``mlp_chain_groupmax``, the LeakyReLU applied to the
 pooled output, where it commutes with the max), the residual blocks a
 LeakyReLU chain + mean over k (``mlp_chain_groupmean``); the kernels on a
-CUDA tensor, their plain versions on a CPU tensor.  The kNN (``ops/knn.py``)
-and the masked max pool's FPS (``ops/fps.py``) run their kernels too.  In
-train mode the LPFAs run unfused.
+CUDA tensor, their plain versions on a CPU tensor.  With ``fused_gather``
+the LPFAs gather their rows inside the kernel instead
+(``ops/gather_chain.py``): the initial block as a gather + chain + max
+with the layout center / pass / diff on the points themselves, the
+residual blocks as a gather + chain + mean after folding ``xyz2feature``
+and its BatchNorm into the gather's sources (``LPFA.fold``).  The kNN
+(``ops/knn.py``) and the masked max pool's FPS (``ops/fps.py``) run their
+kernels too.  In train mode the LPFAs run unfused.
 
 As in the JAX package:
   * the straight-through softmax is ``(hard - y).detach() + y``, which is
@@ -31,9 +36,11 @@ As in the JAX package:
     autograd's scatter-add (the JAX package's one-hot matmul backward is a
     TPU workaround).
 The discrete choices of a forward (``hard_pick``, ``curve_starts``, the
-max pools' ``max_pool`` and the activations' ``leaky_relu``, whose input
-signs pick a slope) are module-level functions, so that a caller can
-record them on one device and replay them on another.
+max pools' ``max_pool``, the activations' ``leaky_relu``, whose input
+signs pick a slope, and the fused ops ``mlp_chain_groupmean`` and
+``gather_chain_groupmean``, whose activations' input signs do) are
+module-level names, so that a caller can record them on one device and
+replay them on another.
 """
 
 from __future__ import annotations
@@ -46,14 +53,19 @@ from pointcloudattack_tpu_torch.models.common import PointConv, batch_norm, bn_m
 from pointcloudattack_tpu_torch.ops.ball_query import query_ball_point
 from pointcloudattack_tpu_torch.ops.fps import farthest_point_sample
 from pointcloudattack_tpu_torch.ops.gather import index_points
+from pointcloudattack_tpu_torch.ops.gather_chain import gather_chain_groupmax, gather_chain_groupmean
 from pointcloudattack_tpu_torch.ops.group_chain import mlp_chain_groupmax, mlp_chain_groupmean
 from pointcloudattack_tpu_torch.ops.knn import knn
+from pointcloudattack_tpu_torch.ops.pairwise import dot_last
 
 CURVE_CONFIG = {
     "default": [[100, 5], [100, 5], None, None],
     "long": [[10, 30], None, None, None],
 }
 SLOPE = 0.2
+# the initial LPFA's rows [ctr_xyz, nbr_xyz, nbr_xyz - ctr_xyz] as a gather
+# layout over the points themselves (sources and centers alike)
+INITIAL_LAYOUT = (("center", 0, 3), ("pass", 0, 3), ("diff", 0, 3, 0))
 
 
 def hard_pick(y: torch.Tensor) -> torch.Tensor:
@@ -108,12 +120,14 @@ class LPFA(nn.Module):
     neighbour rows are ``[ctr_xyz, nbr_xyz, nbr_xyz - ctr_xyz]`` (initial)
     or ``leaky(nbr_x - x + BN(xyz2feature(those 9 columns)))`` (residual);
     then ``mlp_num`` Dense + BN + LeakyReLU layers and a max (initial) or a
-    mean (residual) over the neighbours.
+    mean (residual) over the neighbours.  ``fused_gather``: in eval mode
+    the rows are gathered inside the kernel (``ops/gather_chain.py``).
     """
 
-    def __init__(self, cin: int, out: int, k: int, mlp_num: int = 2, initial: bool = False):
+    def __init__(self, cin: int, out: int, k: int, mlp_num: int = 2, initial: bool = False,
+                 fused_gather: bool = False):
         super().__init__()
-        self.k, self.initial = k, initial
+        self.k, self.initial, self.fused_gather = k, initial, fused_gather
         if not initial:
             self.xyz2feature = bn_dense(9, cin, spatial=2)
         widths = [cin] + [out] * mlp_num
@@ -134,6 +148,28 @@ class LPFA(nn.Module):
         diff = index_points(x, idx) - x[:, :, None, :]
         return leaky_relu(diff + run_bn_dense(self.xyz2feature, pf, self.training, act=False))
 
+    def fold(self, x, xyz):
+        """The residual rows as a gather: ``xyz2feature`` and its eval
+        BatchNorm are affine in the neighbour's and the center's xyz, so
+        with its weight split into the 3-row blocks Wc, Wn, Wd of ``[ctr,
+        nbr, nbr - ctr]`` and the BatchNorm into ``(mul, const)``, the row
+        ``diff + BN(xyz2feature(pf))`` is ``S[idx] - T`` with
+
+            S = x + xyz @ ((Wn + Wd) * mul)
+            T = x - xyz @ ((Wc - Wd) * mul) - const
+
+        (JAX ``models/curvenet.py:201-213``).  The 3-term products are sums
+        over the coordinates in order (``dot_last``), so the card and the
+        CPU give the same bits.  Returns ``(S, T)``, each ``[B, N, C]``."""
+        w9 = self.xyz2feature[0].kernel()  # [9, C]
+        bn = self.xyz2feature[1]
+        mul = bn_mul(bn)
+        const = bn.bias - bn.running_mean * mul
+        a_n = (w9[3:6] + w9[6:9]) * mul
+        a_c = (w9[0:3] - w9[6:9]) * mul
+        p = xyz[:, :, None, :]
+        return x + dot_last(p, a_n.t()), x - dot_last(p, a_c.t()) - const
+
     def unfused(self, h: torch.Tensor) -> torch.Tensor:
         """The chain over the rows, layer by layer, then the pool."""
         for seq in self.mlp:
@@ -143,6 +179,11 @@ class LPFA(nn.Module):
     def forward(self, x, xyz, idx=None):
         if idx is None:
             idx = knn(xyz, self.k + 1)[:, :, : self.k]
+        if self.fused_gather and not self.training:
+            if self.initial:
+                return leaky_relu(gather_chain_groupmax(xyz, xyz, idx, self.fused_layers(), INITIAL_LAYOUT, SLOPE))
+            s, t = self.fold(x, xyz)
+            return gather_chain_groupmean(s, t, idx, self.fused_layers(), (("diff", 0, x.shape[-1], 0),), SLOPE, True)
         h = self.rows(x, xyz, idx)
         if self.training:
             return self.unfused(h)
@@ -264,7 +305,7 @@ class CIC(nn.Module):
     ``npoint`` first when the cloud is larger."""
 
     def __init__(self, npoint, radius, k, cin, cout, bottleneck_ratio=2, mlp_num=2, curve_cfg=None,
-                 momentum_compat=False):
+                 momentum_compat=False, fused_gather=False):
         super().__init__()
         self.npoint, self.k, self.curves = npoint, k, curve_cfg is not None
         planes = cin // bottleneck_ratio
@@ -272,7 +313,7 @@ class CIC(nn.Module):
         if self.curves:
             self.curvegrouping = CurveGrouping(planes, k, curve_cfg[0], curve_cfg[1], momentum_compat)
             self.curveaggregation = CurveAggregation(planes)
-        self.lpfa = LPFA(planes, planes, k, mlp_num=mlp_num)
+        self.lpfa = LPFA(planes, planes, k, mlp_num=mlp_num, fused_gather=fused_gather)
         self.conv2 = bn_dense(planes, cout)
         self.shortcut = bn_dense(cin, cout) if cin != cout else None
         self.maxpool = MaskedMaxPool(npoint, radius, k)
@@ -295,12 +336,14 @@ class CIC(nn.Module):
 class CurveNet(nn.Module):
     """CurveNet classifier; ``forward(x [B, N, 3]) -> (logits [B, K], {})``,
     raw logits as in the reference (model/curvenet.py:11-73).  Published
-    widths: k=20, the ``default`` curve setting, N=1024."""
+    widths: k=20, the ``default`` curve setting, N=1024.  ``fused_gather``:
+    the nine LPFAs' route, the grouped one unless set."""
 
-    def __init__(self, num_classes: int = 40, k: int = 20, setting: str = "default", walk_compat: bool = False):
+    def __init__(self, num_classes: int = 40, k: int = 20, setting: str = "default", walk_compat: bool = False,
+                 fused_gather: bool = False):
         super().__init__()
         cfg = CURVE_CONFIG[setting]
-        self.lpfa = LPFA(9, 32, k, mlp_num=1, initial=True)
+        self.lpfa = LPFA(9, 32, k, mlp_num=1, initial=True, fused_gather=fused_gather)
         blocks = (  # name, npoint, radius, in, out, bottleneck ratio, curve setting
             ("cic11", 1024, 0.05, 32, 64, 2, cfg[0]), ("cic12", 1024, 0.05, 64, 64, 4, cfg[0]),
             ("cic21", 1024, 0.05, 64, 128, 2, cfg[1]), ("cic22", 1024, 0.1, 128, 128, 4, cfg[1]),
@@ -309,7 +352,7 @@ class CurveNet(nn.Module):
         )
         self.blocks = [name for name, *_ in blocks]
         for name, npoint, radius, cin, cout, ratio, curve in blocks:
-            setattr(self, name, CIC(npoint, radius, k, cin, cout, ratio, 1, curve, walk_compat))
+            setattr(self, name, CIC(npoint, radius, k, cin, cout, ratio, 1, curve, walk_compat, fused_gather))
         self.conv0 = bn_dense(512, 1024)
         self.conv1 = nn.Linear(2048, 512, bias=False)
         self.bn1 = nn.BatchNorm1d(512)

@@ -7,11 +7,14 @@ it, then a group-all set abstraction and the FC head.  Submodules carry
 the reference state-dict names (``sa1.mlp_convs.0``, ``sa1.conv_blocks.0.0``,
 ``fc1``, ...), so a reference-layout state dict loads strictly as it is.
 
-In eval mode each neighbourhood set abstraction runs as one fused gather +
-chain + max (``ops/gather_chain.py``), and the group-all one as one fused
-chain + max-pool (``ops/chain_maxpool.py``): on a CUDA tensor the kernels,
-on a CPU tensor their plain versions.  In train mode the layers run
-unfused over the grouped ``[B, S, K, C]`` tensor.  FPS starts at point 0.
+In eval mode each neighbourhood set abstraction runs as one fused ball
+query + gather + chain + max (``ball_gather_chain_groupmax``,
+``ops/gather_chain.py``; MSG once per radius), and the group-all one as
+one fused chain + max-pool (``ops/chain_maxpool.py``): on a CUDA tensor
+the kernels, on a CPU tensor their plain versions.  In train mode
+``query_ball_point`` picks the balls (MSG's radii on one shared distance
+matrix) and the layers run unfused over the grouped ``[B, S, K, C]``
+tensor.  FPS starts at point 0.
 """
 
 from __future__ import annotations
@@ -26,10 +29,12 @@ from pointcloudattack_tpu_torch.models.common import (
     PointMLP,
     batch_norm,
     init_parameters,
+    relu,
 )
 from pointcloudattack_tpu_torch.ops.ball_query import query_ball_point
 from pointcloudattack_tpu_torch.ops.fps import farthest_point_sample
 from pointcloudattack_tpu_torch.ops.gather import index_points
+from pointcloudattack_tpu_torch.ops.gather_chain import gather_rows
 from pointcloudattack_tpu_torch.ops.grouping import sample_and_group, sample_and_group_all
 from pointcloudattack_tpu_torch.ops.pairwise import pairwise_sqdist
 
@@ -64,14 +69,13 @@ class SetAbstraction(nn.Module):
             new_xyz, grouped = sample_and_group(self.npoint, self.radius, self.nsample, xyz, points)
             return new_xyz, self.mlp(grouped, train=True).amax(dim=2)
         new_xyz = index_points(xyz, farthest_point_sample(xyz, self.npoint))
-        idx = query_ball_point(self.radius, self.nsample, xyz, new_xyz)
         # xyz minus the centroid first, features after (ops/grouping.py)
         if points is not None:
             src = torch.cat([xyz, points], dim=-1)
             layout = (("diff", 0, 3, 0), ("pass", 3, src.shape[-1]))
         else:
             src, layout = xyz, (("diff", 0, 3, 0),)
-        return new_xyz, self.mlp.group_max(src, new_xyz, idx, layout)
+        return new_xyz, self.mlp.ball_group_max(src, new_xyz, xyz, layout, self.radius, self.nsample)
 
 
 class SetAbstractionMSG(nn.Module):
@@ -98,12 +102,16 @@ class SetAbstractionMSG(nn.Module):
             layout = (("pass", 3, src.shape[-1]), ("diff", 0, 3, 0))
         else:
             src, layout = xyz, (("diff", 0, 3, 0),)
+        scales = zip(self.radius_list, self.nsample_list, self.mlps)
+        if not self.training:
+            outs = [mlp.ball_group_max(src, new_xyz, xyz, layout, radius, k) for radius, k, mlp in scales]
+            return new_xyz, torch.cat(outs, dim=-1)
         # one distance matrix for every radius
         sqr = pairwise_sqdist(new_xyz.detach(), xyz.detach())
         outs = []
-        for radius, k, mlp in zip(self.radius_list, self.nsample_list, self.mlps):
+        for radius, k, mlp in scales:
             idx = query_ball_point(radius, k, xyz, new_xyz, sqr=sqr)
-            outs.append(mlp.group_max(src, new_xyz, idx, layout, self.training))
+            outs.append(mlp(gather_rows(src, new_xyz, idx, layout), train=True).amax(dim=2))
         return new_xyz, torch.cat(outs, dim=-1)
 
 
@@ -127,8 +135,8 @@ class _ClsHead(nn.Module):
         init_parameters(self, generator)
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.drop1(torch.relu(batch_norm(self.fc1(x), self.bn1, self.training)))
-        x = self.drop2(torch.relu(batch_norm(self.fc2(x), self.bn2, self.training)))
+        x = self.drop1(relu(batch_norm(self.fc1(x), self.bn1, self.training)))
+        x = self.drop2(relu(batch_norm(self.fc2(x), self.bn2, self.training)))
         return self.fc3(x)
 
     def classify(self, l3: torch.Tensor):

@@ -127,18 +127,23 @@ def _declare(lib: ctypes.CDLL) -> None:
     # device, xyz, start, B, N, npoint, out, stream
     lib.pca_fps.argtypes = [ci, vp, vp, ci, ci, ci, vp, vp]
     lib.pca_fps.restype = ci
-    # L, dims, K, tm, bwd
-    lib.pca_gather_smem.argtypes = [ci, vp, ci, ci, ci]
+    # L, dims, K, tm, bwd, mean, ball
+    lib.pca_gather_smem.argtypes = [ci, vp, ci, ci, ci, ci, ci]
     lib.pca_gather_smem.restype = ctypes.c_size_t
     # device, src, ctr, idx, B, N, G, K, Cs, Cc, nseg, seg, L, dims, params,
-    # part_v, part_i, y, am, tm, stream
+    # slope, pre_act, mean, part_v, part_i, y, am, tm, stream
     lib.pca_gather_fwd.argtypes = [ci, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp, ci, vp, vp,
-                                   vp, vp, vp, vp, ci, vp]
+                                   cf, ci, ci, vp, vp, vp, vp, ci, vp]
     lib.pca_gather_fwd.restype = ci
+    # device, src, ctr, xyz, r2, B, N, G, K, Cs, Cc, nseg, seg, L, dims, params,
+    # slope, part_v, part_i, y, am, idx, tm, stream
+    lib.pca_ball_gather_fwd.argtypes = [ci, vp, vp, vp, cf, ci, ci, ci, ci, ci, ci, ci, vp, ci, vp, vp,
+                                        cf, vp, vp, vp, vp, vp, ci, vp]
+    lib.pca_ball_gather_fwd.restype = ci
     # device, src, ctr, idx, B, N, G, K, Cs, Cc, nseg, seg, L, dims, params,
-    # wts, am, g, dsrc, dctr_part, dctr, tm, stream
+    # wts, slope, pre_act, mean, am, g, dsrc, dctr_part, dctr, tm, stream
     lib.pca_gather_bwd.argtypes = [ci, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp, ci, vp, vp,
-                                   vp, vp, vp, vp, vp, vp, ci, vp]
+                                   vp, cf, ci, ci, vp, vp, vp, vp, vp, ci, vp]
     lib.pca_gather_bwd.restype = ci
     # device, x, nrm, B, N, C, k, out, stream
     lib.pca_knn.argtypes = [ci, vp, vp, ci, ci, ci, ci, vp, vp]

@@ -15,6 +15,13 @@ import torch
 from pointcloudattack_tpu_torch.ops.pairwise import pairwise_sqdist
 
 
+def ball_r2(radius: float) -> np.float32:
+    """The squared radius a point's squared distance is compared with:
+    ``radius * radius`` in double, then float32, as the JAX package's
+    ``sqr <= radius * radius`` takes it."""
+    return np.float32(radius * radius)
+
+
 def query_ball_point(
     radius: float,
     nsample: int,
@@ -28,8 +35,7 @@ def query_ball_point(
     n = xyz.shape[1]
     if sqr is None:
         sqr = pairwise_sqdist(new_xyz.detach(), xyz.detach())  # [B, S, N]
-    # the JAX comparison: radius * radius in double, cast to float32
-    in_ball = sqr <= torch.tensor(np.float32(radius * radius), device=sqr.device)
+    in_ball = sqr <= torch.tensor(ball_r2(radius), device=sqr.device)
     point_idx = torch.arange(n, dtype=torch.int32, device=sqr.device)
     rank = torch.where(in_ball, point_idx, n)
     k = min(nsample, n)

@@ -1,24 +1,33 @@
-"""Neighbour gather + per-point Dense -> eval-BN (-> ReLU) chain + max over
-each group's neighbours.
+"""Neighbour gather + per-point Dense -> eval-BN -> activation chain + a max
+or a mean over each group's neighbours; and the max with the ball query in
+the kernel.
 
 Counterpart of ``pointcloudattack_tpu/ops/pallas/gather_chain_kernel.py``
-(``gather_chain_groupmax`` and its custom VJP).  For ``src [B, N, Cs]``,
-``centers [B, G, Cc]`` and ``idx [B, G, K]``, each group's ``K`` rows are
-built from ``layout``, a tuple of segments taken in order:
+(``gather_chain_groupmax``, ``gather_chain_groupmean``,
+``ball_gather_chain_groupmax`` and their custom VJPs).  For ``src [B, N,
+Cs]``, ``centers [B, G, Cc]`` and ``idx [B, G, K]``, each group's ``K``
+rows are built from ``layout``, a tuple of segments taken in order:
 
     ("diff", lo, hi, ctr_lo)   src[idx, lo:hi] - centers[g, ctr_lo:ctr_lo+w]
     ("pass", lo, hi)           src[idx, lo:hi]
     ("center", lo, hi)         centers[g, lo:hi] on every row
 
-then run through the chain of ``ops/chain_maxpool.py`` (``layers`` as
-there: ReLU between layers, none after the last), and the output is
+then, with ``pre_act``, put through the activation ``max(z, slope * z)``
+(ReLU at ``slope`` 0, LeakyReLU otherwise), and run through the chain of
+``ops/chain_maxpool.py`` (``layers`` as there) with that activation
+between layers.  The max pool applies none after the last layer and gives
 ``y [B, G, C_L]``, the max over the ``K`` rows, with ``am [B, G, C_L]``
-int32, the lowest ``k`` attaining it.  The ``[B, G, K, C]`` rows never
-exist on the card: the kernel (``csrc/gather_chain.cu``) builds them in
-shared memory.
+int32, the lowest ``k`` attaining it.  The mean pool activates every
+layer and gives ``y``, the sum of each group's rows in ascending ``k``
+divided by ``K``.  The ball route takes ``xyz [B, N, 3]``, a radius and
+``nsample`` in place of ``idx``: its slots are ``query_ball_point``'s
+(``ops/ball_query.py``) around ``centers[..., :3]``, chosen inside the
+kernel and returned as ``idx``; its backward is the index route's on
+them.  The ``[B, G, K, C]`` rows never exist on the card: the kernel
+(``csrc/gather_chain.cu``) builds them in shared memory.
 
-On a CUDA tensor the forward and the input gradients run the kernel; on a
-CPU tensor they run the plain PyTorch versions below.  A CUDA tensor the
+On a CUDA tensor the forwards and the input gradients run the kernel; on
+a CPU tensor they run the plain PyTorch versions below.  A CUDA tensor the
 kernel does not take raises: nothing falls back.  ``LAUNCHES`` counts
 kernel launches.
 """
@@ -31,16 +40,21 @@ from typing import Sequence
 import torch
 
 from pointcloudattack_tpu_torch.ops import _build
-from pointcloudattack_tpu_torch.ops.chain_maxpool import Layer, _group, _ptr_array
+from pointcloudattack_tpu_torch.ops.ball_query import ball_r2, query_ball_point
+from pointcloudattack_tpu_torch.ops.chain_maxpool import Layer, _group, _ptr_array, act, act_bwd
 from pointcloudattack_tpu_torch.ops.gather import index_points
+from pointcloudattack_tpu_torch.ops.pairwise import sum_neighbours
 
 Layout = tuple  # of ("diff", lo, hi, ctr_lo) | ("pass", lo, hi) | ("center", lo, hi)
 
 _KINDS = {"diff": 0, "pass": 1, "center": 2}
 
-# Kernel launches since the last reset, by direction.  Bumped only where a
-# kernel is launched, never by the plain versions.
-LAUNCHES = {"fwd": 0, "bwd": 0}
+# Kernel launches since the last reset, by route and direction: the index
+# route's max ("fwd", "bwd") and mean ("mean_fwd", "mean_bwd"), and the
+# ball route's max ("ball_fwd", and "ball_bwd", the index route's backward
+# on its slots).  Bumped only where a kernel is launched, never by the plain
+# versions.
+LAUNCHES = {"fwd": 0, "bwd": 0, "mean_fwd": 0, "mean_bwd": 0, "ball_fwd": 0, "ball_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -75,24 +89,32 @@ def gather_rows(src, centers, idx, layout: Layout) -> torch.Tensor:
     return torch.cat(segs, dim=-1)
 
 
-def _chain(rows: torch.Tensor, layers: Sequence[Layer]):
-    """The chain's last pre-activation ``z`` and the hidden post-ReLU maps."""
+def chain_input(src, centers, idx, layout: Layout, slope: float = 0.0, pre_act: bool = False) -> torch.Tensor:
+    """The rows the chain takes: ``gather_rows``, through the activation
+    with ``pre_act``."""
+    rows = gather_rows(src, centers, idx, layout)
+    return act(rows, slope) if pre_act else rows
+
+
+def _chain(rows: torch.Tensor, layers: Sequence[Layer], slope: float = 0.0):
+    """The chain's last pre-activation ``z`` and the hidden activated maps."""
     z, hs = rows, []
     for i, (w, b, mean, mul, beta) in enumerate(layers):
         if i:
-            z = torch.relu(z)
+            z = act(z, slope)
             hs.append(z)
         z = (z @ w + b - mean) * mul + beta
     return z, hs
 
 
-def gather_chain_plain(src, centers, idx, layers: Sequence[Layer], layout: Layout):
-    """Plain forward: ``(y [B, G, C_L] f32, am [B, G, C_L] int32)``.
+def gather_chain_plain(src, centers, idx, layers: Sequence[Layer], layout: Layout, slope: float = 0.0,
+                       pre_act: bool = False):
+    """Plain max forward: ``(y [B, G, C_L] f32, am [B, G, C_L] int32)``.
 
     ``y`` is ``amax`` over the rows, so autograd through it splits a tie's
     gradient evenly, as ``jnp.max`` does; ``am`` takes the lowest row.
     """
-    z, _ = _chain(gather_rows(src, centers, idx, layout), layers)  # [B, G, K, C_L]
+    z, _ = _chain(chain_input(src, centers, idx, layout, slope, pre_act), layers, slope)  # [B, G, K, C_L]
     y = z.amax(dim=2)
     k = z.shape[2]
     rows = torch.arange(k, device=z.device, dtype=torch.int32)[:, None]
@@ -101,64 +123,115 @@ def gather_chain_plain(src, centers, idx, layers: Sequence[Layer], layout: Layou
     return y, am
 
 
-def gather_chain_bwd_plain(src, centers, idx, layers: Sequence[Layer], layout: Layout, am, g):
-    """Plain input gradients ``(dsrc [B, N, Cs], dctr [B, G, Cc])`` for
-    ``g = dy * mul_L``.
+def gather_chain_mean_plain(src, centers, idx, layers: Sequence[Layer], layout: Layout, slope: float = 0.0,
+                            pre_act: bool = False) -> torch.Tensor:
+    """Plain mean forward ``y [B, G, C_L]``: every layer activated, each
+    group's rows summed in ascending ``k``, then divided by ``K``."""
+    z, _ = _chain(chain_input(src, centers, idx, layout, slope, pre_act), layers, slope)
+    return sum_neighbours(act(z, slope)) / idx.shape[2]
+
+
+def ball_gather_chain_plain(src, centers, xyz, layers: Sequence[Layer], layout: Layout, radius: float,
+                            nsample: int, slope: float = 0.0):
+    """Plain ball-route forward: ``query_ball_point`` around ``centers[...,
+    :3]``, then ``gather_chain_plain``: ``(y, am, idx [B, G, nsample]
+    int32)``."""
+    idx = query_ball_point(radius, nsample, xyz, centers[..., :3])
+    y, am = gather_chain_plain(src, centers, idx, layers, layout, slope)
+    return y, am, idx
+
+
+def _back(c, rows, hs, layers, slope: float, pre_act: bool) -> torch.Tensor:
+    """The row cotangent ``[B, G, K, C0]`` from ``c``, the cotangent at the
+    last layer's matmul output: through the layers and the hidden maps'
+    masks, and with ``pre_act`` the rows' own."""
+    dh = c @ layers[-1][0].float().t()
+    for i in range(len(layers) - 2, -1, -1):
+        c = act_bwd(dh, hs[i], slope) * layers[i][3]
+        dh = c @ layers[i][0].float().t()
+    return act_bwd(dh, rows, slope) if pre_act else dh
+
+
+def _split(dh, src, centers, idx, layout: Layout):
+    """Split the row cotangent by the layout: diff and pass columns scatter
+    into ``dsrc`` by ``idx``, center columns sum over the rows into
+    ``dctr``, diff columns too, with a minus sign."""
+    b, n, cs = src.shape
+    dsrc = torch.zeros((b * n, cs), dtype=torch.float32, device=src.device)
+    dctr = torch.zeros(centers.shape, dtype=torch.float32, device=src.device)
+    flat = (idx.long() + torch.arange(b, device=src.device)[:, None, None] * n).reshape(-1)
+    off = 0
+    for s in layout:
+        w = s[2] - s[1]
+        part = dh[..., off : off + w]
+        if s[0] in ("diff", "pass"):
+            dsrc[:, s[1] : s[2]].index_add_(0, flat, part.reshape(-1, w))
+        if s[0] == "diff":
+            dctr[..., s[3] : s[3] + w] -= part.sum(dim=2)
+        elif s[0] == "center":
+            dctr[..., s[1] : s[2]] += part.sum(dim=2)
+        off += w
+    return dsrc.view(b, n, cs), dctr
+
+
+def gather_chain_bwd_plain(src, centers, idx, layers: Sequence[Layer], layout: Layout, am, g, slope: float = 0.0,
+                           pre_act: bool = False):
+    """Plain input gradients ``(dsrc [B, N, Cs], dctr [B, G, Cc])`` of the
+    max for ``g = dy * mul_L``.
 
     As ``_gather_bwd_kernel`` does: recompute the rows and the masks, put
     ``g[b, g, c]`` on row ``am[b, g, c]`` of the last layer's matmul
-    output, run back through the layers, and split the row cotangent by
-    the layout: diff and pass columns scatter into ``dsrc`` by ``idx``,
-    center columns sum over the rows into ``dctr``, diff columns too, with
-    a minus sign.
+    output, run back through the layers (and the rows' activation with
+    ``pre_act``), and split the row cotangent by the layout (``_split``).
     """
     with torch.no_grad():
         rows = gather_rows(src, centers, idx, layout)
-        _, hs = _chain(rows, layers)
+        _, hs = _chain(act(rows, slope) if pre_act else rows, layers, slope)
         k = rows.shape[2]
         hit = am.long()[:, :, None, :] == torch.arange(k, device=rows.device)[:, None]
         c = torch.where(hit, g.float()[:, :, None, :], 0.0)  # [B, G, K, C_L]
-        dh = c @ layers[-1][0].float().t()
-        for i in range(len(layers) - 2, -1, -1):
-            c = torch.where(hs[i] > 0, dh, 0.0) * layers[i][3]
-            dh = c @ layers[i][0].float().t()
-        b, n, cs = src.shape
-        dsrc = torch.zeros((b * n, cs), dtype=torch.float32, device=src.device)
-        dctr = torch.zeros(centers.shape, dtype=torch.float32, device=src.device)
-        flat = (idx.long() + torch.arange(b, device=src.device)[:, None, None] * n).reshape(-1)
-        off = 0
-        for s in layout:
-            w = s[2] - s[1]
-            part = dh[..., off : off + w]
-            if s[0] in ("diff", "pass"):
-                dsrc[:, s[1] : s[2]].index_add_(0, flat, part.reshape(-1, w))
-            if s[0] == "diff":
-                dctr[..., s[3] : s[3] + w] -= part.sum(dim=2)
-            elif s[0] == "center":
-                dctr[..., s[1] : s[2]] += part.sum(dim=2)
-            off += w
-        return dsrc.view(b, n, cs), dctr
+        return _split(_back(c, rows, hs, layers, slope, pre_act), src, centers, idx, layout)
+
+
+def gather_chain_mean_bwd_plain(src, centers, idx, layers: Sequence[Layer], layout: Layout, g, slope: float = 0.0,
+                                pre_act: bool = False):
+    """Plain input gradients ``(dsrc, dctr)`` of the mean for ``g = dy *
+    mul_L / K``, as ``_gather_bwd_kernel`` does with ``pool="mean"``: ``g``
+    on every row of its group, through the last layer's activation, then
+    back as the max's."""
+    with torch.no_grad():
+        rows = gather_rows(src, centers, idx, layout)
+        z, hs = _chain(act(rows, slope) if pre_act else rows, layers, slope)
+        c = act_bwd(g.float()[:, :, None, :].expand(z.shape), z, slope)
+        return _split(_back(c, rows, hs, layers, slope, pre_act), src, centers, idx, layout)
 
 
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
+MAX_MEAN_K = 64  # the mean takes whole groups: K rows in one tile of 8 * TM, TM <= 8
 
-def _check_cuda(src, centers, idx, layers, layout) -> list[int]:
-    """Validate what the kernel takes; returns dims [C0, C1, ..., C_L]."""
-    for name, t, dt, rank in (("src", src, torch.float32, 3), ("centers", centers, torch.float32, 3),
-                              ("idx", idx, torch.int32, 3)):
+
+def _check_cuda(src, centers, idx, layers, layout, slope, k) -> list[int]:
+    """Validate what the kernel takes (``idx`` None for the ball route, which
+    takes ``k`` slots a group); returns dims [C0, C1, ..., C_L]."""
+    named = [("src", src, torch.float32, 3), ("centers", centers, torch.float32, 3)]
+    if idx is not None:
+        named.append(("idx", idx, torch.int32, 3))
+    for name, t, dt, rank in named:
         if t.dtype != dt or t.dim() != rank or not t.is_contiguous() or t.device != src.device:
             raise ValueError(
                 f"gather_chain kernel takes a contiguous {dt} {name} of rank {rank} on "
                 f"{src.device}, got {t.dtype} {tuple(t.shape)} on {t.device} "
                 f"contiguous={t.is_contiguous()}"
             )
-    b, g, k = idx.shape
-    if centers.shape[:2] != (b, g) or src.shape[0] != b:
-        raise ValueError(f"gather_chain: src {tuple(src.shape)}, centers {tuple(centers.shape)} "
-                         f"and idx {tuple(idx.shape)} disagree")
+    b, g = centers.shape[:2]
+    if src.shape[0] != b or (idx is not None and tuple(idx.shape) != (b, g, k)) or k < 1:
+        raise ValueError(f"gather_chain: src {tuple(src.shape)}, centers {tuple(centers.shape)} and "
+                         f"idx {None if idx is None else tuple(idx.shape)} (K={k}) disagree")
+    if not 0.0 <= slope <= 1.0:
+        raise ValueError(f"gather_chain kernel takes a slope in [0, 1], got {slope}")
     if not 1 <= len(layout) <= 4:
         raise ValueError(f"gather_chain kernel takes 1-4 layout segments, got {layout!r}")
     if not 1 <= len(layers) <= 4:
@@ -186,16 +259,19 @@ def _layout_array(layout: Layout):
     return (ctypes.c_int * len(flat))(*flat)
 
 
-def _pick_tm(lib, dims_arr, num_layers: int, k: int, bwd: bool) -> int:
+def _pick_tm(lib, dims_arr, num_layers: int, k: int, bwd: bool, mean: bool = False, ball: bool = False) -> int:
     """Rows per thread: the largest whose shared memory fits one block and
-    whose tile keeps each warp's rows in one group."""
+    whose tile keeps each warp's rows in one group (for the mean, a whole
+    group in one tile)."""
     cap = lib.pca_chain_max_smem()
     for tm in (8, 4, 2):
-        if k <= 8 * tm and k % tm:
+        if (k <= 8 * tm and k % tm) or (mean and k > 8 * tm):
             continue
-        if lib.pca_gather_smem(num_layers, ctypes.cast(dims_arr, ctypes.c_void_p), k, tm, int(bwd)) <= cap:
+        if lib.pca_gather_smem(num_layers, ctypes.cast(dims_arr, ctypes.c_void_p), k, tm, int(bwd), int(mean),
+                               int(ball)) <= cap:
             return tm
-    raise ValueError(f"gather_chain kernel: no tile takes K={k} with these widths")
+    raise ValueError(f"gather_chain kernel: no tile takes K={k} with these widths"
+                     + (f" (the mean takes K <= {MAX_MEAN_K}, an even K)" if mean else ""))
 
 
 def _chunks(k: int, tm: int) -> int:
@@ -203,47 +279,75 @@ def _chunks(k: int, tm: int) -> int:
     return -(-k // (8 * tm)) if k > 8 * tm else 1
 
 
-def _common(src, centers, idx, layers, layout, bwd):
-    dims = _check_cuda(src, centers, idx, layers, layout)
+def _common(src, centers, idx, layers, layout, slope, k, bwd, mean=False, ball=False):
+    dims = _check_cuda(src, centers, idx, layers, layout, slope, k)
     lib = _build.load_library()
     dims_arr = (ctypes.c_int * len(dims))(*dims)
-    k = idx.shape[2]
-    tm = _pick_tm(lib, dims_arr, len(layers), k, bwd)
+    tm = _pick_tm(lib, dims_arr, len(layers), k, bwd, mean, ball)
     ws = [layer[0].contiguous() for layer in layers]
     params = _ptr_array([t for w, layer in zip(ws, layers) for t in (w, *layer[1:])])
     b, n, cs = src.shape
-    _, g, _ = idx.shape
+    g = centers.shape[1]
     seg = _layout_array(layout)
-    head = (src.device.index, src.data_ptr(), centers.data_ptr(), idx.data_ptr(), b, n, g, k,
-            cs, centers.shape[2], len(layout), ctypes.cast(seg, ctypes.c_void_p),
-            len(layers), ctypes.cast(dims_arr, ctypes.c_void_p), ctypes.cast(params, ctypes.c_void_p))
+    shape = (b, n, g, k, cs, centers.shape[2], len(layout), ctypes.cast(seg, ctypes.c_void_p),
+             len(layers), ctypes.cast(dims_arr, ctypes.c_void_p), ctypes.cast(params, ctypes.c_void_p))
     # the caller holds the ctypes arrays (and ws) until the launch returns
-    return lib, dims, tm, head, (seg, dims_arr, params, ws)
+    return lib, dims, tm, shape, (seg, dims_arr, params, ws)
 
 
-def _fwd_kernel(src, centers, idx, layers, layout):
-    lib, dims, tm, head, keep = _common(src, centers, idx, layers, layout, bwd=False)
-    b, g, k = idx.shape
-    cl = dims[-1]
-    chunks = _chunks(k, tm)
-    kw = dict(device=src.device)
+def _outputs(b, g, k, cl, tm, mean, device):
+    """y, am and the chunk partials of a forward."""
+    chunks = 1 if mean else _chunks(k, tm)
+    kw = dict(device=device)
     y = torch.empty((b, g, cl), dtype=torch.float32, **kw)
-    am = torch.empty((b, g, cl), dtype=torch.int32, **kw)
+    am = torch.empty((b, g, cl) if not mean else (1,), dtype=torch.int32, **kw)
     part_v = torch.empty((b, g, chunks, cl) if chunks > 1 else (1,), dtype=torch.float32, **kw)
     part_i = torch.empty((b, g, chunks, cl) if chunks > 1 else (1,), dtype=torch.int32, **kw)
+    return y, am, part_v, part_i
+
+
+def _fwd_kernel(src, centers, idx, layers, layout, slope: float = 0.0, pre_act: bool = False, mean: bool = False):
+    k = idx.shape[2]
+    lib, dims, tm, shape, keep = _common(src, centers, idx, layers, layout, slope, k, False, mean)
+    y, am, part_v, part_i = _outputs(idx.shape[0], idx.shape[1], k, dims[-1], tm, mean, src.device)
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
-        rc = lib.pca_gather_fwd(*head, part_v.data_ptr(), part_i.data_ptr(), y.data_ptr(),
-                                am.data_ptr(), tm, stream)
-    _build.check(lib, rc, "gather_chain forward launch")
-    LAUNCHES["fwd"] += 1
-    return y, am
+        rc = lib.pca_gather_fwd(src.device.index, src.data_ptr(), centers.data_ptr(), idx.data_ptr(), *shape,
+                                float(slope), int(pre_act), int(mean), part_v.data_ptr(), part_i.data_ptr(),
+                                y.data_ptr(), am.data_ptr(), tm, stream)
+    kind = "mean_fwd" if mean else "fwd"
+    _build.check(lib, rc, f"gather_chain {kind} launch")
+    LAUNCHES[kind] += 1
+    return y if mean else (y, am)
 
 
-def _bwd_kernel(src, centers, idx, layers, layout, am, g, wts=None):
-    lib, dims, tm, head, keep = _common(src, centers, idx, layers, layout, bwd=True)
-    b, ng, k = idx.shape
-    for name, t, dt in (("am", am, torch.int32), ("g", g, torch.float32)):
+def _ball_fwd_kernel(src, centers, xyz, layers, layout, radius: float, nsample: int, slope: float = 0.0):
+    lib, dims, tm, shape, keep = _common(src, centers, None, layers, layout, slope, nsample, False, ball=True)
+    b, g = centers.shape[:2]
+    if (xyz.dtype != torch.float32 or not xyz.is_contiguous() or xyz.device != src.device
+            or tuple(xyz.shape) != (b, src.shape[1], 3) or centers.shape[2] < 3):
+        raise ValueError(f"ball_gather_chain kernel takes a contiguous float32 xyz [{b}, {src.shape[1]}, 3] on "
+                         f"{src.device} and centers of 3 or more columns, got xyz {xyz.dtype} "
+                         f"{tuple(xyz.shape)} on {xyz.device}, centers {tuple(centers.shape)}")
+    y, am, part_v, part_i = _outputs(b, g, nsample, dims[-1], tm, False, src.device)
+    idx = torch.empty((b, g, nsample), dtype=torch.int32, device=src.device)
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream(src.device).cuda_stream
+        rc = lib.pca_ball_gather_fwd(src.device.index, src.data_ptr(), centers.data_ptr(), xyz.data_ptr(),
+                                     float(ball_r2(radius)), *shape, float(slope), part_v.data_ptr(),
+                                     part_i.data_ptr(), y.data_ptr(), am.data_ptr(), idx.data_ptr(), tm, stream)
+    _build.check(lib, rc, "ball_gather_chain forward launch")
+    LAUNCHES["ball_fwd"] += 1
+    return y, am, idx
+
+
+def _bwd_kernel(src, centers, idx, layers, layout, am, g, wts=None, slope: float = 0.0, pre_act: bool = False,
+                mean: bool = False, counter: str = "bwd"):
+    k = idx.shape[2]
+    lib, dims, tm, shape, keep = _common(src, centers, idx, layers, layout, slope, k, True, mean)
+    b, ng, _ = idx.shape
+    checks = [("g", g, torch.float32)] + ([] if mean else [("am", am, torch.int32)])
+    for name, t, dt in checks:
         if (t.device != src.device or t.dtype != dt or not t.is_contiguous()
                 or tuple(t.shape) != (b, ng, dims[-1])):
             raise ValueError(f"gather_chain backward: {name} must be contiguous {dt} "
@@ -261,91 +365,215 @@ def _bwd_kernel(src, centers, idx, layers, layout, am, g, wts=None):
     dsrc = torch.zeros(src.shape, **kw)
     dctr = torch.empty(centers.shape, **kw)
     dctr_part = torch.empty((b, ng, chunks, cc) if chunks > 1 else (1,), **kw)
+    am_ptr = g.data_ptr() if mean else am.data_ptr()  # unread by the mean
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
-        rc = lib.pca_gather_bwd(*head, ctypes.cast(wt_arr, ctypes.c_void_p), am.data_ptr(),
-                                g.data_ptr(), dsrc.data_ptr(), dctr_part.data_ptr(),
-                                dctr.data_ptr(), tm, stream)
-    _build.check(lib, rc, "gather_chain backward launch")
-    LAUNCHES["bwd"] += 1
+        rc = lib.pca_gather_bwd(src.device.index, src.data_ptr(), centers.data_ptr(), idx.data_ptr(), *shape,
+                                ctypes.cast(wt_arr, ctypes.c_void_p), float(slope), int(pre_act), int(mean), am_ptr,
+                                g.data_ptr(), dsrc.data_ptr(), dctr_part.data_ptr(), dctr.data_ptr(), tm, stream)
+    _build.check(lib, rc, f"gather_chain {counter} launch")
+    LAUNCHES[counter] += 1
     return dsrc, dctr
 
 
-def gather_chain_fwd(src, centers, idx, layers, layout: Layout):
-    """``(y, am)``: the kernel for CUDA tensors, the plain version for CPU
-    tensors."""
-    if src.is_cuda:
-        return _fwd_kernel(src, centers, idx, layers, layout)
-    if src.device.type == "cpu":
-        return gather_chain_plain(src, centers, idx, layers, layout)
-    raise ValueError(f"gather_chain: no implementation for device {src.device}")
+def _no_device(src):
+    return ValueError(f"gather_chain: no implementation for device {src.device}")
 
 
-def gather_chain_bwd(src, centers, idx, layers, layout: Layout, am, g, wts=None):
-    """``(dsrc, dctr)`` for ``g = dy * mul_L``: the kernel for CUDA tensors,
-    the plain version for CPU tensors.  ``wts``, the layers' ``W^T [out,
-    in]``, spares the kernel a transposed copy when the caller holds them."""
+def gather_chain_fwd(src, centers, idx, layers, layout: Layout, slope: float = 0.0, pre_act: bool = False):
+    """The max forward ``(y, am)``: the kernel for CUDA tensors, the plain
+    version for CPU tensors."""
     if src.is_cuda:
-        return _bwd_kernel(src, centers, idx, layers, layout, am, g, wts)
+        return _fwd_kernel(src, centers, idx, layers, layout, slope, pre_act)
     if src.device.type == "cpu":
-        return gather_chain_bwd_plain(src, centers, idx, layers, layout, am, g)
-    raise ValueError(f"gather_chain: no implementation for device {src.device}")
+        return gather_chain_plain(src, centers, idx, layers, layout, slope, pre_act)
+    raise _no_device(src)
+
+
+def gather_chain_bwd(src, centers, idx, layers, layout: Layout, am, g, wts=None, slope: float = 0.0,
+                     pre_act: bool = False, counter: str = "bwd"):
+    """``(dsrc, dctr)`` of the max for ``g = dy * mul_L``: the kernel for
+    CUDA tensors (its launch counted under ``counter``), the plain version
+    for CPU tensors.  ``wts``, the layers' ``W^T [out, in]``, spares the
+    kernel a transposed copy when the caller holds them."""
+    if src.is_cuda:
+        return _bwd_kernel(src, centers, idx, layers, layout, am, g, wts, slope, pre_act, False, counter)
+    if src.device.type == "cpu":
+        return gather_chain_bwd_plain(src, centers, idx, layers, layout, am, g, slope, pre_act)
+    raise _no_device(src)
+
+
+def gather_chain_mean_fwd(src, centers, idx, layers, layout: Layout, slope: float = 0.0, pre_act: bool = False):
+    """The mean forward ``y``: the kernel for CUDA tensors, the plain version
+    for CPU tensors."""
+    if src.is_cuda:
+        return _fwd_kernel(src, centers, idx, layers, layout, slope, pre_act, mean=True)
+    if src.device.type == "cpu":
+        return gather_chain_mean_plain(src, centers, idx, layers, layout, slope, pre_act)
+    raise _no_device(src)
+
+
+def gather_chain_mean_bwd(src, centers, idx, layers, layout: Layout, g, wts=None, slope: float = 0.0,
+                          pre_act: bool = False):
+    """``(dsrc, dctr)`` of the mean for ``g = dy * mul_L / K``: the kernel
+    for CUDA tensors, the plain version for CPU tensors."""
+    if src.is_cuda:
+        return _bwd_kernel(src, centers, idx, layers, layout, None, g, wts, slope, pre_act, True, "mean_bwd")
+    if src.device.type == "cpu":
+        return gather_chain_mean_bwd_plain(src, centers, idx, layers, layout, g, slope, pre_act)
+    raise _no_device(src)
+
+
+def ball_gather_chain_fwd(src, centers, xyz, layers, layout: Layout, radius: float, nsample: int,
+                          slope: float = 0.0):
+    """The ball route's forward ``(y, am, idx)``: the kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    if src.is_cuda:
+        return _ball_fwd_kernel(src, centers, xyz, layers, layout, radius, nsample, slope)
+    if src.device.type == "cpu":
+        return ball_gather_chain_plain(src, centers, xyz, layers, layout, radius, nsample, slope)
+    raise _no_device(src)
 
 
 # ---------------------------------------------------------------------------
-# Differentiable op
+# Differentiable ops
 # ---------------------------------------------------------------------------
+
+
+def _layers(flat):
+    """The layers of the flat parameters, each weight made contiguous."""
+    return [(w.contiguous(), *layer[1:]) for w, layer in zip(flat[::5], _group(flat))]
+
+
+def _save(ctx, mean, layout, slope, pre_act, counter, first, src, centers, idx, am, layers, flat):
+    """What the shared backward reads: the inputs, the selection, the argmax
+    (None for the mean), the contiguous weights and the parameters, whose
+    gradients start at input ``first``."""
+    ctx.mean, ctx.layout, ctx.slope, ctx.pre_act, ctx.counter, ctx.first = mean, layout, slope, pre_act, counter, first
+    ctx.save_for_backward(src, centers, idx, am, *[layer[0] for layer in layers], *flat)
+
+
+def _backward(ctx, dy):
+    """``(dsrc, dctr, dflat)``.  The input gradients come from the kernel (or
+    the plain backward on the CPU); parameter gradients from autograd
+    through the plain forward, and only when asked for, as the JAX VJP
+    takes them from the unfused oracle."""
+    src, centers, idx, am, *saved = ctx.saved_tensors
+    nl = len(saved) // 6
+    ws, flat = saved[:nl], saved[nl:]
+    layout, slope, pre_act = ctx.layout, ctx.slope, ctx.pre_act
+    dy = dy.float()
+    dsrc = dctr = None
+    if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+        layers = [(w, *layer[1:]) for w, layer in zip(ws, _group(flat))]
+        wts = [w.t() for w in flat[::5]]
+        g = dy * layers[-1][3]
+        if ctx.mean:
+            dsrc, dctr = gather_chain_mean_bwd(src, centers, idx, layers, layout, (g / idx.shape[2]).contiguous(),
+                                               wts, slope, pre_act)
+        else:
+            dsrc, dctr = gather_chain_bwd(src, centers, idx, layers, layout, am, g.contiguous(), wts, slope,
+                                          pre_act, ctx.counter)
+        dsrc = dsrc.to(src.dtype) if ctx.needs_input_grad[0] else None
+        dctr = dctr.to(centers.dtype) if ctx.needs_input_grad[1] else None
+    dflat = [None] * len(flat)
+    want = [i for i, need in enumerate(ctx.needs_input_grad[ctx.first:]) if need]
+    if want:
+        with torch.enable_grad():
+            ps = [p.detach().requires_grad_(i in want) for i, p in enumerate(flat)]
+            args = (src.detach(), centers.detach(), idx, _group(ps), layout, slope, pre_act)
+            y_ref = gather_chain_mean_plain(*args) if ctx.mean else gather_chain_plain(*args)[0]
+            grads = torch.autograd.grad(y_ref, [ps[i] for i in want], dy)
+        for i, gr in zip(want, grads):
+            dflat[i] = gr
+    return dsrc, dctr, dflat
 
 
 class GatherChainMax(torch.autograd.Function):
-    """y = max over each group's rows of the chain.  The backward's ``dsrc``
-    and ``dctr`` come from the kernel (or the plain backward on the CPU);
-    ``idx`` takes no gradient.  Parameter gradients come from autograd
-    through the plain forward, and only when asked for, as the JAX VJP
-    takes them from the unfused reference."""
+    """y = max over each group's rows of the chain; ``idx`` takes no
+    gradient."""
 
     @staticmethod
-    def forward(ctx, src, centers, idx, layout, *flat):
-        ws = [w.contiguous() for w in flat[::5]]
-        layers = [(w, *layer[1:]) for w, layer in zip(ws, _group(flat))]
+    def forward(ctx, src, centers, idx, layout, slope, *flat):
         src, centers, idx = src.contiguous(), centers.contiguous(), idx.contiguous()
-        y, am = gather_chain_fwd(src, centers, idx, layers, layout)
-        ctx.layout = layout
-        ctx.save_for_backward(src, centers, idx, am, *ws, *flat)
+        layers = _layers(flat)
+        y, am = gather_chain_fwd(src, centers, idx, layers, layout, slope)
+        _save(ctx, False, layout, slope, False, "bwd", 5, src, centers, idx, am, layers, flat)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        src, centers, idx, am, *saved = ctx.saved_tensors
-        nl = len(saved) // 6
-        ws, flat = saved[:nl], saved[nl:]
-        layout = ctx.layout
-        dsrc = dctr = None
-        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
-            layers = [(w, *layer[1:]) for w, layer in zip(ws, _group(flat))]
-            g = (dy.float() * layers[-1][3]).contiguous()
-            wts = [w.t() for w in flat[::5]]
-            dsrc, dctr = gather_chain_bwd(src, centers, idx, layers, layout, am, g, wts)
-            dsrc = dsrc.to(src.dtype) if ctx.needs_input_grad[0] else None
-            dctr = dctr.to(centers.dtype) if ctx.needs_input_grad[1] else None
-        dflat = [None] * len(flat)
-        want = [i for i, need in enumerate(ctx.needs_input_grad[4:]) if need]
-        if want:
-            with torch.enable_grad():
-                ps = [p.detach().requires_grad_(i in want) for i, p in enumerate(flat)]
-                y_ref, _ = gather_chain_plain(src.detach(), centers.detach(), idx, _group(ps), layout)
-                grads = torch.autograd.grad(y_ref, [ps[i] for i in want], dy)
-            for i, gr in zip(want, grads):
-                dflat[i] = gr
-        return (dsrc, dctr, None, None, *dflat)
+        dsrc, dctr, dflat = _backward(ctx, dy)
+        return (dsrc, dctr, None, None, None, *dflat)
 
 
-def gather_chain_groupmax(src, centers, idx, layers: Sequence[Layer], layout: Layout) -> torch.Tensor:
-    """Gather + L-layer chain + max over each group's neighbours.
+class GatherChainMean(torch.autograd.Function):
+    """y = mean over each group's rows of the chain (every layer activated,
+    the rows too with ``pre_act``); ``idx`` takes no gradient."""
 
-    ``src [B, N, Cs]``, ``centers [B, G, Cc]``, ``idx [B, G, K]`` ->
-    ``[B, G, C_L]`` f32; see the module docstring.
-    """
+    @staticmethod
+    def forward(ctx, src, centers, idx, layout, slope, pre_act, *flat):
+        src, centers, idx = src.contiguous(), centers.contiguous(), idx.contiguous()
+        layers = _layers(flat)
+        y = gather_chain_mean_fwd(src, centers, idx, layers, layout, slope, pre_act)
+        _save(ctx, True, layout, slope, pre_act, "mean_bwd", 6, src, centers, idx, None, layers, flat)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        dsrc, dctr, dflat = _backward(ctx, dy)
+        return (dsrc, dctr, None, None, None, None, *dflat)
+
+
+class BallGatherChainMax(torch.autograd.Function):
+    """y = max over each ball's rows of the chain, the slots chosen in the
+    forward and kept for the backward (counted as ``ball_bwd``); ``xyz``
+    takes no gradient, as ball membership is an integer selection (the JAX
+    op gives it zeros)."""
+
+    @staticmethod
+    def forward(ctx, src, centers, xyz, layout, radius, nsample, slope, *flat):
+        src, centers, xyz = src.contiguous(), centers.contiguous(), xyz.detach().contiguous()
+        layers = _layers(flat)
+        y, am, idx = ball_gather_chain_fwd(src, centers, xyz, layers, layout, radius, nsample, slope)
+        _save(ctx, False, layout, slope, False, "ball_bwd", 7, src, centers, idx, am, layers, flat)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        dsrc, dctr, dflat = _backward(ctx, dy)
+        return (dsrc, dctr, None, None, None, None, None, *dflat)
+
+
+def _flat(layers):
+    return [t for layer in layers for t in layer]
+
+
+def gather_chain_groupmax(src, centers, idx, layers: Sequence[Layer], layout: Layout,
+                          slope: float = 0.0) -> torch.Tensor:
+    """Gather + L-layer chain + max over each group's neighbours, ``act``
+    between the layers: ``src [B, N, Cs]``, ``centers [B, G, Cc]``, ``idx
+    [B, G, K]`` -> ``[B, G, C_L]`` f32; see the module docstring."""
     layout = tuple(tuple(s) for s in layout)
-    return GatherChainMax.apply(src, centers, idx.to(torch.int32), layout,
-                                *[t for layer in layers for t in layer])
+    return GatherChainMax.apply(src, centers, idx.to(torch.int32), layout, float(slope), *_flat(layers))
+
+
+def gather_chain_groupmean(src, centers, idx, layers: Sequence[Layer], layout: Layout, slope: float = 0.0,
+                           pre_act: bool = False) -> torch.Tensor:
+    """Gather (+ the rows' activation with ``pre_act``) + L-layer chain with
+    every layer activated + mean over each group's neighbours: ``[B, G,
+    C_L]`` f32; see the module docstring."""
+    layout = tuple(tuple(s) for s in layout)
+    return GatherChainMean.apply(src, centers, idx.to(torch.int32), layout, float(slope), bool(pre_act),
+                                 *_flat(layers))
+
+
+def ball_gather_chain_groupmax(src, centers, xyz, layers: Sequence[Layer], layout: Layout, radius: float,
+                               nsample: int, slope: float = 0.0) -> torch.Tensor:
+    """Ball query + gather + L-layer chain + max: the fused twin of
+    ``query_ball_point(radius, nsample, xyz, centers[..., :3])`` followed by
+    ``gather_chain_groupmax``.  ``src [B, N, Cs]``, ``centers [B, G, Cc]``
+    (Cc >= 3), ``xyz [B, N, 3]`` -> ``[B, G, C_L]`` f32."""
+    layout = tuple(tuple(s) for s in layout)
+    return BallGatherChainMax.apply(src, centers, xyz, layout, float(radius), int(nsample), float(slope),
+                                    *_flat(layers))

@@ -65,10 +65,12 @@ TIE = 1e-5  # a replayed choice lies at most this far below the port's own best
 # activation signs (JAX runs its LPFAs unfused on the CPU, activating before
 # the pool, so its activations do not line up call for call with the
 # port's): a LeakyReLU input within rounding of 0 takes slope 1 on one side
-# and 0.2 on the other, so a quarter of the (iterate, cloud) pairs are held
-# within this, not within chip_smoke.GRAD_CLEAN (the card against the CPU,
-# with the signs replayed too, holds GRAD_CLEAN in chip_smoke.py)
-GRAD_CLEAN_UNSIGNED = 1e-4
+# and 0.2 on the other, so every (iterate, cloud) pair is held within
+# GRAD_REL_UNSIGNED and a quarter of them (CLEAN_SHARE_UNSIGNED) within
+# GRAD_CLEAN_UNSIGNED, not all within chip_smoke.GRAD_CLEAN (the card
+# against the CPU, with the signs replayed too, holds GRAD_CLEAN in
+# chip_smoke.py)
+GRAD_REL_UNSIGNED, GRAD_CLEAN_UNSIGNED, CLEAN_SHARE_UNSIGNED = 5e-2, 1e-4, 0.25
 
 
 def clouds(seed, b=B):
@@ -397,8 +399,9 @@ def test_short_cw_attack_matches_jax(curvenet):
     (``jax_choices``: over 4 walks of 100 curves and the max pools the
     smallest top-2 gap of a choice falls to 1e-6 or below, where the two
     sides' rounding may take either), each at most TIE below the port's own
-    best: every (iterate, cloud) within chip_smoke.GRAD_REL relative L2 and
-    at least chip_smoke.CLEAN_SHARE of them within GRAD_CLEAN_UNSIGNED (1e-4).
+    best: every (iterate, cloud) within GRAD_REL_UNSIGNED (5e-2) relative L2
+    and at least CLEAN_SHARE_UNSIGNED (0.25) of them within
+    GRAD_CLEAN_UNSIGNED (1e-4).
     This victim's BatchNorms centre their inputs
     at 0, so some LeakyReLU inputs lie within rounding of 0 and take slope
     1 on one side and 0.2 on the other: 3.4e-6 to 2.5e-3 measured, half
@@ -459,7 +462,7 @@ def test_short_cw_attack_matches_jax(curvenet):
             rels.append(rel)
     rels = np.stack(rels)
     msg = f"gradient relative L2 per (iterate, cloud) {rels.tolist()}; {chip_smoke.choice_line(stats)}"
-    assert rels.max() <= chip_smoke.GRAD_REL and (rels <= GRAD_CLEAN_UNSIGNED).mean() >= chip_smoke.CLEAN_SHARE, msg
+    assert rels.max() <= GRAD_REL_UNSIGNED and (rels <= GRAD_CLEAN_UNSIGNED).mean() >= CLEAN_SHARE_UNSIGNED, msg
     assert all(st["off"] <= TIE for st in stats.values()), chip_smoke.choice_line(stats)
 
 

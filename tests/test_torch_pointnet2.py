@@ -55,7 +55,7 @@ from pointcloudattack_tpu_torch.utils.apply import make_model_fn
 from test_torch_pointnet import perturb
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import GRAD_CLEAN, GRAD_REL  # noqa: E402  (the card-against-CPU gradient bounds)
+from chip_smoke import GRAD_CLEAN  # noqa: E402  (the card-against-CPU gradient bound)
 from torch_threads import threads  # noqa: E402
 
 torch_threads = threads(2)  # tests/torch_threads.py says why
@@ -215,9 +215,9 @@ def seeded_ssg():
 @pytest.mark.parametrize("fault", ["no_dctr", "neg_dctr", "no_dsrc", "dctr_x1.001", "dsrc_x1.001"])
 def test_gradient_parity_bound_sees_a_wrong_term(seeded_ssg, fault, monkeypatch):
     """A gather backward that dropped or negated dctr, or dropped dsrc,
-    moves each cloud's loss gradient by far more than chip_smoke.py's
-    bound on every pair; one that scales either by 1.001 moves it far
-    beyond the level at which chip_smoke.py wants a share of the pairs."""
+    moves each cloud's loss gradient by more than a quarter (25000 times
+    chip_smoke.py's bound on every pair); one that scales either by 1.001
+    moves it by ten times that bound."""
     fn, ori = seeded_ssg
     adv = ori + 0.01 * torch.from_numpy(np.random.RandomState(6).randn(*ori.shape).astype(np.float32))
     with torch.no_grad():
@@ -241,4 +241,4 @@ def test_gradient_parity_bound_sees_a_wrong_term(seeded_ssg, fault, monkeypatch)
 
     monkeypatch.setattr(gc, "gather_chain_bwd_plain", faulty)
     rel = (grad() - want).flatten(1).norm(dim=1) / want.flatten(1).norm(dim=1)
-    assert float(rel.min()) > (10 * GRAD_CLEAN if fault.endswith("x1.001") else 5 * GRAD_REL), rel
+    assert float(rel.min()) > (10 if fault.endswith("x1.001") else 25000) * GRAD_CLEAN, rel

@@ -12,6 +12,7 @@ import sys
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
 from pointcloudattack_tpu_torch.ops import gather_chain as gc
@@ -334,3 +335,264 @@ def test_geoa3_hooks_replay_the_cached_sets_and_the_jitter():
     got, stats = replayed(queues)
     assert not torch.equal(got[0], want[0]) and stats["knn"]["off"] == 1
     assert sum(int(n.sum()) for n in stats["knn"]["other"]) > 0
+
+
+def _ball_inputs(seed=0, b=2, n=96, g=24, cp=5, widths=(16, 24)):
+    """A small set abstraction on the CPU: src (xyz and features), ball
+    centers among the points, the SSG layout, seeded layers and cotangent."""
+    rng = np.random.RandomState(seed)
+    xyz = torch.from_numpy(rng.rand(b, n, 3).astype(np.float32))
+    src = torch.cat([xyz, torch.from_numpy(rng.randn(b, n, cp).astype(np.float32))], -1)
+    ctr = xyz[:, :g].contiguous()
+    layout = (("diff", 0, 3, 0), ("pass", 3, 3 + cp))
+    layers = chip_smoke.seeded_layers(rng, (3 + cp, *widths), "cpu")
+    dy = torch.from_numpy(rng.randn(b, g, widths[-1]).astype(np.float32))
+    return src, ctr, layers, layout, dy
+
+
+def test_check_ball_holds_the_slots_and_the_rows(monkeypatch):
+    """``check_ball`` passes the plain ball route, and raises where the
+    slots leave ``query_ball_point``'s by one index or where y leaves the
+    index route's by one ulp."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    src, ctr, layers, layout, dy = _ball_inputs()
+    errs, _, _, win, idx = chip_smoke.check_ball("plain", src, ctr, layers, layout, 0.3, 16, dy)
+    assert errs["y"] == 0.0 and win > 0 and idx.shape == (2, 24, 16)
+    plain = gc.ball_gather_chain_fwd
+
+    def other_slot(*args):
+        y, am, slots = plain(*args)
+        slots = slots.clone()
+        slots[0, 0, -1] = (slots[0, 0, -1] + 1) % src.shape[1]
+        return y, am, slots
+
+    def other_y(*args):
+        y, am, slots = plain(*args)
+        return torch.nextafter(y, torch.full_like(y, np.inf)), am, slots
+
+    for fault, msg in ((other_slot, "slots differ"), (other_y, "y or the argmax differ")):
+        monkeypatch.setattr(gc, "ball_gather_chain_fwd", fault)
+        with pytest.raises(AssertionError, match=msg):
+            chip_smoke.check_ball("faulty", src, ctr, layers, layout, 0.3, 16, dy)
+
+
+def test_check_gather_mean_catches_a_faulty_kernel(monkeypatch):
+    """``check_gather_mean`` passes the plain mean, and raises where the
+    forward is off by 1e-3 or a backward output is 0.1% off."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    rng = np.random.RandomState(1)
+    src, ctr = (torch.from_numpy(rng.randn(2, 40, 8).astype(np.float32)) for _ in range(2))
+    idx = torch.from_numpy(rng.randint(0, 40, size=(2, 40, 6)).astype(np.int32))
+    layers = chip_smoke.seeded_layers(rng, (8, 12), "cpu")
+    dy = torch.from_numpy(rng.randn(2, 40, 12).astype(np.float32))
+    layout = (("diff", 0, 8, 0),)
+    errs, g = chip_smoke.check_gather_mean("plain", src, ctr, idx, layers, layout, dy)
+    assert errs == {"y": 0.0, "dsrc": 0.0, "dctr": 0.0} and g.shape == (2, 40, 12)
+    fwd, bwd = gc.gather_chain_mean_fwd, gc.gather_chain_mean_bwd
+    faults = {
+        "fwd": lambda *a, **k: fwd(*a, **k) + 1e-3,
+        "dsrc": lambda *a, **k: (lambda d: (d[0] * 1.001, d[1]))(bwd(*a, **k)),
+        "dctr": lambda *a, **k: (lambda d: (d[0], d[1] * 1.001))(bwd(*a, **k)),
+    }
+    for name, fault in faults.items():
+        with monkeypatch.context() as m:
+            m.setattr(gc, "gather_chain_mean_fwd" if name == "fwd" else "gather_chain_mean_bwd", fault)
+            with pytest.raises(AssertionError):
+                chip_smoke.check_gather_mean(name, src, ctr, idx, layers, layout, dy)
+
+
+def test_ball_scan_pairs_count_to_the_kth_member():
+    """A ball with K or more members is scanned up to its K-th member; one
+    with fewer, over every point."""
+    xyz = torch.tensor([[[0.0, 0, 0], [5, 0, 0], [0.1, 0, 0], [0.2, 0, 0], [9, 9, 9]]])
+    ctr = torch.tensor([[[0.0, 0, 0], [5.0, 0, 0]]])
+    # ball 0 holds points 0, 2, 3: its 2nd member is point 2, so 3 pairs; ball 1 holds 1 point: all 5
+    assert chip_smoke.ball_scan_pairs(xyz, ctr, 0.25, 2) == 3 + 5
+    assert chip_smoke.ball_scan_pairs(xyz, ctr, 0.25, 3) == 4 + 5
+
+
+def test_gather_mean_bound_charges_every_row():
+    """With the rows' activation there is no factoring: the chain on every
+    row forward, twice backward; the inputs read and the outputs written
+    once."""
+    b, n, c, k = 8, 1024, 32, 20
+    src, ctr = torch.zeros(b, n, c), torch.zeros(b, n, c)
+    idx = torch.zeros(b, n, k, dtype=torch.int32)
+    fwd, bwd = chip_smoke.gather_mean_bounds(src, ctr, idx, (("diff", 0, c, 0),), (c, c))
+    rows = b * n * k
+    nbytes = 4.0 * (3 * b * n * c + b * n * k) + chip_smoke.param_bytes((c, c))
+    assert fwd == chip_smoke.bound(2.0 * rows * c * c, nbytes)
+    assert bwd[0] > fwd[0] and bwd == chip_smoke.bound(
+        4.0 * rows * c * c, 4.0 * (5 * b * n * c + b * n * k) + 2 * chip_smoke.param_bytes((c, c)))
+
+
+def test_gather_route_hooks_replay_the_signs():
+    """CurveNet on the gather route on the CPU, replaying its own recorded
+    choices and signs (``curvenet_hooks(gather=True)`` with ``pick_hooks``):
+    the same logits and gradient, each taken choice 0 from its own; the
+    first gather mean's layer-output signs flipped at 16 units of one row
+    move the gradient and are counted (its rows' signs come first, 16 a
+    row, then the layer's)."""
+    from pointcloudattack_tpu_torch import models
+    from pointcloudattack_tpu_torch.ops.chain_maxpool import act
+    from pointcloudattack_tpu_torch.utils.apply import make_model_fn
+
+    model = models.make_model("CurveNet", 10, generator=torch.Generator().manual_seed(0), k=8, fused_gather=True)
+    fn = make_model_fn(model, None, "cpu")
+    x = torch.from_numpy((np.random.RandomState(3).randn(1, 1024, 3) * 0.5).astype(np.float32))
+    hooks = {**chip_smoke.pick_hooks(), **chip_smoke.curvenet_hooks(gather=True)}
+    hooks = {k: v for k, v in hooks.items() if k not in ("chain", "gather_dgcnn", "ball")}
+    orig = {k: getattr(mod, name) for k, (mod, name, _, _) in hooks.items()}
+    rec = {k: [] for k in hooks}
+
+    def gmean_signs(out, src, centers, idx, layers, layout, slope=0.0, pre_act=False):
+        rows = gc.gather_rows(src.detach(), centers.detach(), idx, layout)
+        z = gc._chain(act(rows, slope) if pre_act else rows, [tuple(t.detach() for t in l) for l in layers],
+                      slope)[0]
+        return torch.cat([rows > 0, z > 0], -1)
+
+    def gather_picks(out, src, centers, idx, layers, layout, slope=0.0):
+        return (gc.gather_chain_plain(src.detach(), centers.detach(), idx, layers, layout, slope)[1],)
+
+    choice_of = {"pick": lambda out, y: out, "starts": lambda out, att, n: out,
+                 "max": lambda out, t, d: t.detach() == out.detach().unsqueeze(d),
+                 "gather_curvenet": gather_picks, "sign": lambda out, t, *slope: t.detach() > 0,
+                 "gmean": gmean_signs}
+
+    def recording(kind):
+        def run(*args):
+            out = orig[kind](*args)
+            rec[kind].append(choice_of[kind](out, *args))
+            return out
+        return run
+
+    def logits_and_grad():
+        a = x.clone().requires_grad_(True)
+        logits = fn(a)
+        return logits.detach(), torch.autograd.grad(logits[0, 0] - logits[0, 1], a)[0]
+
+    for k in choice_of:
+        mod, name, _, _ = hooks[k]
+        setattr(mod, name, recording(k))
+    try:
+        want, g_want = logits_and_grad()
+    finally:
+        for k, (mod, name, _, _) in hooks.items():
+            setattr(mod, name, orig[k])
+    assert {k: len(rec[k]) for k in choice_of} == {"pick": 20, "starts": 4, "max": 3, "gather_curvenet": 1,
+                                                   "sign": 23, "gmean": 8}
+
+    def replayed(queues):
+        with chip_smoke.replay(hooks, lambda kind: queues[kind].pop(0)) as stats:
+            got, g = logits_and_grad()
+        assert not any(queues.values())
+        return got, g, stats
+
+    got, g_got, stats = replayed({k: list(v) for k, v in rec.items()})
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    assert float((g_got - g_want).norm() / g_want.norm()) <= 1e-6
+    assert all(st["off"] == 0 for st in stats.values()) and stats["gmean"]["calls"] == 8
+    queues = {k: list(v) for k, v in rec.items()}
+    flipped = queues["gmean"][0].clone()
+    assert flipped.shape[-1] == 32
+    flipped[0, 0, 0, 16:] = ~flipped[0, 0, 0, 16:]
+    queues["gmean"][0] = flipped
+    _, g_flip, stats = replayed(queues)
+    assert int(stats["gmean"]["other"][0][0]) == 16 and stats["gmean"]["off"] > 0
+    assert float((g_flip - g_want).norm() / g_want.norm()) > 1e-6
+
+
+def test_ball_hook_takes_the_picks_and_holds_the_slots():
+    """``pick_hooks``' ball hook on the CPU: the card's picks on the CPU's
+    own slots, 0 off where the card's slots are the CPU's, 1 or more for a
+    cloud where one slot differs."""
+    src, ctr, layers, layout, _ = _ball_inputs(2)
+    _, _, _, on_cpu = chip_smoke.pick_hooks()["ball"]
+    args = (src, ctr, src[..., :3].contiguous(), layers, layout, 0.3, 16)
+    y, am, idx = gc.ball_gather_chain_plain(*args)
+    y2, gap, off = on_cpu(gc.ball_gather_chain_groupmax, (idx, am), *args)
+    assert torch.equal(y2, y) and float(off.max()) == 0.0 and gap.shape == off.shape and gap.shape[0] == 2
+    slots = idx.clone()
+    slots[1, 3, 0] += 1
+    _, _, off = on_cpu(gc.ball_gather_chain_groupmax, (slots, am), *args)
+    assert float(off[1].min()) >= 1.0 and float(off[0].max()) == 0.0
+
+
+def test_gather_hook_takes_the_hidden_sides():
+    """``pick_hooks``' gather hook (DGCNN's) on the CPU with the hidden
+    layer's sides given beside the picks: its own sides give 0 off and the
+    same output; one unit of one row on the other side is counted and moves
+    the rows' gradient."""
+    src, ctr, layers, layout, _ = _ball_inputs(3)
+    idx = gc.ball_gather_chain_plain(src, ctr, src[..., :3].contiguous(), layers, layout, 0.3, 16)[2]
+    _, _, _, on_cpu = chip_smoke.pick_hooks()["gather_dgcnn"]
+    y, am = gc.gather_chain_plain(src, ctr, idx, layers, layout)
+    w, b, mean, mul, beta = layers[0]
+    pos = ((gc.gather_rows(src, ctr, idx, layout) @ w + b - mean) * mul + beta) > 0
+    s = src.clone().requires_grad_(True)
+    y2, gap, off = on_cpu(gc.gather_chain_groupmax, (am, pos), s, ctr, idx, layers, layout)
+    assert torch.equal(y2.detach(), y) and float(off.max()) == 0.0
+    (g_own,) = torch.autograd.grad(y2.sum(), s)
+    flipped = pos.clone()
+    flipped[0, 0, 0, 0] = ~flipped[0, 0, 0, 0]
+    s = src.clone().requires_grad_(True)
+    y3, _, off = on_cpu(gc.gather_chain_groupmax, (am, flipped), s, ctr, idx, layers, layout)
+    (g_flip,) = torch.autograd.grad(y3.sum(), s)
+    hidden = pos[0].numel()  # the hidden sides follow the picks in each cloud's row of ``off``
+    assert int((off[0, -hidden:] > 0).sum()) == 1 and float(off[1].max()) == 0.0
+    assert not torch.equal(g_flip, g_own)
+
+
+def test_relu_hooks_replay_the_pooled_and_head_signs():
+    """PointNet++ SSG on the CPU replaying its own recorded ReLU signs
+    (``relu_hooks``: after each fused max pool and in the head) gives the
+    same log-probs and gradient, each taken sign 0 from its own; one head
+    unit's sign flipped moves the gradient and is counted."""
+    from pointcloudattack_tpu_torch import models
+    from pointcloudattack_tpu_torch.utils.apply import make_model_fn
+
+    fn = make_model_fn(models.make_model("PointNet++Ssg", 10, generator=torch.Generator().manual_seed(0)), None,
+                       "cpu")
+    x = torch.from_numpy((np.random.RandomState(6).randn(1, 1024, 3) * 0.5).astype(np.float32))
+    hooks = chip_smoke.relu_hooks()
+    orig = {k: getattr(mod, name) for k, (mod, name, _, _) in hooks.items()}
+    rec = {k: [] for k in hooks}
+
+    def recording(kind):
+        def run(t):
+            rec[kind].append(t.detach() > 0)
+            return orig[kind](t)
+        return run
+
+    def logp_and_grad():
+        a = x.clone().requires_grad_(True)
+        logp = fn(a)
+        return logp.detach(), torch.autograd.grad(logp[0, 0] - logp[0, 1], a)[0]
+
+    for k, (mod, name, _, _) in hooks.items():
+        setattr(mod, name, recording(k))
+    try:
+        want, g_want = logp_and_grad()
+    finally:
+        for k, (mod, name, _, _) in hooks.items():
+            setattr(mod, name, orig[k])
+    # the two neighbourhood set abstractions' pools, the group-all one's, and the head's two layers
+    assert {k: len(v) for k, v in rec.items()} == {"relu": 3, "head_relu": 2}
+
+    def replayed(queues):
+        with chip_smoke.replay(hooks, lambda kind: queues[kind].pop(0)) as stats:
+            got, g = logp_and_grad()
+        assert not any(queues.values())
+        return got, g, stats
+
+    got, g_got, stats = replayed({k: list(v) for k, v in rec.items()})
+    assert torch.equal(got, want) and torch.equal(g_got, g_want)
+    assert all(st["off"] == 0 for st in stats.values())
+    queues = {k: list(v) for k, v in rec.items()}
+    first = queues["head_relu"][0].clone()
+    unit = int(first[0].nonzero()[0])  # an open unit of the head's first layer
+    first[0, unit] = False
+    queues["head_relu"][0] = first
+    _, g_flip, stats = replayed(queues)
+    assert int(stats["head_relu"]["other"][0][0]) == 1 and stats["head_relu"]["off"] > 0
+    assert not torch.equal(g_flip, g_want)
