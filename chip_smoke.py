@@ -4,7 +4,7 @@ Run from the root of a checkout, on a machine with one H100:
 
     python3 chip_smoke.py
 
-It takes about nine to ten minutes, the kernel build included.
+It takes about eight to ten minutes, the kernel build included.
 
 Phases, each raising on failure (nothing is caught; any failure exits
 non-zero and prints no result):
@@ -57,9 +57,16 @@ non-zero and prints no result):
               at the four EdgeConv inputs of one forward of the DGCNN victim
               (B=16, N=1024, k=20, C=3/64/64/128), at a ragged N=1000 and
               with every point 4 times (ties); times beside the bound.
-12. kernels-gather-dgcnn  the gather kernel at the four EdgeConv shapes (K=20,
-              the center segment, one layer) under check_gather's rules, and
-              each EdgeConv stage fused against the unfused plain layer.
+12. kernels-gather-dgcnn  the one-layer gather max (ops/gather_hoist.py) at the
+              four EdgeConv shapes (K=20, the center segment) under
+              check_gather's rules, each of its five kernels against its plain
+              version (the products within tolerance, the max, the reverse
+              lists and the pull bit for bit, two backwards bit-equal), then at
+              a ragged N=1000, every point 4 times, a hub point and a negative
+              BatchNorm scale; times beside the plain versions', torch.matmul's
+              for the products, the bounds and the row kernel the route
+              replaced; and each EdgeConv stage fused against the unfused
+              plain layer.
 13. kernels-chamfer  the row-min kernel bit for bit (mins, argmin, dx) at
               [64,1024,3] x [64,1024,3] and at a ragged 1000 x 1000 with every
               y point 4 times.
@@ -74,10 +81,17 @@ non-zero and prints no result):
               PART_SHARE) that parted where a coordinate's gradient lay
               within rounding of 0.
 16. slice-dgcnn  C&W 1 x 100 on DGCNN at bench.py's cw_dgcnn settings (B=16):
-              exact launch counts (kNN 4 and gather 4 per forward, gather 4 per
-              backward), ASR > 0, s/batch.
+              exact launch counts (per forward kNN 4 and the one-layer route's
+              product and max 4 each, per backward its lists, pull and product
+              4 each), ASR > 0, s/batch; the first step's gradient twice, bit
+              for bit or the first traced op that parts.
+16a. slice-dgcnn-routes  the same attack through each EdgeConv route in turns,
+              3 times each: the one-layer route's kernels, EdgeConv.unfused and
+              graph_feature then the group kernel; the route fastest in every
+              turn, if one is.
 17. parity-dgcnn  DGCNN at B=2, card against CPU, the CPU taking the card's kNN
-              indices and max-pool picks: log-probs and the CW-loss gradient.
+              indices and max-pool picks (the one-layer route's argmax): log-probs
+              and the CW-loss gradient.
 18. profile-dgcnn  torch.profiler over 10 DGCNN CW iterations.
 19. kernels-geoa3  the curvature (kappa) kernels and the two-direction Chamfer
               kernels against their plain versions on the CPU at GeoA3's shape
@@ -132,12 +146,14 @@ set from the kNN kernel, exact collisions, a ragged N=1000).  CurveNet's
 gather route (``fused_gather=True``) adds:
 23a. kernels-gather-curvenet  the gather mean (rows activated, LeakyReLU 0.2)
               at the eight residual LPFA shapes of one CurveNet forward (B=8,
-              K=20) and the slope-0.2 gather max at the initial LPFA, then a
+              K=20) and the slope-0.2 gather max at the initial LPFA (the
+              one-layer route, its kernels checked as in phase 12), then a
               ragged N=1000 and 2-layer chains, under check_group's rules; the LPFA
               stages of phase 23 also run on the gather route.
 24a. slice-curvenet-gather  C&W 1 x 100 on CurveNet's gather route: exact launch
-              counts (the gather max 1 and mean 8 per forward, 1 + 8 per backward,
-              the group kernels 0), ASR > 0, then both routes in turns.
+              counts (the one-layer route's kernels once and the gather mean 8
+              times per forward, likewise per backward, the group kernels 0),
+              ASR > 0, then both routes in turns.
 25a. parity-curvenet-gather  phase 25 on the gather route, the CPU also taking
               the gather means' signs.
 Each of phases 11-27 prints its seconds.
@@ -161,6 +177,7 @@ ROOT = Path(__file__).resolve().parent
 KERNEL_SRC = "pointcloudattack_tpu_torch/csrc/chain_maxpool.cu"
 FPS_SRC = "pointcloudattack_tpu_torch/csrc/fps.cu"
 GATHER_SRC = "pointcloudattack_tpu_torch/csrc/gather_chain.cu"
+HOIST_SRC = "pointcloudattack_tpu_torch/csrc/gather_hoist.cu"
 TPU_FWD = "pointcloudattack_tpu/ops/pallas/dense_max_kernel.py:188"
 TPU_BWD = "pointcloudattack_tpu/ops/pallas/dense_max_kernel.py:216"
 TPU_FPS = "pointcloudattack_tpu/ops/pallas/fps_kernel.py:79"
@@ -250,6 +267,25 @@ DGCNN_GATHER_SHAPES = {
     "dgcnn_conv3": (1024, 1024, None, 20, 64, "dgcnn", (128,)),
     "dgcnn_conv4": (1024, 1024, None, 20, 128, "dgcnn", (256,)),
 }
+# The one-layer gather max (ops/gather_hoist.py, DGCNN's EdgeConvs and
+# CurveNet's initial LPFA): its kernels' LAUNCHES keys, and cases beyond the
+# path's shapes, (seed, B, N, C, C_out, how): "repeat" every point 4 times
+# (exact ties between the copies, where am takes the lowest k), "hub" point
+# 7 in the first 5 slots of every 4th group (a reverse list of 1,280 entries,
+# ties inside the groups), "negative" a BatchNorm scale below 0 in every
+# other unit (the compare runs after the affine)
+HOIST_KEYS = ("product_fwd", "max_fwd", "lists_bwd", "pull_bwd", "product_bwd")
+HOIST_EDGE_CASES = {
+    "ragged N=1000": (50, 2, 1000, 64, 64, None),
+    "every point 4 times": (51, 2, 1024, 64, 128, "repeat"),
+    "hub": (52, 2, 1024, 64, 64, "hub"),
+    "negative BN scale": (53, 2, 1024, 128, 256, "negative"),
+}
+# launches per forward and per backward on slice-dgcnn: 4 kNN, and at each
+# EdgeConv the one-layer route's 2 forward and 3 backward kernels
+DG_LAUNCHES = ({"knn": 4, "hoist_product_fwd": 4, "hoist_max_fwd": 4},
+               {"hoist_lists_bwd": 4, "hoist_pull_bwd": 4, "hoist_product_bwd": 4})
+DG_TURNS = 3  # timed runs of each EdgeConv route, in turns
 # GeoA3: bench.py's geoa3 cell (bench.py:454-496), PointNet, B=8,
 # make_synthetic_clouds(8, 1, 1024, seed=5), CE loss, Chamfer + 0.1 Hausdorff
 # + curvature (k=16), 10 binary rounds of 500 iterations, cut to 100
@@ -301,9 +337,10 @@ BALL_EDGE_SHAPES = {
     "grid 1/16, radius 0.25": (1024, 256, 0.25, 32, 0, "ssg", (32, 64), "grid"),
 }
 # CurveNet's gather route (fused_gather=True): the initial LPFA's gather max
-# and the eight residual LPFAs' gather means, per forward and per backward
-CN_GATHER_LAUNCHES = ({"knn": 9, "fps": 2, "gather_fwd": 1, "gather_mean_fwd": 8},
-                      {"gather_bwd": 1, "gather_mean_bwd": 8})
+# (the one-layer route's kernels) and the eight residual LPFAs' gather
+# means, per forward and per backward
+CN_GATHER_LAUNCHES = ({"knn": 9, "fps": 2, "hoist_product_fwd": 1, "hoist_max_fwd": 1, "gather_mean_fwd": 8},
+                      {"hoist_lists_bwd": 1, "hoist_pull_bwd": 1, "hoist_product_bwd": 1, "gather_mean_bwd": 8})
 # the residual LPFAs of one CurveNet forward at B=8, K=20: (N, C), one layer C -> C
 CURVENET_GATHER_SHAPES = {
     "cic11": (1024, 16), "cic12": (1024, 16), "cic21": (1024, 32), "cic22": (1024, 32),
@@ -579,6 +616,9 @@ def check_gather(name, src, ctr, idx, layers, layout, dy, slope=0.0):
     wrong = (am != am_ref) & ~near
     if int(wrong.sum()):
         raise AssertionError(f"{name}: argmax differs in {int(wrong.sum())} columns with a clear winner")
+    below = float((y_ref - z.gather(2, am.long()[:, :, None]).squeeze(2)).max())
+    if below > PICK_ATOL:
+        raise AssertionError(f"{name}: a card pick lies {below:.3e} below the plain max (> {PICK_ATOL})")
     del z, top
     g = (dy * layers[-1][3]).contiguous()
     dsrc, dctr = gc.gather_chain_bwd(src, ctr, idx, layers, layout, am_ref, g, slope=slope)
@@ -659,21 +699,208 @@ def gather_bounds(src, ctr, idx, layout, dims, win):
 def time_gather(name, widths, src, ctr, idx, layers, layout, am, g, win, slope=0.0):
     """Gather kernel and plain times at one case, and the bounds."""
     from pointcloudattack_tpu_torch.ops import gather_chain as gc
+    from pointcloudattack_tpu_torch.ops import gather_hoist as gh
 
     wts = [layer[0].t().contiguous() for layer in layers]
-    ms = time_pairs({
+    fns = {
         "fwd_plain": lambda: gc.gather_chain_plain(src, ctr, idx, layers, layout, slope),
         "fwd": lambda: gc.gather_chain_fwd(src, ctr, idx, layers, layout, slope),
         "bwd_plain": lambda: gc.gather_chain_bwd_plain(src, ctr, idx, layers, layout, am, g, slope),
         "bwd": lambda: gc.gather_chain_bwd(src, ctr, idx, layers, layout, am, g, wts, slope),
-    })
+    }
+    hoisted = gh.takes(layers, False)
+    if hoisted:  # the row kernel too, the route this case took before gather_hoist: the earlier time
+        def rows(fn):
+            def run():
+                with row_route():
+                    return fn()
+            return run
+
+        fns.update(fwd_rows=rows(fns["fwd"]), bwd_rows=rows(fns["bwd"]))
+    ms = time_pairs(fns)
     b, ng, k = idx.shape
     dims = (gc.layout_width(layout), *widths)
     b_fwd, b_bwd = gather_bounds(src, ctr, idx, layout, dims, win)
-    log(f"[kernels] gather {name} chain {dims}: forward {ms['fwd']:.4f} ms (plain {ms['fwd_plain']:.4f}, "
-        f"bound {b_fwd[0]:.4f} by {b_fwd[1]} over {b * ng * k} rows), backward {ms['bwd']:.4f} ms (plain "
-        f"{ms['bwd_plain']:.4f}, bound {b_bwd[0]:.4f} by {b_bwd[1]} over the {win} winning rows)")
+    rows_note = (lambda key: f", the row kernel {ms[key + '_rows']:.4f}") if hoisted else (lambda key: "")
+    log(f"[kernels] gather {name} chain {dims}{' (one layer: gather_hoist)' if hoisted else ''}: forward "
+        f"{ms['fwd']:.4f} ms (plain {ms['fwd_plain']:.4f}{rows_note('fwd')}, bound {b_fwd[0]:.4f} by {b_fwd[1]} "
+        f"over {b * ng * k} rows), backward {ms['bwd']:.4f} ms (plain {ms['bwd_plain']:.4f}{rows_note('bwd')}, "
+        f"bound {b_bwd[0]:.4f} by {b_bwd[1]} over the {win} winning rows)")
     return ms, b_fwd, b_bwd
+
+
+@contextlib.contextmanager
+def row_route():
+    """While open, the gather max of one layer runs the row kernel of
+    ``csrc/gather_chain.cu`` (its route before ``gather_hoist``), so that
+    its time can be taken beside the new kernels' in one run."""
+    from pointcloudattack_tpu_torch.ops import gather_hoist as gh
+
+    orig = gh.takes
+    gh.takes = lambda layers, pre_act: False
+    try:
+        yield
+    finally:
+        gh.takes = orig
+
+
+def hoist_case(seed, b, n, c, cout, how=None):
+    """An EdgeConv's inputs for the one-layer route (src = centers, idx its
+    self-kNN, layout diff + center), as ``gather_case`` gives them, with
+    ``how`` as in HOIST_EDGE_CASES."""
+    import numpy as np
+    import torch
+
+    from pointcloudattack_tpu_torch.ops.knn import knn
+
+    rng = np.random.RandomState(seed)
+    src = torch.from_numpy(rng.randn(b, n, c).astype(np.float32)).cuda()
+    if how == "repeat":
+        src = torch.cat([src[:, : n // 4]] * 4, 1).contiguous()
+    idx = knn(src, DG_K)
+    if how == "hub":  # every 4th group takes point 7 in its first 5 slots
+        idx[:, ::4, :5] = 7
+    layers = seeded_layers(rng, (2 * c, cout), "cuda")
+    if how == "negative":
+        layers[0][3][::2] *= -1.0
+    dy = torch.from_numpy(rng.randn(b, n, cout).astype(np.float32)).cuda()
+    return src, src, idx, layers, (("diff", 0, c, 0), ("center", 0, c)), dy
+
+
+def hoist_parts(src, ctr, idx, layers, layout):
+    """The one-layer route's pieces on one case: the products' operand
+    pairs, and a function of the products' outputs giving (p, q)."""
+    import torch
+
+    from pointcloudattack_tpu_torch.ops import gather_hoist as gh
+
+    b, n, cs = src.shape
+    g, cc = ctr.shape[1:]
+    c1 = layers[0][0].shape[1]
+    ws, wc = gh.split_weight(layers[0][0], layout, cs, cc)
+    if gh._shared(src, ctr):
+        pairs = [(src.view(b * n, cs), torch.cat([ws, wc], 1))]
+        split = lambda outs: (outs[0].view(b, n, 2 * c1)[..., :c1], outs[0].view(b, n, 2 * c1)[..., c1:])  # noqa: E731
+    else:
+        pairs = [(src.view(b * n, cs), ws), (ctr.view(b * g, cc), wc)]
+        split = lambda outs: (outs[0].view(b, n, c1), outs[1].view(b, g, c1))  # noqa: E731
+    return pairs, split, ws, wc
+
+
+def check_hoist(name, src, ctr, idx, layers, layout, dy, tag="kernels-gather-dgcnn"):
+    """Each kernel of the one-layer route (``ops/gather_hoist.py``) against
+    its plain version on the card, on the same inputs: the products within
+    Y_TOL and DX_TOL of ``product_plain``, the max (y and am), the reverse
+    lists and the pull bit for bit; then two calls of the whole backward,
+    which must give the same bits.  Returns each kernel's max |error|."""
+    import torch
+
+    from pointcloudattack_tpu_torch.ops import gather_hoist as gh
+
+    b, n, _ = src.shape
+    g, k, c1 = idx.shape[1], idx.shape[2], layers[0][0].shape[1]
+    _, bias, mean, mul, beta = layers[0]
+    pairs, split, ws, wc = hoist_parts(src, ctr, idx, layers, layout)
+    outs = gh.products(pairs, "product_fwd")
+    refs = [gh.product_plain(a, w) for a, w in pairs]
+    p, q = split(outs)
+    y, am = gh.gather_max(p, q, idx, bias, mean, mul, beta)
+    y_ref, am_ref = gh.max_plain(p, q, idx, bias, mean, mul, beta)
+    start, lst = gh.reverse_lists(idx, n)
+    start_ref, lst_ref = gh.lists_plain(idx, n)
+    gg = (dy * mul).contiguous()
+    dp = gh.pull(start, lst, am, gg, k)
+    dp_ref = gh.pull_plain(start, lst, am, gg, k)
+    bpairs = [(dp.view(b * n, c1), ws.t()), (gg.view(b * g, c1), wc.t())]
+    douts = gh.products(bpairs, "product_bwd")
+    drefs = [gh.product_plain(a, w) for a, w in bpairs]
+    twice = [gh.hoisted_bwd(src, ctr, idx, layers[0], layout, am, gg) for _ in range(2)]
+    torch.cuda.synchronize()
+    for o, r in zip(outs, refs):
+        torch.testing.assert_close(o, r, **Y_TOL)
+    for o, r in zip(douts, drefs):
+        torch.testing.assert_close(o, r, **DX_TOL)
+    same = {"y": torch.equal(y, y_ref), "am": torch.equal(am, am_ref), "start": torch.equal(start, start_ref),
+            "list": torch.equal(lst, lst_ref), "dP": torch.equal(dp, dp_ref),
+            "two backwards": all(torch.equal(u, v) for u, v in zip(*twice))}
+    if not all(same.values()):
+        raise AssertionError(f"{name}: not bit-equal: {[key for key, ok in same.items() if not ok]}")
+    if not int(am.max()) > 0 or not float(dp.abs().max()) > 0:
+        raise AssertionError(f"{name}: every pick is k=0 or dP is 0, so the checks see little")
+    counts = start[:, 1:] - start[:, :-1]
+    err = lambda us, vs: max(float((u - v).abs().max()) for u, v in zip(us, vs))  # noqa: E731
+    errs = {"product_fwd": err(outs, refs), "max_fwd": float((y - y_ref).abs().max()),
+            "lists_bwd": float((lst - lst_ref).abs().max()), "pull_bwd": float((dp - dp_ref).abs().max()),
+            "product_bwd": err(douts, drefs)}
+    log(f"[{tag}] hoist {name}: src {tuple(src.shape)} G={g} K={k} -> {c1}: products max|err| "
+        f"{errs['product_fwd']:.3e} and {errs['product_bwd']:.3e}; y, am, the reverse lists (longest "
+        f"{int(counts.max())}, mean {float(counts.float().mean()):.2f}), dP and two backwards bit-equal; "
+        f"{int((am > 0).sum())} of {am.numel()} picks past k=0")
+    return errs
+
+
+def hoist_bounds(src, ctr, idx, c1):
+    """(bound_ms, bound_by) of each kernel of the one-layer route on one
+    case: the products' FMAs and operands; the max's 6 operations a (row,
+    unit) and P, Q, idx, y and am once; the lists' count and placement of
+    each entry and idx, start and list once; the pull's compare a (list
+    entry, unit) and add a pick, reading start, list, am and g once and
+    writing dP."""
+    from pointcloudattack_tpu_torch.ops import gather_hoist as gh
+
+    b, n, cs = src.shape
+    g, cc = ctr.shape[1:]
+    e = b * g * idx.shape[2]
+    f = 4.0
+    if gh._shared(src, ctr):
+        prod = bound(2.0 * b * n * cs * 2 * c1, f * (b * n * cs + cs * 2 * c1 + b * n * 2 * c1))
+    else:
+        prod = bound(2.0 * c1 * (b * n * cs + b * g * cc),
+                     f * (b * n * cs + b * g * cc + (cs + cc) * c1 + (b * n + b * g) * c1))
+    return {"product_fwd": prod,
+            "max_fwd": bound(6.0 * e * c1, f * (b * n * c1 + b * g * c1 + e + 2 * b * g * c1 + 4 * c1)),
+            "lists_bwd": bound(2.0 * e, f * (2 * e + b * (n + 1))),
+            "pull_bwd": bound(1.0 * e * c1 + b * g * c1, f * (b * (n + 1) + e + 2 * b * g * c1 + b * n * c1)),
+            "product_bwd": bound(2.0 * c1 * (b * n * cs + b * g * cc),
+                                 f * (b * n * c1 + b * g * c1 + (cs + cc) * c1 + b * n * cs + b * g * cc))}
+
+
+def time_hoist(tag, name, src, ctr, idx, layers, layout, am, g):
+    """Each kernel of the one-layer route beside its plain version (and,
+    for the products, ``torch.matmul``, one call a product) on one case;
+    returns {key: (ms, plain_ms, library_ms or None, bound)}."""
+    import torch
+
+    from pointcloudattack_tpu_torch.ops import gather_hoist as gh
+
+    b, n, _ = src.shape
+    ng, k, c1 = idx.shape[1], idx.shape[2], layers[0][0].shape[1]
+    _, bias, mean, mul, beta = layers[0]
+    pairs, split, ws, wc = hoist_parts(src, ctr, idx, layers, layout)
+    p, q = split(gh.products(pairs, "product_fwd"))
+    start, lst = gh.reverse_lists(idx, n)
+    dp = gh.pull(start, lst, am, g, k)
+    bpairs = [(dp.view(b * n, c1), ws.t()), (g.view(b * ng, c1), wc.t())]
+    fns = {
+        "product_fwd": (lambda: gh.products(pairs, "product_fwd"), lambda: [gh.product_plain(a, w) for a, w in pairs],
+                        lambda: [torch.matmul(a, w) for a, w in pairs]),
+        "max_fwd": (lambda: gh.gather_max(p, q, idx, bias, mean, mul, beta),
+                    lambda: gh.max_plain(p, q, idx, bias, mean, mul, beta), None),
+        "lists_bwd": (lambda: gh.reverse_lists(idx, n), lambda: gh.lists_plain(idx, n), None),
+        "pull_bwd": (lambda: gh.pull(start, lst, am, g, k), lambda: gh.pull_plain(start, lst, am, g, k), None),
+        "product_bwd": (lambda: gh.products(bpairs, "product_bwd"),
+                        lambda: [gh.product_plain(a, w) for a, w in bpairs],
+                        lambda: [torch.matmul(a, w) for a, w in bpairs]),
+    }
+    bounds = hoist_bounds(src, ctr, idx, c1)
+    out = {}
+    for key, (kern, plain, lib) in fns.items():
+        ms = time_pairs({"plain": plain, "kernel": kern, **({"library": lib} if lib else {})}, reps=10)
+        out[key] = (ms["kernel"], ms["plain"], ms.get("library"), bounds[key])
+        log(f"[{tag}] hoist {name} {key}: kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms"
+            + (f", torch.matmul {ms['library']:.4f} ms" if lib else "")
+            + f", bound {bounds[key][0]:.5f} ms by {bounds[key][1]}")
+    return out
 
 
 def ball_scan_pairs(xyz, ctr, radius, k) -> float:
@@ -879,18 +1106,18 @@ def time_gather_mean(name, src, ctr, idx, layers, layout, g, slope=CN_SLOPE, pre
 
 
 def phase_kernels_gather_curvenet():
-    """The gather kernel on CurveNet's gather route: the mean with
+    """The gather kernels on CurveNet's gather route: the mean with
     ``pre_act`` at the eight residual LPFA shapes of one CurveNet forward
-    (B=8, K=20, LeakyReLU 0.2), the slope-0.2 max at the initial LPFA, then
-    both at a ragged N=1000 and with a 2-layer chain; the record's numbers
-    sum the eight residual LPFAs (the mean) and give the initial LPFA (the
-    max)."""
+    (B=8, K=20, LeakyReLU 0.2), the slope-0.2 max at the initial LPFA (one
+    layer: the one-layer route, each of its kernels against its plain
+    version too), then both at a ragged N=1000 and with a 2-layer chain;
+    the record's numbers sum the eight residual LPFAs (the mean)."""
     import numpy as np
     import torch
 
     from pointcloudattack_tpu_torch.ops.knn import knn
 
-    rec = new_record("mean_fwd", "mean_bwd", "slope_fwd", "slope_bwd")
+    rec = new_record("mean_fwd", "mean_bwd")
     for i, (name, (n, c)) in enumerate(CURVENET_GATHER_SHAPES.items()):
         src, ctr, idx, layers, dy = lpfa_gather_case(140 + i, CN_B, n, c, CN_K, (c,))
         layout = (("diff", 0, c, 0),)
@@ -907,14 +1134,10 @@ def phase_kernels_gather_curvenet():
     idx = knn(xyz, CN_K + 1)[:, :, :CN_K].contiguous()
     layers = seeded_layers(rng, (9, 32), "cuda")
     dy = torch.from_numpy(rng.randn(CN_B, N, 32).astype(np.float32)).cuda()
-    errs, am, g, win = check_gather("lpfa (initial, slope 0.2)", xyz, xyz, idx, layers, CN_INITIAL_LAYOUT, dy, CN_SLOPE)
-    ms, b_fwd, b_bwd = time_gather("lpfa (initial, slope 0.2)", (32,), xyz, xyz, idx, layers, CN_INITIAL_LAYOUT, am,
-                                   g, win, CN_SLOPE)
-    for key, e, m, p, bb, rows in (("slope_fwd", errs["y"], ms["fwd"], ms["fwd_plain"], b_fwd, CN_B * N * CN_K),
-                                   ("slope_bwd", max(errs["dsrc"], errs["dctr"]), ms["bwd"], ms["bwd_plain"], b_bwd,
-                                    win)):
-        rec[key]["err"] = max(rec[key]["err"], e)
-        accumulate(rec[key], m, p, bb, rows)
+    _, am, g, win = check_gather("lpfa (initial, slope 0.2)", xyz, xyz, idx, layers, CN_INITIAL_LAYOUT, dy, CN_SLOPE)
+    check_hoist("lpfa (initial)", xyz, xyz, idx, layers, CN_INITIAL_LAYOUT, dy, "kernels-gather-curvenet")
+    time_gather("lpfa (initial, slope 0.2)", (32,), xyz, xyz, idx, layers, CN_INITIAL_LAYOUT, am, g, win, CN_SLOPE)
+    time_hoist("kernels-gather-curvenet", "lpfa (initial)", xyz, xyz, idx, layers, CN_INITIAL_LAYOUT, am, g)
     # a ragged N=1000 and 2-layer chains, the mean (pre_act) and the slope-0.2 max
     for j, (name, n, c, widths) in enumerate((("ragged N=1000", 1000, 32, (32,)), ("2 layers", 256, 32, (64, 32)))):
         src, ctr, idx, layers, dy = lpfa_gather_case(160 + j, CN_B, n, c, CN_K, widths)
@@ -924,9 +1147,7 @@ def phase_kernels_gather_curvenet():
         rec["mean_bwd"]["err"] = max(rec["mean_bwd"]["err"], errs["dsrc"], errs["dctr"])
         pts = src[..., :3].contiguous()
         layers = seeded_layers(np.random.RandomState(170 + j), (9, *widths), "cuda")
-        errs, *_ = check_gather(f"{name} (slope 0.2)", pts, pts, idx, layers, CN_INITIAL_LAYOUT, dy, CN_SLOPE)
-        rec["slope_fwd"]["err"] = max(rec["slope_fwd"]["err"], errs["y"])
-        rec["slope_bwd"]["err"] = max(rec["slope_bwd"]["err"], errs["dsrc"], errs["dctr"])
+        check_gather(f"{name} (slope 0.2)", pts, pts, idx, layers, CN_INITIAL_LAYOUT, dy, CN_SLOPE)
     torch.cuda.empty_cache()
     return rec
 
@@ -1160,11 +1381,13 @@ def _counters():
     from pointcloudattack_tpu_torch.ops import chamfer
     from pointcloudattack_tpu_torch.ops import fps as fps_mod
     from pointcloudattack_tpu_torch.ops import gather_chain as gc
+    from pointcloudattack_tpu_torch.ops import gather_hoist as gh
     from pointcloudattack_tpu_torch.ops import group_chain as gch
     from pointcloudattack_tpu_torch.ops import kappa
     from pointcloudattack_tpu_torch.ops import knn as knn_mod
 
-    return {"fps": (fps_mod, "fps"), "gather_fwd": (gc, "fwd"), "gather_bwd": (gc, "bwd"),
+    return {**{f"hoist_{k}": (gh, k) for k in HOIST_KEYS},
+            "fps": (fps_mod, "fps"), "gather_fwd": (gc, "fwd"), "gather_bwd": (gc, "bwd"),
             "gather_mean_fwd": (gc, "mean_fwd"), "gather_mean_bwd": (gc, "mean_bwd"), "ball_fwd": (gc, "ball_fwd"),
             "ball_bwd": (gc, "ball_bwd"),
             "chain_fwd": (cm, "fwd"), "chain_bwd": (cm, "bwd"), "knn": (knn_mod, "knn"),
@@ -1287,11 +1510,11 @@ def in_turns(tag, arms, data, target, num_iter, turns=TURNS):
             torch.cuda.synchronize()
             times[name].append(time.perf_counter() - t0)
     b = data.shape[0]
-    first, second = list(arms)[:2]
+    first = list(arms)[0]
     log(f"[{tag}] CW {BINARY_STEP}x{num_iter} B={b} in turns ({', '.join(arms)}, ...): "
         + "; ".join(f"{name} {[round(t, 6) for t in ts]} s/batch, min {min(ts):.6f} ({b / min(ts):.3f} clouds/s), "
                     f"mean {sum(ts) / len(ts):.6f}" for name, ts in times.items())
-        + f"; {second} / {first} min {min(times[second]) / min(times[first]):.4f}")
+        + "".join(f"; {name} / {first} min {min(times[name]) / min(times[first]):.4f}" for name in list(arms)[1:]))
     return times
 
 
@@ -1445,8 +1668,10 @@ def pick_hooks():
     ``PointMLP``), the gather + chain + max ("gather_dgcnn": DGCNN's
     EdgeConvs; "gather_curvenet": CurveNet's initial LPFA on its gather
     route) and its ball route ("ball": PointNet++'s set abstractions).  Each choice is every pooled column's winning row and the
-    sides of 0 of the chain's hidden pre-activations (``card_chain``), and
-    for the ball route its slots, which must be the CPU's own.  The CPU
+    sides of 0 of the chain's hidden pre-activations (``card_chain``; for a
+    gather of one layer, which has none, the argmax of the one-layer
+    route's forward run again, which must give the op's bits), and for the
+    ball route its slots, which must be the CPU's own.  The CPU
     runs the chain in plain differentiable ops on the card's choices, so
     its backward takes them too.  A column whose two best rows, or a hidden
     unit of a winning row and 0, lie within f32 rounding may otherwise send
@@ -1475,6 +1700,15 @@ def pick_hooks():
 
     def gather_card(orig, src, centers, idx, layers, layout, slope=0.0):
         y = orig(src, centers, idx, layers, layout, slope)
+        if len(layers) == 1:  # the one-layer route's own picks, read again from its deterministic forward
+            with torch.no_grad():
+                y2, am = gc.gather_chain_fwd(src.detach().contiguous(), centers.detach().contiguous(),
+                                             idx.to(torch.int32).contiguous(),
+                                             [tuple(t.detach().contiguous() for t in layers[0])], layout)
+            if not torch.equal(y2, y.detach()):
+                raise AssertionError(f"the one-layer route's forward gave other bits the second time in "
+                                     f"{int((y2 != y.detach()).sum())} of {y.numel()} outputs")
+            return y, (am,)
         return y, card_chain(gc.gather_rows(src.detach(), centers.detach(), idx, layout), layers, slope, y, 2)
 
     def gather(orig, choice, src, centers, idx, layers, layout, slope=0.0):
@@ -2016,7 +2250,7 @@ def phase_kernels_dgcnn(model, model_fn, data):
 
     from pointcloudattack_tpu_torch.ops import knn as knn_mod
 
-    rec = new_record("knn", "gather_fwd", "gather_bwd")
+    rec = new_record("knn", "gather_fwd", "gather_bwd", *HOIST_KEYS)
     with knn_inputs() as inputs, torch.no_grad():
         model_fn(data)
     if [tuple(x.shape[1:]) + (k,) for x, k in inputs] != [(N, c, DG_K) for c in (3, 64, 64, 128)]:
@@ -2040,7 +2274,9 @@ def phase_kernels_dgcnn(model, model_fn, data):
         for i, (name, shape) in enumerate(DGCNN_GATHER_SHAPES.items()):
             case = gather_case(40 + i, *shape)
             errs, am, g, win = check_gather(name, *case)
+            herrs = check_hoist(name, *case)
             ms, b_fwd, b_bwd = time_gather(name, shape[6], *case[:5], am, g, win)
+            hms = time_hoist("kernels-gather-dgcnn", name, *case[:5], am, g)
             b, ng, k = case[2].shape
             for key, e, m, p, bb, rows in (
                 ("gather_fwd", errs["y"], ms["fwd"], ms["fwd_plain"], b_fwd, b * ng * k),
@@ -2048,8 +2284,25 @@ def phase_kernels_dgcnn(model, model_fn, data):
             ):
                 rec[key]["err"] = max(rec[key]["err"], e)
                 accumulate(rec[key], m, p, bb, rows)
+                rec[key]["rows_ms"] = rec[key].get("rows_ms", 0.0) + ms[key[len("gather_"):] + "_rows"]
+            for key, (m, p, lib, bb) in hms.items():
+                rec[key]["err"] = max(rec[key]["err"], herrs[key])
+                accumulate(rec[key], m, p, bb)
+                if lib is not None:
+                    rec[key]["library_ms"] = rec[key].get("library_ms", 0.0) + lib
             del case, am, g
             torch.cuda.empty_cache()
+        for i, (name, args) in enumerate(HOIST_EDGE_CASES.items()):
+            case = hoist_case(*args)
+            check_gather(name, *case)
+            for key, e in check_hoist(name, *case).items():
+                rec[key]["err"] = max(rec[key]["err"], e)
+        for key, what in (("gather_fwd", "forward"), ("gather_bwd", "backward")):
+            r = rec[key]
+            log(f"[kernels-gather-dgcnn] the one-layer route per DGCNN {what} (the four EdgeConvs): "
+                f"{r['ms']:.4f} ms, the row kernel it replaces {r['rows_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                f"bound {r['bound_ms']:.4f} ms; its kernels "
+                + ", ".join(f"{h} {rec[h]['ms']:.4f}" for h in HOIST_KEYS if h.endswith(key[-3:])))
         rec["edgeconv"] = edgeconv_fused_vs_unfused(model, inputs)
     return rec
 
@@ -3022,6 +3275,130 @@ def first_step_spread(tag, fn, data, target):
     return d
 
 
+@contextlib.contextmanager
+def dgcnn_trace():
+    """While open, records in run order what DGCNN's EdgeConvs compute: each
+    kNN's indices, each gather op's output, the cotangent it receives and
+    the input gradients its backward returns; yields the list of (name,
+    tensor)."""
+    import torch
+
+    from pointcloudattack_tpu_torch.models import dgcnn as dg
+    from pointcloudattack_tpu_torch.ops import gather_chain as gc
+
+    rec, at = [], {"knn": 0, "gather": 0, "cot": None}
+    knn0, gather0, bwd0 = dg.knn, dg.gather_chain_groupmax, gc.gather_chain_bwd
+
+    def knn(x, k):
+        at["knn"] += 1
+        out = knn0(x, k)
+        rec.append((f"EdgeConv {at['knn']}'s kNN", out.clone()))
+        return out
+
+    def gather(*args, **kw):
+        at["gather"] += 1
+        stage = at["gather"]
+        y = gather0(*args, **kw)
+        rec.append((f"EdgeConv {stage}'s gather forward", y.detach().clone()))
+
+        def hook(g):
+            at["cot"] = stage
+            rec.append((f"the cotangent into EdgeConv {stage}'s gather", g.detach().clone()))
+
+        if y.requires_grad:
+            y.register_hook(hook)
+        return y
+
+    def bwd(*args, **kw):
+        out = bwd0(*args, **kw)
+        rec.append((f"EdgeConv {at['cot']}'s gather backward (dsrc, dctr)", torch.cat([o.flatten() for o in out])))
+        return out
+
+    dg.knn, dg.gather_chain_groupmax, gc.gather_chain_bwd = knn, gather, bwd
+    try:
+        yield rec
+    finally:
+        dg.knn, dg.gather_chain_groupmax, gc.gather_chain_bwd = knn0, gather0, bwd0
+
+
+def dgcnn_first_steps(tag, fn, data, target):
+    """The CW loss's input gradient at slice-dgcnn's first iterate, twice on
+    the card, each run traced (``dgcnn_trace``): whether the two agree bit
+    for bit, and if not, the first traced op whose bits part; returns the
+    gradients' max |diff|."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    a0 = data + torch.randn(data.shape, generator=gen, device="cuda") * 1e-7
+    runs = []
+    for _ in range(2):
+        with dgcnn_trace() as rec:
+            _, grad = loss_grad(fn, a0, data, target)
+        runs.append((rec, grad))
+    (r1, g1), (r2, g2) = runs
+    if [n for n, _ in r1] != [n for n, _ in r2]:
+        raise AssertionError(f"{tag}: the two runs traced different ops")
+    parted = next((n for (n, u), (_, v) in zip(r1, r2) if not torch.equal(u, v)), None)
+    d = float((g1 - g2).abs().max())
+    log(f"[{tag}] the first step's loss gradient, two runs on the card: "
+        + ("bit-equal" if torch.equal(g1, g2) else f"max |diff| {d:.3e}, {int((g1 != g2).sum())} of {g1.numel()} "
+           f"coordinates differ") + f" (largest |gradient| {float(g1.abs().max()):.3e}); of the {len(r1)} traced "
+        f"ops (kNN, gather forward, cotangent, gather backward) "
+        + ("every one bit-equal" if parted is None else f"the first to part: {parted}"))
+    return d
+
+
+def dgcnn_routes(state, data, target, kernel_fn):
+    """C&W 1 x DG_ITER on DGCNN through each EdgeConv route, DG_TURNS times
+    each in turns: the one-layer route's kernels (the model's eval route),
+    ``EdgeConv.unfused`` and ``graph_feature`` then the group kernel
+    (``mlp_chain_groupmax``, the JAX package's own fused route); the last
+    two live only here.  Each route's EdgeConv outputs are first held to
+    the model's on the four stage inputs of one forward, on the same kNN
+    (Y_TOL: after a stage the kNN in feature space may pick another
+    neighbour on rounding, so whole forwards are not compared); logs the
+    route that was fastest in every turn, if one was; returns the times."""
+    import torch
+    import torch.nn.functional as F
+
+    from pointcloudattack_tpu_torch import models
+    from pointcloudattack_tpu_torch.models.dgcnn import SLOPE, graph_feature
+    from pointcloudattack_tpu_torch.ops.gather_chain import gather_chain_groupmax
+    from pointcloudattack_tpu_torch.ops.group_chain import mlp_chain_groupmax
+    from pointcloudattack_tpu_torch.ops.knn import knn
+    from pointcloudattack_tpu_torch.utils.apply import make_model_fn
+
+    def hoisted(e, x, idx):
+        c = x.shape[-1]
+        return F.leaky_relu(gather_chain_groupmax(x, x, idx, [e.fused_layer()], (("diff", 0, c, 0), ("center", 0, c))),
+                            SLOPE)
+
+    def grouped(e, x, idx):
+        return F.leaky_relu(mlp_chain_groupmax(graph_feature(x, e.k, idx), [e.fused_layer()]), SLOPE)
+
+    routes = {"EdgeConv.unfused": lambda e, x, idx: e.unfused(x, idx), "graph_feature + group kernel": grouped}
+    with knn_inputs() as inputs, torch.no_grad():
+        kernel_fn(data)
+    arms = {"gather_hoist kernels": kernel_fn}
+    for name, route in routes.items():
+        model = models.make_model("DGCNN", NUM_CLASSES)
+        fn = make_model_fn(model, state, "cuda")
+        with torch.no_grad():
+            for (x, k), e in zip(inputs, model.edges):
+                idx = knn(x, k)
+                torch.testing.assert_close(route(e, x, idx), hoisted(e, x, idx), **Y_TOL)
+        model.edges = [(lambda e, r=route: lambda x, train=False: r(e, x, knn(x, e.k)))(e) for e in model.edges]
+        cw_attack(fn, 2)(data, target)  # warm-up
+        arms[name] = fn
+    log(f"[slice-dgcnn-routes] each route's EdgeConvs within {Y_TOL} of the model's on the stage inputs")
+    times = in_turns("slice-dgcnn-routes", arms, data, target, DG_ITER, DG_TURNS)
+    best = [n for n, ts in times.items()
+            if all(t < min(times[o][i] for o in times if o != n) for i, t in enumerate(ts))]
+    log(f"[slice-dgcnn-routes] fastest in every one of the {DG_TURNS} turns: "
+        + (best[0] if best else "no route (the runs overlap)"))
+    return times
+
+
 def main():
     if not (ROOT / KERNEL_SRC).is_file():
         raise SystemExit(f"chip_smoke: {KERNEL_SRC} not found beside this script; run it from a checkout")
@@ -3080,8 +3457,10 @@ def main():
     with phase_clock("parity-knn"):
         phase_parity_knn(knn_fn, knn_state, knn_data, knn_target)
     with phase_clock("slice-dgcnn"):
-        dg_launches = run_attack("slice-dgcnn", dg_fn, dg_data, dg_target, DG_ITER,
-                                 {"knn": 4, "gather_fwd": 4}, {"gather_bwd": 4})
+        dg_launches = run_attack("slice-dgcnn", dg_fn, dg_data, dg_target, DG_ITER, *DG_LAUNCHES)
+        dgcnn_first_steps("slice-dgcnn", dg_fn, dg_data, dg_target)
+    with phase_clock("slice-dgcnn-routes"):
+        dgcnn_routes(dg_state, dg_data, dg_target, dg_fn)
     with phase_clock("parity-dgcnn"):
         phase_parity_dgcnn(dg_fn, dg_state, dg_data, dg_target)
     with phase_clock("profile-dgcnn"):
@@ -3147,9 +3526,7 @@ def main():
     cn_at = {"max": f"the initial LPFA of one CurveNet forward (B={CN_B}, N=1024, K={CN_K}, 9 -> 32)",
              "mean": f"sum over the eight residual LPFAs of one CurveNet forward (B={CN_B}, K={CN_K})"}
     gather_at = {"mean_fwd": cn_at["mean"] + ", gather route (pre_act, LeakyReLU 0.2)",
-                 "mean_bwd": cn_at["mean"] + ", gather route (pre_act, LeakyReLU 0.2)",
-                 "slope_fwd": cn_at["max"] + ", gather route (LeakyReLU 0.2)",
-                 "slope_bwd": cn_at["max"] + ", gather route (LeakyReLU 0.2)"}
+                 "mean_bwd": cn_at["mean"] + ", gather route (pre_act, LeakyReLU 0.2)"}
 
     record = {"kernels": [
         entry("chain_maxpool_fwd", "chain_fwd", KERNEL_SRC, TPU_FWD, launches["fwd"], k["err_y"],
@@ -3160,10 +3537,10 @@ def main():
               k["rows_bwd"]),
         entry("fps", "fps", FPS_SRC, TPU_FPS, ssg[4]["fps"], pn2["fps"]["err"], pn2["fps"]["ms"],
               pn2["fps"]["plain_ms"], summed_bound(pn2["fps"]), ssg_at),
-        *(entry(name, key, GATHER_SRC, tpu, dg_launches[key], dg[key]["err"], dg[key]["ms"], dg[key]["plain_ms"],
-                summed_bound(dg[key]), dg_at, dg[key]["rows"])
-          for name, key, tpu in (("gather_chain_fwd", "gather_fwd", TPU_GATHER_FWD),
-                                 ("gather_chain_bwd", "gather_bwd", TPU_GATHER_BWD))),
+        *(entry(f"gather_hoist_{key}", f"hoist_{key}", HOIST_SRC, TPU_GATHER_FWD if key.endswith("fwd") else
+                TPU_GATHER_BWD, dg_launches[f"hoist_{key}"], dg[key]["err"], dg[key]["ms"], dg[key]["plain_ms"],
+                summed_bound(dg[key]), dg_at, library_ms=dg[key].get("library_ms"))
+          for key in HOIST_KEYS),
         entry("knn", "knn", KNN_SRC, TPU_KNN, dg_launches["knn"], dg["knn"]["err"], dg["knn"]["ms"],
               dg["knn"]["plain_ms"], summed_bound(dg["knn"]), dg_at),
         entry("min_sqdist_rows", "min_rows", CHAMFER_SRC, TPU_CHAMFER, knn1["min_rows"], cham["err"], cham["ms"],
@@ -3188,9 +3565,7 @@ def main():
         *(entry(name, key, GATHER_SRC, tpu, cn_gather[key], cng[r]["err"], cng[r]["ms"], cng[r]["plain_ms"],
                 summed_bound(cng[r]), gather_at[r], cng[r]["rows"])
           for name, key, tpu, r in (("gather_chain_groupmean_fwd", "gather_mean_fwd", TPU_GATHER_FWD, "mean_fwd"),
-                                    ("gather_chain_groupmean_bwd", "gather_mean_bwd", TPU_GATHER_BWD, "mean_bwd"),
-                                    ("gather_chain_fwd_slope", "gather_fwd", TPU_GATHER_FWD, "slope_fwd"),
-                                    ("gather_chain_bwd_slope", "gather_bwd", TPU_GATHER_BWD, "slope_bwd"))),
+                                    ("gather_chain_groupmean_bwd", "gather_mean_bwd", TPU_GATHER_BWD, "mean_bwd"))),
         entry("ball_gather_chain_fwd", "ball_fwd", GATHER_SRC, TPU_GATHER_FWD, ssg[4]["ball_fwd"],
               ballq["ball_fwd"]["err"], ballq["ball_fwd"]["ms"], ballq["ball_fwd"]["plain_ms"],
               summed_bound(ballq["ball_fwd"]), ssg_at + ", ball route", ballq["ball_fwd"]["rows"],

@@ -13,10 +13,12 @@ ending in log-softmax.  Submodules carry the reference state-dict names
 In eval mode an EdgeConv runs the kNN (``ops/knn.py``) and then one fused
 gather + layer + max over the neighbours (``ops/gather_chain.py``, layout
 ``diff, center`` on ``src = centers = x``), with the LeakyReLU on the
-pooled output, where it commutes with the max: the kernels on a CUDA
-tensor, their plain versions on a CPU tensor.  In train mode it runs
-unfused over the ``[B, N, k, 2C]`` edge tensor.  The gather is exact f32:
-the JAX package's bf16 limb gathers exist only for the TPU's matrix unit.
+pooled output, where it commutes with the max: on a CUDA tensor the
+one-layer route's kernels (``ops/gather_hoist.py``: the layer once a
+point, a backward without atomics), on a CPU tensor the plain versions.
+In train mode it runs unfused over the ``[B, N, k, 2C]`` edge tensor.  The
+gather is exact f32: the JAX package's bf16 limb gathers exist only for
+the TPU's matrix unit.
 """
 
 from __future__ import annotations

@@ -145,6 +145,20 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pca_gather_bwd.argtypes = [ci, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp, ci, vp, vp,
                                    vp, cf, ci, ci, vp, vp, vp, vp, vp, ci, vp]
     lib.pca_gather_bwd.restype = ci
+    # device, nprob, then (a, w, out, R, Kd, M, lda, wk, wn) twice, stream
+    lib.pca_hoist_product.argtypes = [ci, ci, *[vp, vp, vp, ci, ci, ci, ci, ci, ci] * 2, vp]
+    lib.pca_hoist_product.restype = ci
+    # device, p, sp, q, sq, idx, bias, mean, mul, beta, B, N, G, K, C, y, am, stream
+    lib.pca_hoist_max.argtypes = [ci, vp, ci, vp, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp]
+    lib.pca_hoist_max.restype = ci
+    lib.pca_hoist_lists_parts.argtypes = [ci]
+    lib.pca_hoist_lists_parts.restype = ci
+    # device, idx, B, N, G, K, ks, parts, start, list, stream
+    lib.pca_hoist_lists.argtypes = [ci, vp, ci, ci, ci, ci, ci, ci, vp, vp, vp]
+    lib.pca_hoist_lists.restype = ci
+    # device, start, list, am, g, B, N, G, K, ks, C, dp, stream
+    lib.pca_hoist_pull.argtypes = [ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp]
+    lib.pca_hoist_pull.restype = ci
     # device, x, nrm, B, N, C, k, out, stream
     lib.pca_knn.argtypes = [ci, vp, vp, ci, ci, ci, ci, vp, vp]
     lib.pca_knn.restype = ci

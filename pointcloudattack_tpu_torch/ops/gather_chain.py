@@ -24,11 +24,15 @@ divided by ``K``.  The ball route takes ``xyz [B, N, 3]``, a radius and
 (``ops/ball_query.py``) around ``centers[..., :3]``, chosen inside the
 kernel and returned as ``idx``; its backward is the index route's on
 them.  The ``[B, G, K, C]`` rows never exist on the card: the kernel
-(``csrc/gather_chain.cu``) builds them in shared memory.
+(``csrc/gather_chain.cu``) builds them in shared memory.  The index
+route's max of one layer with no ``pre_act`` (DGCNN's EdgeConvs,
+CurveNet's initial LPFA) runs the layer once a point instead, and its
+backward without atomics: ``ops/gather_hoist.py``, which counts its own
+launches.
 
-On a CUDA tensor the forwards and the input gradients run the kernel; on
+On a CUDA tensor the forwards and the input gradients run the kernels; on
 a CPU tensor they run the plain PyTorch versions below.  A CUDA tensor the
-kernel does not take raises: nothing falls back.  ``LAUNCHES`` counts
+kernels do not take raises: nothing falls back.  ``LAUNCHES`` counts
 kernel launches.
 """
 
@@ -39,7 +43,7 @@ from typing import Sequence
 
 import torch
 
-from pointcloudattack_tpu_torch.ops import _build
+from pointcloudattack_tpu_torch.ops import _build, gather_hoist
 from pointcloudattack_tpu_torch.ops.ball_query import ball_r2, query_ball_point
 from pointcloudattack_tpu_torch.ops.chain_maxpool import Layer, _group, _ptr_array, act, act_bwd
 from pointcloudattack_tpu_torch.ops.gather import index_points
@@ -50,10 +54,10 @@ Layout = tuple  # of ("diff", lo, hi, ctr_lo) | ("pass", lo, hi) | ("center", lo
 _KINDS = {"diff": 0, "pass": 1, "center": 2}
 
 # Kernel launches since the last reset, by route and direction: the index
-# route's max ("fwd", "bwd") and mean ("mean_fwd", "mean_bwd"), and the
-# ball route's max ("ball_fwd", and "ball_bwd", the index route's backward
-# on its slots).  Bumped only where a kernel is launched, never by the plain
-# versions.
+# route's max of two or more layers or with pre_act ("fwd", "bwd") and its
+# mean ("mean_fwd", "mean_bwd"), and the ball route's max ("ball_fwd", and
+# "ball_bwd", the index route's backward on its slots).  Bumped only where
+# a kernel is launched, never by the plain versions.
 LAUNCHES = {"fwd": 0, "bwd": 0, "mean_fwd": 0, "mean_bwd": 0, "ball_fwd": 0, "ball_bwd": 0}
 
 
@@ -307,6 +311,8 @@ def _outputs(b, g, k, cl, tm, mean, device):
 
 
 def _fwd_kernel(src, centers, idx, layers, layout, slope: float = 0.0, pre_act: bool = False, mean: bool = False):
+    if not mean and gather_hoist.takes(layers, pre_act):
+        raise ValueError("gather_chain: a one-layer max without pre_act runs gather_hoist, not the row kernel")
     k = idx.shape[2]
     lib, dims, tm, shape, keep = _common(src, centers, idx, layers, layout, slope, k, False, mean)
     y, am, part_v, part_i = _outputs(idx.shape[0], idx.shape[1], k, dims[-1], tm, mean, src.device)
@@ -343,6 +349,8 @@ def _ball_fwd_kernel(src, centers, xyz, layers, layout, radius: float, nsample: 
 
 def _bwd_kernel(src, centers, idx, layers, layout, am, g, wts=None, slope: float = 0.0, pre_act: bool = False,
                 mean: bool = False, counter: str = "bwd"):
+    if not mean and gather_hoist.takes(layers, pre_act):
+        raise ValueError("gather_chain: a one-layer max without pre_act runs gather_hoist, not the row kernel")
     k = idx.shape[2]
     lib, dims, tm, shape, keep = _common(src, centers, idx, layers, layout, slope, k, True, mean)
     b, ng, _ = idx.shape
@@ -381,9 +389,12 @@ def _no_device(src):
 
 
 def gather_chain_fwd(src, centers, idx, layers, layout: Layout, slope: float = 0.0, pre_act: bool = False):
-    """The max forward ``(y, am)``: the kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    """The max forward ``(y, am)``: the kernels for CUDA tensors (one layer
+    without ``pre_act``: ``gather_hoist``'s), the plain version for CPU
+    tensors."""
     if src.is_cuda:
+        if gather_hoist.takes(layers, pre_act):
+            return gather_hoist.hoisted_fwd(src, centers, idx, layers[0], layout)
         return _fwd_kernel(src, centers, idx, layers, layout, slope, pre_act)
     if src.device.type == "cpu":
         return gather_chain_plain(src, centers, idx, layers, layout, slope, pre_act)
@@ -392,11 +403,14 @@ def gather_chain_fwd(src, centers, idx, layers, layout: Layout, slope: float = 0
 
 def gather_chain_bwd(src, centers, idx, layers, layout: Layout, am, g, wts=None, slope: float = 0.0,
                      pre_act: bool = False, counter: str = "bwd"):
-    """``(dsrc, dctr)`` of the max for ``g = dy * mul_L``: the kernel for
-    CUDA tensors (its launch counted under ``counter``), the plain version
-    for CPU tensors.  ``wts``, the layers' ``W^T [out, in]``, spares the
-    kernel a transposed copy when the caller holds them."""
+    """``(dsrc, dctr)`` of the max for ``g = dy * mul_L``: the kernels for
+    CUDA tensors (one layer without ``pre_act``: ``gather_hoist``'s, on any
+    route; else the row kernel, its launch counted under ``counter``), the
+    plain version for CPU tensors.  ``wts``, the layers' ``W^T [out, in]``,
+    spares the row kernel a transposed copy when the caller holds them."""
     if src.is_cuda:
+        if gather_hoist.takes(layers, pre_act):
+            return gather_hoist.hoisted_bwd(src, centers, idx, layers[0], layout, am, g)
         return _bwd_kernel(src, centers, idx, layers, layout, am, g, wts, slope, pre_act, False, counter)
     if src.device.type == "cpu":
         return gather_chain_bwd_plain(src, centers, idx, layers, layout, am, g, slope, pre_act)

@@ -90,12 +90,18 @@ def test_gather_mean_takes_duplicate_indices(cuda_device):
 @pytest.mark.parametrize("widths", [(32,), (64, 32)])
 def test_gather_max_slope_matches_plain_on_card(cuda_device, widths):
     """The initial LPFA's layout (center / pass / diff on the points
-    themselves) with LeakyReLU 0.2 between the layers."""
+    themselves) with LeakyReLU 0.2 between the layers: one layer runs the
+    one-layer route's kernels (ops/gather_hoist.py), two the row kernel."""
+    from pointcloudattack_tpu_torch.ops import gather_hoist as gh
+
     src, _, idx, _, dy = chip_smoke.lpfa_gather_case(11, 2, 1024, 3, 20, widths)
     layers = chip_smoke.seeded_layers(np.random.RandomState(12), (9, *widths), cuda_device)
     gc.reset_launches()
+    gh.reset_launches()
     chip_smoke.check_gather("slope 0.2", src, src, idx, layers, chip_smoke.CN_INITIAL_LAYOUT, dy, chip_smoke.CN_SLOPE)
-    assert gc.LAUNCHES == {**dict.fromkeys(gc.LAUNCHES, 0), "fwd": 1, "bwd": 1}
+    one = len(widths) == 1
+    assert gc.LAUNCHES == {**dict.fromkeys(gc.LAUNCHES, 0), "fwd": int(not one), "bwd": int(not one)}
+    assert gh.LAUNCHES == dict.fromkeys(gh.LAUNCHES, int(one))
 
 
 @pytest.mark.cuda
@@ -150,10 +156,12 @@ def test_ball_route_victim_equals_index_route(cuda_device, name):
 @pytest.mark.cuda
 def test_curvenet_gather_route_card_matches_cpu(cuda_device):
     """CurveNet (published widths, 10 classes) with the BatchNorm statistics
-    of 4 clouds on the gather route: its forward launches the gather kernel
-    (1 max, 8 means) and no group kernel; logits and the C&W loss gradient
+    of 4 clouds on the gather route: its forward launches the gather kernels
+    (the one-layer route's product and max once, the mean 8 times) and no
+    group kernel; logits and the C&W loss gradient
     on the card against the CPU, the CPU taking the card's choices and
     activation signs, within LOGP_ATOL and GRAD_CLEAN."""
+    from pointcloudattack_tpu_torch.ops import gather_hoist as gh
     from pointcloudattack_tpu_torch.ops import group_chain as gch
 
     clouds = torch.from_numpy((np.random.RandomState(3).randn(4, 1024, 3) * 0.5).astype(np.float32))
@@ -170,11 +178,13 @@ def test_curvenet_gather_route_card_matches_cpu(cuda_device):
     cpu = make_model_fn(models.make_model("CurveNet", 10, fused_gather=True), state, "cpu")
     x = clouds[:2].cuda()
     gc.reset_launches()
+    gh.reset_launches()
     gch.reset_launches()
     with torch.no_grad():
         logits = card(x)
     assert bool(torch.isfinite(logits).all())
-    assert gc.LAUNCHES == {**dict.fromkeys(gc.LAUNCHES, 0), "fwd": 1, "mean_fwd": 8}
+    assert gc.LAUNCHES == {**dict.fromkeys(gc.LAUNCHES, 0), "mean_fwd": 8}
+    assert gh.LAUNCHES == {**dict.fromkeys(gh.LAUNCHES, 0), "product_fwd": 1, "max_fwd": 1}
     assert all(n == 0 for n in gch.LAUNCHES.values())
     adv = x + 0.01 * torch.randn(x.shape, generator=torch.Generator(device="cuda").manual_seed(1), device="cuda")
     res = chip_smoke.grad_parity(card, cpu, adv, x, torch.tensor([0, 1], device="cuda"), gather=True)

@@ -1,7 +1,7 @@
 """The self-kNN and Chamfer row-min CUDA kernels against their plain
 PyTorch versions, on the card (pointcloudattack_tpu_torch/csrc/knn.cu and
-min_sqdist.cu), the gather + chain + max kernel at DGCNN's EdgeConv shapes,
-and DGCNN and the KNN attack on the card.
+min_sqdist.cu), the one-layer gather max (gather_hoist.cu) at DGCNN's
+EdgeConv shapes, and DGCNN and the KNN attack on the card.
 
 Every test here needs an NVIDIA GPU and nvcc, and skips elsewhere.  The
 file imports no JAX, so it runs on a machine without it:
@@ -10,8 +10,8 @@ file imports no JAX, so it runs on a machine without it:
 
 Shapes and checks come from ``chip_smoke.py``: kNN indices bit for bit,
 row mins and argmins bit for bit and ``dx`` bit for bit on rows with one
-nearest point (``check_knn``, ``check_chamfer``); the gather kernel under
-``check_gather``'s rules.  DGCNN's log-probs on the card against the CPU,
+nearest point (``check_knn``, ``check_chamfer``); the one-layer gather max
+under ``check_gather``'s rules.  DGCNN's log-probs on the card against the CPU,
 the CPU taking the card's kNN indices and max-pool picks, within
 ``LOGP_ATOL``.
 """
@@ -28,6 +28,7 @@ from pointcloudattack_tpu_torch.attacks.knn import KNNAttackConfig, build_knn_at
 from pointcloudattack_tpu_torch.ops import chain_maxpool as cm
 from pointcloudattack_tpu_torch.ops import chamfer
 from pointcloudattack_tpu_torch.ops import gather_chain as gc
+from pointcloudattack_tpu_torch.ops import gather_hoist as gh
 from pointcloudattack_tpu_torch.ops import knn as knn_mod
 from pointcloudattack_tpu_torch.utils.apply import make_model_fn
 
@@ -93,11 +94,14 @@ def test_min_rows_kernel_matches_plain_on_card(cuda_device, b, n, m, dup):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(chip_smoke.DGCNN_GATHER_SHAPES))
 def test_gather_kernel_at_dgcnn_shapes_on_card(cuda_device, name):
-    """K=20, G=N=1024, the center segment, one layer."""
+    """K=20, G=N=1024, the center segment, one layer: the one-layer route's
+    kernels, and no launch of the row kernel."""
     case = chip_smoke.gather_case(0, *chip_smoke.DGCNN_GATHER_SHAPES[name])
     gc.reset_launches()
+    gh.reset_launches()
     chip_smoke.check_gather(name, *case)
-    assert gc.LAUNCHES == {**dict.fromkeys(gc.LAUNCHES, 0), "fwd": 1, "bwd": 1}
+    assert all(n == 0 for n in gc.LAUNCHES.values())
+    assert gh.LAUNCHES == dict.fromkeys(gh.LAUNCHES, 1)
 
 
 @pytest.mark.cuda
@@ -108,10 +112,11 @@ def test_dgcnn_forward_on_card_matches_cpu(cuda_device):
     card_fn = make_model_fn(model, state, cuda_device)
     cpu_fn = make_model_fn(models.make_model("DGCNN", 40), state, "cpu")
     knn_mod.reset_launches()
-    gc.reset_launches()
+    gh.reset_launches()
     with chip_smoke.replay({**chip_smoke.knn_hooks(), **chip_smoke.pick_hooks()}) as stats:
         card = card_fn(x.to(cuda_device))
-        assert knn_mod.LAUNCHES["knn"] == 4 and gc.LAUNCHES["fwd"] == 4
+        # each EdgeConv's product and max, and again where the pick hook reads the argmax
+        assert knn_mod.LAUNCHES["knn"] == 4 and gh.LAUNCHES["product_fwd"] == 8 and gh.LAUNCHES["max_fwd"] == 8
         cpu = cpu_fn(x)
     diffs = [int(n.sum()) for n in stats["knn"]["other"]]  # index sets the CPU's own kNN would change
     assert len(diffs) == 4 and diffs[0] == 0  # the xyz stage: the same bits on both sides
