@@ -13,13 +13,18 @@ non-zero and prints no result):
 2. build      nvcc builds the kernels from this checkout's csrc/, one process
               per source; then, for comparison, one nvcc call builds them
               one after another into a scratch directory.
-3. kernels    the chain + max-pool kernel against its plain PyTorch version at
-              PointNet's spine shape (B=64, N=1024, 3 -> 64 -> 128 -> 1024) and
-              at a ragged N=1000; forward and backward times beside the plain
-              version's.  Then the PointNet++ kernels at every shape the SSG
-              and MSG paths give them (B=16, N=1024): FPS bit for bit and the
-              chain at the group-all widths (259 and 643 inputs, N=128), each
-              with its time, the plain version's and the bound.
+3. kernels    the chain + max-pool kernels against their plain PyTorch versions
+              at every shape PointNet's paths give them (3 -> 64 -> 128 -> 1024:
+              B=64 and B=8 at N=1024, a ragged N=1000, N=512): the forward y
+              and picks, the backward's lists stage bit for bit, its rows stage
+              and the whole backward, dx 0 on the rows that win no column, two
+              backwards bit-equal; then a hub, every row winning and ties.
+              Times beside the plain version's, the FP32 and the 3xTF32
+              bounds, and each kernel's device time under the profiler.  Then
+              the PointNet++ kernels at every shape the SSG and MSG paths give
+              them (B=16, N=1024): FPS bit for bit and the chain at the
+              group-all widths (259 and 643 inputs, N=128), checked and timed
+              as above.
 3a. kernels-ballq  the ball query + gather + chain + max kernel at every set
               abstraction of SSG and MSG (B=16, N=1024), at a ragged N=1000, at
               N=100 < K=128, with empty and overfull balls and on a cloud snapped
@@ -352,8 +357,27 @@ FPS_SHAPES = ((1024, 512), (512, 128))  # (N, npoint) of SSG's (and MSG's) two S
 GROUP_ALL = {"ssg_sa3": (259, 256, 512, 1024), "msg_sa3": (643, 256, 512, 1024)}
 
 # The least time the card could take: NVIDIA's H100 SXM data sheet, FP32
-# outside the tensor cores (the kernels run f32 FMAs) and HBM3 bandwidth.
-PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# outside the tensor cores (the kernels run f32 FMAs), dense TF32 on the
+# tensor cores (the chain's product stage: three TF32 products a 3xTF32
+# multiply-add) and HBM3 bandwidth.
+PEAK_FLOPS, PEAK_TF32, PEAK_BYTES = 67e12, 495e12, 3.35e12
+# Row 1 (the chain + max pool, ops/chain_maxpool.py) at every shape its
+# paths give it, (B, N, dims): PointNet's spine at C&W's and KNN's B=64,
+# GeoA3's B=8 (all three paths), a ragged N=1000, GeoA3's partial mode's
+# 512-point subsample; PointNet++'s last set abstraction is GROUP_ALL's
+CHAIN_SHAPES = {
+    "spine B=64": (64, 1024, SPINE), "spine B=8": (8, 1024, SPINE),
+    "spine B=8 N=1000": (8, 1000, SPINE), "spine B=8 N=512": (8, 512, SPINE),
+}
+# edge cases of the backward, (B, N, dims, case): a hub (row 17 wins every
+# column of cloud 0), every row winning (N=128 < C_L=1024), ties (each point
+# 4 times: the forward picks the lowest copy)
+CHAIN_EDGE_CASES = {
+    "hub": (4, 1024, SPINE, "hub"), "every row wins": (4, 128, (259, 256, 512, 1024), "every"),
+    "ties": (4, 1024, SPINE, "ties"),
+}
+# the backward's stages, launched once each by every chain_bwd call
+CHAIN_BWD_STAGES = ("chain_bwd_lists", "chain_bwd_rows")
 
 
 def log(msg: str) -> None:
@@ -447,7 +471,8 @@ def seeded_chain(seed, b, n, dims, device):
 
     rng = np.random.RandomState(seed)
     x = torch.from_numpy(rng.randn(b, n, dims[0]).astype(np.float32)).to(device)
-    layers = seeded_layers(rng, dims, device)
+    # each w as a PointMLP hands it over: the transposed view of an [out, in] weight
+    layers = [(w.t().contiguous().t(), *rest) for w, *rest in seeded_layers(rng, dims, device)]
     dy = torch.from_numpy(rng.randn(b, dims[-1]).astype(np.float32)).to(device)
     return x, layers, dy
 
@@ -495,11 +520,18 @@ def time_pairs(fns: dict, reps=20):
     return {k: sum(v) / len(v) for k, v in t.items()}
 
 
-def check_chain(cm, b, n, seed, dims=SPINE):
-    """Kernel against plain at one shape; returns (max |dy|, max |ddx|)."""
+def check_chain(cm, b, n, seed, dims=SPINE, case=None):
+    """Kernels against plain at one shape: y within Y_TOL and the same pick
+    in every clear column; the backward's lists bit for bit, its rows and
+    the whole backward within DX_TOL, exactly 0 on the rows that win no
+    column, two backwards bit-equal.  ``case`` edits the input or the
+    picks (CHAIN_EDGE_CASES).  Returns (max |dy|, max |ddx|, (x, layers,
+    idx_ref, g, winning rows))."""
     import torch
 
     x, layers, dy = seeded_chain(seed, b, n, dims, "cuda")
+    if case == "ties":
+        x = torch.cat([x[:, : n // 4]] * 4, dim=1).contiguous()
     y, idx = cm.chain_maxpool_fwd(x, layers)
     y_ref, idx_ref = cm.chain_maxpool_plain(x, layers)
     torch.cuda.synchronize()
@@ -508,23 +540,42 @@ def check_chain(cm, b, n, seed, dims=SPINE):
     wrong = (idx != idx_ref) & ~near
     if int(wrong.sum()):
         raise AssertionError(f"idx differs in {int(wrong.sum())} columns with a clear winner")
+    if case == "ties" and int(idx.max()) >= n // 4:
+        raise AssertionError("a tie between copies did not take the lowest row")
+    if case == "hub":
+        idx_ref[0] = 17
+    elif case == "every":
+        idx_ref = (torch.arange(dims[-1], device="cuda", dtype=torch.int32) % n).repeat(b, 1).contiguous()
     g = (dy * layers[-1][3]).contiguous()
+    lists = cm.winner_lists(idx_ref, n)
+    for name, got, want in zip(cm.Winners._fields, lists, cm.winner_lists_plain(idx_ref, n)):
+        if not torch.equal(got, want):
+            raise AssertionError(f"the lists stage's {name} differs from winner_lists_plain")
+    dx_rows = cm.winners_bwd(x, layers, lists, g)
     dx = cm.chain_maxpool_bwd(x, layers, idx_ref, g)
+    dx2 = cm.chain_maxpool_bwd(x, layers, idx_ref, g)
     dx_ref = cm.chain_maxpool_bwd_plain(x, layers, idx_ref, g)
     torch.cuda.synchronize()
+    torch.testing.assert_close(dx_rows, cm.winners_bwd_plain(x, layers, lists, g), **DX_TOL)
     torch.testing.assert_close(dx, dx_ref, **DX_TOL)
+    if not (torch.equal(dx, dx2) and torch.equal(dx, dx_rows)):
+        raise AssertionError("two backwards differ")
+    win_rows = winners(idx_ref, n)
+    if bool(dx[~win_rows].any()):
+        raise AssertionError("dx is not 0 on a row that wins no column")
     err_y = float((y - y_ref).abs().max())
     err_dx = float((dx - dx_ref).abs().max())
-    win = int(winners(idx_ref, n).sum())
-    log(f"[kernels] B={b} N={n} chain {dims}: y max|err| {err_y:.3e}; idx equal except "
-        f"{int((idx != idx_ref).sum())} of {int(near.sum())} near-tie columns "
-        f"(top-2 gap <= {Y_TOL['atol']}); dx max|err| {err_dx:.3e}; {win} of {b * n} rows win a column")
+    win = int(win_rows.sum())
+    log(f"[kernels] B={b} N={n} chain {dims}{f' ({case})' if case else ''}: y max|err| {err_y:.3e}; idx equal "
+        f"except {int((idx != cm.chain_maxpool_plain(x, layers)[1]).sum())} of {int(near.sum())} near-tie columns "
+        f"(top-2 gap <= {Y_TOL['atol']}); lists bit-equal; dx max|err| {err_dx:.3e}, 0 on the losing rows, two "
+        f"backwards bit-equal; {win} of {b * n} rows win a column")
     return err_y, err_dx, (x, layers, idx_ref, g, win)
 
 
 def chain_bound(b, n, dims, win=None):
-    """(bound_ms, bound_by) of the forward, or with ``win`` winning rows, of
-    the backward."""
+    """(bound_ms, bound_by) of the forward in FP32, or with ``win`` winning
+    rows, of the backward (FP32 FMAs)."""
     if win is not None:
         flops = chain_bwd_flops(win, b, dims)
         nbytes = 4.0 * (2 * b * n * dims[0] + 2 * b * dims[-1]) + 2 * param_bytes(dims)
@@ -534,28 +585,77 @@ def chain_bound(b, n, dims, win=None):
     return bound(flops, nbytes)
 
 
-def phase_kernels():
-    from pointcloudattack_tpu_torch.ops import chain_maxpool as cm
+def chain_tc_bound(b, n, dims):
+    """(bound_ms, bound_by) of the forward as the kernels compute it: the
+    last layer's three TF32 products over the tensor cores' rate plus the
+    hidden layers' FP32 FMAs, or the bytes if they take longer."""
+    t_ops = (3 * chain_flops(b * n, dims[-2:]) / PEAK_TF32 + chain_flops(b * n, dims[:-1]) / PEAK_FLOPS) * 1e3
+    t_bytes = (4.0 * (b * n * dims[0] + 2 * b * dims[-1]) + param_bytes(dims)) / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
-    err_y, err_dx, (x, layers, idx, g, win) = check_chain(cm, B, N, seed=0)
-    check_chain(cm, 8, 1000, seed=1)  # ragged tail: 1000 is no multiple of the row tile
 
-    # W^T made once, as the autograd path takes it from the module's weight
-    wts = [layer[0].t().contiguous() for layer in layers]
+def device_ms(fn, reps=10):
+    """Device time of each kernel ``fn`` launches (once a call), under
+    torch.profiler: {kernel name: mean ms a launch}.  At these sizes a
+    CUDA-event time of back-to-back calls is the wrappers' host time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    sums: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "").split("(")[0].replace("void ", "")
+            t, c = sums.get(name, (0.0, 0))
+            sums[name] = (t + (e.time_range.end - e.time_range.start) / 1e3, c + 1)
+    return {name: t / c for name, (t, c) in sums.items()}
+
+
+def time_chain(cm, label, x, layers, idx, g, win):
+    """Row 1 at one shape: the wrappers' times beside the plain versions'
+    (time_pairs), both bounds of the forward and the backward's, and each
+    kernel's device time; logs them and returns them."""
+    b, n, _ = x.shape
+    dims = (x.shape[2], *(layer[0].shape[1] for layer in layers))
     ms = time_pairs({
         "fwd_plain": lambda: cm.chain_maxpool_plain(x, layers),
         "fwd": lambda: cm.chain_maxpool_fwd(x, layers),
         "bwd_plain": lambda: cm.chain_maxpool_bwd_plain(x, layers, idx, g),
-        "bwd": lambda: cm.chain_maxpool_bwd(x, layers, idx, g, wts),
+        "bwd": lambda: cm.chain_maxpool_bwd(x, layers, idx, g),
     })
-    flops, flops_bwd = chain_flops(B * N, SPINE), chain_bwd_flops(win, B, SPINE)
-    bf, bb = chain_bound(B, N, SPINE), chain_bound(B, N, SPINE, win)
-    log(f"[kernels] B={B} N={N}: forward kernel {ms['fwd']:.4f} ms, plain {ms['fwd_plain']:.4f} ms "
-        f"(kernel {flops / ms['fwd'] / 1e9:.2f} TFLOP/s f32; {flops / 1e9:.3f} GFLOP, bound {bf[0]:.4f} ms "
-        f"by {bf[1]}); backward kernel {ms['bwd']:.4f} ms, plain {ms['bwd_plain']:.4f} ms "
-        f"({flops_bwd / 1e9:.3f} GFLOP over the {win} winning rows, bound {bb[0]:.4f} ms by {bb[1]})")
-    return {"err_y": err_y, "err_dx": err_dx, **ms, "rows_fwd": B * N, "rows_bwd": win,
-            "bound_fwd": bf, "bound_bwd": bb}
+    dev_f = device_ms(lambda: cm.chain_maxpool_fwd(x, layers))
+    dev_b = device_ms(lambda: cm.chain_maxpool_bwd(x, layers, idx, g))
+    bf, bt, bb = chain_bound(b, n, dims), chain_tc_bound(b, n, dims), chain_bound(b, n, dims, win)
+    flops = chain_flops(b * n, dims)
+    log(f"[kernels] chain {label} [{b},{n},{dims[0]}] {dims}: forward {ms['fwd']:.4f} ms (plain "
+        f"{ms['fwd_plain']:.4f}; {flops / ms['fwd'] / 1e9:.2f} TFLOP/s of f32 work; bound {bt[0]:.4f} ms by "
+        f"{bt[1]} on the tensor cores' 3xTF32, {bf[0]:.4f} in FP32), device "
+        + ", ".join(f"{k} {v:.4f}" for k, v in dev_f.items())
+        + f"; backward {ms['bwd']:.4f} ms (plain {ms['bwd_plain']:.4f}, bound {bb[0]:.4f} by {bb[1]} over the "
+        f"{win} winning rows), device " + ", ".join(f"{k} {v:.4f}" for k, v in dev_b.items()))
+    return {"fwd": ms["fwd"], "fwd_plain": ms["fwd_plain"], "bwd": ms["bwd"], "bwd_plain": ms["bwd_plain"],
+            "bound_fwd": bt, "bound_fwd_fp32": bf, "bound_bwd": bb, "device_fwd": dev_f, "device_bwd": dev_b,
+            "rows_fwd": b * n, "rows_bwd": win}
+
+
+def phase_kernels():
+    """Row 1 at PointNet's shapes (CHAIN_SHAPES) and its edge cases; times
+    at the spine (B=64, B=8) and the ragged N=1000."""
+    from pointcloudattack_tpu_torch.ops import chain_maxpool as cm
+
+    out = {}
+    for i, (label, (b, n, dims)) in enumerate(CHAIN_SHAPES.items()):
+        err_y, err_dx, (x, layers, idx, g, win) = check_chain(cm, b, n, seed=i, dims=dims)
+        if label != "spine B=8 N=512":
+            out[label] = {"err_y": err_y, "err_dx": err_dx, **time_chain(cm, label, x, layers, idx, g, win)}
+    for i, (label, (b, n, dims, case)) in enumerate(CHAIN_EDGE_CASES.items()):
+        check_chain(cm, b, n, seed=40 + i, dims=dims, case=case)
+    return out
 
 
 def gather_case(seed, n, npoint, radius, k, feat, kind, widths, how=None):
@@ -1282,20 +1382,11 @@ def phase_kernels_pn2():
         log(f"[kernels] fps [{PN2_B},{n},3] -> {npoint}: bit-equal to the plain version (also with "
             f"every point 4 times); kernel {ms['kernel']:.4f} ms ({ms['kernel'] * 1e3 / npoint:.3f} us "
             f"per step), plain {ms['plain']:.4f} ms, bound {t:.5f} ms by {by}")
+    chain = {}
     for i, (name, dims) in enumerate(GROUP_ALL.items()):
         err_y, err_dx, (x, layers, idx, g, win) = check_chain(cm, PN2_B, 128, seed=30 + i, dims=dims)
-        wts = [layer[0].t().contiguous() for layer in layers]
-        ms = time_pairs({
-            "fwd_plain": lambda: cm.chain_maxpool_plain(x, layers),
-            "fwd": lambda: cm.chain_maxpool_fwd(x, layers),
-            "bwd_plain": lambda: cm.chain_maxpool_bwd_plain(x, layers, idx, g),
-            "bwd": lambda: cm.chain_maxpool_bwd(x, layers, idx, g, wts),
-        })
-        bf, bb = chain_bound(PN2_B, 128, dims), chain_bound(PN2_B, 128, dims, win)
-        log(f"[kernels] chain {name} [{PN2_B},128,{dims[0]}] {dims}: forward {ms['fwd']:.4f} ms (plain "
-            f"{ms['fwd_plain']:.4f}, bound {bf[0]:.4f} by {bf[1]}), backward {ms['bwd']:.4f} ms (plain "
-            f"{ms['bwd_plain']:.4f}, bound {bb[0]:.4f} by {bb[1]} over the {win} winning rows)")
-    return rec
+        chain[name] = {"err_y": err_y, "err_dx": err_dx, **time_chain(cm, name, x, layers, idx, g, win)}
+    return rec, chain
 
 
 # BatchNorm updates in one forward, by model and module name, where not 1:
@@ -1390,7 +1481,8 @@ def _counters():
             "fps": (fps_mod, "fps"), "gather_fwd": (gc, "fwd"), "gather_bwd": (gc, "bwd"),
             "gather_mean_fwd": (gc, "mean_fwd"), "gather_mean_bwd": (gc, "mean_bwd"), "ball_fwd": (gc, "ball_fwd"),
             "ball_bwd": (gc, "ball_bwd"),
-            "chain_fwd": (cm, "fwd"), "chain_bwd": (cm, "bwd"), "knn": (knn_mod, "knn"),
+            "chain_fwd": (cm, "fwd"), "chain_bwd": (cm, "bwd"), "chain_bwd_lists": (cm, "bwd_lists"),
+            "chain_bwd_rows": (cm, "bwd_rows"), "knn": (knn_mod, "knn"),
             "min_rows": (chamfer, "min_rows"), "both_fwd": (chamfer, "both_fwd"), "both_bwd": (chamfer, "both_bwd"),
             "kappa_fwd": (kappa, "kappa_fwd"), "kappa_bwd": (kappa, "kappa_bwd"),
             "kappa_idx_fwd": (kappa, "kappa_idx_fwd"), "kappa_idx_bwd": (kappa, "kappa_idx_bwd"),
@@ -1450,6 +1542,8 @@ def counted_and_timed(tag, what, attack, data, target, expect, check, reps=3):
     res, t_warm = run(1)
     launches = read_all()
     want = {k: expect.get(k, 0) for k in launches}
+    for k in CHAIN_BWD_STAGES:  # each chain backward launches both of its stages
+        want[k] = expect.get("chain_bwd", 0)
     log(f"[{tag}] kernel launches during the attack: {launches} (expected {want})")
     if launches != want:
         raise AssertionError(f"{tag}: launch counts {launches} != expected {want}")
@@ -1613,6 +1707,23 @@ def pool_at(z, pick, axis):
     return (y, pick), top2_margin(z, axis), z.detach().amax(axis) - y.detach()
 
 
+def hidden_sides(rows, layers, slope):
+    """The last hidden activation of a chain over ``rows [B, G, K, C0]`` on
+    the card, a layer at a time (``kernel_rows``), and the sides of 0 of
+    its hidden pre-activations, one ``[B, G, K, C_l]`` bool a hidden layer."""
+    import torch
+
+    from pointcloudattack_tpu_torch.ops.chain_maxpool import act
+
+    with torch.no_grad():
+        h, sides = rows.detach(), []
+        for layer in layers[:-1]:
+            z = kernel_rows(h, [layer], slope)
+            sides.append(z > 0)
+            h = act(z, slope)
+    return h, sides
+
+
 def card_chain(rows, layers, slope, y, dim):
     """A fused chain + max's choices on the card, read from the group kernel
     over groups of one row, a layer at a time (``kernel_rows``: the same
@@ -1624,14 +1735,8 @@ def card_chain(rows, layers, slope, y, dim):
     layer: ``(picks, *sides)``."""
     import torch
 
-    from pointcloudattack_tpu_torch.ops.chain_maxpool import act
-
     with torch.no_grad():
-        h, sides = rows.detach(), []
-        for layer in layers[:-1]:
-            z = kernel_rows(h, [layer], slope)
-            sides.append(z > 0)
-            h = act(z, slope)
+        h, sides = hidden_sides(rows, layers, slope)
         z = kernel_rows(h, [layers[-1]], slope)
         z = z[:, :, 0] if dim == 1 else z
         yd = y.detach()
@@ -1668,9 +1773,10 @@ def pick_hooks():
     ``PointMLP``), the gather + chain + max ("gather_dgcnn": DGCNN's
     EdgeConvs; "gather_curvenet": CurveNet's initial LPFA on its gather
     route) and its ball route ("ball": PointNet++'s set abstractions).  Each choice is every pooled column's winning row and the
-    sides of 0 of the chain's hidden pre-activations (``card_chain``; for a
-    gather of one layer, which has none, the argmax of the one-layer
-    route's forward run again, which must give the op's bits), and for the
+    sides of 0 of the chain's hidden pre-activations (``card_chain``; for
+    the chain + max over points, whose last layer runs on the tensor cores,
+    and for a gather of one layer, which has no hidden layer, the argmax of
+    the op's forward run again, which must give the op's bits), and for the
     ball route its slots, which must be the CPU's own.  The CPU
     runs the chain in plain differentiable ops on the card's choices, so
     its backward takes them too.  A column whose two best rows, or a hidden
@@ -1681,6 +1787,7 @@ def pick_hooks():
     from pointcloudattack_tpu_torch.models import common
     from pointcloudattack_tpu_torch.models import curvenet as cn
     from pointcloudattack_tpu_torch.models import dgcnn
+    from pointcloudattack_tpu_torch.ops import chain_maxpool as cm
     from pointcloudattack_tpu_torch.ops import gather_chain as gc
     from pointcloudattack_tpu_torch.ops.ball_query import query_ball_point
 
@@ -1690,8 +1797,19 @@ def pick_hooks():
         return y, torch.cat([gap.reshape(b, -1), *gaps], 1), torch.cat([off.reshape(b, -1), *offs], 1)
 
     def chain_card(orig, x, layers):
+        """Row 1's picks from its own forward run again (its last layer runs
+        on the tensor cores, no group kernel's product), which must give the
+        op's bits; the hidden sides from ``hidden_sides``, the forward's
+        f32 arithmetic."""
         y = orig(x, layers)
-        return y, card_chain(x[:, :, None, :], layers, 0.0, y, 1)
+        with torch.no_grad():
+            y2, pick = cm.chain_maxpool_fwd(x.detach().contiguous(), [tuple(t.detach() for t in layer)
+                                                                     for layer in layers])
+            if not torch.equal(y2, y.detach()):
+                raise AssertionError(f"the chain's forward gave other bits the second time in "
+                                     f"{int((y2 != y.detach()).sum())} of {y.numel()} outputs")
+            _, sides = hidden_sides(x[:, :, None, :], layers, 0.0)
+        return y, (pick, *sides)
 
     def chain(orig, choice, x, layers):
         pick, *sides = choice
@@ -2175,7 +2293,8 @@ def phase_profile(tag, model_fn, data, target, attack=None, what="CW 1x10"):
         t, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.end - e.time_range.start, n + 1)
     total = sum(t for t, _ in by_name.values())
-    log(f"[{tag}] {what} B={data.shape[0]} under the profiler: wall {wall * 1e3:.3f} ms; "
+    copies = sum(n for name, (_, n) in by_name.items() if "copy" in name.lower())
+    log(f"[{tag}] {what} B={data.shape[0]} under the profiler: {copies} copy kernels; wall {wall * 1e3:.3f} ms; "
         f"{len(kernels)} kernels, {total / 1e3:.3f} ms of kernel time; device busy "
         f"{busy / 1e3:.3f} ms of the {window / 1e3:.3f} ms kernel window "
         f"(idle share {1 - busy / window if window else float('nan'):.3f})")
@@ -3414,7 +3533,7 @@ def main():
 
     phase_build()
     k = phase_kernels()
-    pn2 = phase_kernels_pn2()
+    pn2, sa3 = phase_kernels_pn2()
     with phase_clock("kernels-ballq"):
         ballq = phase_kernels_ballq()
     clouds, labels = synthetic_data(NUM_CLASSES, 2, 0, "cuda")
@@ -3528,13 +3647,26 @@ def main():
     gather_at = {"mean_fwd": cn_at["mean"] + ", gather route (pre_act, LeakyReLU 0.2)",
                  "mean_bwd": cn_at["mean"] + ", gather route (pre_act, LeakyReLU 0.2)"}
 
+    spine = k["spine B=64"]
+    chain_shapes = {**k, **sa3}
+
+    def chain_extra(d):
+        """Row 1's other shapes, its forward's FP32 bound beside the
+        tensor-core one, and each kernel's device time under the profiler."""
+        return {"bound_fp32_ms": spine["bound_fwd_fp32"][0] if d == "fwd" else None,
+                "device_ms": spine[f"device_{d}"],
+                "shapes": {label: {"ms": r[d], "plain_ms": r[f"{d}_plain"], "bound_ms": r[f"bound_{d}"][0],
+                                   "bound_fp32_ms": r["bound_fwd_fp32"][0] if d == "fwd" else None,
+                                   "device_ms": r[f"device_{d}"], "max_abs_err": r["err_y" if d == "fwd" else "err_dx"]}
+                           for label, r in chain_shapes.items()}}
+
     record = {"kernels": [
-        entry("chain_maxpool_fwd", "chain_fwd", KERNEL_SRC, TPU_FWD, launches["fwd"], k["err_y"],
-              k["fwd"], k["fwd_plain"], k["bound_fwd"], "PointNet spine B=64 N=1024 3-64-128-1024",
-              k["rows_fwd"]),
-        entry("chain_maxpool_bwd", "chain_bwd", KERNEL_SRC, TPU_BWD, launches["bwd"], k["err_dx"],
-              k["bwd"], k["bwd_plain"], k["bound_bwd"], "PointNet spine B=64 N=1024 3-64-128-1024",
-              k["rows_bwd"]),
+        entry("chain_maxpool_fwd", "chain_fwd", KERNEL_SRC, TPU_FWD, launches["fwd"], spine["err_y"],
+              spine["fwd"], spine["fwd_plain"], spine["bound_fwd"], "PointNet spine B=64 N=1024 3-64-128-1024",
+              spine["rows_fwd"], **chain_extra("fwd")),
+        entry("chain_maxpool_bwd", "chain_bwd", KERNEL_SRC, TPU_BWD, launches["bwd"], spine["err_dx"],
+              spine["bwd"], spine["bwd_plain"], spine["bound_bwd"], "PointNet spine B=64 N=1024 3-64-128-1024",
+              spine["rows_bwd"], **chain_extra("bwd")),
         entry("fps", "fps", FPS_SRC, TPU_FPS, ssg[4]["fps"], pn2["fps"]["err"], pn2["fps"]["ms"],
               pn2["fps"]["plain_ms"], summed_bound(pn2["fps"]), ssg_at),
         *(entry(f"gather_hoist_{key}", f"hoist_{key}", HOIST_SRC, TPU_GATHER_FWD if key.endswith("fwd") else

@@ -112,18 +112,22 @@ def _compile(out: Path) -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.pca_chain_smem.argtypes = [ci, vp, ci, ci]
-    lib.pca_chain_smem.restype = ctypes.c_size_t
     lib.pca_chain_max_smem.argtypes = []
     lib.pca_chain_max_smem.restype = ctypes.c_size_t
     lib.pca_error_string.argtypes = [ci]
     lib.pca_error_string.restype = ctypes.c_char_p
-    # device, x, B, N, L, dims, params, part_v, part_i, y, idx, tm, stream
-    lib.pca_chain_fwd.argtypes = [ci, vp, ci, ci, ci, vp, vp, vp, vp, vp, vp, ci, vp]
+    # device, B, N, L, dims
+    lib.pca_chain_fwd_workspace.argtypes = [ci, ci, ci, ci, vp]
+    lib.pca_chain_fwd_workspace.restype = ctypes.c_size_t
+    # device, x, B, N, L, dims, params, ws, y, idx, stream
+    lib.pca_chain_fwd.argtypes = [ci, vp, ci, ci, ci, vp, vp, vp, vp, vp, vp]
     lib.pca_chain_fwd.restype = ci
-    # device, x, B, N, L, dims, params, wts, idx, g, dx, tm, stream
-    lib.pca_chain_bwd.argtypes = [ci, vp, ci, ci, ci, vp, vp, vp, vp, vp, vp, ci, vp]
-    lib.pca_chain_bwd.restype = ci
+    # device, idx, B, N, CL, counts, off, wrow, cstart, cols, stream
+    lib.pca_chain_lists.argtypes = [ci, vp, ci, ci, ci, vp, vp, vp, vp, vp, vp]
+    lib.pca_chain_lists.restype = ci
+    # device, x, B, N, L, dims, params, off, wrow, cstart, cols, g, dx, stream
+    lib.pca_chain_rows.argtypes = [ci, vp, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp]
+    lib.pca_chain_rows.restype = ci
     # device, xyz, start, B, N, npoint, out, stream
     lib.pca_fps.argtypes = [ci, vp, vp, ci, ci, ci, vp, vp]
     lib.pca_fps.restype = ci

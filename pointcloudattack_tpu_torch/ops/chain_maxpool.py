@@ -14,15 +14,20 @@ attaining it.  A trailing ReLU commutes with the max, so callers apply it
 to ``y``.
 
 On a CUDA tensor the forward and the input gradient run the hand-written
-Hopper kernel of ``csrc/chain_maxpool.cu``; on a CPU tensor they run the
-plain PyTorch versions below.  A CUDA tensor the kernel does not take
-raises: nothing falls back.  ``LAUNCHES`` counts kernel launches.
+Hopper kernels of ``csrc/chain_maxpool.cu``; on a CPU tensor they run the
+plain PyTorch versions below.  The backward has two stages, each with its
+plain version: ``winner_lists`` (per cloud, the rows that win a column and
+the columns each one won) and ``winners_bwd`` (the gradient of those rows;
+every other row's is 0).  The kernels read each ``w`` as the ``[out, in]``
+matrix a module holds, so the transposed view of a module's weight costs
+no copy.  A CUDA tensor the kernels do not take raises: nothing falls
+back.  ``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -32,7 +37,9 @@ Layer = Sequence[torch.Tensor]  # (w, b, mean, mul, beta)
 
 # Kernel launches since the last reset, by direction.  Bumped only where a
 # kernel is launched, never by the plain versions.
-LAUNCHES = {"fwd": 0, "bwd": 0}
+# "fwd" and "bwd" once for each call of the forward and the backward, the
+# backward's stages once each too.
+LAUNCHES = {"fwd": 0, "bwd": 0, "bwd_lists": 0, "bwd_rows": 0}
 
 
 def reset_launches() -> None:
@@ -108,13 +115,85 @@ def chain_maxpool_bwd_plain(
         return dh
 
 
+class Winners(NamedTuple):
+    """The backward's lists, per cloud of ``idx [B, C_L]`` over ``n`` rows
+    (``W = min(n, C_L)``), all int32: ``off [B + 1]``, the winning rows
+    before each cloud (``off[B]`` all of them); ``wrow [B, W]``, each
+    cloud's winning rows, ascending, then -1; ``cstart [B, W]``, where each
+    winner's columns start in ``cols`` flattened, then -1; ``cols [B,
+    C_L]``, each cloud's columns sorted stably by winning row."""
+
+    off: torch.Tensor
+    wrow: torch.Tensor
+    cstart: torch.Tensor
+    cols: torch.Tensor
+
+
+def winner_lists_plain(idx: torch.Tensor, n: int) -> Winners:
+    """Plain lists stage: a stable sort of each cloud's columns by row."""
+    b, cl = idx.shape
+    idx64 = idx.long()
+    cols = torch.sort(idx64, dim=1, stable=True).indices
+    hist = torch.zeros((b, n), dtype=torch.int64, device=idx.device).scatter_add_(1, idx64, torch.ones_like(idx64))
+    win = hist > 0
+    off = torch.zeros(b + 1, dtype=torch.int64, device=idx.device)
+    off[1:] = win.sum(1).cumsum(0)
+    rank = win.cumsum(1) - 1
+    start = hist.cumsum(1) - hist + torch.arange(b, device=idx.device)[:, None] * cl
+    wrow = torch.full((b, min(n, cl)), -1, dtype=torch.int64, device=idx.device)
+    cstart = wrow.clone()
+    bi, rows = win.nonzero(as_tuple=True)
+    wrow[bi, rank[bi, rows]] = rows
+    cstart[bi, rank[bi, rows]] = start[bi, rows]
+    return Winners(off.int(), wrow.int(), cstart.int(), cols.int())
+
+
+def _rows_mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` for a subset of a product's rows, with the bits those rows
+    get in the whole product (as the tests hold, at the chains' widths):
+    under 16 rows MKL takes other kernels, which sum in another order, so
+    a short ``a`` runs padded with zero rows."""
+    m = a.shape[0]
+    if m >= 16:
+        return a @ w
+    return (torch.cat([a, a.new_zeros((16 - m, a.shape[1]))]) @ w)[:m]
+
+
+def winners_bwd_plain(x: torch.Tensor, layers: Sequence[Layer], lists: Winners, g: torch.Tensor) -> torch.Tensor:
+    """Plain rows stage: ``chain_maxpool_bwd_plain``'s arithmetic on the
+    listed rows only, scattered into zeros (the same bits)."""
+    with torch.no_grad():
+        b, n, c0 = x.shape
+        cl = g.shape[1]
+        bi, slot = (lists.wrow >= 0).nonzero(as_tuple=True)  # the packed order
+        rows = lists.wrow[bi, slot].long()
+        h, hs = x.float()[bi, rows], []
+        for w, b_, mean, mul, beta in layers[:-1]:
+            h = act((_rows_mm(h, w) + b_ - mean) * mul + beta)
+            hs.append(h)
+        w_last = layers[-1][0].float()
+        entry = torch.arange(b * cl, device=x.device)
+        owner = torch.searchsorted(lists.cstart[bi, slot].long(), entry, right=True) - 1
+        col = lists.cols.reshape(-1).long()
+        contrib = g.float()[entry // cl, col][:, None] * w_last.t()[col]  # [B * C_L, Cm]
+        dh = x.new_zeros((rows.numel(), w_last.shape[0]), dtype=torch.float32).scatter_add_(
+            0, owner[:, None].expand_as(contrib), contrib
+        )
+        for i in range(len(layers) - 2, -1, -1):
+            c = act_bwd(dh, hs[i]) * layers[i][3]
+            dh = _rows_mm(c, layers[i][0].float().t())
+        dx = x.new_zeros((b, n, c0), dtype=torch.float32)
+        dx[bi, rows] = dh
+        return dx
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
 
 def _check_cuda(x: torch.Tensor, layers: Sequence[Layer]) -> list[int]:
-    """Validate what the kernel takes; returns dims [C0, C1, ..., C_L]."""
+    """Validate what the kernels take; returns dims [C0, C1, ..., C_L]."""
     if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
         raise ValueError(
             "chain_maxpool kernel takes a contiguous float32 [B, N, C0] "
@@ -131,7 +210,6 @@ def _check_cuda(x: torch.Tensor, layers: Sequence[Layer]) -> list[int]:
                 f"layer {i}: weight {tuple(w.shape)} does not take width {dims[-1]}"
             )
         dims.append(w.shape[1])
-        # w may have any strides: the wrappers take the layout each kernel reads
         for t in (w, *vecs):
             if t.device != x.device or t.dtype != torch.float32:
                 raise ValueError(
@@ -152,109 +230,156 @@ def _check_cuda(x: torch.Tensor, layers: Sequence[Layer]) -> list[int]:
     return dims
 
 
-def _pick_tm(lib: ctypes.CDLL, dims_arr, num_layers: int, bwd: bool) -> int:
-    """Rows per thread: the largest whose shared memory fits one block."""
-    cap = lib.pca_chain_max_smem()
-    for tm in (8, 4, 2):
-        if lib.pca_chain_smem(num_layers, ctypes.cast(dims_arr, ctypes.c_void_p), tm, int(bwd)) <= cap:
-            return tm
-    raise ValueError("chain_maxpool kernel: the chain's widths need too much shared memory")
+def _check_cotangent(x: torch.Tensor, dims: list[int], name: str, t: torch.Tensor, dtype) -> None:
+    if (t.device != x.device or t.dtype != dtype or not t.is_contiguous()
+            or tuple(t.shape) != (x.shape[0], dims[-1])):
+        raise ValueError(
+            f"chain_maxpool backward: {name} must be contiguous {dtype} "
+            f"[{x.shape[0]}, {dims[-1]}] on {x.device}, got {t.dtype} "
+            f"{tuple(t.shape)} on {t.device}"
+        )
 
 
 def _ptr_array(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
+def _params(layers: Sequence[Layer]):
+    """(pointer array, tensors to keep alive): per layer ``w`` as ``[out,
+    in]`` row-major, then b, mean, mul, beta.  A transposed view of a
+    module's weight is that already; any other ``w`` is copied."""
+    keep = []
+    for w, *vecs in layers:
+        wt = w.t()
+        keep += [wt if wt.is_contiguous() else wt.contiguous(), *vecs]
+    return _ptr_array(keep), keep
+
+
+def _stream(device: torch.device) -> int:
+    """The current stream of ``device``; each C entry point sets its device itself."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# The forward's scratch (the hidden stage's output, the partial maxima), one
+# buffer a device and stream, grown when a call needs more: kernels on one
+# stream run in order, so a call may reuse what the last one used.  A fresh
+# 36 MB buffer a call at PointNet's spine cost C&W on PointNet 10-20% of its
+# time on an H100.
+_WORKSPACE: dict = {}
+
+
+def _workspace(device: torch.device, nbytes: int) -> torch.Tensor:
+    key = (device.index, _stream(device))
+    buf = _WORKSPACE.get(key)
+    if buf is None or buf.numel() < nbytes:
+        buf = _WORKSPACE[key] = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    return buf
+
+
 def _fwd_kernel(x: torch.Tensor, layers: Sequence[Layer]):
     dims = _check_cuda(x, layers)
     lib = _build.load_library()
-    num_layers = len(layers)
-    dims_arr = (ctypes.c_int * len(dims))(*dims)
-    tm = _pick_tm(lib, dims_arr, num_layers, bwd=False)
     b, n, _ = x.shape
-    cl = dims[-1]
-    ntiles = -(-n // (8 * tm))
-    kw = dict(device=x.device)
-    part_v = torch.empty((b, ntiles, cl), dtype=torch.float32, **kw)
-    part_i = torch.empty((b, ntiles, cl), dtype=torch.int32, **kw)
-    y = torch.empty((b, cl), dtype=torch.float32, **kw)
-    idx = torch.empty((b, cl), dtype=torch.int32, **kw)
-    # w [in, out] row-major; a no-op for a contiguous w
-    ws = [layer[0].contiguous() for layer in layers]
-    params = _ptr_array([t for w, layer in zip(ws, layers) for t in (w, *layer[1:])])
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.pca_chain_fwd(
-            x.device.index, x.data_ptr(), b, n, num_layers,
-            ctypes.cast(dims_arr, ctypes.c_void_p),
-            ctypes.cast(params, ctypes.c_void_p),
-            part_v.data_ptr(), part_i.data_ptr(), y.data_ptr(), idx.data_ptr(),
-            tm, stream,
-        )
+    dims_arr = (ctypes.c_int * len(dims))(*dims)
+    dims_p = ctypes.cast(dims_arr, ctypes.c_void_p)
+    dev = x.device.index
+    nbytes = lib.pca_chain_fwd_workspace(dev, b, n, len(layers), dims_p)
+    if not nbytes:
+        raise ValueError(f"chain_maxpool kernel: the chain {dims} needs too much shared memory")
+    ws = _workspace(x.device, nbytes)
+    y = torch.empty((b, dims[-1]), dtype=torch.float32, device=x.device)
+    idx = torch.empty((b, dims[-1]), dtype=torch.int32, device=x.device)
+    params, _keep = _params(layers)
+    rc = lib.pca_chain_fwd(dev, x.data_ptr(), b, n, len(layers), dims_p, ctypes.cast(params, ctypes.c_void_p),
+                           ws.data_ptr(), y.data_ptr(), idx.data_ptr(), _stream(x.device))
     _build.check(lib, rc, "chain_maxpool forward launch")
     LAUNCHES["fwd"] += 1
     return y, idx
 
 
-def _bwd_kernel(x, layers, idx, g, wts=None):
-    dims = _check_cuda(x, layers)
-    b, n, c0 = x.shape
-    for name, t, dt in (("idx", idx, torch.int32), ("g", g, torch.float32)):
-        if (t.device != x.device or t.dtype != dt or not t.is_contiguous()
-                or tuple(t.shape) != (b, dims[-1])):
-            raise ValueError(
-                f"chain_maxpool backward: {name} must be contiguous {dt} "
-                f"[{b}, {dims[-1]}] on {x.device}, got {t.dtype} "
-                f"{tuple(t.shape)} on {t.device}"
-            )
+def _lists_kernel(idx: torch.Tensor, n: int) -> Winners:
     lib = _build.load_library()
-    num_layers = len(layers)
+    b, cl = idx.shape
+    wcap = min(n, cl)
+    buf = torch.empty(2 * (b + 1) + 2 * b * wcap + b * cl, dtype=torch.int32, device=idx.device)
+    counts, off, wrow, cstart, cols = buf.split([b + 1, b + 1, b * wcap, b * wcap, b * cl])
+    rc = lib.pca_chain_lists(idx.device.index, idx.data_ptr(), b, n, cl, counts.data_ptr(), off.data_ptr(),
+                             wrow.data_ptr(), cstart.data_ptr(), cols.data_ptr(), _stream(idx.device))
+    _build.check(lib, rc, "chain_maxpool lists launch")
+    LAUNCHES["bwd_lists"] += 1
+    return Winners(off, wrow.view(b, wcap), cstart.view(b, wcap), cols.view(b, cl))
+
+
+def _rows_kernel(x: torch.Tensor, layers: Sequence[Layer], dims: list[int], lists: Winners, g: torch.Tensor):
+    lib = _build.load_library()
+    b, n, _ = x.shape
     dims_arr = (ctypes.c_int * len(dims))(*dims)
-    tm = _pick_tm(lib, dims_arr, num_layers, bwd=True)
-    # the recompute reads w [in, out] and the backward W^T [out, in], both
-    # row-major; each is a no-op when the tensor is already in that layout
-    ws = [layer[0].contiguous() for layer in layers]
-    if wts is None:
-        wts = [layer[0].t() for layer in layers]
-    wts = [wt.contiguous() for wt in wts]
-    if [tuple(wt.shape) for wt in wts] != [tuple(w.t().shape) for w in ws]:
-        raise ValueError("chain_maxpool backward: wts must be the layers' W^T")
-    dx = torch.empty((b, n, c0), dtype=torch.float32, device=x.device)
-    params = _ptr_array([t for w, layer in zip(ws, layers) for t in (w, *layer[1:])])
-    wt_arr = _ptr_array(wts)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.pca_chain_bwd(
-            x.device.index, x.data_ptr(), b, n, num_layers,
-            ctypes.cast(dims_arr, ctypes.c_void_p),
-            ctypes.cast(params, ctypes.c_void_p),
-            ctypes.cast(wt_arr, ctypes.c_void_p),
-            idx.data_ptr(), g.data_ptr(), dx.data_ptr(), tm, stream,
-        )
-    _build.check(lib, rc, "chain_maxpool backward launch")
+    params, _keep = _params(layers)
+    dx = torch.empty_like(x)
+    rc = lib.pca_chain_rows(x.device.index, x.data_ptr(), b, n, len(layers), ctypes.cast(dims_arr, ctypes.c_void_p),
+                            ctypes.cast(params, ctypes.c_void_p), lists.off.data_ptr(), lists.wrow.data_ptr(),
+                            lists.cstart.data_ptr(), lists.cols.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                            _stream(x.device))
+    _build.check(lib, rc, "chain_maxpool rows launch")
+    LAUNCHES["bwd_rows"] += 1
+    return dx
+
+
+def _bwd_kernel(x, layers, idx, g):
+    dims = _check_cuda(x, layers)
+    _check_cotangent(x, dims, "idx", idx, torch.int32)
+    _check_cotangent(x, dims, "g", g, torch.float32)
+    dx = _rows_kernel(x, layers, dims, _lists_kernel(idx, x.shape[1]), g)
     LAUNCHES["bwd"] += 1
     return dx
 
 
+def _on(t: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises for others."""
+    if t.is_cuda:
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"chain_maxpool {what}: no implementation for device {t.device}")
+
+
 def chain_maxpool_fwd(x: torch.Tensor, layers: Sequence[Layer]):
-    """``(y, idx)``: the kernel for a CUDA tensor, the plain version for a
+    """``(y, idx)``: the kernels for a CUDA tensor, the plain version for a
     CPU tensor."""
-    if x.is_cuda:
-        return _fwd_kernel(x, layers)
-    if x.device.type == "cpu":
-        return chain_maxpool_plain(x, layers)
-    raise ValueError(f"chain_maxpool: no implementation for device {x.device}")
+    return _fwd_kernel(x, layers) if _on(x, "forward") else chain_maxpool_plain(x, layers)
 
 
-def chain_maxpool_bwd(x, layers, idx, g, wts=None):
-    """``dx`` for ``g = dy * mul_L``: the kernel for a CUDA tensor, the
-    plain version for a CPU tensor.  ``wts``, the layers' ``W^T [out, in]``,
-    spares the kernel a transposed copy when the caller holds them."""
-    if x.is_cuda:
-        return _bwd_kernel(x, layers, idx, g, wts)
-    if x.device.type == "cpu":
-        return chain_maxpool_bwd_plain(x, layers, idx, g)
-    raise ValueError(f"chain_maxpool: no implementation for device {x.device}")
+def chain_maxpool_bwd(x, layers, idx, g):
+    """``dx`` for ``g = dy * mul_L``: the lists and rows kernels for a CUDA
+    tensor, the plain version for a CPU tensor."""
+    return _bwd_kernel(x, layers, idx, g) if _on(x, "backward") else chain_maxpool_bwd_plain(x, layers, idx, g)
+
+
+def winner_lists(idx: torch.Tensor, n: int) -> Winners:
+    """The backward's lists stage on ``idx [B, C_L]`` int32 over ``n`` rows:
+    the kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    if not _on(idx, "lists"):
+        return winner_lists_plain(idx, n)
+    if idx.dtype != torch.int32 or idx.dim() != 2 or not idx.is_contiguous():
+        raise ValueError(f"chain_maxpool lists: idx must be contiguous int32 [B, C_L], got {idx.dtype} "
+                         f"{tuple(idx.shape)}")
+    return _lists_kernel(idx, n)
+
+
+def winners_bwd(x: torch.Tensor, layers: Sequence[Layer], lists: Winners, g: torch.Tensor) -> torch.Tensor:
+    """The backward's rows stage: ``dx`` from ``lists`` (``winner_lists``)
+    and ``g = dy * mul_L``; the kernel for a CUDA tensor, the plain version
+    for a CPU tensor."""
+    if not _on(x, "rows"):
+        return winners_bwd_plain(x, layers, lists, g)
+    dims = _check_cuda(x, layers)
+    _check_cotangent(x, dims, "g", g, torch.float32)
+    b, wcap, cl = x.shape[0], min(x.shape[1], dims[-1]), dims[-1]
+    want = {"off": (b + 1,), "wrow": (b, wcap), "cstart": (b, wcap), "cols": (b, cl)}
+    for name, t in zip(Winners._fields, lists):
+        if t.device != x.device or t.dtype != torch.int32 or not t.is_contiguous() or tuple(t.shape) != want[name]:
+            raise ValueError(f"chain_maxpool rows: {name} must be contiguous int32 {want[name]} on {x.device}")
+    return _rows_kernel(x, layers, dims, lists, g)
 
 
 # ---------------------------------------------------------------------------
@@ -268,35 +393,26 @@ def _group(flat) -> list[tuple]:
 
 class ChainMaxPool(torch.autograd.Function):
     """y = max over points of the chain.  The backward's dx comes from the
-    kernel (or the plain backward on the CPU); parameter gradients come
+    kernels (or the plain backward on the CPU); parameter gradients come
     from autograd through the plain forward, and only when asked for, as
-    the JAX VJP takes them from the unfused reference chain.
-
-    Each weight is made ``[in, out]`` contiguous once, in the forward, and
-    kept for the backward; the weight as given supplies ``W^T``, which is
-    free when it is the transposed view of a module's ``[out, in]`` weight.
-    """
+    the JAX VJP takes them from the unfused reference chain.  The weights
+    go to the kernels as given: no copy."""
 
     @staticmethod
     def forward(ctx, x, *flat):
-        ws = [w.contiguous() for w in flat[::5]]
-        layers = [(w, *layer[1:]) for w, layer in zip(ws, _group(flat))]
-        y, idx = chain_maxpool_fwd(x, layers)
-        ctx.save_for_backward(x, idx, *ws, *flat)
+        y, idx = chain_maxpool_fwd(x, _group(flat))
+        ctx.save_for_backward(x, idx, *flat)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, idx, *saved = ctx.saved_tensors
-        nl = len(saved) // 6
-        ws, flat = saved[:nl], saved[nl:]
+        x, idx, *flat = ctx.saved_tensors
         dy = dy.float().contiguous()
         dx = None
         if ctx.needs_input_grad[0]:
-            layers = [(w, *layer[1:]) for w, layer in zip(ws, _group(flat))]
+            layers = _group(flat)
             g = (dy * layers[-1][3][None, :]).contiguous()
-            wts = [w.t() for w in flat[::5]]
-            dx = chain_maxpool_bwd(x, layers, idx, g, wts).to(x.dtype)
+            dx = chain_maxpool_bwd(x, layers, idx, g).to(x.dtype)
         dflat = [None] * len(flat)
         want = [i for i, need in enumerate(ctx.needs_input_grad[1:]) if need]
         if want:

@@ -135,7 +135,7 @@ def test_cpu_path_launches_no_kernel():
     x, layers, _ = inputs(5, 2, 64, NARROW)
     xt = torch.from_numpy(x).requires_grad_(True)
     cm.mlp_chain_maxpool(xt, to_torch(layers)).sum().backward()
-    assert cm.LAUNCHES == {"fwd": 0, "bwd": 0}
+    assert cm.LAUNCHES == {"fwd": 0, "bwd": 0, "bwd_lists": 0, "bwd_rows": 0}
 
 
 def test_other_devices_raise():

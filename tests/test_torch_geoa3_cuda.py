@@ -160,7 +160,8 @@ def test_geoa3_runs_on_the_kernels(cuda_device):
     assert knn_mod.LAUNCHES["knn"] == 1
     assert kappa.LAUNCHES == {"kappa_fwd": 1 + steps, "kappa_bwd": steps, "kappa_idx_fwd": 0, "kappa_idx_bwd": 0}
     assert chamfer.LAUNCHES == {"min_rows": 0, "both_fwd": steps, "both_bwd": steps}
-    assert cm.LAUNCHES == {"fwd": 2 * (steps + rounds + 1), "bwd": 2 * steps}
+    assert cm.LAUNCHES == {"fwd": 2 * (steps + rounds + 1), "bwd": 2 * steps, "bwd_lists": 2 * steps,
+                           "bwd_rows": 2 * steps}
     assert adv.shape == x.shape and bool(torch.isfinite(adv).all()) and loss.shape == (4,)
 
 
@@ -187,6 +188,7 @@ def test_geoa3_refresh_jitter_and_partial_run_on_the_kernels(cuda_device, partia
     assert kappa.LAUNCHES == {"kappa_fwd": 1, "kappa_bwd": 0, "kappa_idx_fwd": steps, "kappa_idx_bwd": steps}
     assert chamfer.LAUNCHES == {"min_rows": 0, "both_fwd": steps, "both_bwd": steps}
     # the loss forward and the evaluation's (of the bare cloud, or of the subsample) each iteration
-    assert cm.LAUNCHES == {"fwd": 2 * (2 * steps + rounds + 1), "bwd": 2 * steps}
+    assert cm.LAUNCHES == {"fwd": 2 * (2 * steps + rounds + 1), "bwd": 2 * steps, "bwd_lists": 2 * steps,
+                           "bwd_rows": 2 * steps}
     assert fps_mod.LAUNCHES["fps"] == (steps if partial else 0)
     assert adv.shape == x.shape and bool(torch.isfinite(adv).all()) and loss.shape == (4,)

@@ -135,6 +135,6 @@ def test_knn_attack_runs_on_the_kernels(cuda_device):
             x, torch.zeros(4, dtype=torch.long, device=cuda_device),
             generator=torch.Generator(device=cuda_device).manual_seed(0))
         assert chamfer.LAUNCHES["min_rows"] == chamfers
-        assert cm.LAUNCHES == {"fwd": 8, "bwd": 6}
+        assert cm.LAUNCHES == {"fwd": 8, "bwd": 6, "bwd_lists": 6, "bwd_rows": 6}
         assert adv.shape == x.shape and bool(torch.isfinite(adv).all())
         assert float((adv - x).norm(dim=-1).max()) <= 0.18 * (1 + 1e-5)

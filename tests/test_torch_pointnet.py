@@ -113,7 +113,7 @@ def test_cpu_forward_launches_no_kernel():
     cm.reset_launches()
     a = torch.from_numpy(clouds(4)).requires_grad_(True)
     fn(a).sum().backward()
-    assert cm.LAUNCHES == {"fwd": 0, "bwd": 0}
+    assert cm.LAUNCHES == {"fwd": 0, "bwd": 0, "bwd_lists": 0, "bwd_rows": 0}
 
 
 def _pointmlp_pair(rng):
