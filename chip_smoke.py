@@ -25,13 +25,18 @@ non-zero and prints no result):
               them (B=16, N=1024): FPS bit for bit and the chain at the
               group-all widths (259 and 643 inputs, N=128), checked and timed
               as above.
-3a. kernels-ballq  the ball query + gather + chain + max kernel at every set
-              abstraction of SSG and MSG (B=16, N=1024), at a ragged N=1000, at
-              N=100 < K=128, with empty and overfull balls and on a cloud snapped
-              to a 1/16 grid: the slots equal query_ball_point's bit for bit, y
-              and the argmax equal the gather kernel's on them, then
-              check_gather's rules; times beside the plain version's, those of
-              query_ball_point then the gather kernel, and the bound.
+3a. kernels-ballq  the ball route (ops/ball_hoist.py: slots, product, stack
+              forward; winners, stack backward, lists, pull, product) at every
+              set abstraction of SSG and MSG (B=16, N=1024), at a ragged
+              N=1000, at N=100 < K=128, with empty and overfull balls and on a
+              cloud snapped to a 1/16 grid: the slots equal query_ball_point's
+              bit for bit; the route held to gather_chain.py's plain versions
+              under check_gather's rules; each kernel held to its own plain
+              version (the winners, reverse lists and pull bit for bit, two
+              backwards bit-equal); per launch the route's times beside the
+              plain version's and the row kernel's on the same slots, each
+              kernel's device time under the profiler beside its plain
+              version and the bounds.
 4. slice      the headline attack: untargeted C&W on PointNet, f32, B=64,
               N=1024, 40 classes, kappa 30, budget 0.18, 1 x 200 Adam steps,
               seeded random weights with BatchNorm statistics taken from the
@@ -47,7 +52,7 @@ non-zero and prints no result):
               30, budget 0.18, on the 16 clouds of bench.py's cw_ssg cell, with
               a victim made as in phase 4; launch counts of FPS, ball and
               chain kernels, ASR > 0, s/batch over 3 reps after a warm-up; the
-              first step's gradient twice on the card.
+              first step's gradient twice on the card, bit-equal.
 8. slice-msg  the same on PointNet++ MSG (bench.py's cw_msg clouds).
 9. parity-ssg / parity-msg  card against CPU, the CPU's max pools taking
               the card's picks and the sides of 0 of the chains' hidden units
@@ -57,7 +62,8 @@ non-zero and prints no result):
               adversarial clouds; then log-probs and the loss gradient cloud
               by cloud at each of the card's iterates); MSG log-probs and the
               CW-loss input gradient at B=2.
-10. profile-ssg  torch.profiler over 10 SSG CW iterations.
+10. profile-ssg, profile-msg  torch.profiler over 10 SSG and 10 MSG CW
+              iterations.
 11. kernels-knn  the self-kNN kernel bit for bit against its plain version
               at the four EdgeConv inputs of one forward of the DGCNN victim
               (B=16, N=1024, k=20, C=3/64/64/128), at a ragged N=1000 and
@@ -183,6 +189,7 @@ KERNEL_SRC = "pointcloudattack_tpu_torch/csrc/chain_maxpool.cu"
 FPS_SRC = "pointcloudattack_tpu_torch/csrc/fps.cu"
 GATHER_SRC = "pointcloudattack_tpu_torch/csrc/gather_chain.cu"
 HOIST_SRC = "pointcloudattack_tpu_torch/csrc/gather_hoist.cu"
+BALL_SRC = "pointcloudattack_tpu_torch/csrc/ball_hoist.cu"
 TPU_FWD = "pointcloudattack_tpu/ops/pallas/dense_max_kernel.py:188"
 TPU_BWD = "pointcloudattack_tpu/ops/pallas/dense_max_kernel.py:216"
 TPU_FPS = "pointcloudattack_tpu/ops/pallas/fps_kernel.py:79"
@@ -239,10 +246,13 @@ GRAD_APART = 1e-3  # a coordinate's two gradients this far apart, relative, move
 PN2_B, PN2_ITER = 16, 100
 PN2_DATA = {"PointNet++Ssg": 6, "PointNet++Msg": 12}  # make_synthetic_clouds seeds
 # kernel launches per forward and per backward on each path: the ball
-# kernel at each neighbourhood set abstraction (MSG: each radius)
+# route's three forward and five backward kernels at each neighbourhood set
+# abstraction (MSG: each radius)
 PN2_LAUNCHES = {
-    "PointNet++Ssg": ({"fps": 2, "ball_fwd": 2, "chain_fwd": 1}, {"ball_bwd": 2, "chain_bwd": 1}),
-    "PointNet++Msg": ({"fps": 2, "ball_fwd": 6, "chain_fwd": 1}, {"ball_bwd": 6, "chain_bwd": 1}),
+    name: ({"fps": 2, "chain_fwd": 1, **{f"ball_{k}": sas for k in ("slots_fwd", "product_fwd", "stack_fwd")}},
+           {"chain_bwd": 1, **{f"ball_{k}": sas for k in ("winners_bwd", "stack_bwd", "lists_bwd", "pull_bwd",
+                                                          "product_bwd")}})
+    for name, sas in (("PointNet++Ssg", 2), ("PointNet++Msg", 6))
 }
 # (n, npoint, radius, K, feature width, layout, chain widths) at B=16: every
 # ball kernel call of the two paths; the SSG ones make up one SSG forward
@@ -698,15 +708,17 @@ def gather_case(seed, n, npoint, radius, k, feat, kind, widths, how=None):
     return src, new_xyz, idx, layers, layout, dy
 
 
-def check_gather(name, src, ctr, idx, layers, layout, dy, slope=0.0):
+def check_gather(name, src, ctr, idx, layers, layout, dy, slope=0.0, got=None, bwd=None):
     """Gather kernel (the max) against plain on one case; returns (errors,
-    am_ref, g, winning rows)."""
+    am_ref, g, winning rows).  ``got``, another route's ``(y, am)`` on these
+    slots, and ``bwd(am, g)``, its ``(dsrc, dctr)``, hold that route to the
+    same rules in place of the index route's kernels."""
     import torch
 
     from pointcloudattack_tpu_torch.ops import gather_chain as gc
     from pointcloudattack_tpu_torch.ops.chain_maxpool import act
 
-    y, am = gc.gather_chain_fwd(src, ctr, idx, layers, layout, slope)
+    y, am = got if got is not None else gc.gather_chain_fwd(src, ctr, idx, layers, layout, slope)
     y_ref, am_ref = gc.gather_chain_plain(src, ctr, idx, layers, layout, slope)
     torch.cuda.synchronize()
     torch.testing.assert_close(y, y_ref, **Y_TOL)
@@ -721,7 +733,8 @@ def check_gather(name, src, ctr, idx, layers, layout, dy, slope=0.0):
         raise AssertionError(f"{name}: a card pick lies {below:.3e} below the plain max (> {PICK_ATOL})")
     del z, top
     g = (dy * layers[-1][3]).contiguous()
-    dsrc, dctr = gc.gather_chain_bwd(src, ctr, idx, layers, layout, am_ref, g, slope=slope)
+    dsrc, dctr = (bwd(am_ref, g) if bwd is not None
+                  else gc.gather_chain_bwd(src, ctr, idx, layers, layout, am_ref, g, slope=slope))
     dsrc_ref, dctr_ref = gc.gather_chain_bwd_plain(src, ctr, idx, layers, layout, am_ref, g, slope)
     torch.cuda.synchronize()
     # A winning row (the only rows with a cotangent) whose hidden
@@ -1019,15 +1032,110 @@ def ball_scan_pairs(xyz, ctr, radius, k) -> float:
     return float(reach.sum())
 
 
-def check_ball(name, src, ctr, layers, layout, radius, k, dy):
-    """The ball route's forward kernel on one case: its slots equal
-    ``query_ball_point``'s bit for bit, its y and argmax equal the gather
-    kernel's on those slots bit for bit (the same rows, the same chain),
-    and the gather kernels hold to the plain version under
-    ``check_gather``'s rules, the backward on the slots being the ball
-    route's.  Returns (errors, am_ref, g, winning rows, slots)."""
+BALL_KEYS = ("slots_fwd", "product_fwd", "stack_fwd", "winners_bwd", "stack_bwd", "lists_bwd", "pull_bwd",
+             "product_bwd")
+
+
+def check_ball_kernels(name, src, ctr, idx, layers, layout, am, g, tag="kernels-ballq"):
+    """Each kernel of the ball route (``ops/ball_hoist.py``) against its
+    plain version on the card, on the same inputs: the products within
+    Y_TOL and DX_TOL of ``product_plain``; the stack forward's y within
+    Y_TOL, its argmax equal outside near-ties and its hidden signs equal
+    wherever the plain pre-activation lies beyond EDGE of 0; the winners,
+    the reverse lists and the pull bit for bit; the stack backward's d1
+    within DX_TOL (both on the kernel's signs); two calls of the whole
+    backward bit-equal.  ``am`` and ``g`` are the backward's picks and
+    cotangent.  Returns each kernel's max |error|."""
     import torch
 
+    from pointcloudattack_tpu_torch.ops import ball_hoist as bh
+    from pointcloudattack_tpu_torch.ops import gather_hoist as gh
+    from pointcloudattack_tpu_torch.ops.chain_maxpool import act
+    from pointcloudattack_tpu_torch.ops.gather import index_points
+    from pointcloudattack_tpu_torch.ops.gather_hoist import split_weight
+
+    b, n, cs = src.shape
+    ng, cc = ctr.shape[1:]
+    k = idx.shape[2]
+    ws, wc = split_weight(layers[0][0], layout, cs, cc)
+    c1 = ws.shape[1]
+    pairs = [(src.view(b * n, cs), ws), (ctr.view(b * ng, cc), wc)]
+    p, q = (t.clone() for t in gh.products(pairs, "product_fwd", launches=bh.LAUNCHES))
+    p_ref, q_ref = (gh.product_plain(a, w) for a, w in pairs)
+    p, q = p.view(b, n, c1), q.view(b, ng, c1)
+    y, am_k, signs = bh.stack_fwd(p, q, idx, layers)
+    y_ref, am_ref, signs_ref = bh.stack_fwd_plain(p, q, idx, layers)
+    win = bh.winners(am, k)
+    win = bh.Winners(*(t.clone() for t in win))
+    win_ref = bh.winners_plain(am, k)
+    total = int(win_ref.off[-1])
+    start, lst = (t.clone() for t in bh.reverse_lists(idx, win, n))
+    start_ref, lst_ref = bh.lists_plain(idx, win_ref, n)
+    d1 = bh.stack_bwd(win, am, g, signs, layers, k)[:total].clone()
+    d1_ref = bh.stack_bwd_plain(win_ref, am, g, signs, layers, k)
+    dp, dq = (t.clone() for t in bh.pull(start, lst, win, d1, n, ng))
+    dp_ref, dq_ref = bh.pull_plain(start_ref, lst_ref, win_ref, d1, n, ng)
+    bpairs = [(dp.view(b * n, c1), ws.t()), (dq.view(b * ng, c1), wc.t())]
+    douts = gh.products(bpairs, "product_bwd", launches=bh.LAUNCHES)
+    drefs = [gh.product_plain(a, w) for a, w in bpairs]
+    twice = [bh.hoisted_bwd(src, ctr, idx, layers, layout, am, g, signs) for _ in range(2)]
+    torch.cuda.synchronize()
+    for o, r in zip((p.view(b * n, c1), q.view(b * ng, c1)), (p_ref, q_ref)):
+        torch.testing.assert_close(o, r, **Y_TOL)
+    torch.testing.assert_close(y, y_ref, **Y_TOL)
+    # the plain pre-activations on the same P and Q: near-ties, and the hidden units near 0
+    z, sides = index_points(p, idx) + q[:, :, None, :], []
+    for i, (w, bb, mean, mul, beta) in enumerate(layers):
+        z = ((z if i == 0 else act(z) @ w) + bb - mean) * mul + beta
+        if i < len(layers) - 1:
+            sides.append(z.abs() <= EDGE)
+    near = top2_margin(z, 2) <= Y_TOL["atol"]
+    if int(((am_k != am_ref) & ~near).sum()):
+        raise AssertionError(f"{name}: the stack's argmax differs in {int(((am_k != am_ref) & ~near).sum())} "
+                             f"columns with a clear winner")
+    del z
+    widths = bh.sign_widths(layers)
+    apart = [u != v for u, v in zip(bh.unpack_signs(signs, widths), bh.unpack_signs(signs_ref, widths))]
+    off_sign = sum(int((d & ~e).sum()) for d, e in zip(apart, sides))
+    flipped = sum(int(d.sum()) for d in apart)
+    if off_sign:
+        raise AssertionError(f"{name}: {off_sign} hidden signs differ from the plain version's beyond {EDGE} of 0")
+    same = {"winners": all(torch.equal(u[: len(v)], v) for u, v in ((win.mask, win_ref.mask), (win.off, win_ref.off),
+                                                                    (win.wrow, win_ref.wrow))),
+            "start": torch.equal(start, start_ref), "list": torch.equal(lst[:total], lst_ref),
+            "dP": torch.equal(dp, dp_ref), "dQ": torch.equal(dq, dq_ref),
+            "two backwards": all(torch.equal(u, v) for u, v in zip(*twice))}
+    if not all(same.values()):
+        raise AssertionError(f"{name}: not bit-equal: {[key for key, ok in same.items() if not ok]}")
+    torch.testing.assert_close(d1, d1_ref, **DX_TOL)
+    for o, r in zip(douts, drefs):
+        torch.testing.assert_close(o, r, **DX_TOL)
+    if not float(dp.abs().max()) > 0 or not float(dq.abs().max()) > 0:
+        raise AssertionError(f"{name}: dP or dQ is 0 everywhere, so the checks see little")
+    err = lambda us, vs: max(float((u - v).abs().max()) for u, v in zip(us, vs))  # noqa: E731
+    errs = {"slots_fwd": 0.0, "product_fwd": err((p.view(b * n, c1), q.view(b * ng, c1)), (p_ref, q_ref)),
+            "stack_fwd": float((y - y_ref).abs().max()), "winners_bwd": 0.0,
+            "stack_bwd": float((d1 - d1_ref).abs().max()),
+            "lists_bwd": 0.0, "pull_bwd": 0.0, "product_bwd": err(douts, drefs)}
+    counts = start[:, 1:] - start[:, :-1]
+    log(f"[{tag}] ball {name}: products max|err| {errs['product_fwd']:.3e} and {errs['product_bwd']:.3e}; stack y "
+        f"max|err| {errs['stack_fwd']:.3e}, argmax equal except {int((am_k != am_ref).sum())} of {int(near.sum())} "
+        f"near-tie columns, {flipped} hidden signs differ, all within {EDGE} of 0; {total} of {b * ng * k} rows win "
+        f"(longest point list {int(counts.max())}); winners, reverse lists, dP, dQ and two backwards bit-equal; d1 "
+        f"max|err| {errs['stack_bwd']:.3e}")
+    return errs
+
+
+def check_ball(name, src, ctr, layers, layout, radius, k, dy):
+    """The ball route on one case: its slots equal ``query_ball_point``'s
+    bit for bit; its forward run again gives the same bits; it holds to
+    ``gather_chain.py``'s plain versions under ``check_gather``'s rules (the
+    backward on the forward's hidden signs); and each of its kernels holds
+    to its plain version (``check_ball_kernels``).  Returns (errors, am_ref,
+    g, winning rows, slots)."""
+    import torch
+
+    from pointcloudattack_tpu_torch.ops import ball_hoist as bh
     from pointcloudattack_tpu_torch.ops import gather_chain as gc
     from pointcloudattack_tpu_torch.ops.ball_query import ball_r2, query_ball_point
     from pointcloudattack_tpu_torch.ops.pairwise import pairwise_sqdist
@@ -1040,79 +1148,181 @@ def check_ball(name, src, ctr, layers, layout, radius, k, dy):
         bad = (idx != want).any(-1)
         raise AssertionError(f"ball {name}: the kernel's slots differ from query_ball_point's in {int(bad.sum())} "
                              f"of {bad.numel()} balls")
-    y_idx, am_idx = gc.gather_chain_fwd(src, ctr, idx, layers, layout)
-    if not (torch.equal(y, y_idx) and torch.equal(am, am_idx)):
-        raise AssertionError(f"ball {name}: y or the argmax differ from the gather kernel's on the same slots")
+    y2, am2, signs, folded = bh.hoisted_fwd(src, ctr, idx, layers, layout)
+    if src.is_cuda and not (torch.equal(y, y2) and torch.equal(am, am2)):  # the CPU's route is gather_chain's
+        raise AssertionError(f"ball {name}: the route's forward gave other bits the second time")
     sqr = pairwise_sqdist(ctr[..., :3], xyz)
     r2 = float(ball_r2(radius))
     members = (sqr <= r2).sum(-1)
     log(f"[kernels-ballq] {name}: xyz {tuple(xyz.shape)} G={ctr.shape[1]} radius {radius} K={k}: slots bit-equal "
-        f"to query_ball_point's; y and argmax bit-equal to the gather kernel's; balls empty "
-        f"{int((members == 0).sum())}, short {int(((members > 0) & (members < k)).sum())}, full "
-        f"{int((members >= k).sum())} of {members.numel()}; {int((sqr == r2).sum())} (ball, point) pairs exactly "
-        f"on the radius")
-    errs, am_ref, g, win = check_gather(f"{name} (ball slots)", src, ctr, idx, layers, layout, dy)
+        f"to query_ball_point's; balls empty {int((members == 0).sum())}, short "
+        f"{int(((members > 0) & (members < k)).sum())}, full {int((members >= k).sum())} of {members.numel()}; "
+        f"{int((sqr == r2).sum())} (ball, point) pairs exactly on the radius")
+    errs, am_ref, g, win = check_gather(f"{name} (ball route)", src, ctr, idx, layers, layout, dy, got=(y, am),
+                                        bwd=lambda a, gg: bh.hoisted_bwd(src, ctr, idx, layers, layout, a, gg, signs,
+                                                                         0.0, folded))
+    errs.update(check_ball_kernels(name, src, ctr, idx, layers, layout, am_ref, g))
     return errs, am_ref, g, win, idx
 
 
+def ball_bounds(src, ctr, idx, layout, dims, win, pairs):
+    """{kernel: (bound_ms, bound_by)} of each kernel of the ball route at one
+    case, with ``win`` winning rows and ``pairs`` (ball, point) pairs the
+    query tests, and {"fwd", "bwd", "fwd_fp32", "bwd_fp32"}: the route's
+    sums.  Products on the tensor cores take three TF32 products over
+    PEAK_TF32, the rest over the FP32 peak; each input read once, each
+    output written once.  The backward's least work through the last layer
+    is one row of W_L a pooled column (FP32), through the other layers a
+    product over the winning rows only."""
+    b, n, cs = src.shape
+    ng, cc = ctr.shape[1:]
+    k, f = idx.shape[2], 4.0
+    rows, pools, c1, cl = b * ng * k, b * ng, dims[1], dims[-1]
+    src_w = sum(s[2] - s[1] for s in layout if s[0] in ("diff", "pass"))
+    ctr_w = sum(s[2] - s[1] for s in layout if s[0] in ("diff", "center"))
+    words = sum(-(-c // 32) for c in dims[1:-1])
+    hoist = 2.0 * c1 * (b * n * src_w + b * ng * ctr_w)
+    wbytes = (cs + cc) * c1 * f
+
+    def tc_bound(tc_flops, fp32_flops, nbytes):
+        t_ops = (3 * tc_flops / PEAK_TF32 + fp32_flops / PEAK_FLOPS) * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+    hidden_bwd = sum(2.0 * win * a * c for a, c in zip(dims[1:-2], dims[2:-1]))
+    out = {
+        "slots_fwd": bound(9.0 * pairs, f * (b * n * 3 + b * ng * 3 + rows)),
+        "product_fwd": bound(hoist, f * (b * n * cs + b * ng * cc + (b * n + b * ng) * c1) + wbytes),
+        "stack_fwd": tc_bound(chain_flops(rows, dims[1:]), 6.0 * rows * c1,
+                              f * ((b * n + b * ng) * c1 + rows + 2 * pools * cl + rows * words)
+                              + param_bytes(dims[1:])),
+        "winners_bwd": bound(1.0 * pools * cl, f * (pools * cl + pools + 1 + win)),
+        "stack_bwd": tc_bound(hidden_bwd, 2.0 * pools * cl * dims[-2] + 2.0 * win * c1,
+                              f * (2 * pools * cl + win * (words + 1 + c1)) + param_bytes(dims[1:])),
+        "lists_bwd": bound(2.0 * win, f * (2 * win + b * (n + 1) + win)),
+        "pull_bwd": bound(2.0 * win * c1, f * (win * c1 + win + b * (n + 1) + pools + (b * n + pools) * c1)),
+        "product_bwd": bound(hoist, f * ((b * n + pools) * c1 + b * n * cs + pools * cc) + wbytes),
+    }
+    out["fwd"] = tc_bound(chain_flops(rows, dims[1:]), 9.0 * pairs + hoist + 6.0 * rows * c1,
+                          f * (b * n * (cs + 3) + b * ng * cc + rows * (1 + words) + 2 * pools * cl)
+                          + param_bytes(dims))
+    out["bwd"] = tc_bound(hidden_bwd, 2.0 * pools * cl * dims[-2] + 2.0 * win * c1 + hoist,
+                          f * (2 * pools * cl + rows + win * words + b * n * cs + pools * cc) + param_bytes(dims))
+    out["fwd_fp32"] = bound(chain_flops(rows, dims[1:]) + 9.0 * pairs + hoist + 6.0 * rows * c1,
+                            f * (b * n * (cs + 3) + b * ng * cc + rows * (1 + words) + 2 * pools * cl)
+                            + param_bytes(dims))
+    out["bwd_fp32"] = bound(hidden_bwd + 2.0 * pools * cl * dims[-2] + 2.0 * win * c1 + hoist,
+                            f * (2 * pools * cl + rows + win * words + b * n * cs + pools * cc) + param_bytes(dims))
+    return out
+
+
 def time_ball(name, widths, src, ctr, layers, layout, radius, k, am, g, win, idx):
-    """The ball route's forward against its plain version and against the
-    index route (``query_ball_point``, then the gather kernel); its backward
-    (the gather backward on the slots, counted as ``ball_bwd``) against the
-    plain one; and the bounds: the index route's, with the ball query's 9
-    operations a tested pair forward and its slots written once."""
+    """The ball route at one case, per launch: its forward (slots, product,
+    stack) beside the plain version and the row kernel of ``gather_chain.cu``
+    on the same slots, computed beforehand (the earlier route's ball kernel
+    chose its slots inside its launch; this leaves that query out), its
+    backward (winners, stack, lists, pull, product) beside the plain one and
+    the row kernel's backward; each stage's device time under the profiler
+    beside its plain version (and ``torch.matmul`` for the products); and
+    the bounds (``ball_bounds``).  Returns (route times, {kernel: (ms,
+    plain_ms, library_ms, bound)}, bounds)."""
+    import torch
+
+    from pointcloudattack_tpu_torch.ops import ball_hoist as bh
     from pointcloudattack_tpu_torch.ops import gather_chain as gc
-    from pointcloudattack_tpu_torch.ops.ball_query import query_ball_point
+    from pointcloudattack_tpu_torch.ops.gather_hoist import product_plain, split_weight
 
     xyz = src[..., :3].contiguous()
+    b, n, cs = src.shape
+    ng, cc = ctr.shape[1:]
+    _, _, _, signs, folded = bh.forward(src, ctr, xyz, layers, layout, radius, k)
     wts = [layer[0].t().contiguous() for layer in layers]
+    fwd = lambda: bh.forward(src, ctr, xyz, layers, layout, radius, k)  # noqa: E731
+    bwd = lambda: bh.hoisted_bwd(src, ctr, idx, layers, layout, am, g, signs, 0.0, folded)  # noqa: E731
     ms = time_pairs({
         "fwd_plain": lambda: gc.ball_gather_chain_plain(src, ctr, xyz, layers, layout, radius, k),
-        "fwd": lambda: gc.ball_gather_chain_fwd(src, ctr, xyz, layers, layout, radius, k),
-        "fwd_index": lambda: gc.gather_chain_fwd(src, ctr, query_ball_point(radius, k, xyz, ctr[..., :3]), layers,
-                                                 layout),
+        "fwd": fwd,
+        "fwd_rows": lambda: gc._fwd_kernel(src, ctr, idx, layers, layout),
         "bwd_plain": lambda: gc.gather_chain_bwd_plain(src, ctr, idx, layers, layout, am, g),
-        "bwd": lambda: gc.gather_chain_bwd(src, ctr, idx, layers, layout, am, g, wts, counter="ball_bwd"),
+        "bwd": bwd,
+        "bwd_rows": lambda: gc._bwd_kernel(src, ctr, idx, layers, layout, am, g, wts),
     })
-    dims = (gc.layout_width(layout), *widths)
-    _, b_bwd = gather_bounds(src, ctr, idx, layout, dims, win)
-    pairs = ball_scan_pairs(xyz, ctr, radius, k)
-    flops = gather_fwd_flops(src.shape[1], *idx.shape, layout, dims) + 9.0 * pairs
-    b, ng, _ = idx.shape
-    nbytes = (4.0 * (src.numel() + ctr.numel() + xyz.numel() + 2 * idx.numel() + 2 * b * ng * dims[-1])
-              + param_bytes(dims))
-    b_fwd = bound(flops, nbytes)
-    log(f"[kernels-ballq] {name} chain {dims}: forward {ms['fwd']:.4f} ms (plain {ms['fwd_plain']:.4f}, index route "
-        f"{ms['fwd_index']:.4f}: query_ball_point then the gather kernel; bound {b_fwd[0]:.4f} by {b_fwd[1]}, "
-        f"{pairs:.0f} (ball, point) pairs tested), backward {ms['bwd']:.4f} ms (plain {ms['bwd_plain']:.4f}, bound "
-        f"{b_bwd[0]:.4f} by {b_bwd[1]} over the {win} winning rows)")
-    return ms, b_fwd, b_bwd
+    dev_f, dev_b = device_ms(fwd), device_ms(bwd)
+    # each stage's plain version on the stage's own inputs, and torch.matmul beside the products
+    ws, wc = split_weight(layers[0][0], layout, cs, cc)
+    pairs_f = [(src.view(b * n, cs), ws), (ctr.view(b * ng, cc), wc)]
+    p, q = product_plain(*pairs_f[0]).view(b, n, -1), product_plain(*pairs_f[1]).view(b, ng, -1)
+    win_p = bh.winners_plain(am, k)
+    d1 = bh.stack_bwd_plain(win_p, am, g, signs, layers, k)
+    start, lst = bh.lists_plain(idx, win_p, n)
+    dp, dq = bh.pull_plain(start, lst, win_p, d1, n, ng)
+    pairs_b = [(dp.view(b * n, -1), ws.t()), (dq.view(b * ng, -1), wc.t())]
+    plain = {
+        "slots_fwd": lambda: bh.slots_plain(xyz, ctr, radius, k),
+        "product_fwd": lambda: [product_plain(a, w) for a, w in pairs_f],
+        "stack_fwd": lambda: bh.stack_fwd_plain(p, q, idx, layers),
+        "winners_bwd": lambda: bh.winners_plain(am, k),
+        "stack_bwd": lambda: bh.stack_bwd_plain(win_p, am, g, signs, layers, k),
+        "lists_bwd": lambda: bh.lists_plain(idx, win_p, n),
+        "pull_bwd": lambda: bh.pull_plain(start, lst, win_p, d1, n, ng),
+        "product_bwd": lambda: [product_plain(a, w) for a, w in pairs_b],
+    }
+    library = {"product_fwd": lambda: [torch.matmul(a, w) for a, w in pairs_f],
+               "product_bwd": lambda: [torch.matmul(a, w) for a, w in pairs_b]}
+    # each stage's kernels by name (the winners stage launches two)
+    kernel_names = {"slots_fwd": "slots_kernel", "product_fwd": "product_kernel", "stack_fwd": "stack_fwd_kernel",
+                    "winners_bwd": "winners_", "stack_bwd": "stack_bwd_kernel", "lists_bwd": "lists_kernel",
+                    "pull_bwd": "pull_kernel", "product_bwd": "product_kernel"}
+    dims = (sum(s[2] - s[1] for s in layout), *widths)
+    bounds = ball_bounds(src, ctr, idx, layout, dims, win, ball_scan_pairs(xyz, ctr, radius, k))
+    stages = {}
+    for key in BALL_KEYS:
+        dev = dev_f if key.endswith("fwd") else dev_b
+        kern = sum(v for name_, v in dev.items() if kernel_names[key] in name_)
+        lib = time_ms(library[key], reps=10) if key in library else None
+        stages[key] = (kern, time_ms(plain[key], reps=3, warmup=1), lib, bounds[key])
+    log(f"[kernels-ballq] {name} chain {dims}: forward {ms['fwd']:.4f} ms (plain {ms['fwd_plain']:.4f}, the row "
+        f"kernel on the same slots {ms['fwd_rows']:.4f}; bound {bounds['fwd'][0]:.4f} by {bounds['fwd'][1]} on the "
+        f"tensor cores' 3xTF32, {bounds['fwd_fp32'][0]:.4f} in FP32), backward {ms['bwd']:.4f} ms (plain "
+        f"{ms['bwd_plain']:.4f}, the row kernel {ms['bwd_rows']:.4f}; bound {bounds['bwd'][0]:.4f} by "
+        f"{bounds['bwd'][1]}, {bounds['bwd_fp32'][0]:.4f} in FP32, over the {win} winning rows); device per "
+        "stage: " + ", ".join(f"{key} {v[0]:.4f} (plain {v[1]:.4f}"
+                              + (f", torch.matmul {v[2]:.4f}" if v[2] is not None else "")
+                              + f", bound {v[3][0]:.5f} by {v[3][1]})" for key, v in stages.items()))
+    return ms, stages, bounds
 
 
 def phase_kernels_ballq():
     """The ball route at every set abstraction of one SSG and one MSG forward
-    (B=16, N=1024), then at BALL_EDGE_SHAPES; the record's numbers sum the
-    shapes of one SSG forward (and backward)."""
+    (B=16, N=1024), then at BALL_EDGE_SHAPES; per shape the route's times
+    and each kernel's.  The record's numbers sum the shapes of one SSG
+    forward (and backward), and of one MSG forward."""
     import torch
 
-    rec = new_record("ball_fwd", "ball_bwd")
+    rec = new_record(*BALL_KEYS)
+    shapes = {}
     cases = [(name, shape + (None,)) for name, shape in GATHER_SHAPES.items()] + list(BALL_EDGE_SHAPES.items())
     for i, (name, shape) in enumerate(cases):
         src, ctr, _, layers, layout, dy = gather_case(120 + i, *shape)
         radius, k = shape[2], shape[3]
         errs, am, g, win, idx = check_ball(name, src, ctr, layers, layout, radius, k, dy)
-        rec["ball_fwd"]["err"] = max(rec["ball_fwd"]["err"], errs["y"])
-        rec["ball_bwd"]["err"] = max(rec["ball_bwd"]["err"], errs["dsrc"], errs["dctr"])
+        for key in BALL_KEYS:
+            rec[key]["err"] = max(rec[key]["err"], errs[key], errs["y"] if key == "stack_fwd" else 0.0,
+                                  max(errs["dsrc"], errs["dctr"]) if key == "product_bwd" else 0.0)
         if name in GATHER_SHAPES:
-            ms, b_fwd, b_bwd = time_ball(name, shape[6], src, ctr, layers, layout, radius, k, am, g, win, idx)
+            ms, stages, bounds = time_ball(name, shape[6], src, ctr, layers, layout, radius, k, am, g, win, idx)
+            shapes[name] = {"route": ms, "stages": {key: (*v[:3], v[3][0]) for key, v in stages.items()},
+                            "bound_fwd": bounds["fwd"][0], "bound_bwd": bounds["bwd"][0],
+                            "bound_fwd_fp32": bounds["fwd_fp32"][0], "bound_bwd_fp32": bounds["bwd_fp32"][0],
+                            "winning_rows": win}
             if name.startswith("ssg"):  # one SSG forward / backward
-                b, ng, _ = idx.shape
-                accumulate(rec["ball_fwd"], ms["fwd"], ms["fwd_plain"], b_fwd, b * ng * k)
-                accumulate(rec["ball_bwd"], ms["bwd"], ms["bwd_plain"], b_bwd, win)
-                rec["ball_fwd"]["index_ms"] = rec["ball_fwd"].get("index_ms", 0.0) + ms["fwd_index"]
+                for key, (kms, pms, lms, bnd) in stages.items():
+                    accumulate(rec[key], kms, pms, bnd)
+                    if lms is not None:
+                        rec[key]["library_ms"] = rec[key].get("library_ms", 0.0) + lms
         del src, ctr, layers, am, g, idx
         torch.cuda.empty_cache()
-    return rec
+    return rec, shapes
 
 
 def lpfa_gather_case(seed, b, n, c, k, widths, device="cuda"):
@@ -1468,6 +1678,7 @@ def victim_labels(model_fn, data, labels, tag="slice"):
 
 
 def _counters():
+    from pointcloudattack_tpu_torch.ops import ball_hoist as bh
     from pointcloudattack_tpu_torch.ops import chain_maxpool as cm
     from pointcloudattack_tpu_torch.ops import chamfer
     from pointcloudattack_tpu_torch.ops import fps as fps_mod
@@ -1477,10 +1688,9 @@ def _counters():
     from pointcloudattack_tpu_torch.ops import kappa
     from pointcloudattack_tpu_torch.ops import knn as knn_mod
 
-    return {**{f"hoist_{k}": (gh, k) for k in HOIST_KEYS},
+    return {**{f"hoist_{k}": (gh, k) for k in HOIST_KEYS}, **{f"ball_{k}": (bh, k) for k in BALL_KEYS},
             "fps": (fps_mod, "fps"), "gather_fwd": (gc, "fwd"), "gather_bwd": (gc, "bwd"),
-            "gather_mean_fwd": (gc, "mean_fwd"), "gather_mean_bwd": (gc, "mean_bwd"), "ball_fwd": (gc, "ball_fwd"),
-            "ball_bwd": (gc, "ball_bwd"),
+            "gather_mean_fwd": (gc, "mean_fwd"), "gather_mean_bwd": (gc, "mean_bwd"),
             "chain_fwd": (cm, "fwd"), "chain_bwd": (cm, "bwd"), "chain_bwd_lists": (cm, "bwd_lists"),
             "chain_bwd_rows": (cm, "bwd_rows"), "knn": (knn_mod, "knn"),
             "min_rows": (chamfer, "min_rows"), "both_fwd": (chamfer, "both_fwd"), "both_bwd": (chamfer, "both_bwd"),
@@ -1776,8 +1986,10 @@ def pick_hooks():
     sides of 0 of the chain's hidden pre-activations (``card_chain``; for
     the chain + max over points, whose last layer runs on the tensor cores,
     and for a gather of one layer, which has no hidden layer, the argmax of
-    the op's forward run again, which must give the op's bits), and for the
-    ball route its slots, which must be the CPU's own.  The CPU
+    the op's forward run again, which must give the op's bits; for the ball
+    route, whose layers after the first run on the tensor cores, its picks
+    and saved hidden signs from its forward run again), and for the ball
+    route its slots, which must be the CPU's own.  The CPU
     runs the chain in plain differentiable ops on the card's choices, so
     its backward takes them too.  A column whose two best rows, or a hidden
     unit of a winning row and 0, lie within f32 rounding may otherwise send
@@ -1787,6 +1999,7 @@ def pick_hooks():
     from pointcloudattack_tpu_torch.models import common
     from pointcloudattack_tpu_torch.models import curvenet as cn
     from pointcloudattack_tpu_torch.models import dgcnn
+    from pointcloudattack_tpu_torch.ops import ball_hoist as bh
     from pointcloudattack_tpu_torch.ops import chain_maxpool as cm
     from pointcloudattack_tpu_torch.ops import gather_chain as gc
     from pointcloudattack_tpu_torch.ops.ball_query import query_ball_point
@@ -1835,9 +2048,18 @@ def pick_hooks():
         return pooled(z, pick, 2, gaps, offs)
 
     def ball_card(orig, src, centers, xyz, layers, layout, radius, nsample, slope=0.0):
+        """The ball route's slots, picks and hidden signs from its own
+        forward run again (ops/ball_hoist.py), which must give the op's
+        bits."""
         y = orig(src, centers, xyz, layers, layout, radius, nsample, slope)
-        idx = query_ball_point(radius, nsample, xyz.detach(), centers.detach()[..., :3])  # the kernel's slots
-        return y, (idx, *card_chain(gc.gather_rows(src.detach(), centers.detach(), idx, layout), layers, slope, y, 2))
+        with torch.no_grad():
+            det = [tuple(t.detach() for t in layer) for layer in layers]
+            y2, am, idx, signs, _ = bh.forward(src.detach().contiguous(), centers.detach().contiguous(),
+                                               xyz.detach().contiguous(), det, layout, radius, nsample, slope)
+        if not torch.equal(y2, y.detach()):
+            raise AssertionError(f"the ball route's forward gave other bits the second time in "
+                                 f"{int((y2 != y.detach()).sum())} of {y.numel()} outputs")
+        return y, (idx, am, *bh.unpack_signs(signs, bh.sign_widths(layers)))
 
     def ball(orig, choice, src, centers, xyz, layers, layout, radius, nsample, slope=0.0):
         """The card's picks and sides on the CPU's own slots, which must be
@@ -1856,11 +2078,12 @@ def pick_hooks():
 
 def relu_hooks():
     """``replay`` hooks for the ReLUs after PointNet's and PointNet++'s fused
-    max pools ("relu", ``models/common.py::relu``) and in PointNet++'s head
-    ("head_relu", ``models/pointnet2.py``'s name for it): the side of 0 of
-    each input.  A pooled feature or a head unit within rounding of 0
-    otherwise opens on one side only and moves the whole cloud's
-    gradient."""
+    max pools, between the unfused layers of a ``PointMLP`` (PointNet's
+    transformers and head) and at the end of PointNet's head ("relu",
+    ``models/common.py::relu``), and in PointNet++'s head ("head_relu",
+    ``models/pointnet2.py``'s name for it): the side of 0 of each input.  A
+    pooled feature or a head unit within rounding of 0 otherwise opens on
+    one side only and moves the whole cloud's gradient."""
     import torch
 
     from pointcloudattack_tpu_torch.models import common
@@ -3380,9 +3603,9 @@ def loss_grad(fn, a, ori, target):
 def first_step_spread(tag, fn, data, target):
     """Two card runs of the first step of the attack ``tag`` times: the CW
     loss's input gradient at its first iterate (the clouds plus the start
-    noise of seed 1), twice; logs their largest difference, which only the
-    order of the gather backward's dsrc atomicAdds can make (ROADMAP
-    Queue 3 item 1); returns it."""
+    noise of seed 1), twice, which must be bit-equal: no kernel on the
+    PointNet++ paths adds a float with an atomic (ROADMAP Queue 3 item 1).
+    Logs the largest difference; returns it."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -3391,6 +3614,9 @@ def first_step_spread(tag, fn, data, target):
     d = float((g1 - g2).abs().max())
     log(f"[{tag}] the first step's loss gradient, two runs on the card: max |diff| {d:.3e} (largest |gradient| "
         f"{float(g1.abs().max()):.3e}; {int((g1 != g2).sum())} of {g1.numel()} coordinates differ)")
+    if not torch.equal(g1, g2):
+        raise AssertionError(f"{tag}: two runs of the first step's gradient differ in {int((g1 != g2).sum())} "
+                             f"coordinates")
     return d
 
 
@@ -3535,7 +3761,7 @@ def main():
     k = phase_kernels()
     pn2, sa3 = phase_kernels_pn2()
     with phase_clock("kernels-ballq"):
-        ballq = phase_kernels_ballq()
+        ballq, ballq_shapes = phase_kernels_ballq()
     clouds, labels = synthetic_data(NUM_CLASSES, 2, 0, "cuda")
     model_fn, state = make_victim("PointNet", "cuda", clouds, ("dropout",))
     data = clouds[:B]
@@ -3547,9 +3773,11 @@ def main():
     ssg = pn2_path("PointNet++Ssg")
     first_step_spread("slice-ssg", ssg[0], ssg[2], ssg[3])
     msg = pn2_path("PointNet++Msg")
+    first_step_spread("slice-msg", msg[0], msg[2], msg[3])
     attack_parity("parity-ssg", "PointNet++Ssg", ssg[0], ssg[1], ssg[2], ssg[3], 4, may_part=True)
     phase_parity_msg(*msg[:4])
     phase_profile("profile-ssg", ssg[0], ssg[2], ssg[3])
+    phase_profile("profile-msg", msg[0], msg[2], msg[3])
 
     # DGCNN: the victim, then its kernels at the path's shapes
     dg_data, dg_labels = synthetic_data(8, 2, DG_DATA, "cuda")
@@ -3698,13 +3926,18 @@ def main():
                 summed_bound(cng[r]), gather_at[r], cng[r]["rows"])
           for name, key, tpu, r in (("gather_chain_groupmean_fwd", "gather_mean_fwd", TPU_GATHER_FWD, "mean_fwd"),
                                     ("gather_chain_groupmean_bwd", "gather_mean_bwd", TPU_GATHER_BWD, "mean_bwd"))),
-        entry("ball_gather_chain_fwd", "ball_fwd", GATHER_SRC, TPU_GATHER_FWD, ssg[4]["ball_fwd"],
-              ballq["ball_fwd"]["err"], ballq["ball_fwd"]["ms"], ballq["ball_fwd"]["plain_ms"],
-              summed_bound(ballq["ball_fwd"]), ssg_at + ", ball route", ballq["ball_fwd"]["rows"],
-              index_route_ms=ballq["ball_fwd"]["index_ms"]),
-        entry("ball_gather_chain_bwd", "ball_bwd", GATHER_SRC, TPU_GATHER_BWD, ssg[4]["ball_bwd"],
-              ballq["ball_bwd"]["err"], ballq["ball_bwd"]["ms"], ballq["ball_bwd"]["plain_ms"],
-              summed_bound(ballq["ball_bwd"]), ssg_at + ", ball route", ballq["ball_bwd"]["rows"]),
+        *(entry(f"ball_hoist_{key}", f"ball_{key}", BALL_SRC, TPU_GATHER_FWD if key.endswith("fwd") else
+                TPU_GATHER_BWD, ssg[4][f"ball_{key}"], ballq[key]["err"], ballq[key]["ms"], ballq[key]["plain_ms"],
+                summed_bound(ballq[key]), ssg_at + ", ball route; ms the kernel's device time",
+                library_ms=ballq[key].get("library_ms"),
+                shapes={name: {"ms": v["stages"][key][0], "plain_ms": v["stages"][key][1],
+                               "library_ms": v["stages"][key][2], "bound_ms": v["stages"][key][3]}
+                        for name, v in ballq_shapes.items()},
+                **({"route_ms": {name: {**v["route"], **{b: v[b] for b in ("bound_fwd", "bound_fwd_fp32", "bound_bwd",
+                                                                          "bound_bwd_fp32", "winning_rows")}}
+                                 for name, v in ballq_shapes.items()}}
+                   if key == "stack_fwd" else {}))
+          for key in BALL_KEYS),
     ]}
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(smi)

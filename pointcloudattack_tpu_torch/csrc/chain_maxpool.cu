@@ -325,38 +325,6 @@ __global__ void __launch_bounds__(kThreads, kMaxTN <= 4 ? 2 : 1)
   for (int e = threadIdx.x; e < Kp * T; e += kThreads) out[e] = (e / T < Cm) ? cur[e] : 0.f;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-// x = hi + lo + e, |e| < 2^-20 |x|: hi keeps the 10 mantissa bits of TF32
-// and lo those of x - hi (exact in f32), both by dropping the 13 low bits.
-// A mask and a subtraction: cvt.rna's rounding costs a conversion-unit
-// instruction per part, which bounded the product stage.
-__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 struct WideArgs {
   const float* H;  // [B][nth][Kp][T]
   int nth, T, Kp, N, nmt;
@@ -541,44 +509,6 @@ __global__ void __launch_bounds__(kThreads) wide_kernel(WideArgs a) {
 // ---------------------------------------------------------------------------
 // Backward
 // ---------------------------------------------------------------------------
-
-// Exclusive prefix sums of val(0..n-1) by the block, each thread a
-// contiguous run; out(i, prefix) for each i; returns the total.  ws: 32
-// shared ints.  Every thread of the block must call it.
-template <class Val, class Out>
-__device__ int block_scan(int n, Val val, Out out, int* ws) {
-  const int nt = blockDim.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
-  const int per = (n + nt - 1) / nt, lo = min(n, tid * per), hi = min(n, lo + per);
-  int s = 0;
-  for (int i = lo; i < hi; ++i) s += val(i);
-  int incl = s;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int v = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += v;
-  }
-  if (lane == 31) ws[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    int v = lane < nw ? ws[lane] : 0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int u = __shfl_up_sync(0xffffffffu, v, o);
-      if (lane >= o) v += u;
-    }
-    if (lane < nw) ws[lane] = v;
-  }
-  __syncthreads();
-  int run = incl - s + (warp ? ws[warp - 1] : 0);
-  const int total = ws[nw - 1];
-  for (int i = lo; i < hi; ++i) {
-    const int v = val(i);
-    out(i, run);
-    run += v;
-  }
-  __syncthreads();
-  return total;
-}
 
 struct ListArgs {
   const int* idx;  // [B][CL]

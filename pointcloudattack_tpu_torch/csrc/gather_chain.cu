@@ -1,16 +1,15 @@
 // Neighbour gather + per-point Dense -> eval-BatchNorm -> activation chain
 // + a max or a mean over each group's K neighbours, and its input
-// gradients; and the same max with the ball query run inside the launch,
-// for Hopper (sm_90a).  Plain C interface, loaded with ctypes by
+// gradients, for Hopper (sm_90a).  Plain C interface, loaded with ctypes by
 // pointcloudattack_tpu_torch/ops/gather_chain.py.
 //
 // Replaces the TPU kernels of pointcloudattack_tpu/ops/pallas/gather_chain_kernel.py:
 //   forward  _gather_fwd_pallas (pallas_call at :550, bodies _gather_fwd_kernel
 //            and _gather_mean_fwd_kernel)
 //   backward _gather_bwd_pallas (pallas_call at :641, body _gather_bwd_kernel)
-// reached through gather_chain_groupmax (max pool), gather_chain_groupmean
-// (mean pool) and ball_gather_chain_groupmax (the ball query in the kernel,
-// _make_ball_gather_op, _ball_slots).  For src [B, N, Cs], centers
+// reached through gather_chain_groupmax (max pool) and gather_chain_groupmean
+// (mean pool); ball_gather_chain_groupmax (the ball query, _make_ball_gather_op)
+// runs ball_hoist.cu, which keeps this kernel's ball query.  For src [B, N, Cs], centers
 // [B, G, Cc] and idx [B, G, K] it builds each group's K rows from a layout
 // of segments, in order:
 //   diff   (lo, hi, ctr_lo): src[idx, lo:hi] - centers[g, ctr_lo:ctr_lo+w]
@@ -27,13 +26,6 @@
 // columns summed over K, diff columns summed over K with a minus sign);
 // with pre_act the row cotangent is first masked by the rows' sign.
 //
-// The ball route takes xyz [B, N, 3] and a radius in place of idx: each
-// group's K slots are the first K points in index order whose squared
-// distance to the group's center (centers[..., :3]) is <= r2, a short ball
-// padded with its first member (point 0 when the ball is empty), as
-// ops/ball_query.py::query_ball_point picks them.  The forward writes the
-// slots out as idx [B, G, K]; its backward is the index route's on them.
-//
 // What bounds it on this card.  Per call the chain is 2 * B*G*K * sum of
 // C_l*C_l+1 flops: 1.2 GFLOP at PointNet++ SSG's first SA (16 x 512 x 32
 // rows, 3 -> 64 -> 64 -> 128) and 3.3 GFLOP at its second (16 x 128 x 64
@@ -45,8 +37,6 @@
 // CurveNet's residual LPFAs (one layer C -> C, C = 16 to 128, K = 20) read
 // only the sources, the centers and the indices: 2 * K * C * C flops a
 // group against about 8 * C + 4 * K bytes, so operations bound them too.
-// The ball query adds 9 operations per (group, point) it scans: 0.08 GFLOP
-// at SSG's first SA, little beside the chain.
 //
 // What the design does about it.
 //   * The grouped rows never exist in device memory: a block loads the f32
@@ -64,18 +54,6 @@
 //     the lowest k, deterministically.  The mean's last layer goes to a
 //     padded shared [C_L][T + 1] buffer, and one thread per (group, column)
 //     sums the group's rows in ascending k, as group_chain.cu does.
-//   * The ball query (the TPU kernel rebuilt a [gpb*K, N] one-hot from a
-//     lane cumsum in both directions, on every block): the block stages the
-//     cloud in shared memory 512 points at a time with each point's norm,
-//     and one warp per group takes 32 points a step in index order: each
-//     lane's distance replays ops/pairwise.py::pairwise_sqdist bit for bit
-//     (xx, xy and yy summed over coordinates 0, 1, 2 with __fmul_rn and
-//     __fadd_rn, then (xx - 2*xy) + yy, no FMA contraction), a ballot marks
-//     the members and a popcount of the lower lanes gives each its slot.  A
-//     group stops once its K slots are full, the block once all its groups
-//     are.  A chunked group rescans in each of its chunks (the same
-//     arithmetic, so the same slots); chunk 0 writes the slots out, and the
-//     backward reads them there instead of scanning again.
 //   * Backward: recompute the rows and the activation masks; the max puts
 //     the cotangent on each column's argmax row, the mean recomputes the
 //     last layer and puts act'(z_L) * g on every row; either [C_L][T]
@@ -98,7 +76,6 @@ namespace {
 using namespace pca;
 
 constexpr int kMaxSegs = 4;
-constexpr int kBallTile = 512;  // cloud points staged at a time by the ball query
 enum SegKind { kDiff = 0, kPass = 1, kCenter = 2 };
 
 struct Layout {
@@ -115,14 +92,6 @@ struct Groups {
   int seg;     // rows of one group in a tile: min(K, T)
   int gpb;     // groups per tile: T / K when K <= T, else 1
   int chunks;  // tiles per group: ceil(K / T) when K > T, else 1
-};
-
-// The ball query's inputs: the cloud's points, the squared radius, and
-// where the slots go ([B, G, K]).
-struct Ball {
-  const float* xyz;
-  float r2;
-  int* idx_out;
 };
 
 Groups make_groups(int N, int G, int K, int Cs, int Cc, int tm) {
@@ -182,72 +151,13 @@ __device__ __forceinline__ void build_rows(const float* __restrict__ src,
   }, xT);
 }
 
-// The ball query of the ng groups from g0 of cloud b into idx_s ([ng][K]),
-// by the block: the cloud staged kBallTile points at a time into pts (x, y,
-// z and the norm yy), one warp per group taking 32 points a step in index
-// order.  The squared distance is pairwise_sqdist's, (xx - 2*xy) + yy with
-// each sum over the coordinates in order, every operation rounded on its
-// own; a point is a member when it is <= r2.  Slots past the ball's
-// members repeat its first member, or point 0 when it has none.  cnt_s
-// ([ng] ints) is scratch.  Ends with a barrier.
-__device__ __forceinline__ void ball_slots(const Ball& ball, const float* __restrict__ ctr,
-                                           const Groups& q, int b, int g0, int ng, float4* pts,
-                                           int* cnt_s, int* idx_s) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int K = q.K;
-  for (int e = tid; e < ng; e += kThreads) cnt_s[e] = 0;
-  for (int p0 = 0; p0 < q.N; p0 += kBallTile) {
-    __syncthreads();  // cnt_s settled, the last tile's points read
-    bool done = true;
-    for (int lg = 0; lg < ng; ++lg) done = done && cnt_s[lg] >= K;
-    if (done) break;
-    const int np = min(kBallTile, q.N - p0);
-    for (int e = tid; e < np; e += kThreads) {
-      const float* p = ball.xyz + ((size_t)b * q.N + p0 + e) * 3;
-      const float x = p[0], y = p[1], z = p[2];
-      pts[e] = make_float4(x, y, z, __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z)));
-    }
-    __syncthreads();
-    for (int lg = warp; lg < ng; lg += kWarps) {
-      int cnt = cnt_s[lg];  // the same in every lane
-      const float* c = ctr + ((size_t)b * q.G + g0 + lg) * q.Cc;
-      const float cx = c[0], cy = c[1], cz = c[2];
-      const float xx = __fadd_rn(__fadd_rn(__fmul_rn(cx, cx), __fmul_rn(cy, cy)), __fmul_rn(cz, cz));
-      for (int j0 = 0; j0 < np && cnt < K; j0 += 32) {
-        const int j = j0 + lane;
-        bool in = false;
-        if (j < np) {
-          const float4 p = pts[j];
-          const float xy = __fadd_rn(__fadd_rn(__fmul_rn(cx, p.x), __fmul_rn(cy, p.y)), __fmul_rn(cz, p.z));
-          in = __fadd_rn(__fsub_rn(xx, __fmul_rn(2.f, xy)), p.w) <= ball.r2;
-        }
-        const unsigned bits = __ballot_sync(0xffffffffu, in);
-        const int slot = cnt + __popc(bits & ((1u << lane) - 1u));
-        if (in && slot < K) idx_s[lg * K + slot] = p0 + j;
-        cnt += __popc(bits);
-      }
-      __syncwarp();  // every lane has read cnt_s[lg]
-      if (lane == 0) cnt_s[lg] = cnt;
-    }
-  }
-  __syncthreads();
-  for (int e = tid; e < ng * K; e += kThreads) {
-    const int lg = e / K, total = cnt_s[lg];
-    // slot 0 is a member whenever total > 0, and is never written here
-    if (e % K >= total) idx_s[e] = total > 0 ? idx_s[lg * K] : 0;
-  }
-  __syncthreads();
-}
-
 // The forward.  kMean: the mean pool, y written directly (K <= T); else the
 // max pool into part_v / part_i (y and am when a group is one chunk).
-// kBall: the slots come from the ball query and chunk 0 writes them to
-// ball.idx_out; idx is unused.
-template <int TM, bool kMean, bool kBall>
+template <int TM, bool kMean>
 __global__ void __launch_bounds__(kThreads, 2)
     gather_fwd_kernel(const float* __restrict__ src, const float* __restrict__ ctr,
                       const int* __restrict__ idx, Groups q, Layout lay, Chain ch, int pre_act,
-                      Ball ball, float* __restrict__ part_v, int* __restrict__ part_i) {
+                      float* __restrict__ part_v, int* __restrict__ part_i) {
   constexpr int T = 8 * TM, TP = T + 1;
   extern __shared__ __align__(16) unsigned char smem[];
   const int bx = blockIdx.x, b = blockIdx.y;
@@ -263,23 +173,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   float* wtile = nxt + (size_t)maxw * T;
   float* red_v = wtile + kKTile * kChunk;  // mean: the [C][TP] last layer
   int* red_i = reinterpret_cast<int*>(red_v + kWarps * kChunk);
-  unsigned char* tail = reinterpret_cast<unsigned char*>(red_v) +
-                        (kMean ? align16(sizeof(float) * C * TP) : 2 * align16(sizeof(float) * kWarps * kChunk));
 
-  if constexpr (kBall) {
-    float4* pts = reinterpret_cast<float4*>(tail);
-    int* idx_s = reinterpret_cast<int*>(pts + kBallTile);
-    int* cnt_s = idx_s + align16(sizeof(int) * q.gpb * q.K) / sizeof(int);
-    ball_slots(ball, ctr, q, b, g0, ng, pts, cnt_s, idx_s);
-    if (chunk == 0)
-      for (int e = threadIdx.x; e < ng * q.K; e += kThreads)
-        ball.idx_out[((size_t)b * q.G + g0) * q.K + e] = idx_s[e];
-    build_rows<TM>(src, ctr, q, lay, C0, b, bx, pre_act, ch.slope,
-                   [&](int g, int k) { return idx_s[(g - g0) * q.K + k]; }, cur);
-  } else {
-    build_rows<TM>(src, ctr, q, lay, C0, b, bx, pre_act, ch.slope,
-                   [&](int g, int k) { return idx[((size_t)b * q.G + g) * q.K + k]; }, cur);
-  }
+  build_rows<TM>(src, ctr, q, lay, C0, b, bx, pre_act, ch.slope,
+                 [&](int g, int k) { return idx[((size_t)b * q.G + g) * q.K + k]; }, cur);
 
   if constexpr (kMean) {
     float* zs = red_v;
@@ -452,9 +348,8 @@ __global__ void sum_chunks_kernel(const float* __restrict__ part, int chunks, in
 
 // Dynamic shared memory of one block.  Forward: chain_common.cuh's forward
 // buffers, the mean's [C_L][T + 1] last layer in place of the max's
-// partials, and for the ball query the staged points, the slots and the
-// counts.  Backward: the dense backward's buffers.
-size_t gather_smem(int L, const int* dims, int K, int tm, int bwd, int mean, int ball) {
+// partials.  Backward: the dense backward's buffers.
+size_t gather_smem(int L, const int* dims, int K, int tm, int bwd, int mean) {
   const int T = 8 * tm;
   const int gpb = K <= T ? T / K : 1;
   if (bwd) return chain_smem_bytes(L, dims, tm, 1, gpb, true);
@@ -462,19 +357,17 @@ size_t gather_smem(int L, const int* dims, int K, int tm, int bwd, int mean, int
   for (int l = 1; l < L; ++l) maxw = dims[l] > maxw ? dims[l] : maxw;
   size_t s = 2 * align16(sizeof(float) * maxw * T) + align16(sizeof(float) * kKTile * kChunk);
   s += mean ? align16(sizeof(float) * dims[L] * (T + 1)) : 2 * align16(sizeof(float) * kWarps * kChunk);
-  if (ball) s += sizeof(float4) * kBallTile + align16(sizeof(int) * gpb * K) + align16(sizeof(int) * gpb);
   return s;
 }
 
 int check_gather(int B, int N, int G, int K, int Cs, int Cc, int nseg, const int* seg, int L,
-                 const int* dims, float slope, int mean, int ball, int tm, int bwd, Layout* lay) {
+                 const int* dims, float slope, int mean, int tm, int bwd, Layout* lay) {
   if (B < 1 || B > 65535 || N < 1 || G < 1 || K < 1 || Cs < 1 || Cc < 1) return 1;
   if (L < 1 || L > kMaxLayers || nseg < 1 || nseg > kMaxSegs) return 1;
   if (!(slope >= 0.f && slope <= 1.f)) return 1;
   if (tm != 8 && tm != 4 && tm != 2) return 1;
   if (K <= 8 * tm && K % tm) return 1;  // a warp's rows must lie in one group
   if (mean && K > 8 * tm) return 1;     // the mean takes whole groups
-  if (ball && Cc < 3) return 1;         // the ball centers are centers[..., :3]
   for (int l = 0; l <= L; ++l)
     if (dims[l] < 1) return 1;
   if (bwd && dims[L - 1] > kMaxRowWidth) return 1;
@@ -489,31 +382,30 @@ int check_gather(int B, int N, int G, int K, int Cs, int Cc, int nseg, const int
     c0 += hi - lo;
   }
   if (c0 != dims[0]) return 1;
-  if (gather_smem(L, dims, K, tm, bwd, mean, ball) > kMaxSmem) return 1;
+  if (gather_smem(L, dims, K, tm, bwd, mean) > kMaxSmem) return 1;
   return 0;
 }
 
-template <int TM, bool kMean, bool kBall>
+template <int TM, bool kMean>
 cudaError_t launch_gather_fwd(const float* src, const float* ctr, const int* idx, int B,
                               const Groups& q, const Layout& lay, const Chain& ch, int pre_act,
-                              const Ball& ball, float* pv, int* pi, size_t smem, cudaStream_t s) {
-  cudaError_t e = cudaFuncSetAttribute(gather_fwd_kernel<TM, kMean, kBall>,
+                              float* pv, int* pi, size_t smem, cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(gather_fwd_kernel<TM, kMean>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(q.chunks * ((q.G + q.gpb - 1) / q.gpb), B);
-  gather_fwd_kernel<TM, kMean, kBall><<<grid, kThreads, smem, s>>>(src, ctr, idx, q, lay, ch, pre_act,
-                                                                    ball, pv, pi);
+  gather_fwd_kernel<TM, kMean><<<grid, kThreads, smem, s>>>(src, ctr, idx, q, lay, ch, pre_act, pv, pi);
   return cudaGetLastError();
 }
 
-template <bool kMean, bool kBall>
+template <bool kMean>
 cudaError_t dispatch_fwd(int tm, const float* src, const float* ctr, const int* idx, int B,
                          const Groups& q, const Layout& lay, const Chain& ch, int pre_act,
-                         const Ball& ball, float* pv, int* pi, size_t smem, cudaStream_t s) {
+                         float* pv, int* pi, size_t smem, cudaStream_t s) {
   switch (tm) {
-    case 8: return launch_gather_fwd<8, kMean, kBall>(src, ctr, idx, B, q, lay, ch, pre_act, ball, pv, pi, smem, s);
-    case 4: return launch_gather_fwd<4, kMean, kBall>(src, ctr, idx, B, q, lay, ch, pre_act, ball, pv, pi, smem, s);
-    default: return launch_gather_fwd<2, kMean, kBall>(src, ctr, idx, B, q, lay, ch, pre_act, ball, pv, pi, smem, s);
+    case 8: return launch_gather_fwd<8, kMean>(src, ctr, idx, B, q, lay, ch, pre_act, pv, pi, smem, s);
+    case 4: return launch_gather_fwd<4, kMean>(src, ctr, idx, B, q, lay, ch, pre_act, pv, pi, smem, s);
+    default: return launch_gather_fwd<2, kMean>(src, ctr, idx, B, q, lay, ch, pre_act, pv, pi, smem, s);
   }
 }
 
@@ -558,12 +450,11 @@ cudaError_t reduce_chunks(const Groups& q, int B, int C, float* pv, int* pi, voi
 
 extern "C" {
 
-// Dynamic shared memory one block needs at TM = tm (mean: the mean pool;
-// ball: the ball query's forward); the caller picks the largest tm that
-// fits pca_chain_max_smem() (and divides K when K <= 8*tm; 8*tm >= K for
-// the mean).
-size_t pca_gather_smem(int L, const int* dims, int K, int tm, int bwd, int mean, int ball) {
-  return gather_smem(L, dims, K, tm, bwd, mean, ball);
+// Dynamic shared memory one block needs at TM = tm (mean: the mean pool);
+// the caller picks the largest tm that fits pca_chain_max_smem() (and
+// divides K when K <= 8*tm; 8*tm >= K for the mean).
+size_t pca_gather_smem(int L, const int* dims, int K, int tm, int bwd, int mean) {
+  return gather_smem(L, dims, K, tm, bwd, mean);
 }
 
 // device: the CUDA device index of every pointer and the stream.
@@ -580,55 +471,25 @@ int pca_gather_fwd(int device, const void* src, const void* ctr, const void* idx
                    const int* dims, const void* const* params, float slope, int pre_act, int mean,
                    void* part_v, void* part_i, void* y, void* am, int tm, void* stream) {
   Layout lay;
-  if (check_gather(B, N, G, K, Cs, Cc, nseg, seg, L, dims, slope, mean, 0, tm, 0, &lay))
+  if (check_gather(B, N, G, K, Cs, Cc, nseg, seg, L, dims, slope, mean, tm, 0, &lay))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const Groups q = make_groups(N, G, K, Cs, Cc, tm);
   Chain ch = make_chain(L, dims, params, nullptr);
   ch.slope = slope;
-  const size_t smem = gather_smem(L, dims, K, tm, 0, mean, 0);
+  const size_t smem = gather_smem(L, dims, K, tm, 0, mean);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sf = static_cast<const float*>(src);
   const float* cf = static_cast<const float*>(ctr);
   const int* ii = static_cast<const int*>(idx);
-  const Ball none = {nullptr, 0.f, nullptr};
   if (mean)
-    return (int)dispatch_fwd<true, false>(tm, sf, cf, ii, B, q, lay, ch, pre_act, none,
-                                          static_cast<float*>(y), nullptr, smem, s);
+    return (int)dispatch_fwd<true>(tm, sf, cf, ii, B, q, lay, ch, pre_act, static_cast<float*>(y), nullptr,
+                                   smem, s);
   // one chunk per group: the tiles write y and am directly
   float* pv = static_cast<float*>(q.chunks > 1 ? part_v : y);
   int* pi = static_cast<int*>(q.chunks > 1 ? part_i : am);
-  e = dispatch_fwd<false, false>(tm, sf, cf, ii, B, q, lay, ch, pre_act, none, pv, pi, smem, s);
-  if (e != cudaSuccess) return (int)e;
-  return (int)reduce_chunks(q, B, dims[L], pv, pi, y, am, s);
-}
-
-// The max forward with the ball query in the launch.  src, ctr, seg, dims,
-// params, slope, part_v, part_i, y and am as in pca_gather_fwd (max pool,
-// no pre_act); xyz [B, N, 3] f32, the cloud the balls are taken from;
-// r2 the squared radius (float32 of the double radius * radius); the
-// balls' centers are ctr[..., :3] (Cc >= 3).  idx [B, G, K] int32
-// receives the slots.  Returns a cudaError_t code.
-int pca_ball_gather_fwd(int device, const void* src, const void* ctr, const void* xyz, float r2,
-                        int B, int N, int G, int K, int Cs, int Cc, int nseg, const int* seg, int L,
-                        const int* dims, const void* const* params, float slope, void* part_v,
-                        void* part_i, void* y, void* am, void* idx, int tm, void* stream) {
-  Layout lay;
-  if (check_gather(B, N, G, K, Cs, Cc, nseg, seg, L, dims, slope, 0, 1, tm, 0, &lay))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  const Groups q = make_groups(N, G, K, Cs, Cc, tm);
-  Chain ch = make_chain(L, dims, params, nullptr);
-  ch.slope = slope;
-  const size_t smem = gather_smem(L, dims, K, tm, 0, 0, 1);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Ball ball = {static_cast<const float*>(xyz), r2, static_cast<int*>(idx)};
-  float* pv = static_cast<float*>(q.chunks > 1 ? part_v : y);
-  int* pi = static_cast<int*>(q.chunks > 1 ? part_i : am);
-  e = dispatch_fwd<false, true>(tm, static_cast<const float*>(src), static_cast<const float*>(ctr), nullptr,
-                                B, q, lay, ch, 0, ball, pv, pi, smem, s);
+  e = dispatch_fwd<false>(tm, sf, cf, ii, B, q, lay, ch, pre_act, pv, pi, smem, s);
   if (e != cudaSuccess) return (int)e;
   return (int)reduce_chunks(q, B, dims[L], pv, pi, y, am, s);
 }
@@ -646,14 +507,14 @@ int pca_gather_bwd(int device, const void* src, const void* ctr, const void* idx
                    int pre_act, int mean, const void* am, const void* g, void* dsrc, void* dctr_part,
                    void* dctr, int tm, void* stream) {
   Layout lay;
-  if (check_gather(B, N, G, K, Cs, Cc, nseg, seg, L, dims, slope, mean, 0, tm, 1, &lay))
+  if (check_gather(B, N, G, K, Cs, Cc, nseg, seg, L, dims, slope, mean, tm, 1, &lay))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const Groups q = make_groups(N, G, K, Cs, Cc, tm);
   Chain ch = make_chain(L, dims, params, wts);
   ch.slope = slope;
-  const size_t smem = gather_smem(L, dims, K, tm, 1, mean, 0);
+  const size_t smem = gather_smem(L, dims, K, tm, 1, mean);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sf = static_cast<const float*>(src);
   const float* cf = static_cast<const float*>(ctr);

@@ -17,7 +17,9 @@
 // over the B*N source points and Q = ctr . W_ctr over the B*G centers
 // (W_src sums the weight rows of the diff and pass segments at their source
 // columns, W_ctr those of the center segments minus the diff segments' at
-// their center columns; the wrapper folds them).  Four kernels:
+// their center columns; the wrapper folds them).  Four kernels (lists from
+// hoist_common.cuh, which ball_hoist.cu shares; the ball route launches
+// this file's product too):
 //   product     out = a . w, f32 FFMA, a [R, Kd] and w [Kd, M]; up to two
 //               such products in one launch.  Forward: P and Q (one product
 //               of width 2 * C when the sources are the centers); backward:
@@ -70,17 +72,16 @@
 #include <cmath>
 #include <cstddef>
 
+#include "hoist_common.cuh"
+
+// The product kernel (P and Q forward, dsrc and dctr backward; the ball
+// route of ball_hoist.py launches it here too, through pca_hoist_product).
+namespace pca {
+namespace hoist {
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kBM = 128, kBN = 64, kBK = 16;  // product tile
 constexpr int kTM = 8, kTN = 4;               // per thread: 16 x 16 threads
-constexpr int kTileG = 16;                    // centers a block of the max
-constexpr int kPullDepth = 8;                 // list entries a pull thread loads at once
-constexpr int kListThreads = 1024;            // the lists' block: 32 warps, up to 32 parts
-constexpr int kListWarps = kListThreads / 32;
-constexpr size_t kMaxSmem = 232448;           // 227 KB opt-in per block on sm_90
 
 struct Product {
   const float* a;  // [R, Kd], row stride lda
@@ -93,18 +94,6 @@ struct Products {
   Product p0, p1;
   int first1;  // the first block of p1 (all blocks belong to p0 when there is no p1)
 };
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __global__ void __launch_bounds__(kThreads) product_kernel(Products ps) {
   __shared__ __align__(16) float As[2][kBK][kBM + 4];  // transposed a tile, padded
@@ -121,7 +110,7 @@ __global__ void __launch_bounds__(kThreads) product_kernel(Products ps) {
       const int e = tid + kThreads * i, m = e >> 4, k = e & 15;
       const int r = r0 + m, kk = k0 + k;
       const bool ok = r < p.R && kk < p.Kd;
-      cp_async4(&As[buf][k][m], ok ? p.a + (size_t)r * p.lda + kk : p.a, ok);
+      cp_async4(&As[buf][k][m], ok ? p.a + (size_t)r * p.lda + kk : p.a, ok ? 4 : 0);
     }
     const bool rows = p.wn == 1;  // neighbouring threads on neighbouring addresses: along n, or along k
 #pragma unroll
@@ -129,7 +118,7 @@ __global__ void __launch_bounds__(kThreads) product_kernel(Products ps) {
       const int e = tid + kThreads * i, k = rows ? e >> 6 : e & 15, n = rows ? e & 63 : e >> 4;
       const int kk = k0 + k, c = c0 + n;
       const bool ok = kk < p.Kd && c < p.M;
-      cp_async4(&Ws[buf][k][n], ok ? p.w + (size_t)kk * p.wk + (size_t)c * p.wn : p.w, ok);
+      cp_async4(&Ws[buf][k][n], ok ? p.w + (size_t)kk * p.wk + (size_t)c * p.wn : p.w, ok ? 4 : 0);
     }
     cp_async_commit();
   };
@@ -182,6 +171,48 @@ __global__ void __launch_bounds__(kThreads) product_kernel(Products ps) {
     }
   }
 }
+
+bool bad_product(const void* a, const void* w, const void* o, int R, int Kd, int M, int lda, int wk, int wn) {
+  return !a || !w || !o || R < 1 || Kd < 1 || M < 1 || lda < Kd || wk < 0 || wn < 0;
+}
+
+Product make_product(const void* a, const void* w, void* o, int R, int Kd, int M, int lda, int wk, int wn) {
+  return {static_cast<const float*>(a), static_cast<const float*>(w), static_cast<float*>(o), R, Kd, M, lda, wk, wn,
+          (M + kBN - 1) / kBN};
+}
+
+int tiles(const Product& p) { return ((p.R + kBM - 1) / kBM) * p.tiles_n; }
+
+// out_i = a_i . w_i for the nprob (1 or 2) products given, in one launch
+// (the C entry points' argument order); returns a cudaError_t.
+cudaError_t launch_products(int device, int nprob, const void* a0, const void* w0, void* o0, int r0, int k0, int m0,
+                            int lda0, int wk0, int wn0, const void* a1, const void* w1, void* o1, int r1, int k1,
+                            int m1, int lda1, int wk1, int wn1, void* stream) {
+  if (nprob < 1 || nprob > 2 || bad_product(a0, w0, o0, r0, k0, m0, lda0, wk0, wn0) ||
+      (nprob == 2 && bad_product(a1, w1, o1, r1, k1, m1, lda1, wk1, wn1)))
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  Products ps;
+  ps.p0 = make_product(a0, w0, o0, r0, k0, m0, lda0, wk0, wn0);
+  ps.p1 = nprob == 2 ? make_product(a1, w1, o1, r1, k1, m1, lda1, wk1, wn1) : ps.p0;
+  ps.first1 = tiles(ps.p0);
+  const long long blocks = (long long)ps.first1 + (nprob == 2 ? tiles(ps.p1) : 0);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  product_kernel<<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(ps);
+  return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace hoist
+}  // namespace pca
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kTileG = 16;                    // centers a block of the max
+constexpr int kPullDepth = 8;                 // list entries a pull thread loads at once
+constexpr size_t kMaxSmem = 232448;           // 227 KB opt-in per block on sm_90
 
 struct MaxArgs {
   const float* p;  // P [B*N, C] at row stride sp
@@ -266,93 +297,16 @@ __global__ void __launch_bounds__(kThreads) max_kernel(MaxArgs a) {
   }
 }
 
-// The number of parts (warps) whose per-point counts fit one block's shared
-// memory beside the offsets: at most kWarps, 0 when not even one does.
-int lists_parts(int N) {
-  const size_t ints = kMaxSmem / sizeof(int);
-  if ((size_t)N + 1 >= ints) return 0;
-  const size_t parts = (ints - (size_t)N - 1) / (size_t)N;
-  return parts < (size_t)kListWarps ? (int)parts : kListWarps;
-}
-
-size_t lists_smem(int N, int parts) { return sizeof(int) * ((size_t)parts * N + N); }
-
-__global__ void __launch_bounds__(kListThreads) lists_kernel(const int* __restrict__ idx, int N, int K, int ks,
-                                                              int E, int parts, int* __restrict__ start,
-                                                              int* __restrict__ list) {
-  extern __shared__ int sm[];
-  int* hist = sm;                          // [parts][N]: counts, then each part's cursor
-  int* off = sm + (size_t)parts * N;       // [N]: counts, then each point's first slot
-  __shared__ int wsum[kListWarps];
-  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int* id = idx + (size_t)b * E;
-  int* st = start + (size_t)b * (N + 1);
-  int* ls = list + (size_t)b * E;
-  const int L = (E + parts - 1) / parts;  // entries a part
-
-  for (int e = tid; e < parts * N; e += kListThreads) hist[e] = 0;
-  __syncthreads();
-  if (warp < parts) {  // count each part's entries by point
-    const int lo = warp * L, hi = min(E, lo + L);
-#pragma unroll 4
-    for (int e = lo + lane; e < hi; e += 32) {
-      const int j = id[e];
-      if ((unsigned)j < (unsigned)N) atomicAdd(&hist[warp * N + j], 1);
-    }
-  }
-  __syncthreads();
-  for (int j = tid; j < N; j += kListThreads) {  // each part's offset within the point's list
-    int run = 0;
-    for (int p = 0; p < parts; ++p) {
-      const int c = hist[p * N + j];
-      hist[p * N + j] = run;
-      run += c;
-    }
-    off[j] = run;
-  }
-  __syncthreads();
-  // exclusive scan of the counts: a contiguous run of points a thread
-  const int per = (N + kListThreads - 1) / kListThreads;
-  const int lo = min(N, tid * per), hi = min(N, lo + per);
-  int s = 0;
-  for (int j = lo; j < hi; ++j) s += off[j];
-  int incl = s;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int t = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += t;
-  }
-  if (lane == 31) wsum[warp] = incl;
-  __syncthreads();
-  int run = incl - s;
-  for (int w = 0; w < warp; ++w) run += wsum[w];
-  for (int j = lo; j < hi; ++j) {
-    const int c = off[j];
-    off[j] = run;
-    st[j] = run;
-    run += c;
-  }
-  if (tid == kListThreads - 1) st[N] = run;  // the entries listed
-  __syncthreads();
-  for (int e = tid; e < parts * N; e += kListThreads) hist[e] += off[e % N];
-  __syncthreads();
-  if (warp < parts) {  // place each part's entries in order
-    int* cur = hist + warp * N;
-    const int lo2 = warp * L, hi2 = min(E, lo2 + L);
-    int next = lo2 + lane < hi2 ? id[lo2 + lane] : -1;  // the next step's point, loaded a step ahead
-    for (int e0 = lo2; e0 < hi2; e0 += 32) {
-      const int e = e0 + lane;
-      int j = next;
-      next = e + 32 < hi2 ? id[e + 32] : -1;
-      const bool ok = (unsigned)j < (unsigned)N;
-      if (!ok) j = -1 - lane;  // a lane with no point groups with no other
-      const unsigned peers = __match_any_sync(0xffffffffu, j);
-      if (ok) ls[cur[j] + __popc(peers & ((1u << lane) - 1u))] = ((e / K) << ks) | (e % K);
-      __syncwarp();  // every lane has read its cursor
-      if (ok && lane == __ffs(peers) - 1) cur[j] += __popc(peers);
-      __syncwarp();
-    }
-  }
-}
+// Cloud b's entries are its G * K slots in (i, k) order: each names the
+// point idx[b, i, k] and is stored as (i << ks) | k.
+struct IdxEntries {
+  const int* idx;  // [B, G * K]
+  int E, K, ks;
+  __device__ int count(int) const { return E; }
+  __device__ int key(int b, int e) const { return idx[(size_t)b * E + e]; }
+  __device__ int payload(int, int e) const { return ((e / K) << ks) | (e % K); }
+  __device__ size_t base(int b) const { return (size_t)b * E; }
+};
 
 struct PullArgs {
   const int* start;  // [B, N + 1]
@@ -402,17 +356,6 @@ __global__ void __launch_bounds__(kThreads) pull_kernel(PullArgs a) {
 
 bool aligned16(const void* p) { return (reinterpret_cast<size_t>(p) & 15) == 0; }
 
-bool bad_product(const void* a, const void* w, const void* o, int R, int Kd, int M, int lda, int wk, int wn) {
-  return !a || !w || !o || R < 1 || Kd < 1 || M < 1 || lda < Kd || wk < 0 || wn < 0;
-}
-
-Product make_product(const void* a, const void* w, void* o, int R, int Kd, int M, int lda, int wk, int wn) {
-  return {static_cast<const float*>(a), static_cast<const float*>(w), static_cast<float*>(o), R, Kd, M, lda, wk, wn,
-          (M + kBN - 1) / kBN};
-}
-
-int tiles(const Product& p) { return ((p.R + kBM - 1) / kBM) * p.tiles_n; }
-
 }  // namespace
 
 extern "C" {
@@ -425,19 +368,8 @@ extern "C" {
 int pca_hoist_product(int device, int nprob, const void* a0, const void* w0, void* o0, int r0, int k0, int m0,
                       int lda0, int wk0, int wn0, const void* a1, const void* w1, void* o1, int r1, int k1, int m1,
                       int lda1, int wk1, int wn1, void* stream) {
-  if (nprob < 1 || nprob > 2 || bad_product(a0, w0, o0, r0, k0, m0, lda0, wk0, wn0) ||
-      (nprob == 2 && bad_product(a1, w1, o1, r1, k1, m1, lda1, wk1, wn1)))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  Products ps;
-  ps.p0 = make_product(a0, w0, o0, r0, k0, m0, lda0, wk0, wn0);
-  ps.p1 = nprob == 2 ? make_product(a1, w1, o1, r1, k1, m1, lda1, wk1, wn1) : ps.p0;
-  ps.first1 = tiles(ps.p0);
-  const long long blocks = (long long)ps.first1 + (nprob == 2 ? tiles(ps.p1) : 0);
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  product_kernel<<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(ps);
-  return (int)cudaGetLastError();
+  return pca::hoist::launch_products(device, nprob, a0, w0, o0, r0, k0, m0, lda0, wk0, wn0, a1, w1, o1, r1, k1,
+                                     m1, lda1, wk1, wn1, stream);
 }
 
 // y / am [B, G, C] (f32 / int32) of the max over each group's K rows of
@@ -471,7 +403,7 @@ int pca_hoist_max(int device, const void* p, int sp, const void* q, int sq, cons
 
 // The parts the reverse-list build splits a cloud's entries into at N
 // points (0: N is too large for one block's shared memory).
-int pca_hoist_lists_parts(int N) { return N < 1 ? 0 : lists_parts(N); }
+int pca_hoist_lists_parts(int N) { return N < 1 ? 0 : pca::hoist::lists_parts(N); }
 
 // The reverse neighbour lists of idx [B, G, K] int32 in [0, N): start
 // [B, N + 1] int32 (point j's entries are list[b, start[b, j] : start[b,
@@ -480,18 +412,14 @@ int pca_hoist_lists_parts(int N) { return N < 1 ? 0 : lists_parts(N); }
 // parts from pca_hoist_lists_parts(N).  Returns a cudaError_t code.
 int pca_hoist_lists(int device, const void* idx, int B, int N, int G, int K, int ks, int parts, void* start,
                     void* list, void* stream) {
-  if (B < 1 || N < 1 || G < 1 || K < 1 || parts < 1 || parts > lists_parts(N) || ks < 0 || ks > 30 ||
+  if (B < 1 || N < 1 || G < 1 || K < 1 || parts < 1 || parts > pca::hoist::lists_parts(N) || ks < 0 || ks > 30 ||
       (1LL << ks) < K || ((long long)G << ks) > 0x7fffffffLL || (long long)G * K > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const int E = G * K;
-  const size_t smem = lists_smem(N, parts);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(lists_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  lists_kernel<<<B, kListThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(idx), N, K, ks, E, parts, static_cast<int*>(start), static_cast<int*>(list));
-  return (int)cudaGetLastError();
+  const IdxEntries src = {static_cast<const int*>(idx), G * K, K, ks};
+  return (int)pca::hoist::launch_lists(src, B, N, parts, static_cast<int*>(start), static_cast<int*>(list),
+                                       static_cast<cudaStream_t>(stream));
 }
 
 // dP [B, N, C] f32: for each point j, the sum over its list (start, list

@@ -22,9 +22,10 @@ from pointcloudattack_tpu_torch.ops.gather_chain import ball_gather_chain_groupm
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:
-    """The ReLU after a fused max pool (and in PointNet++'s head): a
-    module-level name, so that a caller can record the signs of its input
-    on one device and replay them on another."""
+    """The ReLU after a fused max pool, between the unfused layers of a
+    ``PointMLP`` and in PointNet's head: a module-level name, so that a
+    caller can record the signs of its input on one device and replay them
+    on another."""
     return torch.relu(x)
 
 
@@ -134,7 +135,7 @@ class PointMLP:
             if last and self.pool_max:
                 x = x.amax(dim=1)
             if self.relu_last or not last:
-                x = torch.relu(x)
+                x = relu(x)
         return x
 
 

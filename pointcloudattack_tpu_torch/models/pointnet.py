@@ -22,6 +22,7 @@ from pointcloudattack_tpu_torch.models.common import (
     PointMLP,
     batch_norm,
     init_parameters,
+    relu,
 )
 
 
@@ -124,6 +125,6 @@ class PointNetCls(nn.Module):
         feat, trans, trans_feat = self.feat(x)
         h = self.head(feat, self.training)
         h = self.dropout(self.fc2(h))
-        h = torch.relu(batch_norm(h, self.bn2, self.training))
+        h = relu(batch_norm(h, self.bn2, self.training))
         log_probs = torch.log_softmax(self.fc3(h), dim=-1)
         return log_probs, {"trans": trans, "trans_feat": trans_feat}

@@ -131,19 +131,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     # device, xyz, start, B, N, npoint, out, stream
     lib.pca_fps.argtypes = [ci, vp, vp, ci, ci, ci, vp, vp]
     lib.pca_fps.restype = ci
-    # L, dims, K, tm, bwd, mean, ball
-    lib.pca_gather_smem.argtypes = [ci, vp, ci, ci, ci, ci, ci]
+    # L, dims, K, tm, bwd, mean
+    lib.pca_gather_smem.argtypes = [ci, vp, ci, ci, ci, ci]
     lib.pca_gather_smem.restype = ctypes.c_size_t
     # device, src, ctr, idx, B, N, G, K, Cs, Cc, nseg, seg, L, dims, params,
     # slope, pre_act, mean, part_v, part_i, y, am, tm, stream
     lib.pca_gather_fwd.argtypes = [ci, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp, ci, vp, vp,
                                    cf, ci, ci, vp, vp, vp, vp, ci, vp]
     lib.pca_gather_fwd.restype = ci
-    # device, src, ctr, xyz, r2, B, N, G, K, Cs, Cc, nseg, seg, L, dims, params,
-    # slope, part_v, part_i, y, am, idx, tm, stream
-    lib.pca_ball_gather_fwd.argtypes = [ci, vp, vp, vp, cf, ci, ci, ci, ci, ci, ci, ci, vp, ci, vp, vp,
-                                        cf, vp, vp, vp, vp, vp, ci, vp]
-    lib.pca_ball_gather_fwd.restype = ci
     # device, src, ctr, idx, B, N, G, K, Cs, Cc, nseg, seg, L, dims, params,
     # wts, slope, pre_act, mean, am, g, dsrc, dctr_part, dctr, tm, stream
     lib.pca_gather_bwd.argtypes = [ci, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp, ci, vp, vp,
@@ -163,6 +158,28 @@ def _declare(lib: ctypes.CDLL) -> None:
     # device, start, list, am, g, B, N, G, K, ks, C, dp, stream
     lib.pca_hoist_pull.argtypes = [ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp]
     lib.pca_hoist_pull.restype = ci
+    # device, xyz, ctr, B, N, G, K, Cc, r2, idx, stream
+    lib.pca_ball_slots.argtypes = [ci, vp, vp, ci, ci, ci, ci, ci, cf, vp, vp]
+    lib.pca_ball_slots.restype = ci
+    lib.pca_ball_sign_words.argtypes = [ci, vp]
+    lib.pca_ball_sign_words.restype = ci
+    # device, p, sp, q, sq, idx, B, N, G, K, L, dims, params, wstrides, slope, y, am, signs, stream
+    lib.pca_ball_stack_fwd.argtypes = [ci, vp, ci, vp, ci, vp, ci, ci, ci, ci, ci, vp, vp, vp, cf, vp, vp, vp, vp]
+    lib.pca_ball_stack_fwd.restype = ci
+    # device, am, BG, K, CL, mask, counts, ticket, off, wrow, stream
+    lib.pca_ball_winners.argtypes = [ci, vp, ci, ci, ci, vp, vp, vp, vp, vp, vp]
+    lib.pca_ball_winners.restype = ci
+    # device, off, wrow, mask, am, g, signs, BG, K, L, dims, params, wstrides, slope, d1, stream
+    lib.pca_ball_stack_bwd.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp, cf, vp, vp]
+    lib.pca_ball_stack_bwd.restype = ci
+    lib.pca_ball_lists_parts.argtypes = [ci]
+    lib.pca_ball_lists_parts.restype = ci
+    # device, idx, off, wrow, B, N, G, parts, start, list, stream
+    lib.pca_ball_lists.argtypes = [ci, vp, vp, vp, ci, ci, ci, ci, vp, vp, vp]
+    lib.pca_ball_lists.restype = ci
+    # device, start, list, off, d1, B, N, G, C, dp, dq, stream
+    lib.pca_ball_pull.argtypes = [ci, vp, vp, vp, vp, ci, ci, ci, ci, vp, vp, vp]
+    lib.pca_ball_pull.restype = ci
     # device, x, nrm, B, N, C, k, out, stream
     lib.pca_knn.argtypes = [ci, vp, vp, ci, ci, ci, ci, vp, vp]
     lib.pca_knn.restype = ci

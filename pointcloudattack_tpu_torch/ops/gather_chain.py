@@ -1,6 +1,5 @@
 """Neighbour gather + per-point Dense -> eval-BN -> activation chain + a max
-or a mean over each group's neighbours; and the max with the ball query in
-the kernel.
+or a mean over each group's neighbours; and the max over radius balls.
 
 Counterpart of ``pointcloudattack_tpu/ops/pallas/gather_chain_kernel.py``
 (``gather_chain_groupmax``, ``gather_chain_groupmean``,
@@ -21,9 +20,12 @@ int32, the lowest ``k`` attaining it.  The mean pool activates every
 layer and gives ``y``, the sum of each group's rows in ascending ``k``
 divided by ``K``.  The ball route takes ``xyz [B, N, 3]``, a radius and
 ``nsample`` in place of ``idx``: its slots are ``query_ball_point``'s
-(``ops/ball_query.py``) around ``centers[..., :3]``, chosen inside the
-kernel and returned as ``idx``; its backward is the index route's on
-them.  The ``[B, G, K, C]`` rows never exist on the card: the kernel
+(``ops/ball_query.py``) around ``centers[..., :3]``, returned as ``idx``.
+On a CUDA tensor it runs ``ops/ball_hoist.py`` (the first layer once a
+point, the rest on the tensor cores, a backward over the winning rows
+without atomics), which counts its own launches; on a CPU tensor the
+plain versions below, the index route's on the same slots.  The ``[B, G,
+K, C]`` rows never exist on the card: the index route's kernel
 (``csrc/gather_chain.cu``) builds them in shared memory.  The index
 route's max of one layer with no ``pre_act`` (DGCNN's EdgeConvs,
 CurveNet's initial LPFA) runs the layer once a point instead, and its
@@ -43,8 +45,8 @@ from typing import Sequence
 
 import torch
 
-from pointcloudattack_tpu_torch.ops import _build, gather_hoist
-from pointcloudattack_tpu_torch.ops.ball_query import ball_r2, query_ball_point
+from pointcloudattack_tpu_torch.ops import _build, ball_hoist, gather_hoist
+from pointcloudattack_tpu_torch.ops.ball_query import query_ball_point
 from pointcloudattack_tpu_torch.ops.chain_maxpool import Layer, _group, _ptr_array, act, act_bwd
 from pointcloudattack_tpu_torch.ops.gather import index_points
 from pointcloudattack_tpu_torch.ops.pairwise import sum_neighbours
@@ -55,10 +57,9 @@ _KINDS = {"diff": 0, "pass": 1, "center": 2}
 
 # Kernel launches since the last reset, by route and direction: the index
 # route's max of two or more layers or with pre_act ("fwd", "bwd") and its
-# mean ("mean_fwd", "mean_bwd"), and the ball route's max ("ball_fwd", and
-# "ball_bwd", the index route's backward on its slots).  Bumped only where
-# a kernel is launched, never by the plain versions.
-LAUNCHES = {"fwd": 0, "bwd": 0, "mean_fwd": 0, "mean_bwd": 0, "ball_fwd": 0, "ball_bwd": 0}
+# mean ("mean_fwd", "mean_bwd").  Bumped only where a kernel is launched,
+# never by the plain versions.
+LAUNCHES = {"fwd": 0, "bwd": 0, "mean_fwd": 0, "mean_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -218,11 +219,8 @@ MAX_MEAN_K = 64  # the mean takes whole groups: K rows in one tile of 8 * TM, TM
 
 
 def _check_cuda(src, centers, idx, layers, layout, slope, k) -> list[int]:
-    """Validate what the kernel takes (``idx`` None for the ball route, which
-    takes ``k`` slots a group); returns dims [C0, C1, ..., C_L]."""
-    named = [("src", src, torch.float32, 3), ("centers", centers, torch.float32, 3)]
-    if idx is not None:
-        named.append(("idx", idx, torch.int32, 3))
+    """Validate what the kernel takes; returns dims [C0, C1, ..., C_L]."""
+    named = [("src", src, torch.float32, 3), ("centers", centers, torch.float32, 3), ("idx", idx, torch.int32, 3)]
     for name, t, dt, rank in named:
         if t.dtype != dt or t.dim() != rank or not t.is_contiguous() or t.device != src.device:
             raise ValueError(
@@ -231,9 +229,9 @@ def _check_cuda(src, centers, idx, layers, layout, slope, k) -> list[int]:
                 f"contiguous={t.is_contiguous()}"
             )
     b, g = centers.shape[:2]
-    if src.shape[0] != b or (idx is not None and tuple(idx.shape) != (b, g, k)) or k < 1:
+    if src.shape[0] != b or tuple(idx.shape) != (b, g, k) or k < 1:
         raise ValueError(f"gather_chain: src {tuple(src.shape)}, centers {tuple(centers.shape)} and "
-                         f"idx {None if idx is None else tuple(idx.shape)} (K={k}) disagree")
+                         f"idx {tuple(idx.shape)} (K={k}) disagree")
     if not 0.0 <= slope <= 1.0:
         raise ValueError(f"gather_chain kernel takes a slope in [0, 1], got {slope}")
     if not 1 <= len(layout) <= 4:
@@ -263,7 +261,7 @@ def _layout_array(layout: Layout):
     return (ctypes.c_int * len(flat))(*flat)
 
 
-def _pick_tm(lib, dims_arr, num_layers: int, k: int, bwd: bool, mean: bool = False, ball: bool = False) -> int:
+def _pick_tm(lib, dims_arr, num_layers: int, k: int, bwd: bool, mean: bool = False) -> int:
     """Rows per thread: the largest whose shared memory fits one block and
     whose tile keeps each warp's rows in one group (for the mean, a whole
     group in one tile)."""
@@ -271,8 +269,8 @@ def _pick_tm(lib, dims_arr, num_layers: int, k: int, bwd: bool, mean: bool = Fal
     for tm in (8, 4, 2):
         if (k <= 8 * tm and k % tm) or (mean and k > 8 * tm):
             continue
-        if lib.pca_gather_smem(num_layers, ctypes.cast(dims_arr, ctypes.c_void_p), k, tm, int(bwd), int(mean),
-                               int(ball)) <= cap:
+        if lib.pca_gather_smem(num_layers, ctypes.cast(dims_arr, ctypes.c_void_p), k, tm, int(bwd),
+                               int(mean)) <= cap:
             return tm
     raise ValueError(f"gather_chain kernel: no tile takes K={k} with these widths"
                      + (f" (the mean takes K <= {MAX_MEAN_K}, an even K)" if mean else ""))
@@ -283,11 +281,11 @@ def _chunks(k: int, tm: int) -> int:
     return -(-k // (8 * tm)) if k > 8 * tm else 1
 
 
-def _common(src, centers, idx, layers, layout, slope, k, bwd, mean=False, ball=False):
+def _common(src, centers, idx, layers, layout, slope, k, bwd, mean=False):
     dims = _check_cuda(src, centers, idx, layers, layout, slope, k)
     lib = _build.load_library()
     dims_arr = (ctypes.c_int * len(dims))(*dims)
-    tm = _pick_tm(lib, dims_arr, len(layers), k, bwd, mean, ball)
+    tm = _pick_tm(lib, dims_arr, len(layers), k, bwd, mean)
     ws = [layer[0].contiguous() for layer in layers]
     params = _ptr_array([t for w, layer in zip(ws, layers) for t in (w, *layer[1:])])
     b, n, cs = src.shape
@@ -327,28 +325,8 @@ def _fwd_kernel(src, centers, idx, layers, layout, slope: float = 0.0, pre_act: 
     return y if mean else (y, am)
 
 
-def _ball_fwd_kernel(src, centers, xyz, layers, layout, radius: float, nsample: int, slope: float = 0.0):
-    lib, dims, tm, shape, keep = _common(src, centers, None, layers, layout, slope, nsample, False, ball=True)
-    b, g = centers.shape[:2]
-    if (xyz.dtype != torch.float32 or not xyz.is_contiguous() or xyz.device != src.device
-            or tuple(xyz.shape) != (b, src.shape[1], 3) or centers.shape[2] < 3):
-        raise ValueError(f"ball_gather_chain kernel takes a contiguous float32 xyz [{b}, {src.shape[1]}, 3] on "
-                         f"{src.device} and centers of 3 or more columns, got xyz {xyz.dtype} "
-                         f"{tuple(xyz.shape)} on {xyz.device}, centers {tuple(centers.shape)}")
-    y, am, part_v, part_i = _outputs(b, g, nsample, dims[-1], tm, False, src.device)
-    idx = torch.empty((b, g, nsample), dtype=torch.int32, device=src.device)
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        rc = lib.pca_ball_gather_fwd(src.device.index, src.data_ptr(), centers.data_ptr(), xyz.data_ptr(),
-                                     float(ball_r2(radius)), *shape, float(slope), part_v.data_ptr(),
-                                     part_i.data_ptr(), y.data_ptr(), am.data_ptr(), idx.data_ptr(), tm, stream)
-    _build.check(lib, rc, "ball_gather_chain forward launch")
-    LAUNCHES["ball_fwd"] += 1
-    return y, am, idx
-
-
 def _bwd_kernel(src, centers, idx, layers, layout, am, g, wts=None, slope: float = 0.0, pre_act: bool = False,
-                mean: bool = False, counter: str = "bwd"):
+                mean: bool = False):
     if not mean and gather_hoist.takes(layers, pre_act):
         raise ValueError("gather_chain: a one-layer max without pre_act runs gather_hoist, not the row kernel")
     k = idx.shape[2]
@@ -379,8 +357,9 @@ def _bwd_kernel(src, centers, idx, layers, layout, am, g, wts=None, slope: float
         rc = lib.pca_gather_bwd(src.device.index, src.data_ptr(), centers.data_ptr(), idx.data_ptr(), *shape,
                                 ctypes.cast(wt_arr, ctypes.c_void_p), float(slope), int(pre_act), int(mean), am_ptr,
                                 g.data_ptr(), dsrc.data_ptr(), dctr_part.data_ptr(), dctr.data_ptr(), tm, stream)
-    _build.check(lib, rc, f"gather_chain {counter} launch")
-    LAUNCHES[counter] += 1
+    kind = "mean_bwd" if mean else "bwd"
+    _build.check(lib, rc, f"gather_chain {kind} launch")
+    LAUNCHES[kind] += 1
     return dsrc, dctr
 
 
@@ -402,16 +381,16 @@ def gather_chain_fwd(src, centers, idx, layers, layout: Layout, slope: float = 0
 
 
 def gather_chain_bwd(src, centers, idx, layers, layout: Layout, am, g, wts=None, slope: float = 0.0,
-                     pre_act: bool = False, counter: str = "bwd"):
+                     pre_act: bool = False):
     """``(dsrc, dctr)`` of the max for ``g = dy * mul_L``: the kernels for
     CUDA tensors (one layer without ``pre_act``: ``gather_hoist``'s, on any
-    route; else the row kernel, its launch counted under ``counter``), the
+    route; else the row kernel), the
     plain version for CPU tensors.  ``wts``, the layers' ``W^T [out, in]``,
     spares the row kernel a transposed copy when the caller holds them."""
     if src.is_cuda:
         if gather_hoist.takes(layers, pre_act):
             return gather_hoist.hoisted_bwd(src, centers, idx, layers[0], layout, am, g)
-        return _bwd_kernel(src, centers, idx, layers, layout, am, g, wts, slope, pre_act, False, counter)
+        return _bwd_kernel(src, centers, idx, layers, layout, am, g, wts, slope, pre_act, False)
     if src.device.type == "cpu":
         return gather_chain_bwd_plain(src, centers, idx, layers, layout, am, g, slope, pre_act)
     raise _no_device(src)
@@ -432,7 +411,7 @@ def gather_chain_mean_bwd(src, centers, idx, layers, layout: Layout, g, wts=None
     """``(dsrc, dctr)`` of the mean for ``g = dy * mul_L / K``: the kernel
     for CUDA tensors, the plain version for CPU tensors."""
     if src.is_cuda:
-        return _bwd_kernel(src, centers, idx, layers, layout, None, g, wts, slope, pre_act, True, "mean_bwd")
+        return _bwd_kernel(src, centers, idx, layers, layout, None, g, wts, slope, pre_act, True)
     if src.device.type == "cpu":
         return gather_chain_mean_bwd_plain(src, centers, idx, layers, layout, g, slope, pre_act)
     raise _no_device(src)
@@ -440,10 +419,10 @@ def gather_chain_mean_bwd(src, centers, idx, layers, layout: Layout, g, wts=None
 
 def ball_gather_chain_fwd(src, centers, xyz, layers, layout: Layout, radius: float, nsample: int,
                           slope: float = 0.0):
-    """The ball route's forward ``(y, am, idx)``: the kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    """The ball route's forward ``(y, am, idx)``: ``ball_hoist``'s kernels
+    for CUDA tensors, the plain version for CPU tensors."""
     if src.is_cuda:
-        return _ball_fwd_kernel(src, centers, xyz, layers, layout, radius, nsample, slope)
+        return ball_hoist.forward(src, centers, xyz, layers, layout, radius, nsample, slope)[:3]
     if src.device.type == "cpu":
         return ball_gather_chain_plain(src, centers, xyz, layers, layout, radius, nsample, slope)
     raise _no_device(src)
@@ -459,11 +438,11 @@ def _layers(flat):
     return [(w.contiguous(), *layer[1:]) for w, layer in zip(flat[::5], _group(flat))]
 
 
-def _save(ctx, mean, layout, slope, pre_act, counter, first, src, centers, idx, am, layers, flat):
+def _save(ctx, mean, layout, slope, pre_act, first, src, centers, idx, am, layers, flat):
     """What the shared backward reads: the inputs, the selection, the argmax
     (None for the mean), the contiguous weights and the parameters, whose
     gradients start at input ``first``."""
-    ctx.mean, ctx.layout, ctx.slope, ctx.pre_act, ctx.counter, ctx.first = mean, layout, slope, pre_act, counter, first
+    ctx.mean, ctx.layout, ctx.slope, ctx.pre_act, ctx.first = mean, layout, slope, pre_act, first
     ctx.save_for_backward(src, centers, idx, am, *[layer[0] for layer in layers], *flat)
 
 
@@ -487,7 +466,7 @@ def _backward(ctx, dy):
                                                wts, slope, pre_act)
         else:
             dsrc, dctr = gather_chain_bwd(src, centers, idx, layers, layout, am, g.contiguous(), wts, slope,
-                                          pre_act, ctx.counter)
+                                          pre_act)
         dsrc = dsrc.to(src.dtype) if ctx.needs_input_grad[0] else None
         dctr = dctr.to(centers.dtype) if ctx.needs_input_grad[1] else None
     dflat = [None] * len(flat)
@@ -512,7 +491,7 @@ class GatherChainMax(torch.autograd.Function):
         src, centers, idx = src.contiguous(), centers.contiguous(), idx.contiguous()
         layers = _layers(flat)
         y, am = gather_chain_fwd(src, centers, idx, layers, layout, slope)
-        _save(ctx, False, layout, slope, False, "bwd", 5, src, centers, idx, am, layers, flat)
+        _save(ctx, False, layout, slope, False, 5, src, centers, idx, am, layers, flat)
         return y
 
     @staticmethod
@@ -530,7 +509,7 @@ class GatherChainMean(torch.autograd.Function):
         src, centers, idx = src.contiguous(), centers.contiguous(), idx.contiguous()
         layers = _layers(flat)
         y = gather_chain_mean_fwd(src, centers, idx, layers, layout, slope, pre_act)
-        _save(ctx, True, layout, slope, pre_act, "mean_bwd", 6, src, centers, idx, None, layers, flat)
+        _save(ctx, True, layout, slope, pre_act, 6, src, centers, idx, None, layers, flat)
         return y
 
     @staticmethod
@@ -541,21 +520,51 @@ class GatherChainMean(torch.autograd.Function):
 
 class BallGatherChainMax(torch.autograd.Function):
     """y = max over each ball's rows of the chain, the slots chosen in the
-    forward and kept for the backward (counted as ``ball_bwd``); ``xyz``
-    takes no gradient, as ball membership is an integer selection (the JAX
-    op gives it zeros)."""
+    forward and kept for the backward; ``xyz`` takes no gradient, as ball
+    membership is an integer selection (the JAX op gives it zeros).  On a
+    CUDA tensor both directions run ``ball_hoist``'s kernels, the backward
+    on the forward's picks and hidden signs; on a CPU tensor the plain
+    versions.  Parameter gradients come from autograd through the plain
+    forward, as ``_backward``'s."""
 
     @staticmethod
     def forward(ctx, src, centers, xyz, layout, radius, nsample, slope, *flat):
         src, centers, xyz = src.contiguous(), centers.contiguous(), xyz.detach().contiguous()
-        layers = _layers(flat)
-        y, am, idx = ball_gather_chain_fwd(src, centers, xyz, layers, layout, radius, nsample, slope)
-        _save(ctx, False, layout, slope, False, "ball_bwd", 7, src, centers, idx, am, layers, flat)
+        layers = _group(flat)
+        if src.is_cuda:
+            y, am, idx, signs, folded = ball_hoist.forward(src, centers, xyz, layers, layout, radius, nsample, slope)
+        elif src.device.type == "cpu":
+            (y, am, idx), signs, folded = ball_gather_chain_plain(src, centers, xyz, layers, layout, radius, nsample,
+                                                                  slope), None, (None, None)
+        else:
+            raise _no_device(src)
+        ctx.layout, ctx.slope = layout, slope
+        ctx.save_for_backward(src, centers, idx, am, signs, *folded, *flat)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        dsrc, dctr, dflat = _backward(ctx, dy)
+        src, centers, idx, am, signs, ws, wc, *flat = ctx.saved_tensors
+        layout, slope = ctx.layout, ctx.slope
+        layers = _group(flat)
+        dsrc = dctr = None
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            g = (dy.float() * layers[-1][3]).contiguous()
+            if src.is_cuda:
+                dsrc, dctr = ball_hoist.hoisted_bwd(src, centers, idx, layers, layout, am, g, signs, slope, (ws, wc))
+            else:
+                dsrc, dctr = gather_chain_bwd_plain(src, centers, idx, layers, layout, am, g, slope)
+            dsrc = dsrc.to(src.dtype) if ctx.needs_input_grad[0] else None
+            dctr = dctr.to(centers.dtype) if ctx.needs_input_grad[1] else None
+        dflat = [None] * len(flat)
+        want = [i for i, need in enumerate(ctx.needs_input_grad[7:]) if need]
+        if want:
+            with torch.enable_grad():
+                ps = [p.detach().requires_grad_(i in want) for i, p in enumerate(flat)]
+                y_ref = gather_chain_plain(src.detach(), centers.detach(), idx, _group(ps), layout, slope)[0]
+                grads = torch.autograd.grad(y_ref, [ps[i] for i in want], dy)
+            for i, gr in zip(want, grads):
+                dflat[i] = gr
         return (dsrc, dctr, None, None, None, None, None, *dflat)
 
 

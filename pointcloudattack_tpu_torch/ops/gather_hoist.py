@@ -191,11 +191,13 @@ def _need(name, t, dtype, shape, device):
                          f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def products(pairs, counter: str):
+def products(pairs, counter: str, outs=None, launches=None):
     """``[a @ w for a, w in pairs]`` (one or two pairs, ``a [R, Kd]`` with
     unit column stride, ``w [Kd, M]`` of any strides, a transposed view
     too): one launch of the product kernel for CUDA tensors, counted under
-    ``counter``; the plain version for CPU tensors."""
+    ``counter`` in ``launches`` (this module's ``LAUNCHES`` unless given;
+    the ball route passes its own), written into ``outs`` (contiguous) when
+    given, else into fresh tensors; the plain version for CPU tensors."""
     a0 = pairs[0][0]
     if a0.device.type == "cpu":
         return [product_plain(a, w) for a, w in pairs]
@@ -203,26 +205,29 @@ def products(pairs, counter: str):
         raise _no_device(a0)
     if not 1 <= len(pairs) <= 2:
         raise ValueError(f"the product kernel takes one or two products, got {len(pairs)}")
-    args, outs = [], []
-    for a, w in pairs:
+    args, res = [], []
+    for i, (a, w) in enumerate(pairs):
         if (a.dtype != torch.float32 or w.dtype != torch.float32 or a.dim() != 2 or w.dim() != 2
                 or a.stride(1) != 1 or a.shape[1] != w.shape[0] or a.device != a0.device or w.device != a0.device
                 or min(a.shape) < 1 or w.shape[1] < 1):
             raise ValueError(f"the product kernel takes float32 a [R, Kd] (unit column stride) and w [Kd, M] "
                              f"on {a0.device}, got {a.dtype} {tuple(a.shape)} strides {a.stride()} and "
                              f"{w.dtype} {tuple(w.shape)} on {a.device}, {w.device}")
-        out = torch.empty((a.shape[0], w.shape[1]), dtype=torch.float32, device=a.device)
+        out = outs[i] if outs else torch.empty((a.shape[0], w.shape[1]), dtype=torch.float32, device=a.device)
+        _need(f"product output {i}", out, torch.float32, (a.shape[0], w.shape[1]), a.device)
+        if not out.is_contiguous():
+            raise ValueError(f"gather_hoist: product output {i} must be contiguous")
         args += [a.data_ptr(), w.data_ptr(), out.data_ptr(), a.shape[0], a.shape[1], w.shape[1], a.stride(0),
                  w.stride(0), w.stride(1)]
-        outs.append(out)
+        res.append(out)
     if len(pairs) == 1:
         args += [None, None, None, 0, 0, 0, 0, 0, 0]
     lib = _build.load_library()
     with torch.cuda.device(a0.device):
         rc = lib.pca_hoist_product(a0.device.index, len(pairs), *args, _stream(a0))
     _build.check(lib, rc, "gather_hoist product launch")
-    LAUNCHES[counter] += 1
-    return outs
+    (LAUNCHES if launches is None else launches)[counter] += 1
+    return res
 
 
 def gather_max(p, q, idx, bias, mean, mul, beta):

@@ -1,25 +1,21 @@
-"""The gather kernel's last two routes against their plain PyTorch
-versions, on the card (pointcloudattack_tpu_torch/csrc/gather_chain.cu):
-the ball query inside the kernel (the eval-mode route of PointNet++ SSG's
-and MSG's set abstractions) and the gather + chain + mean with the rows'
-activation and the LeakyReLU max (CurveNet's LPFAs with
-``fused_gather=True``); then both victims on those routes.
+"""The gather kernel's mean route against its plain PyTorch versions, on
+the card (pointcloudattack_tpu_torch/csrc/gather_chain.cu): the gather +
+chain + mean with the rows' activation and the LeakyReLU max (CurveNet's
+LPFAs with ``fused_gather=True``); then CurveNet on that route.  The ball
+route (PointNet++'s set abstractions) has its own file,
+tests/test_torch_ball_hoist_cuda.py.
 
 Every test here needs an NVIDIA GPU and nvcc, and skips elsewhere.  The
 file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gather_routes_cuda.py
 
-Checks come from ``chip_smoke.py``: ``check_ball`` (the slots equal
-``query_ball_point``'s bit for bit, y and the argmax equal the index
-route's kernel on them bit for bit, then ``check_gather``'s rules),
-``check_gather`` with a slope and ``check_gather_mean`` (``check_group``'s
-rules: y atol 1e-4, dsrc and dctr atol and rtol 1e-4, the points and
-groups of rows with an activated unit within 1e-5 of 0 left out); the
-victims' log-probs on the ball route bit-equal to the index route's
-(``query_ball_point``, then the gather kernel, patched in), and
-CurveNet's logits on the gather route card against CPU, the CPU taking
-the card's choices and activation signs (``replay``), within LOGP_ATOL.
+Checks come from ``chip_smoke.py``: ``check_gather`` with a slope and
+``check_gather_mean`` (``check_group``'s rules: y atol 1e-4, dsrc and dctr
+atol and rtol 1e-4, the points and groups of rows with an activated unit
+within 1e-5 of 0 left out), and CurveNet's logits on the gather route card
+against CPU, the CPU taking the card's choices and activation signs
+(``replay``), within LOGP_ATOL.
 """
 
 import sys
@@ -42,24 +38,6 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
-
-
-BALL_CASES = {**{name: shape + (None,) for name, shape in chip_smoke.GATHER_SHAPES.items()},
-              **chip_smoke.BALL_EDGE_SHAPES}
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", list(BALL_CASES))
-def test_ball_kernel_matches_plain_on_card(cuda_device, name):
-    """Every set abstraction of SSG and MSG at B=16, a ragged N, N < K,
-    empty and overfull balls, and a cloud on a 1/16 grid (distances on the
-    radius)."""
-    shape = BALL_CASES[name]
-    src, ctr, _, layers, layout, dy = chip_smoke.gather_case(7, *shape)
-    gc.reset_launches()
-    chip_smoke.check_ball(name, src, ctr, layers, layout, shape[2], shape[3], dy)
-    # the ball kernel, then the index kernel on its slots twice and the backward on them once
-    assert gc.LAUNCHES == {**dict.fromkeys(gc.LAUNCHES, 0), "ball_fwd": 1, "fwd": 2, "bwd": 1}
 
 
 @pytest.mark.cuda
@@ -113,44 +91,6 @@ def test_routes_raise_on_what_they_do_not_take(cuda_device):
         gc.gather_chain_mean_fwd(src, ctr, idx, layers, layout, 0.2, True)
     with pytest.raises(ValueError, match="slope"):
         gc.gather_chain_mean_fwd(src, ctr, idx[:, :, :20].contiguous(), layers, layout, 1.5, True)
-    with pytest.raises(ValueError, match="xyz"):
-        gc.ball_gather_chain_fwd(src, ctr, src[..., :2].contiguous(), layers, layout, 0.2, 16)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", ["PointNet++Ssg", "PointNet++Msg"])
-def test_ball_route_victim_equals_index_route(cuda_device, name):
-    """Log-probs on the ball route bit-equal to the index route's (the same
-    slots, rows and chain), with the launches moved from the gather kernel
-    to the ball kernel, and the input gradient within 1e-6 relative L2
-    (only the dsrc atomicAdds' order differs)."""
-    from pointcloudattack_tpu_torch.models import common
-    from pointcloudattack_tpu_torch.ops.ball_query import query_ball_point
-
-    def index_route(self, src, centers, xyz, layout, radius, nsample):
-        idx = query_ball_point(radius, nsample, xyz, centers[..., :3])
-        y = gc.gather_chain_groupmax(src, centers, idx, self.fused_layers(), layout)
-        return common.relu(y) if self.relu_last else y
-
-    sd = models.make_model(name, 10, generator=torch.Generator().manual_seed(0)).state_dict()
-    x = torch.from_numpy((np.random.RandomState(4).randn(2, 1024, 3) * 0.5).astype(np.float32)).cuda()
-    fn = make_model_fn(models.make_model(name, 10), sd, cuda_device)
-    out = {}
-    for index in (False, True):
-        with pytest.MonkeyPatch.context() as mp:
-            if index:
-                mp.setattr(common.PointMLP, "ball_group_max", index_route)
-            a = x.clone().requires_grad_(True)
-            gc.reset_launches()
-            logp = fn(a)
-            (g,) = torch.autograd.grad(logp[:, 0].sum(), a)
-        out[not index] = (logp.detach(), g, dict(gc.LAUNCHES))
-    sas = 2 if name == "PointNet++Ssg" else 6
-    assert torch.equal(out[False][0], out[True][0])
-    assert out[False][2] == {**dict.fromkeys(gc.LAUNCHES, 0), "fwd": sas, "bwd": sas}
-    assert out[True][2] == {**dict.fromkeys(gc.LAUNCHES, 0), "ball_fwd": sas, "ball_bwd": sas}
-    rel = float((out[True][1] - out[False][1]).norm() / out[False][1].norm())
-    assert rel <= 1e-6, rel
 
 
 @pytest.mark.cuda

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from pointcloudattack_tpu_torch import models
+from pointcloudattack_tpu_torch.ops import ball_hoist as bh
 from pointcloudattack_tpu_torch.ops import chain_maxpool as cm
 from pointcloudattack_tpu_torch.ops import fps as fps_mod
 from pointcloudattack_tpu_torch.ops import gather_chain as gc
@@ -117,9 +118,11 @@ def test_forward_on_card_matches_cpu(cuda_device, name):
     state = {k: v.clone() for k, v in model.state_dict().items()}
     x = torch.from_numpy((np.random.RandomState(1).randn(2, 1024, 3) * 0.5).astype(np.float32))
     cpu = make_model_fn(models.make_model(name, 40), state, "cpu")(x)
-    for m in (fps_mod, gc, cm):
+    for m in (fps_mod, gc, cm, bh):
         m.reset_launches()
     card = make_model_fn(model, state, cuda_device)(x.to(cuda_device))
     assert fps_mod.LAUNCHES["fps"] == 2 and cm.LAUNCHES["fwd"] == 1
-    assert gc.LAUNCHES["ball_fwd"] == (2 if name == "PointNet++Ssg" else 6) and gc.LAUNCHES["fwd"] == 0
+    sas = 2 if name == "PointNet++Ssg" else 6
+    assert bh.LAUNCHES == {**dict.fromkeys(bh.LAUNCHES, 0), "slots_fwd": sas, "product_fwd": sas, "stack_fwd": sas}
+    assert gc.LAUNCHES["fwd"] == 0
     torch.testing.assert_close(card.cpu(), cpu, rtol=1e-5, atol=1e-4)

@@ -352,12 +352,17 @@ def _ball_inputs(seed=0, b=2, n=96, g=24, cp=5, widths=(16, 24)):
 
 def test_check_ball_holds_the_slots_and_the_rows(monkeypatch):
     """``check_ball`` passes the plain ball route, and raises where the
-    slots leave ``query_ball_point``'s by one index or where y leaves the
-    index route's by one ulp."""
+    slots leave ``query_ball_point``'s by one index, where y leaves the plain
+    version's by more than Y_TOL, where a clear winner's pick moves, or where
+    a kernel of the route (its stack backward's d1, its pull's dP, its
+    winners) leaves its plain version."""
+    from pointcloudattack_tpu_torch.ops import ball_hoist as bh
+
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     src, ctr, layers, layout, dy = _ball_inputs()
     errs, _, _, win, idx = chip_smoke.check_ball("plain", src, ctr, layers, layout, 0.3, 16, dy)
     assert errs["y"] == 0.0 and win > 0 and idx.shape == (2, 24, 16)
+    assert all(errs[key] == 0.0 for key in chip_smoke.BALL_KEYS)
     plain = gc.ball_gather_chain_fwd
 
     def other_slot(*args):
@@ -368,12 +373,32 @@ def test_check_ball_holds_the_slots_and_the_rows(monkeypatch):
 
     def other_y(*args):
         y, am, slots = plain(*args)
-        return torch.nextafter(y, torch.full_like(y, np.inf)), am, slots
+        return y + 2 * chip_smoke.Y_TOL["atol"], am, slots
 
-    for fault, msg in ((other_slot, "slots differ"), (other_y, "y or the argmax differ")):
+    def other_pick(*args):
+        y, am, slots = plain(*args)
+        am = am.clone()
+        am[0, 0, 0] = (am[0, 0, 0] + 1) % args[6]
+        return y, am, slots
+
+    for fault, msg in ((other_slot, "slots differ"), (other_y, "not close"), (other_pick, "clear winner")):
         monkeypatch.setattr(gc, "ball_gather_chain_fwd", fault)
         with pytest.raises(AssertionError, match=msg):
             chip_smoke.check_ball("faulty", src, ctr, layers, layout, 0.3, 16, dy)
+    monkeypatch.setattr(gc, "ball_gather_chain_fwd", plain)
+    # each fault in a kernel's wrapper only (on the CPU the wrapper runs the plain version the check holds it to)
+    stack_bwd, pull, winners = bh.stack_bwd, bh.pull, bh.winners
+    faults = {
+        "stack_bwd": (lambda *a, **k: stack_bwd(*a, **k) * 1.001, "not close"),
+        "pull": (lambda *a, **k: (lambda d: (d[0] * (1 + 2 ** -20), d[1]))(pull(*a, **k)), "dP"),
+        "winners": (lambda am, k: (lambda w: bh.Winners(w.mask, w.off, w.wrow.flip(0)))(winners(am, k)),
+                    "winners|not close"),
+    }
+    for name, (fault, msg) in faults.items():
+        with monkeypatch.context() as m:
+            m.setattr(bh, name, fault)
+            with pytest.raises(AssertionError, match=msg):
+                chip_smoke.check_ball("faulty", src, ctr, layers, layout, 0.3, 16, dy)
 
 
 def test_check_gather_mean_catches_a_faulty_kernel(monkeypatch):
