@@ -66,8 +66,13 @@ non-zero and prints no result):
               iterations.
 11. kernels-knn  the self-kNN kernel bit for bit against its plain version
               at the four EdgeConv inputs of one forward of the DGCNN victim
-              (B=16, N=1024, k=20, C=3/64/64/128), at a ragged N=1000 and
-              with every point 4 times (ties); times beside the bound.
+              (B=16, N=1024, k=20, C=3/64/64/128), at a ragged N=1000, with
+              every point 4 times (ties) and at KNN_EDGE_CASES (N=4096; k = 1,
+              32, 33, 64, 65 and N; C=1); times beside plain's, the bound and
+              each kernel's device time.  Phase 19 adds GeoA3's cached set
+              ([8, 1024, 3], k=17) and the CurveNet path its nine kNN inputs
+              of one forward (B=8, N=1024/256/64, k=21), checked and timed
+              alike.
 12. kernels-gather-dgcnn  the one-layer gather max (ops/gather_hoist.py) at the
               four EdgeConv shapes (K=20, the center segment) under
               check_gather's rules, each of its five kernels against its plain
@@ -106,11 +111,16 @@ non-zero and prints no result):
 18. profile-dgcnn  torch.profiler over 10 DGCNN CW iterations.
 19. kernels-geoa3  the curvature (kappa) kernels and the two-direction Chamfer
               kernels against their plain versions on the CPU at GeoA3's shape
-              (B=8, N=1024, k=16), at a ragged N=1000 and with exact duplicates;
-              times beside the plain versions' and the bounds.
+              (B=8, N=1024, k=16), at a ragged N=1000 and with exact duplicates,
+              two backwards bit-equal; the backward alone at a hub point and
+              on indices outside the cloud (check_kappa_bwd); times beside the
+              plain versions' and the bounds, and the backward's stages' device
+              times under the profiler.
 20. slice-geoa3  GeoA3 on PointNet at bench.py's geoa3 settings (B=8, CE, 10
               rounds, 100 of their 500 iterations): exact launch counts, ASR > 0,
-              finite clouds, s/batch over 3 reps after a warm-up.
+              finite clouds, s/batch over 3 reps after a warm-up; then, as a
+              reading, the first step's loss gradient twice (how many
+              coordinates differ, the first traced op that parts).
 21. parity-geoa3  GeoA3 (B=4, 2 x 10) on the card and on the CPU from the same
               weights and start offsets, the CPU on the card's normals: success,
               the kept step and best_loss, the clouds at points that never parted,
@@ -388,6 +398,12 @@ CHAIN_EDGE_CASES = {
 }
 # the backward's stages, launched once each by every chain_bwd call
 CHAIN_BWD_STAGES = ("chain_bwd_lists", "chain_bwd_rows")
+# row 9 beyond the paths' shapes, (B, N, C, k): the largest N; k = 1, either
+# side of 32 (the bound from the first or second half of the sorted share
+# minima) and of 64 (past it, k passes); k = N; one channel
+KNN_EDGE_CASES = {"N=4096": (2, 4096, 3, 16), "k=1": (2, 1000, 64, 1), "k=32": (2, 1024, 64, 32),
+                  "k=33": (2, 1024, 64, 33), "k=64": (2, 1024, 64, 64), "k=65": (2, 1024, 64, 65),
+                  "k=N": (3, 37, 128, 37), "C=1": (2, 777, 1, 20)}
 
 
 def log(msg: str) -> None:
@@ -1475,6 +1491,31 @@ def knn_bound(b, n, c, k):
     return bound(flops, 4.0 * (b * n * c + b * n * k))
 
 
+def knn_case(b, n, c, seed=0):
+    """A seeded [b, n, c] input of the kNN kernel on the card."""
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.random.RandomState(seed + n + c).randn(b, n, c).astype(np.float32)).cuda()
+
+
+def time_knn(tag, name, x, k):
+    """Row 9 on one input: the indices bit-equal to plain (``check_knn``),
+    the wrapper's time beside plain's (``time_pairs``), each kernel's device
+    time under the profiler and the bound; logs them and returns them."""
+    from pointcloudattack_tpu_torch.ops import knn as knn_mod
+
+    err = check_knn(tag, name, x, k)
+    ms = time_pairs({"plain": lambda: knn_mod.knn_plain(x, k), "kernel": lambda: knn_mod.knn(x, k)}, reps=5)
+    dev = device_ms(lambda: knn_mod.knn(x, k))
+    bnd = knn_bound(*x.shape, k)
+    log(f"[{tag}] {name} {tuple(x.shape)} k={k}: kernel {ms['kernel']:.4f} ms (device "
+        + ", ".join(f"{n} {v:.4f}" for n, v in dev.items()) + f"), plain {ms['plain']:.4f} ms, bound "
+        f"{bnd[0]:.4f} ms by {bnd[1]}")
+    return {"err": err, "ms": ms["kernel"], "plain_ms": ms["plain"], "bound_ms": bnd[0], "bound_by": bnd[1],
+            "device_ms": dev}
+
+
 def chamfer_bound(b, n, m):
     """(bound_ms, bound_by) of one row min: 8 operations a pair (3
     subtractions, 3 products, 2 sums); x and y read once, mins and argmin
@@ -2078,15 +2119,17 @@ def pick_hooks():
 
 def relu_hooks():
     """``replay`` hooks for the ReLUs after PointNet's and PointNet++'s fused
-    max pools, between the unfused layers of a ``PointMLP`` (PointNet's
-    transformers and head) and at the end of PointNet's head ("relu",
-    ``models/common.py::relu``), and in PointNet++'s head ("head_relu",
-    ``models/pointnet2.py``'s name for it): the side of 0 of each input.  A
-    pooled feature or a head unit within rounding of 0 otherwise opens on
-    one side only and moves the whole cloud's gradient."""
+    max pools and between the unfused layers of a ``PointMLP`` (PointNet's
+    transformers and head: "relu", ``models/common.py::relu``), at the end of
+    PointNet's head ("pointnet_relu", ``models/pointnet.py``'s name for it)
+    and in PointNet++'s head ("head_relu", ``models/pointnet2.py``'s): the
+    side of 0 of each input.  A pooled feature or a head unit within
+    rounding of 0 otherwise opens on one side only and moves the whole
+    cloud's gradient."""
     import torch
 
     from pointcloudattack_tpu_torch.models import common
+    from pointcloudattack_tpu_torch.models import pointnet as pn
     from pointcloudattack_tpu_torch.models import pointnet2 as pn2
 
     def card(orig, x):
@@ -2096,7 +2139,8 @@ def relu_hooks():
         xd = x.detach()
         return torch.where(pos, x, 0.0 * x), xd.abs(), torch.where(pos != (xd > 0), xd.abs(), 0.0)
 
-    return {"relu": (common, "relu", card, cpu), "head_relu": (pn2, "relu", card, cpu)}
+    return {"relu": (common, "relu", card, cpu), "pointnet_relu": (pn, "relu", card, cpu),
+            "head_relu": (pn2, "relu", card, cpu)}
 
 
 def kernel_rows(x, layers, slope):
@@ -2533,21 +2577,23 @@ def phase_clock(tag):
 
 
 @contextlib.contextmanager
-def knn_inputs():
-    """While open, records the input and k of every kNN that DGCNN runs."""
-    from pointcloudattack_tpu_torch.models import dgcnn as dgcnn_mod
+def knn_inputs(mod=None):
+    """While open, records the input and k of every kNN that the victim
+    module ``mod`` (DGCNN's by default) runs."""
+    if mod is None:
+        from pointcloudattack_tpu_torch.models import dgcnn as mod
 
-    orig, seen = dgcnn_mod.knn, []
+    orig, seen = mod.knn, []
 
     def rec(x, k):
         seen.append((x.detach().clone(), k))
         return orig(x, k)
 
-    dgcnn_mod.knn = rec
+    mod.knn = rec
     try:
         yield seen
     finally:
-        dgcnn_mod.knn = orig
+        mod.knn = orig
 
 
 def edgeconv_fused_vs_unfused(model, inputs):
@@ -2598,19 +2644,24 @@ def phase_kernels_dgcnn(model, model_fn, data):
     if [tuple(x.shape[1:]) + (k,) for x, k in inputs] != [(N, c, DG_K) for c in (3, 64, 64, 128)]:
         raise AssertionError(f"DGCNN ran kNN on {[tuple(x.shape) for x, _ in inputs]}")
     with phase_clock("kernels-knn"):
+        rec["knn"]["shapes"] = {}
         for i, (x, k) in enumerate(inputs):
-            rec["knn"]["err"] = max(rec["knn"]["err"], check_knn("kernels-knn", f"conv{i + 1} input", x, k))
-            ms = time_pairs({"plain": lambda: knn_mod.knn_plain(x, k), "kernel": lambda: knn_mod.knn(x, k)}, reps=5)
-            bnd = knn_bound(*x.shape, k)
-            accumulate(rec["knn"], ms["kernel"], ms["plain"], bnd)
-            log(f"[kernels-knn] conv{i + 1} {tuple(x.shape)} k={k}: kernel {ms['kernel']:.4f} ms, plain "
-                f"{ms['plain']:.4f} ms, bound {bnd[0]:.4f} ms by {bnd[1]}")
+            r = time_knn("kernels-knn", f"DGCNN conv{i + 1} input", x, k)
+            rec["knn"]["err"] = max(rec["knn"]["err"], r["err"])
+            accumulate(rec["knn"], r["ms"], r["plain_ms"], (r["bound_ms"], r["bound_by"]))
+            rec["knn"]["shapes"][f"dgcnn conv{i + 1} {tuple(x.shape)} k={k}"] = r
+        r = rec["knn"]
+        log(f"[kernels-knn] per DGCNN forward (the four EdgeConv inputs): {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms; device "
+            f"{sum(sum(v['device_ms'].values()) for v in r['shapes'].values()):.4f} ms")
         errs = [check_knn("kernels-knn", "conv2 input, first 1000 points (ragged)",
                           inputs[1][0][:, :1000].contiguous(), DG_K)]
         for i in (0, 3):  # every point 4 times: each row's first 4 neighbours tie at distance 0
             x = inputs[i][0]
             errs.append(check_knn("kernels-knn", f"conv{i + 1} input, its first 256 points 4 times (ties)",
                                   torch.cat([x[:, :256]] * 4, dim=1).contiguous(), DG_K))
+        for name, (b, n, c, k) in KNN_EDGE_CASES.items():
+            errs.append(check_knn("kernels-knn", name, knn_case(b, n, c), k))
         rec["knn"]["err"] = max(rec["knn"]["err"], *errs)
     with phase_clock("kernels-gather-dgcnn"):
         for i, (name, shape) in enumerate(DGCNN_GATHER_SHAPES.items()):
@@ -2940,6 +2991,7 @@ def check_kappa(tag, name, a, nrm, dk):
 
     kap, picks = kappa.kappa_fwd(a, nrm, GEO_K)
     dadv, dnrm = kappa.kappa_bwd(a, nrm, picks, dk, GEO_K)
+    twice(tag, f"kappa {name}", (dadv, dnrm), kappa.kappa_bwd(a, nrm, picks, dk, GEO_K))
     kap_p, picks_p = kappa.kappa_plain(a.cpu(), nrm.cpu(), GEO_K)
     dadv_p, dnrm_p = kappa.kappa_bwd_plain(a.cpu(), nrm.cpu(), picks_p, dk.cpu(), GEO_K)
     res = {"picks": _same(tag, "picks", picks, picks_p),
@@ -2961,6 +3013,8 @@ def check_kappa_idx(tag, name, a, nrm, idx, dk):
 
     kap = kappa.kappa_idx_fwd(a, nrm, idx, GEO_K)
     dadv, dnrm = kappa.kappa_bwd(a, nrm, idx, dk, GEO_K, counter="kappa_idx_bwd")
+    twice(tag, f"kappa_knn_mean_from_idx {name}", (dadv, dnrm),
+          kappa.kappa_bwd(a, nrm, idx, dk, GEO_K, counter="kappa_idx_bwd"))
     kap_p = kappa.kappa_idx_plain(a.cpu(), nrm.cpu(), idx.cpu(), GEO_K)
     dadv_p, dnrm_p = kappa.kappa_bwd_plain(a.cpu(), nrm.cpu(), idx.cpu(), dk.cpu(), GEO_K)
     res = {"kappa": _same(tag, "kappa (given set)", kap, kap_p, rtol=KAPPA_RTOL, atol=0.0),
@@ -2970,6 +3024,38 @@ def check_kappa_idx(tag, name, a, nrm, idx, dk):
     log(f"[{tag}] kappa_knn_mean_from_idx {name} {tuple(a.shape)} k={GEO_K}: max |diff| "
         + ", ".join(f"{k} {e:.3e} ({'bit-equal' if eq else 'not bit-equal'})" for k, (e, eq) in res.items())
         + f"; {zero} given neighbours at distance 0, all finite")
+    return max(e for e, _ in res.values())
+
+
+def twice(tag, what, first, second):
+    """Two backwards on the same inputs must give the same bits."""
+    import torch
+
+    if not all(torch.equal(u, v) for u, v in zip(first, second)):
+        raise AssertionError(f"{tag} {what}: two backwards differ")
+
+
+def check_kappa_bwd(tag, name, a, nrm, idx, dk):
+    """The curvature backward alone on a given set ``idx [B, N, k]``, whose
+    indices may lie outside [0, N) (they add nothing), against the plain
+    version that orders it as the kernel does (``kappa_bwd_lists_plain`` on
+    the CPU, the bits of ``kappa_bwd_plain`` wherever every index is in
+    range): dadv and dnormal within KAPPA_GRAD_ATOL, two backwards
+    bit-equal.  Returns the max |diff|."""
+    from pointcloudattack_tpu_torch.ops import kappa
+
+    k = idx.shape[-1]
+    got = kappa.kappa_bwd(a, nrm, idx, dk, k, counter="kappa_idx_bwd")
+    twice(tag, f"kappa backward {name}", got, kappa.kappa_bwd(a, nrm, idx, dk, k, counter="kappa_idx_bwd"))
+    start, lst = kappa.kappa_lists_plain(idx.cpu(), a.shape[1])
+    want = kappa.kappa_bwd_lists_plain(a.cpu(), nrm.cpu(), idx.cpu(), dk.cpu(), k, start, lst)
+    res = {w: _same(tag, f"kappa backward {w} ({name})", g, p, rtol=0.0, atol=KAPPA_GRAD_ATOL)
+           for w, g, p in zip(("dadv", "dnormal"), got, want)}
+    outside = int(((idx < 0) | (idx >= a.shape[1])).sum())
+    log(f"[{tag}] kappa backward {name} {tuple(a.shape)} k={k}: against the list-ordered plain version, max |diff| "
+        + ", ".join(f"{w} {e:.3e} ({'bit-equal' if eq else 'not bit-equal'})" for w, (e, eq) in res.items())
+        + f"; two backwards bit-equal; {outside} indices outside the cloud, the longest list "
+        f"{int((start[:, 1:] - start[:, :-1]).max())} edges")
     return max(e for e, _ in res.values())
 
 
@@ -3056,6 +3142,15 @@ def phase_kernels_geoa3(data):
                 check_kappa_idx("kernels-geoa3", "8 exact collisions", hit, nrm, idx, dk),
                 check_kappa_idx("kernels-geoa3", "ragged N=1000", moved[:, :1000].contiguous(),
                                 nrm[:, :1000].contiguous(), idx_r, dk[:, :1000].contiguous()))
+    # the backward alone: a hub point (every row's fifth neighbour), indices outside the cloud beside exact
+    # collisions
+    hub, outside = idx.clone(), idx.clone()
+    hub[:, :, 4] = 7
+    outside[0, ::5, 2], outside[1, ::7, 9] = -1, n + 5
+    err_i = max(err_i, check_kappa_bwd("kernels-geoa3", "a hub point picked by every row", moved, nrm,
+                                       hub.contiguous(), dk),
+                check_kappa_bwd("kernels-geoa3", "indices outside the cloud, 8 exact collisions", hit, nrm,
+                                outside.contiguous(), dk))
     for key in ("kappa_fwd", "kappa_bwd"):
         rec[key]["err"] = err_k
     for key in ("kappa_idx_fwd", "kappa_idx_bwd"):
@@ -3084,6 +3179,13 @@ def phase_kernels_geoa3(data):
         accumulate(rec[key], ms[key], ms[f"{key}_plain"], bnd)
         log(f"[kernels-geoa3] {key} [{b},{n},3] k={GEO_K}: kernel {ms[key]:.4f} ms, plain {ms[f'{key}_plain']:.4f} ms, "
             f"bound {bnd[0]:.5f} ms by {bnd[1]}")
+    for key, fn in (("kappa_bwd", lambda: kappa.kappa_bwd(adv, nrm, picks, dk, GEO_K)),
+                    ("kappa_idx_bwd", lambda: kappa.kappa_bwd(moved, nrm, idx, dk, GEO_K, counter="kappa_idx_bwd"))):
+        rec[key]["device_ms"] = dev = device_ms(fn)
+        log(f"[kernels-geoa3] {key} [{b},{n},3] k={GEO_K}, its stages' device time a launch: "
+            + ", ".join(f"{name} {v:.4f} ms" for name, v in dev.items())
+            + f"; {sum(dev.values()):.4f} ms in all, bound {kappa_bwd_bound(b, n, GEO_K)[0]:.5f} ms")
+    rec["knn_geoa3"] = time_knn("kernels-knn", "GeoA3's cached curvature set (the clean clouds)", data, GEO_K + 1)
     return rec
 
 
@@ -3540,10 +3642,12 @@ def curvenet_path(name="CurveNet"):
     every way, its counted C&W and GeoA3 attacks, card against CPU and the
     profile, and C&W on the gather route (counted, in turns with the grouped
     route, card against CPU); returns the launch counts of C&W, of GeoA3
-    and of C&W on the gather route."""
+    and of C&W on the gather route, and row 9's record at the nine kNN
+    inputs of one forward."""
     import torch
 
     from pointcloudattack_tpu_torch import models
+    from pointcloudattack_tpu_torch.models import curvenet as curvenet_mod
     from pointcloudattack_tpu_torch.utils.apply import make_model_fn
 
     data, labels = synthetic_data(8, 1, CN_DATA, "cuda")
@@ -3551,6 +3655,18 @@ def curvenet_path(name="CurveNet"):
     target = victim_labels(fn, data, labels, "slice-curvenet")
     model = models.make_model(name, NUM_CLASSES)
     model_fn = make_model_fn(model, state, "cuda")  # the victim again, its LPFAs to be timed alone
+    with phase_clock("kernels-knn (CurveNet)"):
+        with knn_inputs(curvenet_mod) as inputs, torch.no_grad():
+            model_fn(data)
+        if len(inputs) != CN_LAUNCHES[0]["knn"]:
+            raise AssertionError(f"CurveNet ran {len(inputs)} kNNs a forward, expected {CN_LAUNCHES[0]['knn']}")
+        knn = {f"curvenet knn{i + 1} {tuple(x.shape)} k={k}": time_knn("kernels-knn", f"CurveNet's kNN {i + 1} of 9",
+                                                                       x, k)
+               for i, (x, k) in enumerate(inputs)}
+        log("[kernels-knn] per CurveNet forward (its nine kNNs): "
+            f"{sum(r['ms'] for r in knn.values()):.4f} ms, plain {sum(r['plain_ms'] for r in knn.values()):.4f} ms, "
+            f"bound {sum(r['bound_ms'] for r in knn.values()):.4f} ms; device "
+            f"{sum(sum(r['device_ms'].values()) for r in knn.values()):.4f} ms")
     with phase_clock("kernels-curvenet (LPFA stages)"):
         lpfa_fused_vs_unfused(lpfa_inputs(model, model_fn, data))
     per_fwd, per_bwd = CN_LAUNCHES
@@ -3575,7 +3691,7 @@ def curvenet_path(name="CurveNet"):
     with phase_clock("slice-geoa3-curvenet"):
         geo = run_geoa3("slice-geoa3-curvenet", logp_fn, geo_data, geo_target, per_fwd, per_bwd,
                         CN_GEO_ROUNDS, CN_GEO_ITER)
-    return cw, geo, cw_gather
+    return cw, geo, cw_gather, knn
 
 
 def pn2_path(name):
@@ -3590,13 +3706,14 @@ def pn2_path(name):
     return model_fn, state, data, target, launches
 
 
-def loss_grad(fn, a, ori, target):
-    """(log-probs, the CW loss's input gradient) of ``fn`` at ``a``."""
+def loss_grad(fn, a, ori, target, loss_fn=cw_loss):
+    """(log-probs, the input gradient of ``loss_fn``, the CW loss by
+    default) of ``fn`` at ``a``."""
     import torch
 
     a = a.detach().clone().requires_grad_(True)
     logp = fn(a)
-    (g,) = torch.autograd.grad(cw_loss(logp, a, ori, target).sum(), a)
+    (g,) = torch.autograd.grad(loss_fn(logp, a, ori, target).sum(), a)
     return logp.detach(), g
 
 
@@ -3618,6 +3735,68 @@ def first_step_spread(tag, fn, data, target):
         raise AssertionError(f"{tag}: two runs of the first step's gradient differ in {int((g1 != g2).sum())} "
                              f"coordinates")
     return d
+
+
+@contextlib.contextmanager
+def op_trace(targets):
+    """While open, records in run order what each function ``(module,
+    name)`` of ``targets`` returns, its tensors flattened into one; yields
+    the list of (name, tensor)."""
+    import torch
+
+    rec, saved = [], []
+    for mod, name in targets:
+        def traced(*args, _fn=getattr(mod, name), _name=f"{mod.__name__.rsplit('.', 1)[-1]}.{name}", **kw):
+            out = _fn(*args, **kw)
+            outs = out if isinstance(out, tuple) else (out,)
+            rec.append((_name, torch.cat([o.detach().flatten().double() for o in outs if torch.is_tensor(o)])))
+            return out
+
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, traced)
+    try:
+        yield rec
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def geoa3_first_steps(tag, fn, data, target):
+    """A reading, not a check: GeoA3's first-round loss gradient (CE plus
+    10 x the bundle and the curvature, on the card's normals) at the first
+    iterate (the clouds plus the start noise of seed 1), twice on the card,
+    each run traced (the chain, bundle and curvature kernels' wrappers,
+    forward and backward): how many coordinates differ, and the first traced
+    op whose bits part, if any (ROADMAP Queue 3 item 1).  Returns the count."""
+    import torch
+
+    from pointcloudattack_tpu_torch.geometry.normals import estimate_normal
+    from pointcloudattack_tpu_torch.losses.geometry import kappa_ori
+    from pointcloudattack_tpu_torch.ops import chain_maxpool as cm
+    from pointcloudattack_tpu_torch.ops import chamfer, kappa
+
+    nrm = estimate_normal(data)
+    loss = geoa3_loss({"cuda": nrm}, {"cuda": kappa_ori(data, nrm, GEO_K)})
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    a0 = data + torch.randn(data.shape, generator=gen, device="cuda") * 1e-7
+    targets = ((cm, "chain_maxpool_fwd"), (cm, "chain_maxpool_bwd"), (chamfer, "both_fwd"), (chamfer, "both_bwd"),
+               (kappa, "kappa_fwd"), (kappa, "kappa_bwd"))
+    runs = []
+    for _ in range(2):
+        with op_trace(targets) as rec:
+            _, grad = loss_grad(fn, a0, data, target, loss)
+        runs.append((rec, grad))
+    (r1, g1), (r2, g2) = runs
+    if [n for n, _ in r1] != [n for n, _ in r2]:
+        raise AssertionError(f"{tag}: the two runs traced different ops")
+    parted = next((n for (n, u), (_, v) in zip(r1, r2) if not torch.equal(u, v)), None)
+    differ = int((g1 != g2).sum())
+    log(f"[{tag}] first_step_spread (a reading): the first step's loss gradient, two runs on the card: {differ} of "
+        f"{g1.numel()} coordinates differ, max |diff| {float((g1 - g2).abs().max()):.3e} (largest |gradient| "
+        f"{float(g1.abs().max()):.3e}); of the {len(r1)} traced ops ("
+        + ", ".join(sorted({n for n, _ in r1})) + ") "
+        + ("every one bit-equal" if parted is None else f"the first to part: {parted}"))
+    return differ
 
 
 @contextlib.contextmanager
@@ -3820,6 +3999,7 @@ def main():
     geo_target = victim_labels(geo_fn, geo_data, geo_labels, "slice-geoa3")
     with phase_clock("slice-geoa3"):
         geo_launches = run_geoa3("slice-geoa3", geo_fn, geo_data, geo_target, {"chain_fwd": 2}, {"chain_bwd": 2})
+        geoa3_first_steps("slice-geoa3", geo_fn, geo_data, geo_target)
     with phase_clock("parity-geoa3"):
         phase_parity_geoa3(geo_fn, geo_state, geo_data, geo_target)
     with phase_clock("profile-geoa3"):
@@ -3849,7 +4029,7 @@ def main():
         cnk = phase_kernels_curvenet()
     with phase_clock("kernels-gather-curvenet"):
         cng = phase_kernels_gather_curvenet()
-    cn_cw, cn_geo, cn_gather = curvenet_path()
+    cn_cw, cn_geo, cn_gather, cn_knn = curvenet_path()
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "pointcloudattack_tpu"))
     if loaded:
         raise AssertionError(f"the JAX side was imported: {loaded}")
@@ -3901,19 +4081,23 @@ def main():
                 TPU_GATHER_BWD, dg_launches[f"hoist_{key}"], dg[key]["err"], dg[key]["ms"], dg[key]["plain_ms"],
                 summed_bound(dg[key]), dg_at, library_ms=dg[key].get("library_ms"))
           for key in HOIST_KEYS),
-        entry("knn", "knn", KNN_SRC, TPU_KNN, dg_launches["knn"], dg["knn"]["err"], dg["knn"]["ms"],
-              dg["knn"]["plain_ms"], summed_bound(dg["knn"]), dg_at),
+        entry("knn", "knn", KNN_SRC, TPU_KNN, dg_launches["knn"],
+              max(dg["knn"]["err"], geo["knn_geoa3"]["err"], *(r["err"] for r in cn_knn.values())), dg["knn"]["ms"],
+              dg["knn"]["plain_ms"], summed_bound(dg["knn"]), dg_at,
+              shapes={**dg["knn"]["shapes"], f"geoa3 cached set {tuple(geo_data.shape)} k={GEO_K + 1}": geo["knn_geoa3"],
+                      **cn_knn}),
         entry("min_sqdist_rows", "min_rows", CHAMFER_SRC, TPU_CHAMFER, knn1["min_rows"], cham["err"], cham["ms"],
               cham["plain_ms"], cham["bound"], f"B={B} N=M={N}, one KNN iteration's Chamfer on PointNet"),
         *(entry(name, key, src, tpu, geo_launches[key], geo[key]["err"], geo[key]["ms"], geo[key]["plain_ms"],
-                summed_bound(geo[key]), geo_at)
+                summed_bound(geo[key]), geo_at, **({"device_ms": geo[key]["device_ms"]} if key == "kappa_bwd" else {}))
           for name, key, src, tpu in (("kappa_knn_mean_fwd", "kappa_fwd", KAPPA_SRC, TPU_KAPPA_FWD),
                                       ("kappa_knn_mean_bwd", "kappa_bwd", KAPPA_SRC, TPU_KAPPA_BWD),
                                       ("min_sqdist_both_fwd", "both_fwd", BOTH_SRC, TPU_BOTH_FWD),
                                       ("min_sqdist_both_bwd", "both_bwd", BOTH_SRC, TPU_BOTH_BWD))),
         *(entry(name, key, KAPPA_SRC, tpu, geo_r4[key], geo[key]["err"], geo[key]["ms"], geo[key]["plain_ms"],
                 summed_bound(geo[key]), f"one GeoA3 iteration's call on PointNet at curv_knn_refresh {GEO_REFRESH} "
-                f"(B=8, N=1024, k={GEO_K}, a stale set)")
+                f"(B=8, N=1024, k={GEO_K}, a stale set)",
+                **({"device_ms": geo[key]["device_ms"]} if key == "kappa_idx_bwd" else {}))
           for name, key, tpu in (("kappa_knn_mean_from_idx_fwd", "kappa_idx_fwd", TPU_KAPPA_IDX_FWD),
                                  ("kappa_knn_mean_from_idx_bwd", "kappa_idx_bwd", TPU_KAPPA_IDX_BWD))),
         *(entry(name, key, GROUP_SRC, tpu, cn_cw[key], cnk[key]["err"], cnk[key]["ms"], cnk[key]["plain_ms"],

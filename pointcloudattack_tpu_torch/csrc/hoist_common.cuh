@@ -1,14 +1,18 @@
-// The kernel the hoisted-first-layer routes share (gather_hoist.cu's
-// one-layer gather max and ball_hoist.cu's ball set abstraction), for
-// Hopper (sm_90a):
+// The kernel the hoisted-first-layer routes (gather_hoist.cu's one-layer
+// gather max and ball_hoist.cu's ball set abstraction) and the curvature
+// backward (kappa.cu) share, for Hopper (sm_90a):
 //   lists    a stable counting sort of each cloud's entries by the point they
-//            name: one block a cloud, 1024 threads; each of up to 32 warps
-//            takes a contiguous part of the entries, counts them by point in
-//            shared memory (a count per part and point), then places them in
-//            order, __match_any_sync ranking the lanes that share a point.
+//            name: G blocks a cloud (1 for the hoisted routes), 1024 threads,
+//            block g taking the g-th contiguous part of the entries; each of
+//            up to 32 warps takes a contiguous part of the block's, counts
+//            them by point in shared memory (a count per part and point),
+//            then places them in order, __match_any_sync ranking the lanes
+//            that share a point.  With G > 1 each block also counts all of
+//            its cloud's entries by point, and those before its own part,
+//            for the points' starts and its own offsets.
 //            Which entries a cloud has, the point each names, what is stored
 //            for it and where the cloud's list starts come from a Src
-//            (count, key, payload, base), so both routes run one kernel.
+//            (count, key, payload, base), so every caller runs one kernel.
 // Each source that includes this header gets its own instance, launched
 // through its own C entry points.  Both routes' products (P and Q, dsrc and
 // dctr) run gather_hoist.cu's product kernel, through pca_hoist_product.
@@ -29,37 +33,51 @@ constexpr int kListThreads = 1024;            // the lists' block: 32 warps, up 
 constexpr int kListWarps = kListThreads / 32;
 
 // The number of parts (warps) whose per-point counts fit one block's shared
-// memory beside the offsets: at most kListWarps, 0 when not even one does.
-int lists_parts(int N) {
+// memory beside `arrays` more arrays of N (the offsets; with G > 1 also the
+// earlier blocks' counts): at most kListWarps, 0 when not even one does.
+int lists_parts(int N, int arrays = 1) {
   const size_t ints = kMaxSmem / sizeof(int);
-  if ((size_t)N + 1 >= ints) return 0;
-  const size_t parts = (ints - (size_t)N - 1) / (size_t)N;
+  if ((size_t)arrays * N + 1 >= ints) return 0;
+  const size_t parts = (ints - (size_t)arrays * N - 1) / (size_t)N;
   return parts < (size_t)kListWarps ? (int)parts : kListWarps;
 }
 
-size_t lists_smem(int N, int parts) { return sizeof(int) * ((size_t)parts * N + N); }
+size_t lists_smem(int N, int parts, int arrays = 1) { return sizeof(int) * ((size_t)(parts + arrays) * N); }
 
 // Cloud b's entries e in [0, src.count(b)) each name a point src.key(b, e)
 // (outside [0, N): not listed); point j's entries, in ascending e, go to
 // list[src.base(b) + start[b, j] ...], each stored as src.payload(b, e);
-// start [B, N + 1], start[b, N] the entries listed.
+// start [B, N + 1], start[b, N] the entries listed.  Block (b, g) of G
+// places the g-th part of the entries.
 template <class Src>
 __global__ void __launch_bounds__(kListThreads) lists_kernel(Src src, int N, int parts, int* __restrict__ start,
                                                              int* __restrict__ list) {
   extern __shared__ int sm[];
   int* hist = sm;                          // [parts][N]: counts, then each part's cursor
   int* off = sm + (size_t)parts * N;       // [N]: counts, then each point's first slot
+  int* pre = off + N;                      // [N], G > 1: the counts of the entries before this block's
   __shared__ int wsum[kListWarps];
-  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int E = src.count(b);
+  const int b = blockIdx.x, g = blockIdx.y, G = gridDim.y, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int E = src.count(b), share = (E + G - 1) / G;
+  const int lo0 = min(E, g * share), hi0 = min(E, lo0 + share);  // this block's entries
   int* st = start + (size_t)b * (N + 1);
   int* ls = list + src.base(b);
-  const int L = (E + parts - 1) / parts;  // entries a part
+  const int L = (hi0 - lo0 + parts - 1) / parts;  // entries a part
 
   for (int e = tid; e < parts * N; e += kListThreads) hist[e] = 0;
+  if (G > 1) {  // the cloud's count of each point, and of the entries before this block's
+    for (int j = tid; j < N; j += kListThreads) off[j] = pre[j] = 0;
+    __syncthreads();
+    for (int e = tid; e < E; e += kListThreads) {
+      const int j = src.key(b, e);
+      if ((unsigned)j >= (unsigned)N) continue;
+      atomicAdd(&off[j], 1);
+      if (e < lo0) atomicAdd(&pre[j], 1);
+    }
+  }
   __syncthreads();
   if (warp < parts) {  // count each part's entries by point
-    const int lo = warp * L, hi = min(E, lo + L);
+    const int lo = lo0 + warp * L, hi = min(hi0, lo + L);
 #pragma unroll 4
     for (int e = lo + lane; e < hi; e += 32) {
       const int j = src.key(b, e);
@@ -74,7 +92,7 @@ __global__ void __launch_bounds__(kListThreads) lists_kernel(Src src, int N, int
       hist[p * N + j] = run;
       run += c;
     }
-    off[j] = run;
+    if (G == 1) off[j] = run;
   }
   __syncthreads();
   // exclusive scan of the counts: a contiguous run of points a thread
@@ -93,17 +111,17 @@ __global__ void __launch_bounds__(kListThreads) lists_kernel(Src src, int N, int
   for (int w = 0; w < warp; ++w) run += wsum[w];
   for (int j = lo; j < hi; ++j) {
     const int c = off[j];
-    off[j] = run;
-    st[j] = run;
+    off[j] = G > 1 ? run + pre[j] : run;
+    if (g == 0) st[j] = run;
     run += c;
   }
-  if (tid == kListThreads - 1) st[N] = run;  // the entries listed
+  if (g == 0 && tid == kListThreads - 1) st[N] = run;  // the entries listed
   __syncthreads();
   for (int e = tid; e < parts * N; e += kListThreads) hist[e] += off[e % N];
   __syncthreads();
   if (warp < parts) {  // place each part's entries in order
     int* cur = hist + warp * N;
-    const int lo2 = warp * L, hi2 = min(E, lo2 + L);
+    const int lo2 = lo0 + warp * L, hi2 = min(hi0, lo2 + L);
     int next = lo2 + lane < hi2 ? src.key(b, lo2 + lane) : -1;  // the next step's point, loaded a step ahead
     for (int e0 = lo2; e0 < hi2; e0 += 32) {
       const int e = e0 + lane;
@@ -120,14 +138,15 @@ __global__ void __launch_bounds__(kListThreads) lists_kernel(Src src, int N, int
   }
 }
 
-// lists_kernel<Src> over B clouds at `parts` (from lists_parts(N));
-// returns a cudaError_t.
+// lists_kernel<Src> over B clouds at `parts` (from lists_parts(N), or with
+// G > 1 lists_parts(N, 2)), G blocks a cloud; returns a cudaError_t.
 template <class Src>
-cudaError_t launch_lists(const Src& src, int B, int N, int parts, int* start, int* list, cudaStream_t s) {
-  const size_t smem = lists_smem(N, parts);
+cudaError_t launch_lists(const Src& src, int B, int N, int parts, int* start, int* list, cudaStream_t s,
+                         int G = 1) {
+  const size_t smem = lists_smem(N, parts, G > 1 ? 2 : 1);
   cudaError_t e = cudaFuncSetAttribute(lists_kernel<Src>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  lists_kernel<Src><<<B, kListThreads, smem, s>>>(src, N, parts, start, list);
+  lists_kernel<Src><<<dim3(B, G), kListThreads, smem, s>>>(src, N, parts, start, list);
   return cudaGetLastError();
 }
 

@@ -52,29 +52,37 @@
 // forward's distances are 8.4 M pairs at 8 operations, its selection at
 // least one compare a pair, and its contributions 131 K edges: about 76 M
 // operations, 0.001 ms at the FP32 rate, against 0.3 MB of input and
-// output.  The backward is 131 K edges of about 40 operations and the
-// N * k index compares of each pulled point.  The given-set forward is the
-// same 131 K edges alone, about 2.6 M operations against 0.72 MB of indices,
-// points, normals and kappa: bytes bound it, at about 0.0002 ms.  Latency
-// bounds all three here: one launch is some 0.005 ms.
+// output.  The backward is 131 K edges of about 46 operations, 0.0003 ms
+// (bytes: the points, normals, dkappa and picks read once, two gradients
+// written).  The given-set forward is the same 131 K edges alone, about
+// 2.6 M operations against 0.72 MB of indices, points, normals and kappa:
+// bytes bound it, at about 0.0002 ms.  Latency bounds all three here: one
+// launch is some 0.005 ms.
 //
 // What the design does about it.
 //   * Forward: a block owns 8 rows of one cloud and keeps their 8 x N exact
 //     distances in shared memory (the [N, N] matrix never reaches device
 //     memory); one warp a row runs k + 1 warp-wide passes, pass t taking the
-//     smallest pair above pass t-1's, as csrc/knn.cu selects; the row's lane
-//     0 then forms the k contributions from the stored distance and the
-//     neighbour's coordinates.
+//     smallest pair above pass t-1's; the row's lane 0 then forms the k
+//     contributions from the stored distance and the neighbour's
+//     coordinates.
 //   * Given-set forward: a block owns 256 rows of one cloud and stages the
 //     cloud's coordinates in shared memory; a thread a row forms its k
 //     edges (edge_term, shared with the selecting forward) and sums them.
-//   * Backward, for both forwards: a thread a row forms its k edge terms,
-//     writes them to a [B, N, k, 3] scratch and sums the row's own side;
-//     then a thread a point pulls the edges that point at it, scanning the
-//     cloud's picks (or given indices) staged in shared memory: no atomics.
+//   * Backward, for both forwards, two launches and no float atomics: the
+//     lists (hoist_common.cuh's stable counting sort of the picks by the
+//     point they name, 2048 picks a block: 64 blocks at B=8), then one warp
+//     a point (B * N warps, so the card is full at B=8) forms its own k
+//     edges and recomputes its incoming ones, about k on average, each from
+//     (i, t) with edge_grad.
+//     Recomputing costs some 46 operations an edge; keeping the terms
+//     instead would need a third launch (every edge formed before any point
+//     pulls it) and a [B, N, k, 3] scratch written and read back.
 
+#include "hoist_common.cuh"
 #include "sqdist_common.cuh"
 
+#include <algorithm>
 #include <climits>
 
 namespace {
@@ -83,9 +91,10 @@ constexpr int kThreads = 256;
 constexpr int kRows = 8;  // rows per forward block: one warp each
 constexpr int kMaxK = 64;
 constexpr int kMaxPoints = 4096;
-constexpr int kPullThreads = 128;
-constexpr int kIdxTile = 4096;  // picks per staged tile: 16 KB
 constexpr float kEps = 1e-12f;
+constexpr int kListEntries = 2048;  // picks a block of the backward's lists sorts
+constexpr int kListPart = 256;      // picks a warp of it places
+constexpr int kMaxListBlocks = 32;
 
 // (v, i) comes after (pv, pi) in (distance, index) order.
 __device__ __forceinline__ bool after(float v, int i, float pv, int pi) {
@@ -209,85 +218,126 @@ __global__ void __launch_bounds__(kThreads)
   kap[r] = __fdiv_rn(acc, (float)k);
 }
 
-// One thread a row: its k edge terms into e [B, N, k, 3], the row's own
-// side (the sum of its e) into ctr and its normal's gradient into dnrm.
-__global__ void __launch_bounds__(kThreads)
-    kappa_edge_kernel(const float* __restrict__ a, const float* __restrict__ nrm, const int* __restrict__ picks,
-                      const float* __restrict__ dkap, int B, int N, int k, float* __restrict__ e,
-                      float* __restrict__ ctr, float* __restrict__ dnrm) {
-  const int r = blockIdx.x * kThreads + threadIdx.x;
-  if (r >= B * N) return;
-  const int b = r / N;
-  const float* ab = a + (size_t)b * N * 3;
-  const float* ai = a + (size_t)r * 3;
-  const float* ni = nrm + (size_t)r * 3;
-  const float mii = dot3(ni, ai);
-  const float w = __fdiv_rn(dkap[r], (float)k);
-  float c[3] = {0.f, 0.f, 0.f}, dn[3] = {0.f, 0.f, 0.f};
-  for (int t = 0; t < k; ++t) {
-    const int j = picks[(size_t)r * k + t];
-    float* et = e + ((size_t)r * k + t) * 3;
-    if (j < 0 || j >= N) {  // a given index outside the cloud: no edge
-      et[0] = et[1] = et[2] = 0.f;
-      continue;
-    }
-    const float* aj = ab + 3 * j;
-    const float d = pca::sqdist3(ai[0], ai[1], ai[2], aj[0], aj[1], aj[2]);
-    const float num = __fsub_rn(dot3(ni, aj), mii);
-    const float s = num > 0.f ? 1.f : (num < 0.f ? -1.f : 0.f);
-    float alpha = 0.f, beta = 0.f;
-    if (d > 0.f) {
-      const float rn = __fsqrt_rn(d), rr = __fadd_rn(rn, kEps), ws = __fmul_rn(w, s);
-      alpha = __fdiv_rn(ws, rr);
-      beta = __fdiv_rn(-__fmul_rn(ws, num), __fmul_rn(__fmul_rn(rr, rr), rn));
-    }
-#pragma unroll
-    for (int q = 0; q < 3; ++q) {
-      const float v = __fsub_rn(aj[q], ai[q]);
-      const float eq = __fadd_rn(__fmul_rn(alpha, ni[q]), __fmul_rn(beta, v));
-      const float nq = __fmul_rn(alpha, v);
-      et[q] = eq;
-      c[q] = t == 0 ? eq : __fadd_rn(c[q], eq);
-      dn[q] = t == 0 ? nq : __fadd_rn(dn[q], nq);
-    }
+// The gradient terms of the edge i -> j (w = dkappa_i / k, mii = n_i . a_i):
+// e = alpha n_i + beta (a_j - a_i) into eq and alpha (a_j - a_i) into nq,
+// each operation rounded on its own in the plain version's order; both 0
+// at d = 0.
+__device__ __forceinline__ void edge_grad(const float (&ai)[3], const float (&ni)[3], const float (&aj)[3],
+                                          float mii, float w, float (&eq)[3], float (&nq)[3]) {
+  const float d = pca::sqdist3(ai[0], ai[1], ai[2], aj[0], aj[1], aj[2]);
+  const float num = __fsub_rn(dot3(ni, aj), mii);
+  const float s = num > 0.f ? 1.f : (num < 0.f ? -1.f : 0.f);
+  float alpha = 0.f, beta = 0.f;
+  if (d > 0.f) {
+    const float rn = __fsqrt_rn(d), rr = __fadd_rn(rn, kEps), ws = __fmul_rn(w, s);
+    alpha = __fdiv_rn(ws, rr);
+    beta = __fdiv_rn(-__fmul_rn(ws, num), __fmul_rn(__fmul_rn(rr, rr), rn));
   }
 #pragma unroll
   for (int q = 0; q < 3; ++q) {
-    ctr[(size_t)r * 3 + q] = c[q];
-    dnrm[(size_t)r * 3 + q] = dn[q];
+    const float v = __fsub_rn(aj[q], ai[q]);
+    eq[q] = __fadd_rn(__fmul_rn(alpha, ni[q]), __fmul_rn(beta, v));
+    nq[q] = __fmul_rn(alpha, v);
   }
 }
 
-// One thread a point j: the edges (i, t) of its cloud whose pick is j, in
-// ascending (i, t), summed from 0; dadv_j = that sum - ctr_j.
-__global__ void __launch_bounds__(kPullThreads)
-    kappa_pull_kernel(const int* __restrict__ picks, const float* __restrict__ e, const float* __restrict__ ctr,
-                      int N, int k, float* __restrict__ dadv) {
-  __shared__ int tile[kIdxTile];
-  const int b = blockIdx.y, j = blockIdx.x * kPullThreads + threadIdx.x;
-  const int edges = N * k;
-  const int* pb = picks + (size_t)b * edges;
-  const float* eb = e + (size_t)b * edges * 3;
-  float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-  for (int e0 = 0; e0 < edges; e0 += kIdxTile) {
-    const int ne = min(kIdxTile, edges - e0);
-    __syncthreads();  // the previous tile's reads are done
-    for (int q = threadIdx.x; q < ne; q += kPullThreads) tile[q] = pb[e0 + q];
-    __syncthreads();
-    if (j >= N) continue;
-    for (int q = 0; q < ne; ++q) {
-      if (tile[q] != j) continue;
-      const float* eq = eb + (size_t)(e0 + q) * 3;
-      s0 = __fadd_rn(s0, eq[0]);
-      s1 = __fadd_rn(s1, eq[1]);
-      s2 = __fadd_rn(s2, eq[2]);
+__device__ __forceinline__ void load3(const float* p, float (&v)[3]) {
+  v[0] = p[0];
+  v[1] = p[1];
+  v[2] = p[2];
+}
+
+// Cloud b's entries are its N * k picks (or given indices) in (i, t) order,
+// each naming the point picks[b, i, t] and stored as its number i * k + t:
+// hoist_common.cuh's lists kernel sorts them into each point's incoming
+// edges, in ascending (i, t).
+struct PickEntries {
+  const int* picks;  // [B, N * k]
+  int E;
+  __device__ int count(int) const { return E; }
+  __device__ int key(int b, int e) const { return picks[(size_t)b * E + e]; }
+  __device__ int payload(int, int e) const { return e; }
+  __device__ size_t base(int b) const { return (size_t)b * E; }
+};
+
+// One warp a point j of B * N.  Its own row first: lane t forms the edge
+// j -> picks[j, t] (32 at a time), and the warp sums them in pick order into
+// ctr and dnormal_j (an index outside [0, N) adds nothing).  Then its
+// incoming edges, list[start[j] ...]: lane p recomputes the edge (i, t) of
+// entry p from a_i, n_i and dkappa_i, and the warp sums them from 0 in list
+// order, ascending (i, t); dadv_j = that sum - ctr.  Each lane forms its
+// edge with edge_grad, the same operations on the same values for the edge
+// on both of its ends, and every sum runs in one lane's registers after a
+// shuffle, so the bits are the plain version's.
+__global__ void __launch_bounds__(kThreads)
+    kappa_rows_kernel(const float* __restrict__ a, const float* __restrict__ nrm, const int* __restrict__ picks,
+                      const float* __restrict__ dkap, const int* __restrict__ start, const int* __restrict__ list,
+                      int B, int N, int k, float* __restrict__ dnrm, float* __restrict__ dadv) {
+  const int r = (int)(((size_t)blockIdx.x * kThreads + threadIdx.x) >> 5), lane = threadIdx.x & 31;
+  if (r >= B * N) return;  // the whole warp
+  const int b = r / N, j = r - b * N;
+  const float* ab = a + (size_t)b * N * 3;
+  float aj[3], nj[3];
+  load3(a + (size_t)r * 3, aj);
+  load3(nrm + (size_t)r * 3, nj);
+  const float mjj = dot3(nj, aj), wj = __fdiv_rn(dkap[r], (float)k);
+  float c[3] = {0.f, 0.f, 0.f}, dn[3] = {0.f, 0.f, 0.f};
+  for (int t0 = 0; t0 < k; t0 += 32) {
+    const int t = t0 + lane;
+    float eq[3] = {0.f, 0.f, 0.f}, nq[3] = {0.f, 0.f, 0.f};
+    const int q = t < k ? picks[(size_t)r * k + t] : -1;
+    const bool ok = (unsigned)q < (unsigned)N;
+    if (ok) {
+      float aq[3];
+      load3(ab + 3 * q, aq);
+      edge_grad(aj, nj, aq, mjj, wj, eq, nq);
+    }
+    const unsigned okm = __ballot_sync(0xffffffffu, ok);
+    const int n = min(32, k - t0);
+    for (int l = 0; l < n; ++l) {
+#pragma unroll
+      for (int u = 0; u < 3; ++u) {
+        const float e = __shfl_sync(0xffffffffu, eq[u], l), m = __shfl_sync(0xffffffffu, nq[u], l);
+        if (okm >> l & 1u) {
+          c[u] = t0 + l == 0 ? e : __fadd_rn(c[u], e);
+          dn[u] = t0 + l == 0 ? m : __fadd_rn(dn[u], m);
+        }
+      }
     }
   }
-  if (j >= N) return;
-  const size_t o = ((size_t)b * N + j) * 3;
-  dadv[o] = __fsub_rn(s0, ctr[o]);
-  dadv[o + 1] = __fsub_rn(s1, ctr[o + 1]);
-  dadv[o + 2] = __fsub_rn(s2, ctr[o + 2]);
+  const int lo = start[(size_t)b * (N + 1) + j], hi = start[(size_t)b * (N + 1) + j + 1];
+  const int* ls = list + (size_t)b * N * k;
+  float s[3] = {0.f, 0.f, 0.f};
+  for (int p0 = lo; p0 < hi; p0 += 32) {
+    float eq[3] = {0.f, 0.f, 0.f}, nq[3];
+    if (p0 + lane < hi) {
+      const int i = ls[p0 + lane] / k;
+      const size_t ri = (size_t)b * N + i;
+      float ai[3], ni[3];
+      load3(ab + 3 * i, ai);
+      load3(nrm + ri * 3, ni);
+      edge_grad(ai, ni, aj, dot3(ni, ai), __fdiv_rn(dkap[ri], (float)k), eq, nq);
+    }
+    const int n = min(32, hi - p0);
+    for (int l = 0; l < n; ++l) {
+#pragma unroll
+      for (int u = 0; u < 3; ++u) s[u] = __fadd_rn(s[u], __shfl_sync(0xffffffffu, eq[u], l));
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int u = 0; u < 3; ++u) {
+      dadv[(size_t)r * 3 + u] = __fsub_rn(s[u], c[u]);
+      dnrm[(size_t)r * 3 + u] = dn[u];
+    }
+  }
+}
+
+// Blocks a cloud of the backward's lists: kListEntries picks each, 1 to
+// kMaxListBlocks.
+int lists_blocks(int N, int k) {
+  const int g = (N * k + kListEntries - 1) / kListEntries;
+  return g < 1 ? 1 : g > kMaxListBlocks ? kMaxListBlocks : g;
 }
 
 size_t fwd_smem(int N) {
@@ -333,24 +383,29 @@ int pca_kappa_idx_fwd(int device, const void* a, const void* nrm, const void* id
 }
 
 // a, nrm [B, N, 3] f32; picks [B, N, k] int32 from the forward (or the given
-// neighbours); dkap [B, N]
-// f32; e [B, N, k, 3] and ctr [B, N, 3] f32 scratch; dnrm and dadv [B, N, 3]
-// f32 outputs.  Returns a cudaError_t code (0 on success).
+// neighbours); dkap [B, N] f32; start [B, N + 1] and list [B, N * k] int32
+// scratch (each point's incoming edges); dnrm and dadv [B, N, 3] f32
+// outputs.  Two launches: the lists, then the rows.  Returns a cudaError_t
+// code (0 on success).
 int pca_kappa_bwd(int device, const void* a, const void* nrm, const void* picks, const void* dkap, int B, int N,
-                  int k, void* e, void* ctr, void* dnrm, void* dadv, void* stream) {
+                  int k, void* start, void* list, void* dnrm, void* dadv, void* stream) {
   if (B < 1 || B > 65535 || k < 1 || k > kMaxK || k + 1 > N || N > kMaxPoints) return (int)cudaErrorInvalidValue;
+  // kListPart picks a warp: each part keeps N counts that the block zeroes, scans and offsets, so a
+  // few long parts beat many short ones
+  const int G = lists_blocks(N, k), most = pca::hoist::lists_parts(N, G > 1 ? 2 : 1);
+  if (most < 1) return (int)cudaErrorInvalidValue;
+  const int parts = std::max(1, std::min(most, (N * k / G) / kListPart));
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  kappa_edge_kernel<<<(B * N + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      static_cast<const float*>(a), static_cast<const float*>(nrm), static_cast<const int*>(picks),
-      static_cast<const float*>(dkap), B, N, k, static_cast<float*>(e), static_cast<float*>(ctr),
-      static_cast<float*>(dnrm));
-  err = cudaGetLastError();
+  const PickEntries src = {static_cast<const int*>(picks), N * k};
+  err = pca::hoist::launch_lists(src, B, N, parts, static_cast<int*>(start), static_cast<int*>(list), s, G);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + kPullThreads - 1) / kPullThreads, B);
-  kappa_pull_kernel<<<grid, kPullThreads, 0, s>>>(static_cast<const int*>(picks), static_cast<const float*>(e),
-                                                  static_cast<const float*>(ctr), N, k, static_cast<float*>(dadv));
+  const int blocks = (int)(((size_t)B * N * 32 + kThreads - 1) / kThreads);
+  kappa_rows_kernel<<<blocks, kThreads, 0, s>>>(
+      static_cast<const float*>(a), static_cast<const float*>(nrm), static_cast<const int*>(picks),
+      static_cast<const float*>(dkap), static_cast<const int*>(start), static_cast<const int*>(list), B, N, k,
+      static_cast<float*>(dnrm), static_cast<float*>(dadv));
   return (int)cudaGetLastError();
 }
 

@@ -207,7 +207,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     # device, a, nrm, idx, B, N, k, kap, stream
     lib.pca_kappa_idx_fwd.argtypes = [ci, vp, vp, vp, ci, ci, ci, vp, vp]
     lib.pca_kappa_idx_fwd.restype = ci
-    # device, a, nrm, picks, dkap, B, N, k, e, ctr, dnrm, dadv, stream
+    # device, a, nrm, picks, dkap, B, N, k, start, list, dnrm, dadv, stream
     lib.pca_kappa_bwd.argtypes = [ci, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp, vp, vp]
     lib.pca_kappa_bwd.restype = ci
 

@@ -92,26 +92,78 @@ def kappa_idx_plain(adv: torch.Tensor, normal: torch.Tensor, idx: torch.Tensor, 
     return _edge_mean(adv, normal, aj, d, k)
 
 
-def kappa_bwd_plain(adv, normal, picks, dkap, k: int):
-    """Plain backward: ``(dadv [B, N, 3], dnormal [B, N, 3])`` (the JAX
-    ``_bwd_scatter_core``'s formula, summed per edge)."""
-    adv, normal, dkap = adv.float(), normal.float(), dkap.float()
-    ai = adv[:, :, None, :]
-    aj = index_points(adv, picks)  # [B, N, k, 3]
+def _edge_grads(ai, ni, aj, w):
+    """``(e, alpha (a_j - a_i))``, each ``[..., 3]``, of the edges ``i -> j``
+    at ``ai, ni, aj [..., 3]`` and ``w = dkappa_i / k [...]``:
+    ``kappa_bwd_plain``'s operations in its order."""
     diff = ai - aj
     d = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1] + diff[..., 2] * diff[..., 2]
-    num = dot_last(normal[:, :, None, :], aj) - dot_last(normal, adv)[..., None]
+    num = dot_last(ni, aj) - dot_last(ni, ai)
     rn = _sqrt(d)
     rr = rn + EPS
-    ws = (dkap / k)[..., None] * torch.sign(num)
+    ws = w * torch.sign(num)
     guard = d > 0
     alpha = torch.where(guard, ws / rr, 0.0)
     beta = torch.where(guard, -(ws * num) / ((rr * rr) * rn), 0.0)
     v = aj - ai
-    e = alpha[..., None] * normal[:, :, None, :] + beta[..., None] * v  # [B, N, k, 3]
+    return alpha[..., None] * ni + beta[..., None] * v, alpha[..., None] * v
+
+
+def kappa_bwd_plain(adv, normal, picks, dkap, k: int):
+    """Plain backward: ``(dadv [B, N, 3], dnormal [B, N, 3])`` (the JAX
+    ``_bwd_scatter_core``'s formula, summed per edge)."""
+    adv, normal, dkap = adv.float(), normal.float(), dkap.float()
     b, n = adv.shape[:2]
+    aj = index_points(adv, picks)  # [B, N, k, 3]
+    e, nq = _edge_grads(adv[:, :, None, :].expand_as(aj), normal[:, :, None, :].expand_as(aj), aj,
+                        (dkap / k)[..., None].expand(b, n, k))
     nbr = scatter_rows(torch.zeros_like(adv), picks.reshape(b, n * k), e.reshape(b, n * k, 3))
-    return nbr - sum_neighbours(e), sum_neighbours(alpha[..., None] * v)
+    return nbr - sum_neighbours(e), sum_neighbours(nq)
+
+
+def kappa_lists_plain(picks: torch.Tensor, n: int):
+    """The backward's reverse lists: ``(start [B, n + 1], list [B, n*k])``
+    int32, point ``j``'s incoming edges at ``list[b, start[b, j] :
+    start[b, j + 1]]``, each as its number ``i * k + t`` where ``picks[b,
+    i, t] = j``, in ascending ``(i, t)`` (a stable sort); an index outside
+    ``[0, n)`` names no point and is not listed (the tail of ``list`` past
+    ``start[b, n]`` holds them and means nothing)."""
+    b = picks.shape[0]
+    flat = picks.reshape(b, -1).long()
+    ok = (flat >= 0) & (flat < n)
+    order = torch.argsort(torch.where(ok, flat, n), dim=1, stable=True)
+    counts = torch.zeros((b, n + 1), dtype=torch.int64, device=picks.device).scatter_add_(
+        1, torch.where(ok, flat, n), torch.ones_like(flat))[:, :n]
+    start = torch.cat([counts.new_zeros((b, 1)), counts.cumsum(1)], 1)
+    return start.to(torch.int32), order.to(torch.int32)
+
+
+def kappa_bwd_lists_plain(adv, normal, picks, dkap, k: int, start, lst):
+    """The backward as the kernel orders it, on the lists of
+    ``kappa_lists_plain``: ``(dadv, dnormal)`` with each row's own edges
+    summed in pick order and each point's incoming edges, recomputed from
+    ``(i, t)``, summed from 0 in list order; an index outside ``[0, N)``
+    adds nothing on either end.  The same bits as ``kappa_bwd_plain`` where
+    that one runs (every index in range)."""
+    adv, normal, dkap = adv.float(), normal.float(), dkap.float()
+    b, n, _ = adv.shape
+    ok = (picks >= 0) & (picks < n)
+    w = (dkap / k)[..., None].expand(b, n, k)
+    e, nq = _edge_grads(adv[:, :, None, :].expand(b, n, k, 3), normal[:, :, None, :].expand(b, n, k, 3),
+                        index_points(adv, torch.where(ok, picks, 0)), w)
+    ctr, dn = torch.zeros_like(adv), torch.zeros_like(adv)
+    for t in range(k):
+        ctr = torch.where(ok[:, :, t, None], e[:, :, t] if t == 0 else ctr + e[:, :, t], ctr)
+        dn = torch.where(ok[:, :, t, None], nq[:, :, t] if t == 0 else dn + nq[:, :, t], dn)
+    first, counts = start[:, :-1].long(), (start[:, 1:] - start[:, :-1]).long()
+    last = max(lst.shape[1] - 1, 0)
+    s = torch.zeros_like(adv)
+    for p in range(int(counts.max()) if counts.numel() else 0):
+        ent = lst.gather(1, (first + p).clamp(max=last)).long()  # [B, N]
+        i = (ent // k).clamp(0, n - 1)  # past a list's end: masked below
+        ei, _ = _edge_grads(index_points(adv, i), index_points(normal, i), adv, dkap.gather(1, i) / k)
+        s = torch.where((p < counts)[..., None], s + ei, s)
+    return s - ctr, dn
 
 
 def _check(adv: torch.Tensor, normal: torch.Tensor, k: int) -> None:
@@ -173,13 +225,13 @@ def _kappa_bwd_kernel(adv, normal, picks, dkap, k: int, counter: str):
     _check_side(adv, "kappa backward kernel", (("picks", picks, (b, n, k), torch.int32),
                                                ("dkappa", dkap, (b, n), torch.float32)))
     lib = _build.load_library()
-    e = torch.empty((b, n, k, 3), dtype=torch.float32, device=adv.device)
-    ctr, dnrm, dadv = (torch.empty_like(adv) for _ in range(3))
+    lists = torch.empty(b * (n + 1) + b * n * k, dtype=torch.int32, device=adv.device)  # start, then list
+    dadv, dnrm = torch.empty((2, *adv.shape), dtype=torch.float32, device=adv.device)
     with torch.cuda.device(adv.device):
         stream = torch.cuda.current_stream(adv.device).cuda_stream
         rc = lib.pca_kappa_bwd(adv.device.index, adv.data_ptr(), normal.data_ptr(), picks.data_ptr(),
-                               dkap.data_ptr(), b, n, k, e.data_ptr(), ctr.data_ptr(), dnrm.data_ptr(),
-                               dadv.data_ptr(), stream)
+                               dkap.data_ptr(), b, n, k, lists.data_ptr(), lists.data_ptr() + 4 * b * (n + 1),
+                               dnrm.data_ptr(), dadv.data_ptr(), stream)
     _build.check(lib, rc, "kappa backward launch")
     LAUNCHES[counter] += 1
     return dadv, dnrm

@@ -30,7 +30,7 @@ from pointcloudattack_tpu_torch.ops.pairwise import pairwise_sqdist
 # launched, never by the plain version.
 LAUNCHES = {"knn": 0}
 
-MAX_POINTS = 4096  # the kernel keeps 8 rows of N distances in shared memory
+MAX_POINTS = 4096  # a block's rows keep their N distances in 128 KB of shared memory: 8 rows at N = 4096
 MAX_CHANNELS = 128
 
 

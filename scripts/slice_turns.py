@@ -1,4 +1,4 @@
-"""Time chip_smoke.py's attack cells in one checkout.
+"""Time chip_smoke.py's attack cells, and rows 8 and 9's kernels, in one checkout.
 
 Run on a machine with one H100, once per checkout to compare, in turns
 (for example parent, change, change, parent):
@@ -6,25 +6,38 @@ Run on a machine with one H100, once per checkout to compare, in turns
     python3 scripts/slice_turns.py /path/to/checkout [CELL ...] [--profile]
 
 CELL is one of ``slice`` (C&W 1 x 200 on PointNet, B=64; the default),
-``slice-ssg``, ``slice-msg`` (C&W on PointNet++ SSG and MSG, B=16) and
-``slice-knn-ssg`` (KNN on SSG).  It builds that checkout's kernels, makes
-each victim and its clouds as chip_smoke.py does (seeded random weights
-with the clouds' BatchNorm statistics, N=1024), runs each attack four
-times, printing each run's seconds and the CUDA caching allocator's
-counters over it (device allocations and frees, syncs, retries), then the
-min of runs 1-3 (run 0 is the warm-up).  With ``--profile`` it then prints,
-for each victim it timed, chip_smoke.py's profile line (10 C&W iterations
-under torch.profiler: kernel time and the device's idle share).  It reads
-only names that chip_smoke.py has kept since PointNet++ moved to the ball
-route, so an earlier checkout runs it too.
+``slice-ssg``, ``slice-msg`` (C&W on PointNet++ SSG and MSG, B=16),
+``slice-knn-ssg`` (KNN on SSG), ``slice-dgcnn`` (C&W 1 x 100 on DGCNN,
+B=16), ``slice-geoa3`` and ``slice-geoa3-r4`` (GeoA3 10 x 100 on PointNet,
+B=8, the curvature's neighbour set cached for 4 iterations in the second),
+``kernels-knn`` (the self-kNN at the four EdgeConv inputs of one DGCNN
+forward, the nine kNN inputs of one CurveNet forward and GeoA3's cached
+curvature set) and ``kernels-kappa`` (the curvature backward at GeoA3's
+shape, on the selecting forward's picks and on a stale given set).  It
+builds that checkout's kernels, makes each victim and its clouds as
+chip_smoke.py does (seeded random weights with the clouds' BatchNorm
+statistics, N=1024), runs each attack four times, printing each run's
+seconds and the CUDA caching allocator's counters over it (device
+allocations and frees, syncs, retries), then the min of runs 1-3 (run 0 is
+the warm-up).  A kernel cell prints, for each input, the wrapper's time by
+CUDA events over back-to-back calls and each kernel's device time under
+the profiler.  With ``--profile`` it then prints, for each victim it
+timed, chip_smoke.py's profile line (10 iterations of the attack under
+torch.profiler: kernel time and the device's idle share).  It reads only
+names that chip_smoke.py has kept since PR 10, so that checkout and later
+ones run it.
 """
 
 import sys
 import time
 
-CELLS = ("slice", "slice-ssg", "slice-msg", "slice-knn-ssg")
+CELLS = ("slice", "slice-ssg", "slice-msg", "slice-knn-ssg", "slice-dgcnn", "slice-geoa3", "slice-geoa3-r4",
+         "kernels-knn", "kernels-kappa")
 VICTIMS = {"slice": "PointNet", "slice-ssg": "PointNet++Ssg", "slice-msg": "PointNet++Msg",
-           "slice-knn-ssg": "PointNet++Ssg"}
+           "slice-knn-ssg": "PointNet++Ssg", "slice-dgcnn": "DGCNN", "slice-geoa3": "PointNet GeoA3",
+           "slice-geoa3-r4": "PointNet GeoA3"}
+PROFILE_TAGS = {"PointNet": "profile", "PointNet++Ssg": "profile-ssg", "PointNet++Msg": "profile-msg",
+                "DGCNN": "profile-dgcnn", "PointNet GeoA3": "profile-geoa3"}
 
 
 def victim(cs, name):
@@ -34,10 +47,25 @@ def victim(cs, name):
         model_fn, _ = cs.make_victim(name, "cuda", clouds, ("dropout",))
         data = clouds[: cs.B]
         return model_fn, data, cs.victim_labels(model_fn, data, labels[: cs.B])
+    if name == "DGCNN":
+        data, labels = cs.synthetic_data(8, 2, cs.DG_DATA, "cuda")
+        model_fn, _ = cs.make_victim(name, "cuda", data, ("dp1", "dp2"))
+        return model_fn, data, cs.victim_labels(model_fn, data, labels, "slice-dgcnn")
+    if name == "PointNet GeoA3":
+        data, labels = cs.synthetic_data(8, 1, cs.GEO_DATA, "cuda")
+        model_fn, _ = cs.make_victim("PointNet", "cuda", data, ("dropout",))
+        return model_fn, data, cs.victim_labels(model_fn, data, labels, "slice-geoa3")
     data, labels = cs.synthetic_data(8, 2, cs.PN2_DATA[name], "cuda")
     model_fn, _ = cs.make_victim(name, "cuda", data, ("drop1", "drop2"))
     tag = "slice-ssg" if name == "PointNet++Ssg" else "slice-msg"
     return model_fn, data, cs.victim_labels(model_fn, data, labels, tag)
+
+
+def geoa3(cs, model_fn, rounds, iters, refresh=1):
+    from pointcloudattack_tpu_torch.attacks.geoa3 import GeoA3Config, build_geoa3_attack
+
+    return build_geoa3_attack(model_fn, GeoA3Config(binary_max_steps=rounds, iter_max_steps=iters,
+                                                    curv_knn_refresh=refresh))
 
 
 def attack_of(cs, cell, model_fn):
@@ -49,7 +77,88 @@ def attack_of(cs, cell, model_fn):
         cfg = KNNAttackConfig(attack_lr=cs.KNN_LR, num_iter=cs.KNN_SSG_ITER, kappa=cs.KAPPA, budget=cs.BUDGET,
                               nn_refresh=1)
         return build_knn_attack(model_fn, cfg)
+    if cell == "slice-dgcnn":
+        return cs.cw_attack(model_fn, cs.DG_ITER)
+    if cell in ("slice-geoa3", "slice-geoa3-r4"):
+        return geoa3(cs, model_fn, cs.GEO_ROUNDS, cs.GEO_ITER, cs.GEO_REFRESH if cell.endswith("r4") else 1)
     return cs.cw_attack(model_fn, cs.PN2_ITER)
+
+
+def kernel_times(cs, root, cell, label, fn):
+    """One kernel input: the wrapper's ms (CUDA events over back-to-back
+    calls) and each kernel's device ms under the profiler."""
+    import torch
+
+    ms = cs.time_ms(fn, reps=20)
+    dev = cs.device_ms(fn)
+    print(f"{root} [{cell}] {label}: {ms:.4f} ms a call on {torch.cuda.get_device_name(0)}; device "
+          + ", ".join(f"{n} {v:.4f}" for n, v in dev.items()) + f" ({sum(dev.values()):.4f} in all)", flush=True)
+
+
+def knn_inputs(mod, model_fn, data):
+    """The (x, k) of every kNN that the victim module ``mod`` runs in one
+    forward of ``model_fn`` on ``data``."""
+    import torch
+
+    orig, seen = mod.knn, []
+
+    def rec(x, k):
+        seen.append((x.detach().clone(), k))
+        return orig(x, k)
+
+    mod.knn = rec
+    try:
+        with torch.no_grad():
+            model_fn(data)
+    finally:
+        mod.knn = orig
+    return seen
+
+
+def kernels_knn(cs, root, made):
+    from pointcloudattack_tpu_torch.models import curvenet, dgcnn
+    from pointcloudattack_tpu_torch.ops.knn import knn
+
+    if "DGCNN" not in made:
+        made["DGCNN"] = victim(cs, "DGCNN")
+    inputs = [(f"dgcnn conv{i + 1}", x, k)
+              for i, (x, k) in enumerate(knn_inputs(dgcnn, made["DGCNN"][0], made["DGCNN"][1]))]
+    inputs.append(("geoa3 cached set", cs.synthetic_data(8, 1, cs.GEO_DATA, "cuda")[0], cs.GEO_K + 1))
+    cn_data = cs.synthetic_data(8, 1, cs.CN_DATA, "cuda")[0]
+    cn_fn, _ = cs.make_victim("CurveNet", "cuda", cn_data, ("dp1",))
+    inputs += [(f"curvenet knn{i + 1}", x, k) for i, (x, k) in enumerate(knn_inputs(curvenet, cn_fn, cn_data))]
+    for what, x, k in inputs:
+        kernel_times(cs, root, "kernels-knn", f"{what} {tuple(x.shape)} k={k}", lambda: knn(x, k))
+
+
+def kernels_kappa(cs, root):
+    """The curvature backward on chip_smoke.py's phase_kernels_geoa3 inputs:
+    an iterate 1e-3 from GeoA3's clouds with its nearest clean point's
+    normal, on the selecting forward's picks; and on the clouds' own sets,
+    stale on an iterate 1e-2 away."""
+    import numpy as np
+    import torch
+
+    from pointcloudattack_tpu_torch.geometry.normals import estimate_normal
+    from pointcloudattack_tpu_torch.losses.geometry import nn1_idx
+    from pointcloudattack_tpu_torch.ops import kappa
+    from pointcloudattack_tpu_torch.ops.gather import index_points
+
+    data = cs.synthetic_data(8, 1, cs.GEO_DATA, "cuda")[0]
+    rng = np.random.RandomState(11)
+    b, n, _ = data.shape
+    dev = lambda arr: torch.from_numpy(arr.astype(np.float32)).cuda()  # noqa: E731
+    adv = (data + dev(rng.randn(b, n, 3) * 1e-3)).contiguous()
+    nrm = index_points(estimate_normal(data), nn1_idx(adv, data)).contiguous()
+    dk = dev(rng.randn(b, n) * 1e-3)
+    rng.rand(b, n), rng.rand(b, n)  # chip_smoke.py's bundle cotangents: the same stream after them
+    moved = (data + dev(rng.randn(b, n, 3) * 1e-2)).contiguous()
+    idx = cs.stale_idx(moved, data)[0]
+    _, picks = kappa.kappa_fwd(adv, nrm, cs.GEO_K)
+    kernel_times(cs, root, "kernels-kappa", f"kappa_bwd [{b},{n},3] k={cs.GEO_K} (the forward's picks)",
+                 lambda: kappa.kappa_bwd(adv, nrm, picks, dk, cs.GEO_K))
+    kernel_times(cs, root, "kernels-kappa", f"kappa_idx_bwd [{b},{n},3] k={cs.GEO_K} (a stale set)",
+                 lambda: kappa.kappa_bwd(moved, nrm, idx, dk, cs.GEO_K, counter="kappa_idx_bwd"))
 
 
 def main():
@@ -69,6 +178,12 @@ def main():
     gen = torch.Generator(device="cuda")
     made = {}
     for cell in cells:
+        if cell == "kernels-knn":
+            kernels_knn(cs, root, made)
+            continue
+        if cell == "kernels-kappa":
+            kernels_kappa(cs, root)
+            continue
         name = VICTIMS[cell]
         if name not in made:
             made[name] = victim(cs, name)
@@ -90,8 +205,10 @@ def main():
               flush=True)
     if profile:
         for name, (model_fn, data, target) in made.items():
-            tag = {"PointNet": "profile", "PointNet++Ssg": "profile-ssg", "PointNet++Msg": "profile-msg"}[name]
-            cs.phase_profile(tag, model_fn, data, target)
+            if name == "PointNet GeoA3":
+                cs.phase_profile(PROFILE_TAGS[name], model_fn, data, target, geoa3(cs, model_fn, 1, 10), "GeoA3 1x10")
+            else:
+                cs.phase_profile(PROFILE_TAGS[name], model_fn, data, target)
 
 
 if __name__ == "__main__":

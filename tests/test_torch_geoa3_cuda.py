@@ -8,8 +8,11 @@ file imports no JAX, so it runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_geoa3_cuda.py
 
 The checks come from ``chip_smoke.py``: the curvature's picks equal, kappa
-within ``KAPPA_RTOL`` and its gradients within ``KAPPA_GRAD_ATOL``
-(``check_kappa``, and ``check_kappa_idx`` on a given neighbour set); the
+within ``KAPPA_RTOL`` and its gradients within ``KAPPA_GRAD_ATOL``, two
+backwards bit-equal (``check_kappa``, and ``check_kappa_idx`` on a given
+neighbour set; ``check_kappa_bwd``, the backward alone, against the plain
+version that sums in the kernel's order, also on indices outside the
+cloud); the
 two-direction bundle's mins and argmins bit for bit and its gradients within
 ``BOTH_GRAD_ATOL`` (``check_both``), each against the plain version on the
 CPU.
@@ -62,7 +65,8 @@ def test_kappa_kernels_match_plain_on_card(cuda_device, b, n, k, copies, monkeyp
     nrm = unit(rand(n + 1, b, n, 3))
     kappa.reset_launches()
     chip_smoke.check_kappa("test", f"{b}x{n} k={k} x{copies}", a, nrm, rand(n + 2, b, n))
-    assert kappa.LAUNCHES == {"kappa_fwd": 1, "kappa_bwd": 1, "kappa_idx_fwd": 0, "kappa_idx_bwd": 0}
+    # the backward twice: the two must be bit-equal
+    assert kappa.LAUNCHES == {"kappa_fwd": 1, "kappa_bwd": 2, "kappa_idx_fwd": 0, "kappa_idx_bwd": 0}
 
 
 @pytest.mark.cuda
@@ -83,7 +87,37 @@ def test_kappa_from_idx_kernels_match_plain_on_card(cuda_device, b, n, k, case, 
     kappa.reset_launches()
     chip_smoke.check_kappa_idx("test", f"{b}x{n} k={k} {case}", hit if case == "collide" else moved, nrm,
                                idx.contiguous(), rand(n + 2, b, n))
-    assert kappa.LAUNCHES == {"kappa_fwd": 0, "kappa_bwd": 0, "kappa_idx_fwd": 1, "kappa_idx_bwd": 1}
+    assert kappa.LAUNCHES == {"kappa_fwd": 0, "kappa_bwd": 0, "kappa_idx_fwd": 1, "kappa_idx_bwd": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,k,case", [(8, 1024, 16, "hub"), (2, 1000, 16, "hub"), (8, 1024, 16, "outside"),
+                                        (2, 256, 5, "outside"), (4, 512, 16, "duplicates"), (1, 130, 64, "hub")])
+def test_kappa_backward_on_card_matches_list_order(cuda_device, b, n, k, case):
+    """The backward alone against the list-ordered plain version on the
+    CPU (``check_kappa_bwd``): a hub point that every row picks (its list
+    N + edges long), indices outside the cloud beside exact collisions, and
+    the selecting forward's picks on a cloud whose points each appear twice;
+    two backwards bit-equal."""
+    data = rand(n, b, n // 2 if case == "duplicates" else n, 3, scale=0.5)
+    if case == "duplicates":
+        data = torch.cat([data] * 2, dim=1).contiguous()
+    moved = (data + rand(n + 3, b, n, 3, scale=1e-2)).contiguous()
+    nrm = unit(rand(n + 1, b, n, 3))
+    idx, hit, _ = chip_smoke.stale_idx(moved, data)
+    idx = idx[..., :k].contiguous() if idx.shape[-1] >= k else knn_mod.knn(data, k + 1)[..., 1:].contiguous()
+    a = moved
+    if case == "hub":
+        idx[:, :, min(4, k - 1)] = 7
+    elif case == "outside":
+        a = hit
+        idx[0, ::5, 1], idx[-1, ::7, k - 1] = -1, n + 5
+    else:
+        a = data
+        idx = kappa.kappa_fwd(data, nrm, k)[1]
+    kappa.reset_launches()
+    chip_smoke.check_kappa_bwd("test", f"{b}x{n} k={k} {case}", a, nrm, idx.contiguous(), rand(n + 2, b, n))
+    assert kappa.LAUNCHES == {"kappa_fwd": 0, "kappa_bwd": 0, "kappa_idx_fwd": 0, "kappa_idx_bwd": 2}
 
 
 @pytest.mark.cuda

@@ -49,9 +49,16 @@ def features(seed, b, n, c, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,c,k", [(16, 1024, 3, 20), (16, 1024, 64, 20), (16, 1024, 128, 20),
-                                     (16, 1000, 64, 20), (2, 4096, 3, 16), (3, 37, 128, 37)])
+                                     (16, 1000, 64, 20), (2, 4096, 3, 16), (3, 37, 128, 37),
+                                     (8, 1024, 3, 21), (8, 256, 3, 21), (8, 64, 3, 21), (8, 1024, 3, 17),
+                                     (8, 1024, 3, 4), (2, 1024, 64, 1), (2, 1024, 64, 32), (2, 1024, 64, 33),
+                                     (2, 1024, 64, 64), (2, 1024, 64, 65), (2, 1000, 1, 20), (2, 2048, 16, 20),
+                                     (2, 4096, 128, 65), (4, 5, 3, 5), (2, 300, 3, 300)])
 def test_knn_kernel_matches_plain_on_card(cuda_device, b, n, c, k):
-    """DGCNN's four stage widths, a ragged N, the largest N and k = N."""
+    """DGCNN's four stage widths, a ragged N, the largest N and k = N;
+    CurveNet's and GeoA3's shapes and the normals' k = 4; k = 1, either side
+    of 32 and of 64 (the register sort's bounds) and past 64; one channel; a
+    block of 16 rows (N = 2048) and of 8 (N = 4096)."""
     x = features(c, b, n, c, cuda_device)
     knn_mod.reset_launches()
     chip_smoke.check_knn("test", f"C={c}", x, k)
@@ -59,11 +66,20 @@ def test_knn_kernel_matches_plain_on_card(cuda_device, b, n, c, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [3, 128])
+@pytest.mark.parametrize("name", list(chip_smoke.KNN_EDGE_CASES))
+def test_knn_kernel_at_the_smoke_edge_cases_on_card(cuda_device, name):
+    b, n, c, k = chip_smoke.KNN_EDGE_CASES[name]
+    chip_smoke.check_knn("test", name, chip_smoke.knn_case(b, n, c), k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 3, 64, 128])
 def test_knn_kernel_breaks_ties_to_the_lower_index_on_card(cuda_device, c):
     x = features(7, 4, 256, c, cuda_device)
     dup = torch.cat([x] * 4, dim=1).contiguous()  # point i at i, i+256, i+512, i+768
     chip_smoke.check_knn("test", "ties", dup, 20)
+    if c == 1:  # (xx - 2xy) + yy cancels in one channel: another point may land at or below the copies' 0
+        return
     idx = knn_mod.knn(dup, 4)
     i = torch.arange(1024, device=cuda_device) % 256
     assert torch.equal(idx.long(), (i[:, None] + 256 * torch.arange(4, device=cuda_device)).expand(4, -1, -1))

@@ -602,7 +602,7 @@ def test_relu_hooks_replay_the_pooled_and_head_signs():
         for k, (mod, name, _, _) in hooks.items():
             setattr(mod, name, orig[k])
     # the two neighbourhood set abstractions' pools, the group-all one's, and the head's two layers
-    assert {k: len(v) for k, v in rec.items()} == {"relu": 3, "head_relu": 2}
+    assert {k: len(v) for k, v in rec.items()} == {"relu": 3, "pointnet_relu": 0, "head_relu": 2}
 
     def replayed(queues):
         with chip_smoke.replay(hooks, lambda kind: queues[kind].pop(0)) as stats:
@@ -621,3 +621,51 @@ def test_relu_hooks_replay_the_pooled_and_head_signs():
     _, g_flip, stats = replayed(queues)
     assert int(stats["head_relu"]["other"][0][0]) == 1 and stats["head_relu"]["off"] > 0
     assert not torch.equal(g_flip, g_want)
+
+
+def test_relu_hooks_replay_pointnets_last_head_sign():
+    """PointNet's last head ReLU, which ``models/pointnet.py`` calls by its
+    own name for ``common.relu``, is a choice of its own ("pointnet_relu"):
+    replaying the recorded signs gives the same gradient, and one open unit
+    flipped moves it and is counted."""
+    from pointcloudattack_tpu_torch import models
+    from pointcloudattack_tpu_torch.utils.apply import make_model_fn
+
+    fn = make_model_fn(models.make_model("PointNet", 10, generator=torch.Generator().manual_seed(0)), None, "cpu")
+    x = torch.from_numpy((np.random.RandomState(7).randn(2, 256, 3) * 0.5).astype(np.float32))
+    hooks = chip_smoke.relu_hooks()
+    orig = {k: getattr(mod, name) for k, (mod, name, _, _) in hooks.items()}
+    rec = {k: [] for k in hooks}
+
+    def recording(kind):
+        def run(t):
+            rec[kind].append(t.detach() > 0)
+            return orig[kind](t)
+        return run
+
+    def grad():
+        a = x.clone().requires_grad_(True)
+        logp = fn(a)
+        return torch.autograd.grad((logp[:, 0] - logp[:, 1]).sum(), a)[0]
+
+    for k, (mod, name, _, _) in hooks.items():
+        setattr(mod, name, recording(k))
+    try:
+        g_want = grad()
+    finally:
+        for k, (mod, name, _, _) in hooks.items():
+            setattr(mod, name, orig[k])
+    # the transformer's pool and its two layers and the head's first layer; then the head's last
+    assert {k: len(v) for k, v in rec.items()} == {"relu": 4, "pointnet_relu": 1, "head_relu": 0}
+    queues = {k: list(v) for k, v in rec.items()}
+    with chip_smoke.replay(hooks, lambda kind: queues[kind].pop(0)) as stats:
+        g_got = grad()
+    assert torch.equal(g_got, g_want) and stats["pointnet_relu"]["calls"] == 1
+    queues = {k: list(v) for k, v in rec.items()}
+    last = queues["pointnet_relu"][0].clone()
+    last[0, int(last[0].nonzero()[0])] = False  # an open unit of cloud 0
+    queues["pointnet_relu"][0] = last
+    with chip_smoke.replay(hooks, lambda kind: queues[kind].pop(0)) as stats:
+        g_flip = grad()
+    assert int(stats["pointnet_relu"]["other"][0][0]) == 1 and stats["pointnet_relu"]["off"] > 0
+    assert not torch.equal(g_flip[0], g_want[0]) and torch.equal(g_flip[1], g_want[1])
