@@ -22,9 +22,9 @@ non-zero and prints no result):
               Times beside the plain version's, the FP32 and the 3xTF32
               bounds, and each kernel's device time under the profiler.  Then
               the PointNet++ kernels at every shape the SSG and MSG paths give
-              them (B=16, N=1024): FPS bit for bit and the chain at the
-              group-all widths (259 and 643 inputs, N=128), checked and timed
-              as above.
+              them (B=16, N=1024): FPS bit for bit (its device time under the
+              profiler beside the wrapper's) and the chain at the group-all
+              widths (259 and 643 inputs, N=128), checked and timed as above.
 3a. kernels-ballq  the ball route (ops/ball_hoist.py: slots, product, stack
               forward; winners, stack backward, lists, pull, product) at every
               set abstraction of SSG and MSG (B=16, N=1024), at a ragged
@@ -85,7 +85,7 @@ non-zero and prints no result):
               plain layer.
 13. kernels-chamfer  the row-min kernel bit for bit (mins, argmin, dx) at
               [64,1024,3] x [64,1024,3] and at a ragged 1000 x 1000 with every
-              y point 4 times.
+              y point 4 times; its device time under the profiler.
 14. slice-knn  the KNN attack on PointNet at bench.py's knn settings (B=64,
               kappa 30, budget 0.18, lr 1e-2, 500 of its 2500 iterations),
               nn_refresh 1 and 5 (knn_r5), then 100 iterations on PointNet++
@@ -112,10 +112,14 @@ non-zero and prints no result):
 19. kernels-geoa3  the curvature (kappa) kernels and the two-direction Chamfer
               kernels against their plain versions on the CPU at GeoA3's shape
               (B=8, N=1024, k=16), at a ragged N=1000 and with exact duplicates,
-              two backwards bit-equal; the backward alone at a hub point and
-              on indices outside the cloud (check_kappa_bwd); times beside the
-              plain versions' and the bounds, and the backward's stages' device
-              times under the profiler.
+              the forward's picks and kappa bit for bit, two backwards
+              bit-equal; the forward also at the selection's edges
+              (KAPPA_EDGE_CASES: k = 1, 63 and 64, N=4096 with every point 4
+              times, a hub of 300 copies of one point); the backward alone at
+              a hub point and on indices outside the cloud (check_kappa_bwd);
+              times beside the plain versions' and the bounds, and each
+              kernel's device time under the profiler (both forwards, the
+              backwards' stages, the bundle both ways).
 20. slice-geoa3  GeoA3 on PointNet at bench.py's geoa3 settings (B=8, CE, 10
               rounds, 100 of their 500 iterations): exact launch counts, ASR > 0,
               finite clouds, s/batch over 3 reps after a warm-up; then, as a
@@ -128,11 +132,14 @@ non-zero and prints no result):
 22. profile-geoa3  torch.profiler over 10 GeoA3 iterations.
 23. kernels-curvenet  the grouped chain + max and chain + mean kernels against
               their plain versions at the nine LPFA shapes of one CurveNet
-              forward (B=8, K=20, LeakyReLU 0.2), at a ragged G=1000, at K=7 and
-              with 2-layer chains, each with its time, the plain version's and
-              the bound; then each LPFA stage of the victim on the grouped route
-              and on the gather route against the unfused plain layer, forward
-              and forward + input backward.
+              forward (B=8, K=20, LeakyReLU 0.2), at a ragged G=1000, at K=7,
+              K=64, widths 3 -> 300 and with 2-layer chains, two backwards
+              bit-equal, and for the one-layer mean (its backward's own kernel)
+              no unit whose backward mask differs from the forward's sign
+              (``mask_flips``), each with its time, the backward's device time,
+              the plain version's and the bound; then each LPFA stage of the
+              victim on the grouped route and on the gather route against the
+              unfused plain layer, forward and forward + input backward.
 24. slice-curvenet  C&W 1 x 100 on CurveNet at bench.py's cw_curvenet settings
               (B=8, published widths): exact launch counts (kNN 9, FPS 2, group
               max 1 and group mean 8 per forward, 1 + 8 per backward), ASR > 0,
@@ -401,6 +408,9 @@ CHAIN_BWD_STAGES = ("chain_bwd_lists", "chain_bwd_rows")
 # row 9 beyond the paths' shapes, (B, N, C, k): the largest N; k = 1, either
 # side of 32 (the bound from the first or second half of the sorted share
 # minima) and of 64 (past it, k passes); k = N; one channel
+# check_kappa's edge cases of the forward's selection: (B, N, k, copies of each point, copies of point 0)
+KAPPA_EDGE_CASES = {"k=1": (2, 1000, 1, 1, 0), "k=63": (2, 1000, 63, 1, 0), "k=64": (2, 1000, 64, 1, 0),
+                    "N=4096, every point 4 times": (2, 4096, 16, 4, 0), "a hub of 300 copies": (2, 1024, 16, 1, 300)}
 KNN_EDGE_CASES = {"N=4096": (2, 4096, 3, 16), "k=1": (2, 1000, 64, 1), "k=32": (2, 1024, 64, 32),
                   "k=33": (2, 1024, 64, 33), "k=64": (2, 1024, 64, 64), "k=65": (2, 1024, 64, 65),
                   "k=N": (3, 37, 128, 37), "C=1": (2, 777, 1, 20)}
@@ -611,13 +621,22 @@ def chain_bound(b, n, dims, win=None):
     return bound(flops, nbytes)
 
 
+def tc_bound(tc_flops: float, fp32_flops: float, nbytes: float):
+    """(bound_ms, bound_by) of work whose ``tc_flops`` run as 3xTF32
+    products on the tensor cores (three TF32 products over PEAK_TF32) and
+    whose ``fp32_flops`` run on the CUDA cores (over PEAK_FLOPS), or of its
+    bytes over the memory rate if they take longer."""
+    t_ops = (3 * tc_flops / PEAK_TF32 + fp32_flops / PEAK_FLOPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def chain_tc_bound(b, n, dims):
     """(bound_ms, bound_by) of the forward as the kernels compute it: the
     last layer's three TF32 products over the tensor cores' rate plus the
     hidden layers' FP32 FMAs, or the bytes if they take longer."""
-    t_ops = (3 * chain_flops(b * n, dims[-2:]) / PEAK_TF32 + chain_flops(b * n, dims[:-1]) / PEAK_FLOPS) * 1e3
-    t_bytes = (4.0 * (b * n * dims[0] + 2 * b * dims[-1]) + param_bytes(dims)) / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return tc_bound(chain_flops(b * n, dims[-2:]), chain_flops(b * n, dims[:-1]),
+                    4.0 * (b * n * dims[0] + 2 * b * dims[-1]) + param_bytes(dims))
 
 
 def device_ms(fn, reps=10):
@@ -629,16 +648,19 @@ def device_ms(fn, reps=10):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     sums: dict = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = e.name.replace("(anonymous namespace)::", "").split("(")[0].replace("void ", "")
-            t, c = sums.get(name, (0.0, 0))
-            sums[name] = (t + (e.time_range.end - e.time_range.start) / 1e3, c + 1)
+    for _ in range(3):  # a profiler run now and then returns no device events: {} only if three do
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                name = e.name.replace("(anonymous namespace)::", "").split("(")[0].replace("void ", "")
+                t, c = sums.get(name, (0.0, 0))
+                sums[name] = (t + (e.time_range.end - e.time_range.start) / 1e3, c + 1)
+        if sums:
+            break
     return {name: t / c for name, (t, c) in sums.items()}
 
 
@@ -1200,11 +1222,6 @@ def ball_bounds(src, ctr, idx, layout, dims, win, pairs):
     hoist = 2.0 * c1 * (b * n * src_w + b * ng * ctr_w)
     wbytes = (cs + cc) * c1 * f
 
-    def tc_bound(tc_flops, fp32_flops, nbytes):
-        t_ops = (3 * tc_flops / PEAK_TF32 + fp32_flops / PEAK_FLOPS) * 1e3
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
     hidden_bwd = sum(2.0 * win * a * c for a, c in zip(dims[1:-2], dims[2:-1]))
     out = {
         "slots_fwd": bound(9.0 * pairs, f * (b * n * 3 + b * ng * 3 + rows)),
@@ -1630,9 +1647,11 @@ def phase_kernels_pn2():
         flops = 10.0 * PN2_B * (npoint - 1) * n  # 3 sub, 3 mul, 2 add, min, compare
         t, by = bound(flops, 4.0 * (xyz.numel() + PN2_B + PN2_B * npoint))
         accumulate(rec["fps"], ms["kernel"], ms["plain"], (t, by))
+        dev = sum(device_ms(lambda: fps_mod.farthest_point_sample(xyz, npoint)).values())
+        rec["fps"]["device_ms"] = rec["fps"].get("device_ms", 0.0) + dev
         log(f"[kernels] fps [{PN2_B},{n},3] -> {npoint}: bit-equal to the plain version (also with "
             f"every point 4 times); kernel {ms['kernel']:.4f} ms ({ms['kernel'] * 1e3 / npoint:.3f} us "
-            f"per step), plain {ms['plain']:.4f} ms, bound {t:.5f} ms by {by}")
+            f"per step; device {dev:.4f} ms), plain {ms['plain']:.4f} ms, bound {t:.5f} ms by {by}")
     chain = {}
     for i, (name, dims) in enumerate(GROUP_ALL.items()):
         err_y, err_dx, (x, layers, idx, g, win) = check_chain(cm, PN2_B, 128, seed=30 + i, dims=dims)
@@ -2719,9 +2738,10 @@ def phase_kernels_chamfer(data):
     ms = time_pairs({"plain": lambda: chamfer.min_rows_plain(adv, data), "kernel": lambda: chamfer.min_rows_fwd(adv, data)})
     b, n, _ = data.shape
     bnd = chamfer_bound(b, n, n)
-    log(f"[kernels-chamfer] [{b},{n},3] x [{b},{n},3]: kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, "
-        f"bound {bnd[0]:.5f} ms by {bnd[1]} ({8.0 * b * n * n / 1e9:.3f} G operations)")
-    return {"ms": ms["kernel"], "plain_ms": ms["plain"], "bound": bnd, "err": err}
+    dev = sum(device_ms(lambda: chamfer.min_rows_fwd(adv, data)).values())
+    log(f"[kernels-chamfer] [{b},{n},3] x [{b},{n},3]: kernel {ms['kernel']:.4f} ms (device {dev:.4f} ms), plain "
+        f"{ms['plain']:.4f} ms, bound {bnd[0]:.5f} ms by {bnd[1]} ({8.0 * b * n * n / 1e9:.3f} G operations)")
+    return {"ms": ms["kernel"], "plain_ms": ms["plain"], "bound": bnd, "err": err, "device_ms": dev}
 
 
 def parted_points(card_it, cpu_it, g_card, g_cpu):
@@ -2982,24 +3002,25 @@ def _same(tag, what, got, want, **tol):
     return err, torch.equal(got, want)
 
 
-def check_kappa(tag, name, a, nrm, dk):
+def check_kappa(tag, name, a, nrm, dk, k=None):
     """The curvature kernels against the plain versions on the CPU (whose
-    sums run in a fixed order) on one input: the picks equal, kappa within
-    KAPPA_RTOL, dadv and dnormal within KAPPA_GRAD_ATOL.  Returns the max
-    |diff| over all of them."""
+    sums run in a fixed order) on one input, at ``k`` neighbours (GEO_K when
+    absent): the forward's picks and kappa bit-equal, dadv and dnormal
+    within KAPPA_GRAD_ATOL.  Returns the max |diff| over all of them."""
     from pointcloudattack_tpu_torch.ops import chamfer, kappa
 
-    kap, picks = kappa.kappa_fwd(a, nrm, GEO_K)
-    dadv, dnrm = kappa.kappa_bwd(a, nrm, picks, dk, GEO_K)
-    twice(tag, f"kappa {name}", (dadv, dnrm), kappa.kappa_bwd(a, nrm, picks, dk, GEO_K))
-    kap_p, picks_p = kappa.kappa_plain(a.cpu(), nrm.cpu(), GEO_K)
-    dadv_p, dnrm_p = kappa.kappa_bwd_plain(a.cpu(), nrm.cpu(), picks_p, dk.cpu(), GEO_K)
+    k = GEO_K if k is None else k
+    kap, picks = kappa.kappa_fwd(a, nrm, k)
+    dadv, dnrm = kappa.kappa_bwd(a, nrm, picks, dk, k)
+    twice(tag, f"kappa {name}", (dadv, dnrm), kappa.kappa_bwd(a, nrm, picks, dk, k))
+    kap_p, picks_p = kappa.kappa_plain(a.cpu(), nrm.cpu(), k)
+    dadv_p, dnrm_p = kappa.kappa_bwd_plain(a.cpu(), nrm.cpu(), picks_p, dk.cpu(), k)
     res = {"picks": _same(tag, "picks", picks, picks_p),
-           "kappa": _same(tag, "kappa", kap, kap_p, rtol=KAPPA_RTOL, atol=0.0),
+           "kappa": _same(tag, "kappa", kap, kap_p),
            "dadv": _same(tag, "dadv", dadv, dadv_p, rtol=0.0, atol=KAPPA_GRAD_ATOL),
            "dnormal": _same(tag, "dnormal", dnrm, dnrm_p, rtol=0.0, atol=KAPPA_GRAD_ATOL)}
     zero = int((chamfer.exact_sqdist(a, a).gather(-1, picks.long()) == 0).sum())
-    log(f"[{tag}] kappa {name} {tuple(a.shape)} k={GEO_K}: picks equal to the plain version's; max |diff| "
+    log(f"[{tag}] kappa {name} {tuple(a.shape)} k={k}: picks and kappa bit-equal to the plain version's; max |diff| "
         + ", ".join(f"{k} {e:.3e} ({'bit-equal' if eq else 'not bit-equal'})" for k, (e, eq) in res.items())
         + f"; {zero} picks at distance 0, all finite")
     return max(e for e, _ in res.values())
@@ -3129,6 +3150,16 @@ def phase_kernels_geoa3(data):
                 check_kappa("kernels-geoa3", "ragged N=1000", adv[:, :1000].contiguous(), nrm[:, :1000].contiguous(),
                             dk[:, :1000].contiguous()),
                 check_kappa("kernels-geoa3", "every point twice", half(adv), half(nrm), dk))
+    # the forward's selection at its edges: k = 1, the last k the bound serves (63: k + 1 = 64 share
+    # minima), the k-pass fallback (64), the largest N with every point 4 times, and a hub (300 copies
+    # of one point: more than the gather's 128 pairs under the bound)
+    erng = np.random.RandomState(12)
+    for name, (bb, nn, kk, copies, hub) in KAPPA_EDGE_CASES.items():
+        pts = np.concatenate([erng.randn(bb, nn // copies, 3) * 0.5] * copies, axis=1)
+        pts[:, :hub] = pts[:, :1]
+        nv = erng.randn(bb, nn, 3)
+        err_k = max(err_k, check_kappa("kernels-geoa3", name, dev(pts), dev(nv / np.linalg.norm(nv, axis=-1, keepdims=True)),
+                                       dev(erng.randn(bb, nn) * 1e-3), kk))
     dup = torch.cat([data[:, :250]] * 4, dim=1).contiguous()
     err_b = max(check_both("kernels-geoa3", f"B={b} N=M={n}", adv, data, gr, gc),
                 check_both("kernels-geoa3", "ragged N=M=1000, every y point 4 times", adv[:, :1000].contiguous(), dup,
@@ -3179,12 +3210,16 @@ def phase_kernels_geoa3(data):
         accumulate(rec[key], ms[key], ms[f"{key}_plain"], bnd)
         log(f"[kernels-geoa3] {key} [{b},{n},3] k={GEO_K}: kernel {ms[key]:.4f} ms, plain {ms[f'{key}_plain']:.4f} ms, "
             f"bound {bnd[0]:.5f} ms by {bnd[1]}")
-    for key, fn in (("kappa_bwd", lambda: kappa.kappa_bwd(adv, nrm, picks, dk, GEO_K)),
-                    ("kappa_idx_bwd", lambda: kappa.kappa_bwd(moved, nrm, idx, dk, GEO_K, counter="kappa_idx_bwd"))):
-        rec[key]["device_ms"] = dev = device_ms(fn)
-        log(f"[kernels-geoa3] {key} [{b},{n},3] k={GEO_K}, its stages' device time a launch: "
+    for key, fn in (("kappa_fwd", lambda: kappa.kappa_fwd(adv, nrm, GEO_K)),
+                    ("kappa_bwd", lambda: kappa.kappa_bwd(adv, nrm, picks, dk, GEO_K)),
+                    ("kappa_idx_fwd", lambda: kappa.kappa_idx_fwd(moved, nrm, idx, GEO_K)),
+                    ("kappa_idx_bwd", lambda: kappa.kappa_bwd(moved, nrm, idx, dk, GEO_K, counter="kappa_idx_bwd")),
+                    ("both_fwd", lambda: chamfer.both_fwd(adv, data)),
+                    ("both_bwd", lambda: chamfer.both_bwd(adv, data, fwd[1], fwd[3], gr, gc))):
+        rec[key]["device_ms"] = dev = device_ms(fn, reps=20)
+        log(f"[kernels-geoa3] {key} [{b},{n},3] k={GEO_K}, its kernels' device time a launch: "
             + ", ".join(f"{name} {v:.4f} ms" for name, v in dev.items())
-            + f"; {sum(dev.values()):.4f} ms in all, bound {kappa_bwd_bound(b, n, GEO_K)[0]:.5f} ms")
+            + f"; {sum(dev.values()):.4f} ms in all, bound {rec[key]['bound_ms']:.5f} ms")
     rec["knn_geoa3"] = time_knn("kernels-knn", "GeoA3's cached curvature set (the clean clouds)", data, GEO_K + 1)
     return rec
 
@@ -3382,6 +3417,36 @@ def group_case(seed, b, g, k, dims, device="cuda"):
     return x, layers, dy
 
 
+def mask_flips(x, layers, slope=CN_SLOPE):
+    """The (row, unit) pairs of a one-layer mean whose backward mask
+    differs from the sign the forward gave the unit.  The forward's
+    pre-activations are the group kernels' own (the max kernel over groups
+    of one row, ``kernel_rows``' pass); the backward's mask of unit u is
+    read from a backward whose cotangent is 1 at u and 0 elsewhere: its dx
+    row is m W[:, u], m = 1 where the backward took z > 0 and ``slope``
+    elsewhere.  On CPU tensors both are the plain versions."""
+    import torch
+
+    from pointcloudattack_tpu_torch.ops import group_chain as gch
+
+    if len(layers) != 1:
+        raise ValueError(f"mask_flips reads a one-layer mean's masks, got {len(layers)} layers")
+    b, g, k, c0 = x.shape
+    w = layers[0][0]
+    with torch.no_grad():
+        z, _ = gch.chain_groupmax_fwd(x.reshape(b, g * k, 1, c0).contiguous(), layers, slope)
+        z = z.reshape(b, g, k, -1)
+        flips = 0
+        for u in range(w.shape[1]):
+            onehot = torch.zeros((b, g, w.shape[1]), dtype=torch.float32, device=x.device)
+            onehot[..., u] = 1.0
+            dx = gch.chain_groupmean_bwd(x, layers, onehot, slope)
+            at = int(w[:, u].abs().argmax())
+            took = dx[..., at] / w[at, u] > (1.0 + slope) / 2
+            flips += int((took != (z[..., u] > 0)).sum())
+    return flips
+
+
 def check_group(name, pool, x, layers, dy, slope=CN_SLOPE):
     """The group chain kernel (``pool`` "max" or "mean") against its plain
     version on one case, both on the card: y within Y_TOL; for the max the
@@ -3389,8 +3454,10 @@ def check_group(name, pool, x, layers, dy, slope=CN_SLOPE):
     below the plain max; dx within DX_TOL on the rows that carry a
     cotangent (the max's winning rows, every row for the mean), except rows
     with an activated pre-activation within EDGE of 0, which may take the
-    other slope on either side (counted).  Returns (errors, am_ref or None,
-    g, rows that carry a cotangent)."""
+    other slope on either side (counted); two backwards bit-equal; for a
+    one-layer mean no unit whose backward mask differs from the forward's
+    sign (``mask_flips``).  Returns (errors, am_ref or None, g, rows that
+    carry a cotangent)."""
     import torch
 
     from pointcloudattack_tpu_torch.ops import group_chain as gch
@@ -3410,6 +3477,7 @@ def check_group(name, pool, x, layers, dy, slope=CN_SLOPE):
             raise AssertionError(f"{name}: a card pick lies {below:.3e} below the plain max")
         g = (dy * mul).contiguous()
         dx = gch.chain_groupmax_bwd(x, layers, am_ref, g, slope)
+        twice(name, "group max backward", (dx,), (gch.chain_groupmax_bwd(x, layers, am_ref, g, slope),))
         dx_ref = gch.chain_groupmax_bwd_plain(x, layers, am_ref, g, slope)
         carry = winners(am_ref, k)  # [B, G, K]
         extra = (f"argmax equal except {int((am != am_ref).sum())} of {int(near.sum())} near-tie columns, "
@@ -3418,9 +3486,17 @@ def check_group(name, pool, x, layers, dy, slope=CN_SLOPE):
         y, y_ref, am_ref = gch.chain_groupmean_fwd(x, layers, slope), gch.chain_groupmean_plain(x, layers, slope), None
         g = (dy * mul / k).contiguous()
         dx = gch.chain_groupmean_bwd(x, layers, g, slope)
+        twice(name, "group mean backward", (dx,), (gch.chain_groupmean_bwd(x, layers, g, slope),))
         dx_ref = gch.chain_groupmean_bwd_plain(x, layers, g, slope)
         carry = torch.ones(x.shape[:3], dtype=torch.bool, device=x.device)
         extra = ""
+        if len(layers) == 1:
+            flips = mask_flips(x, layers, slope)
+            if flips:
+                raise AssertionError(f"{name}: {flips} units' backward masks differ from the forward's signs")
+            # the product back the wrapper does not take (time_group times it), held to dx's rules below
+            dx_other = gch._mean1_bwd_kernel(x, layers, g, slope, not gch.mean1_tc(*layers[0][0].shape))
+            extra = "0 backward masks differ from the forward's signs; "
     torch.cuda.synchronize()
     torch.testing.assert_close(y, y_ref, **Y_TOL)
     edge = torch.zeros_like(carry)
@@ -3429,14 +3505,17 @@ def check_group(name, pool, x, layers, dy, slope=CN_SLOPE):
     edge &= carry
     torch.testing.assert_close(dx[~edge], dx_ref[~edge], **DX_TOL)
     errs = {"y": float((y - y_ref).abs().max()), "dx": float((dx - dx_ref)[~edge].abs().max())}
+    if pool == "mean" and len(layers) == 1:
+        torch.testing.assert_close(dx_other[~edge], dx_ref[~edge], **DX_TOL)
+        extra += f"the other product back's dx max|err| {float((dx_other - dx_ref)[~edge].abs().max()):.3e}; "
     log(f"[kernels-curvenet] {pool} {name} x {tuple(x.shape)} chain {[x.shape[-1]] + [l[0].shape[1] for l in layers]} "
         f"slope {slope}: y max|err| {errs['y']:.3e}; {extra}{int(carry.sum())} of {carry.numel()} rows carry a "
         f"cotangent, {int(edge.sum())} of them an activated unit within {EDGE} of 0 (left out); dx max|err| "
-        f"{errs['dx']:.3e} (all rows {float((dx - dx_ref).abs().max()):.3e})")
+        f"{errs['dx']:.3e} (all rows {float((dx - dx_ref).abs().max()):.3e}); two backwards bit-equal")
     return errs, am_ref, g, int(carry.sum())
 
 
-def group_bound(b, g, k, dims, pool, carry=None):
+def group_bound(b, g, k, dims, pool, carry=None, fp32=False):
     """(bound_ms, bound_by) of a group chain forward or, with ``carry``
     rows carrying a cotangent, of its backward, counted as ``chain_bound``
     counts them: the forward's chain over every row; the max's backward
@@ -3444,7 +3523,10 @@ def group_bound(b, g, k, dims, pool, carry=None):
     recomputed and run back; the pooled output (and the argmax) written or
     read once, dx written once, and the rows read once where a pass needs
     them: the max's one-layer backward (dx = g on the argmax rows times
-    W^T) needs none."""
+    W^T) needs none.  The one-layer mean's backward recomputes in FP32 (its
+    masks are the forward's signs) and may run its product back on the
+    tensor cores as 3xTF32 (``tc_bound``); ``fp32`` counts that product
+    over the FP32 peak too."""
     rows = b * g * k
     out = 4.0 * b * g * dims[-1] * (2 if pool == "max" else 1)
     x_bytes = 4.0 * rows * dims[0]
@@ -3452,11 +3534,16 @@ def group_bound(b, g, k, dims, pool, carry=None):
         return bound(chain_flops(rows, dims), x_bytes + out + param_bytes(dims))
     flops = chain_bwd_flops(carry, b * g, dims) if pool == "max" else 2 * chain_flops(rows, dims)
     reads_x = pool == "mean" or len(dims) > 2
-    return bound(flops, (2 if reads_x else 1) * x_bytes + out + 2 * param_bytes(dims))
+    nbytes = (2 if reads_x else 1) * x_bytes + out + 2 * param_bytes(dims)
+    if pool == "mean" and len(dims) == 2 and not fp32:
+        return tc_bound(chain_flops(rows, dims), chain_flops(rows, dims), nbytes)
+    return bound(flops, nbytes)
 
 
 def time_group(name, pool, x, layers, am, g, carry, slope=CN_SLOPE):
-    """Group kernel and plain times at one case, and the bounds."""
+    """Group kernel and plain times at one case, and the bounds; for a
+    one-layer mean the backward's other product back beside the one the
+    wrapper takes (``other``), on the same inputs."""
     from pointcloudattack_tpu_torch.ops import group_chain as gch
 
     wts = [layer[0].t().contiguous() for layer in layers]
@@ -3470,36 +3557,77 @@ def time_group(name, pool, x, layers, am, g, carry, slope=CN_SLOPE):
                "fwd": lambda: gch.chain_groupmean_fwd(x, layers, slope),
                "bwd_plain": lambda: gch.chain_groupmean_bwd_plain(x, layers, g, slope),
                "bwd": lambda: gch.chain_groupmean_bwd(x, layers, g, slope, wts)}
+        if len(layers) == 1:
+            tc = gch.mean1_tc(*layers[0][0].shape)
+            fns["bwd_other"] = lambda: gch._mean1_bwd_kernel(x, layers, g, slope, not tc)
     ms = time_pairs(fns)
+    ms["bwd_device"] = device_ms(fns["bwd"])
     b, ng, k, _ = x.shape
     dims = [x.shape[-1]] + [layer[0].shape[1] for layer in layers]
     b_fwd, b_bwd = group_bound(b, ng, k, dims, pool), group_bound(b, ng, k, dims, pool, carry)
+    other = ""
+    if "bwd_other" in fns:
+        ms["bwd_other_device"] = device_ms(fns["bwd_other"])
+        ms["bound_fp32"] = group_bound(b, ng, k, dims, pool, carry, fp32=True)
+        other = (f"; the product back {'in FP32' if tc else 'as 3xTF32'} instead: {ms['bwd_other']:.4f} "
+                 "ms, device " + (", ".join(f"{n} {v:.4f}" for n, v in ms["bwd_other_device"].items())
+                                  or "not measured") + f"; the bound in FP32 only {ms['bound_fp32'][0]:.5f} by "
+                 f"{ms['bound_fp32'][1]}")
     log(f"[kernels-curvenet] {pool} {name} chain {dims}: forward {ms['fwd']:.4f} ms (plain {ms['fwd_plain']:.4f}, "
-        f"bound {b_fwd[0]:.5f} by {b_fwd[1]} over {b * ng * k} rows), backward {ms['bwd']:.4f} ms (plain "
-        f"{ms['bwd_plain']:.4f}, bound {b_bwd[0]:.5f} by {b_bwd[1]} over the {carry} rows with a cotangent)")
+        f"bound {b_fwd[0]:.5f} by {b_fwd[1]} over {b * ng * k} rows), backward {ms['bwd']:.4f} ms (device "
+        + (", ".join(f"{n} {v:.4f}" for n, v in ms["bwd_device"].items()) or "not measured") + "; plain "
+        f"{ms['bwd_plain']:.4f}, bound {b_bwd[0]:.5f} by {b_bwd[1]} over the {carry} rows with a cotangent{other})")
     return ms, b_fwd, b_bwd
 
 
 def phase_kernels_curvenet():
     """The group chain kernels at the nine LPFA shapes of one CurveNet
-    forward (B=8, K=20), then at a ragged G=1000, at K=7 and with a 2-layer
-    chain; the record's numbers sum the nine LPFAs of one forward (and
-    backward)."""
+    forward (B=8, K=20), then at a ragged G=1000, at K=7, K=64, widths 3 ->
+    300 and with 2-layer chains; the record's numbers sum the nine LPFAs of
+    one forward (and backward), and the mean backward's device time the
+    eight residual ones'.  The one-layer mean backward's tiles (32 to 256
+    rows) straddle K=20's groups."""
     import torch
 
+    from pointcloudattack_tpu_torch.ops import group_chain as gch
+
     rec = new_record("group_max_fwd", "group_max_bwd", "group_mean_fwd", "group_mean_bwd")
+    rec["group_mean_bwd"]["device_ms"] = 0.0
     for i, (name, (ng, c0, widths, pool)) in enumerate(CURVENET_GROUP_SHAPES.items()):
         x, layers, dy = group_case(60 + i, CN_B, ng, CN_K, (c0, *widths))
         errs, am, g, carry = check_group(name, pool, x, layers, dy)
         ms, b_fwd, b_bwd = time_group(name, pool, x, layers, am, g, carry)
+        if pool == "mean":
+            dev = sum(ms["bwd_device"].values()) if ms["bwd_device"] else None  # None: not measured
+            rec["group_mean_bwd"]["device_ms"] = (None if dev is None or rec["group_mean_bwd"]["device_ms"] is None
+                                                  else rec["group_mean_bwd"]["device_ms"] + dev)
+            dev_other = sum(ms["bwd_other_device"].values()) if ms["bwd_other_device"] else None
+            rec["group_mean_bwd"].setdefault("shapes", {})[f"{name} {tuple(x.shape)} -> {widths[-1]}"] = {
+                "ms": ms["bwd"], "plain_ms": ms["bwd_plain"], "device_ms": dev, "bound_ms": b_bwd[0],
+                "bound_fp32_ms": ms["bound_fp32"][0], "max_abs_err": errs["dx"], "other_ms": ms["bwd_other"],
+                "other_device_ms": dev_other, "tc": gch.mean1_tc(c0, widths[-1])}
         for key, e, m, p, bb, rows in ((f"group_{pool}_fwd", errs["y"], ms["fwd"], ms["fwd_plain"], b_fwd,
                                         x.shape[0] * ng * CN_K),
                                        (f"group_{pool}_bwd", errs["dx"], ms["bwd"], ms["bwd_plain"], b_bwd, carry)):
             rec[key]["err"] = max(rec[key]["err"], e)
             accumulate(rec[key], m, p, bb, rows)
+    eight = rec["group_mean_bwd"]["shapes"].values()
+    if all(s["device_ms"] is not None and s["other_device_ms"] is not None for s in eight):
+        tf32 = sum(s["device_ms"] if s["tc"] else s["other_device_ms"] for s in eight)
+        fp32 = sum(s["other_device_ms"] if s["tc"] else s["device_ms"] for s in eight)
+        dev = (f"{sum(s['device_ms'] for s in eight):.4f} ms as the wrapper takes them (group_chain.mean1_tc: FP32 "
+               f"up to 16 wide, 3xTF32 past it), {tf32:.4f} with the product back as 3xTF32 at every width, "
+               f"{fp32:.4f} in FP32 at every width")
+    else:
+        dev = "not measured"
+    log(f"[kernels-curvenet] the eight mean backwards on the same inputs, device time {dev}; through the wrapper "
+        f"{sum(s['ms'] for s in eight):.4f} ms (the other product backs {sum(s['other_ms'] for s in eight):.4f}); "
+        f"bound {sum(s['bound_ms'] for s in eight):.4f} ms (in FP32 only {sum(s['bound_fp32_ms'] for s in eight):.4f})")
     for j, (name, b, ng, k, dims) in enumerate((("ragged G=1000", CN_B, 1000, CN_K, (9, 32)),
                                                  ("ragged G=1000", CN_B, 1000, CN_K, (16, 16)),
                                                  ("K=7", 4, 333, 7, (16, 24)),
+                                                 ("K=64", 2, 50, 64, (32, 32)),
+                                                 ("widths 3 -> 300, K=33", 1, 7, 33, (3, 300)),
                                                  ("2 layers", 4, 256, CN_K, (9, 32, 32)),
                                                  ("2 layers", 4, 256, CN_K, (32, 64, 32)))):
         for pool in ("max", "mean"):
@@ -4076,7 +4204,7 @@ def main():
               spine["bwd"], spine["bwd_plain"], spine["bound_bwd"], "PointNet spine B=64 N=1024 3-64-128-1024",
               spine["rows_bwd"], **chain_extra("bwd")),
         entry("fps", "fps", FPS_SRC, TPU_FPS, ssg[4]["fps"], pn2["fps"]["err"], pn2["fps"]["ms"],
-              pn2["fps"]["plain_ms"], summed_bound(pn2["fps"]), ssg_at),
+              pn2["fps"]["plain_ms"], summed_bound(pn2["fps"]), ssg_at, device_ms=pn2["fps"]["device_ms"]),
         *(entry(f"gather_hoist_{key}", f"hoist_{key}", HOIST_SRC, TPU_GATHER_FWD if key.endswith("fwd") else
                 TPU_GATHER_BWD, dg_launches[f"hoist_{key}"], dg[key]["err"], dg[key]["ms"], dg[key]["plain_ms"],
                 summed_bound(dg[key]), dg_at, library_ms=dg[key].get("library_ms"))
@@ -4087,9 +4215,10 @@ def main():
               shapes={**dg["knn"]["shapes"], f"geoa3 cached set {tuple(geo_data.shape)} k={GEO_K + 1}": geo["knn_geoa3"],
                       **cn_knn}),
         entry("min_sqdist_rows", "min_rows", CHAMFER_SRC, TPU_CHAMFER, knn1["min_rows"], cham["err"], cham["ms"],
-              cham["plain_ms"], cham["bound"], f"B={B} N=M={N}, one KNN iteration's Chamfer on PointNet"),
+              cham["plain_ms"], cham["bound"], f"B={B} N=M={N}, one KNN iteration's Chamfer on PointNet",
+              device_ms=cham["device_ms"]),
         *(entry(name, key, src, tpu, geo_launches[key], geo[key]["err"], geo[key]["ms"], geo[key]["plain_ms"],
-                summed_bound(geo[key]), geo_at, **({"device_ms": geo[key]["device_ms"]} if key == "kappa_bwd" else {}))
+                summed_bound(geo[key]), geo_at, device_ms=geo[key]["device_ms"])
           for name, key, src, tpu in (("kappa_knn_mean_fwd", "kappa_fwd", KAPPA_SRC, TPU_KAPPA_FWD),
                                       ("kappa_knn_mean_bwd", "kappa_bwd", KAPPA_SRC, TPU_KAPPA_BWD),
                                       ("min_sqdist_both_fwd", "both_fwd", BOTH_SRC, TPU_BOTH_FWD),
@@ -4097,11 +4226,12 @@ def main():
         *(entry(name, key, KAPPA_SRC, tpu, geo_r4[key], geo[key]["err"], geo[key]["ms"], geo[key]["plain_ms"],
                 summed_bound(geo[key]), f"one GeoA3 iteration's call on PointNet at curv_knn_refresh {GEO_REFRESH} "
                 f"(B=8, N=1024, k={GEO_K}, a stale set)",
-                **({"device_ms": geo[key]["device_ms"]} if key == "kappa_idx_bwd" else {}))
+                device_ms=geo[key]["device_ms"])
           for name, key, tpu in (("kappa_knn_mean_from_idx_fwd", "kappa_idx_fwd", TPU_KAPPA_IDX_FWD),
                                  ("kappa_knn_mean_from_idx_bwd", "kappa_idx_bwd", TPU_KAPPA_IDX_BWD))),
         *(entry(name, key, GROUP_SRC, tpu, cn_cw[key], cnk[key]["err"], cnk[key]["ms"], cnk[key]["plain_ms"],
-                summed_bound(cnk[key]), cn_at[pool], cnk[key]["rows"])
+                summed_bound(cnk[key]), cn_at[pool], cnk[key]["rows"],
+                **{x: cnk[key][x] for x in ("device_ms", "shapes") if x in cnk[key]})
           for name, key, tpu, pool in (("chain_groupmax_fwd", "group_max_fwd", TPU_GROUP_FWD, "max"),
                                        ("chain_groupmax_bwd", "group_max_bwd", TPU_GROUP_BWD, "max"),
                                        ("chain_groupmean_fwd", "group_mean_fwd", TPU_GROUP_MEAN_FWD, "mean"),

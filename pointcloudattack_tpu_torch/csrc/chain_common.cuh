@@ -596,4 +596,37 @@ __device__ int block_scan(int n, Val val, Out out, int* ws) {
   return total;
 }
 
+// The blocks of `kernel` that the card holds at once: its SMs times the
+// blocks of `threads` threads and `smem` bytes of dynamic shared memory that
+// one SM holds (at least one).  The first call for a (kernel, device, smem)
+// raises the kernel's dynamic shared memory limit to `smem_max`, asks, and
+// keeps the answer, so a launch does not ask again (32 kept; past that the
+// last is replaced).
+inline cudaError_t resident_slots(const void* kernel, int threads, size_t smem, size_t smem_max, int device,
+                                  int* slots) {
+  struct Seen {
+    const void* kernel;
+    int device, slots;
+    size_t smem;
+  };
+  static Seen seen[32];
+  static int nseen = 0;
+  for (int i = 0; i < nseen; ++i)
+    if (seen[i].kernel == kernel && seen[i].device == device && seen[i].smem == smem) {
+      *slots = seen[i].slots;
+      return cudaSuccess;
+    }
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_max);
+  if (e != cudaSuccess) return e;
+  int sms = 0, resident = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, threads, smem);
+  if (e != cudaSuccess) return e;
+  const int at = nseen < 32 ? nseen++ : 31;
+  seen[at] = {kernel, device, sms * (resident > 0 ? resident : 1), smem};
+  *slots = seen[at].slots;
+  return cudaSuccess;
+}
+
 }  // namespace pca

@@ -41,14 +41,45 @@
 //     column) scans the group's K rows in ascending k: a strict '>' keeps
 //     the lowest k among ties (the TPU kernel's min-iota), and the mean
 //     sums in ascending k, then divides by K as jnp.mean does.
-//   * Backward: recompute the hidden layers (their signs are the masks);
-//     max puts g on each column's argmax row (at one layer without loading
-//     the rows, which nothing reads), mean recomputes the last layer and
-//     puts act'(z_L) * g on every row; then chain_common.cuh's
-//     dense backward takes the [C_L][T] cotangent through W_L^T and the
-//     hidden layers.  Each row's dx is its own: no atomics, deterministic.
+//   * Backward of two or more layers: recompute the hidden layers (their
+//     signs are the masks); max puts g on each column's argmax row (at one
+//     layer without loading the rows, which nothing reads), mean recomputes
+//     the last layer and puts act'(z_L) * g on every row; then
+//     chain_common.cuh's dense backward takes the [C_L][T] cotangent through
+//     W_L^T and the hidden layers.  Each row's dx is its own: no atomics,
+//     deterministic.
+//   * Backward of the one-layer mean (group_mean1_bwd_kernel; CurveNet's
+//     eight residual LPFAs, 16 to 128 wide): dx_r = (mask(z_r) * g[r / K])
+//     W^T.  Its bound is bytes at 16 and 32 widths (x read and dx written
+//     once: 0.0064 and 0.0128 ms at 163,840 rows) and operations at 64 and
+//     128 (2 C^2 flops a row in FP32 for the recompute, three TF32 products
+//     of 2 C^2 for the product back: 0.0070 ms).  The generic kernel above
+//     spent 1.13 ms of device time on the eight (H100): 181 registers a
+//     thread, the weights restaged through a 16-deep shared tile with two
+//     barriers a step, and 60 of 64 tile rows at work.  This one tiles the
+//     rows without regard to groups (the tile's g rows in shared memory),
+//     keeps its blocks resident over the tiles with W and the BatchNorm
+//     vectors staged once a block, and copies the next tile's rows in by
+//     cp.async while this one is worked.  The recompute must be the
+//     forward's fmaf chain in ascending channel order, or a unit near 0 can
+//     take the other slope than the forward's: that half stays on the CUDA
+//     cores, register-tiled 4 rows x 4 columns a thread, its lanes split
+//     between rows and columns by the width so that every lane works at 16
+//     wide.  The product back, dx = cot W^T, has two forms, timed side by
+//     side on the same inputs by chip_smoke.py's [kernels-curvenet] on an
+//     H100 (700 W): 3xTF32 mma.sync, 0.032-0.033 ms a launch at 64 and 128
+//     wide against 0.036-0.037 for FP32 register tiles laid out as the
+//     recompute's, and FP32, 0.0167 ms at 16 wide against 0.0195-0.0197,
+//     where an m16n8k8 job holds 2 of its 4 n8 tiles and 2 k-steps.  The
+//     wrapper takes FP32 up to 16 wide and 3xTF32 past it
+//     (ops/group_chain.py::mean1_tc); either keeps dx within f32 rounding of
+//     the plain product (DX_TOL).  Within a k-step each of the three TF32
+//     products runs over the warp's n8 tiles in turn, so that no mma waits
+//     on the one before it.
 
 #include "chain_common.cuh"
+
+#include <algorithm>
 
 namespace {
 
@@ -211,6 +242,364 @@ __global__ void __launch_bounds__(kThreads)
   });
 }
 
+// ---------------------------------------------------------------------------
+// The one-layer mean backward (CurveNet's residual LPFAs)
+// ---------------------------------------------------------------------------
+
+constexpr int kMbWarps = 8;  // warps of a block
+constexpr int kMbTM = 4;     // rows of a thread in the recompute
+constexpr int kMbTN = 4;     // adjacent columns of a thread in the recompute (a float4 of W)
+constexpr int kMbNB = 4;     // n8 tiles of a warp's job in the product back
+
+struct MeanBwd {
+  const float* x;  // [R, C0]
+  const float* w;  // [C0, CL] row-major
+  const float* b;
+  const float* mean;
+  const float* mul;
+  const float* beta;
+  const float* g;  // [R / K, CL]
+  float* dx;       // [R, C0]
+  size_t R;        // B * G * K rows
+  int K, C0, CL;
+  int lc;          // lanes across the recompute's columns: a power of 2 up to 32
+  int lb;          // lanes across the FP32 product back's outputs, likewise
+  int tr;          // rows of a tile
+  int sx, sc, sw;  // row strides of the x tiles, the cotangent tile and W
+  int ng;          // g rows a tile can touch
+  int vec;         // C0 % 4 == 0 and x 16-byte aligned: 16-byte copies
+  float slope;
+};
+
+// Lanes across the recompute's columns: 4 adjacent columns a lane, at most
+// 32 lanes (wider layers take chunks of 128 columns).
+inline int mean1_lanes(int C) {
+  int lc = 1;
+  while (lc < 32 && 4 * lc < C) lc <<= 1;
+  return lc;
+}
+
+// A row stride for C floats: past C rounded up to 8 (the product's depth
+// step, the pad zero), 4 more, so that 8 consecutive rows' float4s, and an
+// mma fragment's 8 rows x 4 columns, fall in distinct banks.
+inline int mean1_stride(int C) { return ((C + 7) & ~7) + 4; }
+
+// Shared memory of a block: W, the BatchNorm vectors, the cotangent tile,
+// the x tile and the g rows.
+inline size_t mean1_smem(const MeanBwd& m) {
+  return align16(sizeof(float) * (size_t)m.C0 * m.sw) + align16(sizeof(float) * 4 * (size_t)m.sw) +
+         align16(sizeof(float) * (size_t)m.tr * m.sc) + align16(sizeof(float) * (size_t)m.tr * m.sx) +
+         align16(sizeof(float) * (size_t)m.ng * m.CL);
+}
+
+// The tile: as many rows as the recompute's row lanes cover in one sweep of
+// the block (32 at 128 wide, 256 at 16), halved while the block's shared
+// memory would pass the card's limit.
+inline MeanBwd mean1_shape(size_t R, int K, int C0, int CL) {
+  MeanBwd m = {};
+  m.R = R;
+  m.K = K;
+  m.C0 = C0;
+  m.CL = CL;
+  m.lc = mean1_lanes(CL);
+  m.lb = mean1_lanes(C0);
+  m.sx = mean1_stride(C0);
+  m.sc = mean1_stride(CL);
+  m.sw = mean1_stride(CL);
+  for (m.tr = kMbWarps * kMbTM * (32 / m.lc);; m.tr /= 2) {
+    m.ng = (m.tr - 1) / K + 2;
+    if (m.tr == 16 || mean1_smem(m) <= kMaxSmem) break;
+  }
+  return m;
+}
+
+// Tile t's rows into xs (0 past the last row): 16-byte copies in flight
+// (committed by the caller) where p.vec, else loads.
+__device__ __forceinline__ void mean1_load_x(const MeanBwd& p, size_t t, float* xs) {
+  const int tid = threadIdx.x, C0 = p.C0;
+  const size_t row0 = t * p.tr;
+  const size_t left = p.R - row0;
+  const int rows = left < (size_t)p.tr ? (int)left : p.tr;
+  const float* xb = p.x + row0 * C0;
+  if (p.vec) {
+    const int per = C0 >> 2;
+    for (int e = tid; e < p.tr * per; e += kMbWarps * 32) {
+      const int r = e / per, q = e - r * per;
+      const bool ok = r < rows;
+      cp_async16(xs + r * p.sx + 4 * q, ok ? xb + (size_t)r * C0 + 4 * q : xb, ok ? 16 : 0);
+    }
+  } else {
+    for (int e = tid; e < p.tr * C0; e += kMbWarps * 32) {
+      const int r = e / C0, c = e - r * C0;
+      xs[r * p.sx + c] = r < rows ? xb[(size_t)r * C0 + c] : 0.f;
+    }
+  }
+}
+
+// Tile t's g rows into gs, by 4-byte copies in flight (committed by the
+// caller).
+__device__ __forceinline__ void mean1_load_g(const MeanBwd& p, size_t t, float* gs) {
+  const size_t row0 = t * p.tr, left = p.R - row0;
+  const int rows = left < (size_t)p.tr ? (int)left : p.tr;
+  const size_t gfirst = row0 / p.K;
+  const int n = (int)((row0 + rows - 1) / p.K - gfirst + 1) * p.CL;
+  for (int e = threadIdx.x; e < n; e += kMbWarps * 32) cp_async4(gs + e, p.g + gfirst * p.CL + e, 4);
+}
+
+// dx [R, C0] of the one-layer mean for g = dy * mul / K: for each row r of
+// group r / K, cot_r = act_bwd_mul(z_r, g[r / K], 1, slope) and dx_r =
+// cot_r W^T.  The blocks stay resident and take tiles of tr rows in turn,
+// whatever the groups, the next tile's rows and g rows copied in (cp.async)
+// while this one's product back runs; W, once a block, sits in shared
+// memory.
+//   1. The recompute: z with the forward's own arithmetic (fmaf over the
+//      input channels in ascending order from 0, then the BatchNorm
+//      epilogue as group_fwd_kernel writes it), so the masks are the
+//      forward's signs bit for bit; it must stay on the CUDA cores.  A
+//      thread holds 4 rows (interleaved with the other row lanes': float4
+//      reads of x along the channels) x 4 adjacent columns (one float4 of
+//      W a channel); the cotangent tile goes to shared memory.
+//   2. The product back, dx = cot W^T.  kTc: as 3xTF32 mma.sync m16n8k8
+//      (chain_common.cuh's split_tf32 / mma_tf32): a warp takes 16 rows x
+//      up to 32 outputs; W, stored [C0][CL], is the B operand as it lies.
+//      Else in FP32 on the CUDA cores, register-tiled as the recompute: 4
+//      rows x 4 outputs a thread, float4 reads of the cotangent rows and of
+//      W's rows along CL; a lane's 4 outputs are lb apart, so that the lanes
+//      read adjacent rows of W (distinct banks) and store adjacent columns.
+// Each row's dx is its own: no atomics.
+template <bool kTc>
+__global__ void __launch_bounds__(kMbWarps * 32) group_mean1_bwd_kernel(MeanBwd p, int tiles) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nw = kMbWarps;
+  const int C0 = p.C0, CL = p.CL, K = p.K, tr = p.tr;
+  float* ws = reinterpret_cast<float*>(smem);                                        // [C0][sw]
+  float* bn = ws + align16(sizeof(float) * (size_t)C0 * p.sw) / sizeof(float);      // b, mean, mul, beta [4][sw]
+  float* cs = bn + align16(sizeof(float) * 4 * (size_t)p.sw) / sizeof(float);       // [tr][sc]
+  float* xs = cs + align16(sizeof(float) * (size_t)tr * p.sc) / sizeof(float);      // [tr][sx]
+  float* gs = xs + align16(sizeof(float) * (size_t)tr * p.sx) / sizeof(float);      // [ng][CL]
+  const int CL8 = (CL + 7) & ~7;
+
+  // W (0 past CL) and the BatchNorm vectors by copies in flight, with the first tile's
+  if (CL % 4 == 0 && (reinterpret_cast<size_t>(p.w) & 15) == 0) {
+    const int per = CL >> 2;
+    for (int e = tid; e < C0 * per; e += kMbWarps * 32) {
+      const int k = e / per, q = e - k * per;
+      cp_async16(ws + k * p.sw + 4 * q, p.w + (size_t)k * CL + 4 * q, 16);
+    }
+  } else {
+    for (int e = tid; e < C0 * CL; e += kMbWarps * 32) {
+      const int k = e / CL;
+      cp_async4(ws + k * p.sw + (e - k * CL), p.w + e, 4);
+    }
+  }
+  for (int e = tid; e < C0 * (p.sw - CL); e += kMbWarps * 32) {
+    const int k = e / (p.sw - CL);
+    ws[k * p.sw + CL + (e - k * (p.sw - CL))] = 0.f;
+  }
+  for (int e = tid; e < 4 * CL; e += kMbWarps * 32) {
+    const int v = e / CL;
+    cp_async4(bn + v * p.sw + (e - v * CL), (v == 0 ? p.b : v == 1 ? p.mean : v == 2 ? p.mul : p.beta) + (e - v * CL), 4);
+  }
+  mean1_load_x(p, blockIdx.x, xs);
+  mean1_load_g(p, blockIdx.x, gs);
+  cp_async_commit();
+  for (int e = tid; e < tr * (CL8 - CL); e += kMbWarps * 32) {  // the cotangent's pad columns stay 0
+    const int r = e / (CL8 - CL);
+    cs[r * p.sc + CL + (e - r * (CL8 - CL))] = 0.f;
+  }
+
+  for (size_t t = blockIdx.x; t < (size_t)tiles; t += gridDim.x) {
+    const size_t row0 = t * tr;
+    const size_t left = p.R - row0;
+    const int rows = left < (size_t)tr ? (int)left : tr;
+    const int rem = (int)(row0 - row0 / K * K);  // row0's place in its group: row r's group is (rem + r) / K
+    cp_async_wait<0>();  // this tile's copies have landed
+    __syncthreads();
+
+    // 1. z, its mask and the cotangent of every tile row
+    {
+      const int lc = lane & (p.lc - 1), lr = lane / p.lc, LR = 32 / p.lc;
+      for (int s0 = 0; s0 < tr; s0 += nw * LR * kMbTM) {
+        const int rb = s0 + warp * LR * kMbTM + lr;  // this thread's rows rb + LR * i
+        int grp[kMbTM];  // their g rows in gs
+#pragma unroll
+        for (int i = 0; i < kMbTM; ++i) grp[i] = (rem + min(rb + LR * i, rows - 1)) / K * CL;
+        for (int c0 = 0; c0 < CL; c0 += kMbTN * p.lc) {
+          const int cq = min(c0 + kMbTN * lc, p.sw - 4);  // past CL: computed, never stored
+          float acc[kMbTM][kMbTN];
+#pragma unroll
+          for (int i = 0; i < kMbTM; ++i)
+#pragma unroll
+            for (int j = 0; j < kMbTN; ++j) acc[i][j] = 0.f;
+          int k = 0;
+          for (; k + 4 <= C0; k += 4) {
+            float4 wv[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) wv[u] = *reinterpret_cast<const float4*>(ws + (k + u) * p.sw + cq);
+#pragma unroll
+            for (int i = 0; i < kMbTM; ++i) {
+              const float4 xv = *reinterpret_cast<const float4*>(xs + min(rb + LR * i, tr - 1) * p.sx + k);
+              const float xk[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+              for (int u = 0; u < 4; ++u) {
+                acc[i][0] = fmaf(xk[u], wv[u].x, acc[i][0]);
+                acc[i][1] = fmaf(xk[u], wv[u].y, acc[i][1]);
+                acc[i][2] = fmaf(xk[u], wv[u].z, acc[i][2]);
+                acc[i][3] = fmaf(xk[u], wv[u].w, acc[i][3]);
+              }
+            }
+          }
+          for (; k < C0; ++k) {
+            const float4 wv = *reinterpret_cast<const float4*>(ws + k * p.sw + cq);
+#pragma unroll
+            for (int i = 0; i < kMbTM; ++i) {
+              const float xv = xs[min(rb + LR * i, tr - 1) * p.sx + k];
+              acc[i][0] = fmaf(xv, wv.x, acc[i][0]);
+              acc[i][1] = fmaf(xv, wv.y, acc[i][1]);
+              acc[i][2] = fmaf(xv, wv.z, acc[i][2]);
+              acc[i][3] = fmaf(xv, wv.w, acc[i][3]);
+            }
+          }
+          // the epilogue: the four columns' BatchNorm vectors as float4s, each row's four cotangents
+          // as one float4 where all four columns exist
+          const int cols = min(kMbTN, CL - (c0 + kMbTN * lc));  // <= 0 where cq was clamped
+          const float4 bb = *reinterpret_cast<const float4*>(bn + cq);
+          const float4 mm = *reinterpret_cast<const float4*>(bn + p.sw + cq);
+          const float4 mu = *reinterpret_cast<const float4*>(bn + 2 * p.sw + cq);
+          const float4 be = *reinterpret_cast<const float4*>(bn + 3 * p.sw + cq);
+          const float bbv[4] = {bb.x, bb.y, bb.z, bb.w}, mmv[4] = {mm.x, mm.y, mm.z, mm.w};
+          const float muv[4] = {mu.x, mu.y, mu.z, mu.w}, bev[4] = {be.x, be.y, be.z, be.w};
+#pragma unroll
+          for (int i = 0; i < kMbTM; ++i) {
+            const int r = rb + LR * i;
+            if (r >= tr) break;
+            float v[kMbTN];
+#pragma unroll
+            for (int j = 0; j < kMbTN; ++j) {
+              v[j] = 0.f;
+              if (r < rows && j < cols) {
+                const float z = (acc[i][j] + bbv[j] - mmv[j]) * muv[j] + bev[j];  // group_fwd_kernel's epilogue
+                v[j] = act_bwd_mul(z, gs[grp[i] + cq + j], 1.f, p.slope);
+              }
+            }
+            if (cols == kMbTN) {
+              *reinterpret_cast<float4*>(cs + r * p.sc + cq) = make_float4(v[0], v[1], v[2], v[3]);
+            } else {
+#pragma unroll
+              for (int j = 0; j < kMbTN; ++j)
+                if (j < cols) cs[r * p.sc + cq + j] = v[j];
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // xs and gs are free: the next tile's rows and g rows come in behind the product back
+    if (t + gridDim.x < (size_t)tiles) {
+      mean1_load_x(p, t + gridDim.x, xs);
+      mean1_load_g(p, t + gridDim.x, gs);
+    }
+    cp_async_commit();
+
+    // 2. dx = cot W^T: warp jobs of 16 rows x kMbNB n8 tiles
+    if constexpr (kTc) {
+      const int g8 = lane >> 2, t4 = lane & 3;
+      const int mt = tr / 16, nt = (C0 + 7) / 8, nb = (nt + kMbNB - 1) / kMbNB;
+      for (int job = warp; job < mt * nb; job += nw) {
+        const int m0 = (job % mt) * 16, n0 = (job / mt) * kMbNB * 8;
+        float acc[kMbNB][4];
+#pragma unroll
+        for (int j = 0; j < kMbNB; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+        const float* As = cs + (m0 + g8) * p.sc + t4;
+        for (int kk = 0; kk < CL8; kk += 8) {
+          unsigned ah[4], al[4];
+          split_tf32(As[kk], ah[0], al[0]);                  // (row g, k t)
+          split_tf32(As[8 * p.sc + kk], ah[1], al[1]);       // (g + 8, t)
+          split_tf32(As[kk + 4], ah[2], al[2]);              // (g, t + 4)
+          split_tf32(As[8 * p.sc + kk + 4], ah[3], al[3]);   // (g + 8, t + 4)
+          // the n8 tiles' three products in turn, so that no mma waits on the one before it
+          unsigned bh[kMbNB][2], bl[kMbNB][2];
+#pragma unroll
+          for (int j = 0; j < kMbNB; ++j) {
+            if (n0 + 8 * j >= C0) break;  // the whole warp
+            const float* Bs = ws + min(n0 + 8 * j + g8, C0 - 1) * p.sw + t4;  // W(n, k) at (k t, n g)
+            split_tf32(Bs[kk], bh[j][0], bl[j][0]);
+            split_tf32(Bs[kk + 4], bh[j][1], bl[j][1]);
+          }
+#pragma unroll
+          for (int j = 0; j < kMbNB; ++j)
+            if (n0 + 8 * j < C0) mma_tf32(acc[j], al, bh[j][0], bh[j][1]);
+#pragma unroll
+          for (int j = 0; j < kMbNB; ++j)
+            if (n0 + 8 * j < C0) mma_tf32(acc[j], ah, bl[j][0], bl[j][1]);
+#pragma unroll
+          for (int j = 0; j < kMbNB; ++j)
+            if (n0 + 8 * j < C0) mma_tf32(acc[j], ah, bh[j][0], bh[j][1]);
+        }
+#pragma unroll
+        for (int j = 0; j < kMbNB; ++j) {
+          const int n = n0 + 8 * j + 2 * t4;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {  // rows g and g + 8
+            const int r = m0 + g8 + 8 * h;
+            if (r >= rows) continue;
+            float* d = p.dx + (row0 + r) * C0;
+            if (n + 1 < C0 && !(C0 & 1)) {
+              *reinterpret_cast<float2*>(d + n) = make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+            } else {
+              if (n < C0) d[n] = acc[j][2 * h];
+              if (n + 1 < C0) d[n + 1] = acc[j][2 * h + 1];
+            }
+          }
+        }
+      }
+    } else {
+      const int lb = lane & (p.lb - 1), lr = lane / p.lb, LR = 32 / p.lb, CL4 = (CL + 3) & ~3;
+      for (int s0 = 0; s0 < tr; s0 += nw * LR * kMbTM) {
+        const int rb = s0 + warp * LR * kMbTM + lr;  // this thread's rows rb + LR * i
+        for (int n0 = 0; n0 < C0; n0 += kMbTN * p.lb) {
+          const float* wr[kMbTN];  // W's rows of this thread's outputs n0 + lb + p.lb * v
+#pragma unroll
+          for (int v = 0; v < kMbTN; ++v) wr[v] = ws + min(n0 + lb + p.lb * v, C0 - 1) * p.sw;
+          float acc[kMbTM][kMbTN];
+#pragma unroll
+          for (int i = 0; i < kMbTM; ++i)
+#pragma unroll
+            for (int v = 0; v < kMbTN; ++v) acc[i][v] = 0.f;
+          for (int j = 0; j < CL4; j += 4) {  // the cotangent's and W's columns past CL are 0
+            float4 wv[kMbTN];
+#pragma unroll
+            for (int v = 0; v < kMbTN; ++v) wv[v] = *reinterpret_cast<const float4*>(wr[v] + j);
+#pragma unroll
+            for (int i = 0; i < kMbTM; ++i) {
+              const float4 cv = *reinterpret_cast<const float4*>(cs + min(rb + LR * i, tr - 1) * p.sc + j);
+#pragma unroll
+              for (int v = 0; v < kMbTN; ++v) {
+                acc[i][v] = fmaf(cv.x, wv[v].x, acc[i][v]);
+                acc[i][v] = fmaf(cv.y, wv[v].y, acc[i][v]);
+                acc[i][v] = fmaf(cv.z, wv[v].z, acc[i][v]);
+                acc[i][v] = fmaf(cv.w, wv[v].w, acc[i][v]);
+              }
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < kMbTM; ++i) {
+            const int r = rb + LR * i;
+            if (r >= rows) break;
+            float* d = p.dx + (row0 + r) * C0;
+#pragma unroll
+            for (int v = 0; v < kMbTN; ++v)
+              if (n0 + lb + p.lb * v < C0) d[n0 + lb + p.lb * v] = acc[i][v];
+          }
+        }
+      }
+    }
+    // the next tile's recompute rewrites cs only past the barrier at the loop's top
+  }
+  cp_async_wait<0>();
+}
+
 int check_group(int B, int G, int K, int L, const int* dims, float slope, int tm, int bwd) {
   if (B < 1 || B > 65535 || G < 1 || K < 1 || K > 8 * tm) return 1;
   if (L < 1 || L > kMaxLayers || !(slope >= 0.f && slope <= 1.f)) return 1;
@@ -319,6 +708,51 @@ int pca_group_bwd(int device, const void* x, int B, int G, int K, int L, const i
   e = mean ? dispatch_bwd<true>(tm, xf, B, G, K, ch, ai, gf, d, smem, s)
            : dispatch_bwd<false>(tm, xf, B, G, K, ch, ai, gf, d, smem, s);
   return (int)e;
+}
+
+// Dynamic shared memory of the one-layer mean backward's block at (K, C0,
+// CL); the caller holds it to pca_chain_max_smem().
+size_t pca_group_mean1_smem(int K, int C0, int CL) {
+  if (K < 1 || C0 < 1 || CL < 1) return 0;
+  return mean1_smem(mean1_shape(1, K, C0, CL));
+}
+
+// The one-layer mean's input gradient: x [B, G, K, C0] f32; params: 5
+// device pointers (W [C0, CL] row-major, b, mean, mul, beta [CL]); slope in
+// [0, 1]; g [B, G, CL] = dy * mul / K; dx [B, G, K, C0].  Returns a
+// cudaError_t code (0 on success).
+int pca_group_mean1_bwd(int device, const void* x, int B, int G, int K, int C0, int CL,
+                        const void* const* params, float slope, const void* g, void* dx, int tc, void* stream) {
+  if (B < 1 || G < 1 || K < 1 || C0 < 1 || CL < 1 || !(slope >= 0.f && slope <= 1.f))
+    return (int)cudaErrorInvalidValue;
+  MeanBwd m = mean1_shape((size_t)B * G * K, K, C0, CL);
+  const size_t smem = mean1_smem(m);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  m.x = static_cast<const float*>(x);
+  m.w = static_cast<const float*>(params[0]);
+  m.b = static_cast<const float*>(params[1]);
+  m.mean = static_cast<const float*>(params[2]);
+  m.mul = static_cast<const float*>(params[3]);
+  m.beta = static_cast<const float*>(params[4]);
+  m.g = static_cast<const float*>(g);
+  m.dx = static_cast<float*>(dx);
+  m.vec = C0 % 4 == 0 && (reinterpret_cast<size_t>(x) & 15) == 0;
+  m.slope = slope;
+  const void* kernel = tc ? reinterpret_cast<const void*>(group_mean1_bwd_kernel<true>)
+                          : reinterpret_cast<const void*>(group_mean1_bwd_kernel<false>);
+  int slots = 0;
+  e = resident_slots(kernel, kMbWarps * 32, smem, kMaxSmem, device, &slots);
+  if (e != cudaSuccess) return (int)e;
+  const size_t tiles = (m.R + m.tr - 1) / m.tr;
+  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)(tiles < (size_t)slots ? tiles : (size_t)slots);
+  if (tc)
+    group_mean1_bwd_kernel<true><<<grid, kMbWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(m, (int)tiles);
+  else
+    group_mean1_bwd_kernel<false><<<grid, kMbWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(m, (int)tiles);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -60,12 +60,25 @@
 // launch is some 0.005 ms.
 //
 // What the design does about it.
-//   * Forward: a block owns 8 rows of one cloud and keeps their 8 x N exact
-//     distances in shared memory (the [N, N] matrix never reaches device
-//     memory); one warp a row runs k + 1 warp-wide passes, pass t taking the
-//     smallest pair above pass t-1's; the row's lane 0 then forms the k
-//     contributions from the stored distance and the neighbour's
-//     coordinates.
+//   * Forward (select_common.cuh's selection, as knn.cu's): a block takes 8
+//     warps' rows of one cloud, each warp the fewest rows in turn (1, 2, 4
+//     or 8) with which the grid fits the card in one wave (4 at B = 8,
+//     N = 1024: 32 rows a block), and stages the cloud in shared memory once
+//     (16 KB as float4 at N = 1024); each warp writes its row's exact
+//     distances to its own shared row (the [N, N] matrix never reaches
+//     device memory), its lanes keeping 64 share minima on the way.  The k+1-th smallest minimum
+//     bounds the k+1-th distance; one float4 pass gathers the entries at or
+//     below it (a few more than k + 1 on GeoA3's clouds) by ballots, and a
+//     bitonic sort across the warp orders them.  Past k + 1 = 64, and for a
+//     row with more than 128 entries under the bound (many exact copies of a
+//     point), the warp runs k + 1 passes over the row instead.  Then lane t
+//     forms the edge term of pick t + 1 (edge_term, its square root and
+//     division) and every lane adds the shuffled terms in pick order, so the
+//     sum's bits are the plain version's.  Each block holds one row of
+//     distances a warp, 60 KB at N = 1024: three blocks an SM.  The earlier
+//     design ran k + 1 warp-wide passes over each row, 17 at k = 16, and
+//     formed the edges in lane 0 alone (0.1202 ms a call on an H100,
+//     against 0.0012).
 //   * Given-set forward: a block owns 256 rows of one cloud and stages the
 //     cloud's coordinates in shared memory; a thread a row forms its k
 //     edges (edge_term, shared with the selecting forward) and sums them.
@@ -80,6 +93,7 @@
 //     pulls it) and a [B, N, k, 3] scratch written and read back.
 
 #include "hoist_common.cuh"
+#include "select_common.cuh"
 #include "sqdist_common.cuh"
 
 #include <algorithm>
@@ -88,23 +102,13 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRows = 8;  // rows per forward block: one warp each
+constexpr int kFwdWarps = 8;  // warps of a forward block, one row each at a time
 constexpr int kMaxK = 64;
 constexpr int kMaxPoints = 4096;
 constexpr float kEps = 1e-12f;
 constexpr int kListEntries = 2048;  // picks a block of the backward's lists sorts
 constexpr int kListPart = 256;      // picks a warp of it places
 constexpr int kMaxListBlocks = 32;
-
-// (v, i) comes after (pv, pi) in (distance, index) order.
-__device__ __forceinline__ bool after(float v, int i, float pv, int pi) {
-  return v > pv || (v == pv && i > pi);
-}
-
-// (v, i) comes before (bv, bi).
-__device__ __forceinline__ bool before(float v, int i, float bv, int bi) {
-  return v < bv || (v == bv && i < bi);
-}
 
 // n . p, summed in ascending coordinate order, each product and sum rounded.
 __device__ __forceinline__ float dot3(const float* n, const float* p) {
@@ -119,72 +123,85 @@ __device__ __forceinline__ float edge_term(const float* ni, const float* aj, flo
   return __fdiv_rn(fabsf(num), __fadd_rn(__fsqrt_rn(d), kEps));
 }
 
-__global__ void __launch_bounds__(kThreads)
-    kappa_fwd_kernel(const float* __restrict__ a, const float* __restrict__ nrm, int N, int k,
+// A warp a row, per rows in turn, kFwdWarps warps a block; the
+// block's rows lie in one cloud, whose points it stages in shared memory
+// first.  For its row i the warp writes the N exact distances to its own
+// shared row (+inf past N) and keeps each lane's two share minima (lane
+// and lane + 32: the entries j with j % 64 the share), selects the k + 1
+// smallest pairs with select_common.cuh, then lane t forms the edge term of
+// pick t + 1 and every lane sums the terms in pick order after a shuffle.
+__global__ void __launch_bounds__(kFwdWarps * 32)
+    kappa_fwd_kernel(const float* __restrict__ a, const float* __restrict__ nrm, int N, int k, int per,
                      float* __restrict__ kap, int* __restrict__ picks_out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  int* picks = reinterpret_cast<int*>(smem);                   // [kRows][kMaxK + 1]
-  float* dist = reinterpret_cast<float*>(picks + kRows * (kMaxK + 1));  // [kRows][N]
+  const int N4 = (N + 3) & ~3;
+  float4* pts = reinterpret_cast<float4*>(smem);                  // [N]
+  float* dist = reinterpret_cast<float*>(pts + N);                // [kFwdWarps][N4]
+  float* mins = dist + (size_t)kFwdWarps * N4;                    // [kFwdWarps][kShares]
+  float* bufv = mins + kFwdWarps * pca::sel::kShares;             // [kFwdWarps][kCap]
+  int* bufi = reinterpret_cast<int*>(bufv + kFwdWarps * pca::sel::kCap);  // [kFwdWarps][kCap]
+  int* pks = bufi + kFwdWarps * pca::sel::kCap;                   // [kFwdWarps][kMaxK + 1]
 
-  const int b = blockIdx.y, row0 = blockIdx.x * kRows, tid = threadIdx.x;
+  const int b = blockIdx.y, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const float* ab = a + (size_t)b * N * 3;
-  float q[kRows][3];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int i = min(row0 + r, N - 1);  // a row past the end computes a copy and writes nothing
-    q[r][0] = ab[3 * i];
-    q[r][1] = ab[3 * i + 1];
-    q[r][2] = ab[3 * i + 2];
-  }
-  for (int j = tid; j < N; j += kThreads) {
-    const float p0 = ab[3 * j], p1 = ab[3 * j + 1], p2 = ab[3 * j + 2];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) dist[r * N + j] = pca::sqdist3(q[r][0], q[r][1], q[r][2], p0, p1, p2);
-  }
+  for (int j = tid; j < N; j += kFwdWarps * 32) pts[j] = make_float4(ab[3 * j], ab[3 * j + 1], ab[3 * j + 2], 0.f);
+  float* d = dist + (size_t)warp * N4;
+  for (int j = N + lane; j < N4; j += 32) d[j] = INFINITY;
+  float* mw = mins + warp * pca::sel::kShares;
+  int* pk = pks + warp * (kMaxK + 1);
   __syncthreads();
 
-  const int warp = tid >> 5, lane = tid & 31, row = row0 + warp;
-  if (row >= N) return;
-  const float* d = dist + warp * N;
-  int* pk = picks + warp * (kMaxK + 1);
-  float pv = -INFINITY;
-  int pi = -1;
-  for (int t = 0; t <= k; ++t) {
-    float bv = INFINITY;
-    int bi = INT_MAX;
-    for (int jj = lane; jj < N; jj += 32) {
-      const float v = d[jj];
-      if (after(v, jj, pv, pi) && before(v, jj, bv, bi)) {
-        bv = v;
-        bi = jj;
+#pragma unroll 1
+  for (int u = 0; u < per; ++u) {
+    const int row = (blockIdx.x * kFwdWarps + warp) * per + u;
+    if (row >= N) break;  // the whole warp
+    const float4 q = pts[row];
+    float m0 = INFINITY, m1 = INFINITY;
+    for (int j0 = 0; j0 < N; j0 += 64) {
+      const int j = j0 + lane;
+      if (j < N) {
+        const float4 p = pts[j];
+        const float v = pca::sqdist3(q.x, q.y, q.z, p.x, p.y, p.z);
+        d[j] = v;
+        m0 = fminf(m0, v);
+      }
+      if (j + 32 < N) {
+        const float4 p = pts[j + 32];
+        const float v = pca::sqdist3(q.x, q.y, q.z, p.x, p.y, p.z);
+        d[j + 32] = v;
+        m1 = fminf(m1, v);
       }
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-      if (before(ov, oi, bv, bi)) {
-        bv = ov;
-        bi = oi;
+    mw[lane] = m0;
+    mw[lane + 32] = m1;
+    __syncwarp();
+    pca::sel::select_row(d, N, N4, k + 1, mw, bufv + warp * pca::sel::kCap, bufi + warp * pca::sel::kCap, pk);
+
+    const size_t r = (size_t)b * N + row;
+    const float ai[3] = {q.x, q.y, q.z};
+    const float ni[3] = {nrm[r * 3], nrm[r * 3 + 1], nrm[r * 3 + 2]};
+    const float mii = dot3(ni, ai);
+    int* out = picks_out + r * k;
+    float acc = 0.f;
+    for (int t0 = 0; t0 < k; t0 += 32) {
+      const int t = t0 + lane;
+      float c = 0.f;
+      if (t < k) {
+        const int j = pk[t + 1];
+        const float4 p = pts[j];
+        const float aj[3] = {p.x, p.y, p.z};
+        c = edge_term(ni, aj, mii, d[j]);
+        out[t] = j;
+      }
+      const int n = min(32, k - t0);
+      for (int l = 0; l < n; ++l) {
+        const float v = __shfl_sync(0xffffffffu, c, l);
+        acc = t0 + l == 0 ? v : __fadd_rn(acc, v);
       }
     }
-    if (lane == 0) pk[t] = bi;
-    pv = bv;
-    pi = bi;
+    if (lane == 0) kap[r] = __fdiv_rn(acc, (float)k);
+    __syncwarp();  // every read of d and pk is done before the next row rewrites them
   }
-  if (lane != 0) return;
-  const float* ai = ab + 3 * row;
-  const float* ni = nrm + ((size_t)b * N + row) * 3;
-  const float mii = dot3(ni, ai);
-  int* out = picks_out + ((size_t)b * N + row) * k;
-  float acc = 0.f;
-  for (int t = 1; t <= k; ++t) {
-    const int j = pk[t];
-    const float c = edge_term(ni, ab + 3 * j, mii, d[j]);
-    acc = t == 1 ? c : __fadd_rn(acc, c);
-    out[t - 1] = j;
-  }
-  kap[(size_t)b * N + row] = __fdiv_rn(acc, (float)k);
 }
 
 // One thread a row of the given set: kappa_i over the k indices idx[i, :],
@@ -340,8 +357,14 @@ int lists_blocks(int N, int k) {
   return g < 1 ? 1 : g > kMaxListBlocks ? kMaxListBlocks : g;
 }
 
+// The forward block's shared memory: the cloud as float4, a distance row a
+// warp, its share minima, its selection buffer and its picks (193 KB at
+// N = 4096, 60 KB at N = 1024: three blocks an SM).
 size_t fwd_smem(int N) {
-  return sizeof(int) * (size_t)kRows * (kMaxK + 1) + sizeof(float) * (size_t)kRows * N;
+  const size_t N4 = (N + 3) & ~3;
+  return sizeof(float4) * (size_t)N +
+         sizeof(float) * kFwdWarps * (N4 + pca::sel::kShares + pca::sel::kCap) +
+         sizeof(int) * kFwdWarps * (pca::sel::kCap + kMaxK + 1);
 }
 
 }  // namespace
@@ -357,11 +380,15 @@ int pca_kappa_fwd(int device, const void* a, const void* nrm, int B, int N, int 
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const size_t smem = fwd_smem(N);
-  e = cudaFuncSetAttribute(kappa_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int slots = 0;
+  e = pca::resident_slots(reinterpret_cast<const void*>(kappa_fwd_kernel), kFwdWarps * 32, smem, fwd_smem(kMaxPoints),
+                          device, &slots);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((N + kRows - 1) / kRows, B);
-  kappa_fwd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(nrm), N, k, static_cast<float*>(kap),
+  int per = 1;  // the fewest rows a warp (1, 2, 4, 8) with which the grid fits the card in one wave
+  while (per < 8 && (size_t)B * ((N + kFwdWarps * per - 1) / (kFwdWarps * per)) > (size_t)slots) per *= 2;
+  const dim3 grid((N + kFwdWarps * per - 1) / (kFwdWarps * per), B);
+  kappa_fwd_kernel<<<grid, kFwdWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(nrm), N, k, per, static_cast<float*>(kap),
       static_cast<int*>(picks));
   return (int)cudaGetLastError();
 }

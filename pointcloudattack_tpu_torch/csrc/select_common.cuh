@@ -1,6 +1,6 @@
 // Exact top-k selection of one row of distances by one warp, for Hopper
-// (sm_90a): csrc/knn.cu's selection, kept apart so that the curvature
-// forward (kappa.cu) can take it.
+// (sm_90a): the selection of csrc/knn.cu's self-kNN and of kappa.cu's
+// curvature forward.
 //
 // The row lies in shared memory.  The k smallest (distance, index) pairs
 // are found in lexicographic order, so ties go to the lower index whatever

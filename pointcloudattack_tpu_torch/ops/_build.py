@@ -201,6 +201,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     # device, x, B, G, K, L, dims, params, wts, slope, mean, am, g, dx, tm, stream
     lib.pca_group_bwd.argtypes = [ci, vp, ci, ci, ci, ci, vp, vp, vp, cf, ci, vp, vp, vp, ci, vp]
     lib.pca_group_bwd.restype = ci
+    # K, C0, CL
+    lib.pca_group_mean1_smem.argtypes = [ci, ci, ci]
+    lib.pca_group_mean1_smem.restype = ctypes.c_size_t
+    # device, x, B, G, K, C0, CL, params, slope, g, dx, tc, stream
+    lib.pca_group_mean1_bwd.argtypes = [ci, vp, ci, ci, ci, ci, ci, vp, cf, vp, vp, ci, vp]
+    lib.pca_group_mean1_bwd.restype = ci
     # device, a, nrm, B, N, k, kap, picks, stream
     lib.pca_kappa_fwd.argtypes = [ci, vp, vp, ci, ci, ci, vp, vp, vp]
     lib.pca_kappa_fwd.restype = ci

@@ -17,9 +17,11 @@ activated, and ``y`` is the sum of each group's rows in ascending ``k``,
 divided by ``K``.
 
 On a CUDA tensor the forwards and the input gradients run the kernels of
-``csrc/group_chain.cu`` (``K`` up to 64 rows a group); on a CPU tensor
-they run the plain PyTorch versions below.  A CUDA tensor the kernels do
-not take raises: nothing falls back.  ``LAUNCHES`` counts kernel launches.
+``csrc/group_chain.cu`` (``K`` up to 64 rows a group); the mean's input
+gradient of a one-layer chain (CurveNet's residual LPFAs) runs a kernel of
+its own there, chosen by the number of layers.  On a CPU tensor they run
+the plain PyTorch versions below.  A CUDA tensor the kernels do not take
+raises: nothing falls back.  ``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -187,15 +189,57 @@ def _fwd_kernel(x, layers, slope: float, mean: bool):
     return y if mean else (y, am)
 
 
-def _bwd_kernel(x, layers, am, g, slope: float, mean: bool, wts=None):
-    lib, dims, tm, head, keep = _common(x, layers, slope, bwd=True)
+def _check_pooled(x, dims, checks) -> None:
     b, ng, _, _ = x.shape
-    checks = [("g", g, torch.float32)] + ([] if mean else [("am", am, torch.int32)])
     for name, t, dt in checks:
         if (t.device != x.device or t.dtype != dt or not t.is_contiguous()
                 or tuple(t.shape) != (b, ng, dims[-1])):
             raise ValueError(f"group_chain backward: {name} must be contiguous {dt} [{b}, {ng}, {dims[-1]}] "
                              f"on {x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def mean1_tc(c0: int, cl: int) -> bool:
+    """Whether the one-layer mean backward runs its product back as 3xTF32
+    on the tensor cores (True) or in FP32 on the CUDA cores: FP32 where
+    both widths are 16 or less, the widths at which it measured faster on
+    an H100 (``chip_smoke.py``'s ``[kernels-curvenet]`` times both at
+    CurveNet's eight widths)."""
+    return max(c0, cl) > 16
+
+
+def _mean1_bwd_kernel(x, layers, g, slope: float, tc: bool | None = None):
+    """The one-layer mean's ``dx`` (``group_mean1_bwd_kernel``): W and the
+    tile's g rows in shared memory, the rows tiled whatever the groups.
+    ``tc``: the product back as 3xTF32 on the tensor cores or in FP32 on
+    the CUDA cores; by default as ``mean1_tc`` chooses."""
+    dims = _check_cuda(x, layers, slope)
+    _check_pooled(x, dims, [("g", g, torch.float32)])
+    lib = _build.load_library()
+    b, ng, k, c0 = x.shape
+    if tc is None:
+        tc = mean1_tc(c0, dims[1])
+    need, cap = lib.pca_group_mean1_smem(k, c0, dims[1]), lib.pca_chain_max_smem()
+    if need > cap:
+        raise ValueError(f"group_chain one-layer mean backward: widths {dims} need {need} bytes of shared memory, "
+                         f"more than the {cap} a block has")
+    w = layers[0][0].contiguous()
+    params = _ptr_array([w, *layers[0][1:]])
+    dx = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.pca_group_mean1_bwd(x.device.index, x.data_ptr(), b, ng, k, c0, dims[1],
+                                     ctypes.cast(params, ctypes.c_void_p), float(slope), g.data_ptr(), dx.data_ptr(),
+                                     int(tc), stream)
+    _build.check(lib, rc, "group_chain one-layer mean backward launch")
+    LAUNCHES["group_mean_bwd"] += 1
+    return dx
+
+
+def _bwd_kernel(x, layers, am, g, slope: float, mean: bool, wts=None):
+    if mean and len(layers) == 1:
+        return _mean1_bwd_kernel(x, layers, g, slope)
+    lib, dims, tm, head, keep = _common(x, layers, slope, bwd=True)
+    _check_pooled(x, dims, [("g", g, torch.float32)] + ([] if mean else [("am", am, torch.int32)]))
     if wts is None:
         wts = [layer[0].t() for layer in layers]
     wts = [wt.contiguous() for wt in wts]

@@ -49,7 +49,7 @@ from pointcloudattack_tpu_torch.ops.pairwise import dot_last, sum_neighbours
 LAUNCHES = {"kappa_fwd": 0, "kappa_bwd": 0, "kappa_idx_fwd": 0, "kappa_idx_bwd": 0}
 
 EPS = 1e-12
-MAX_POINTS = 4096  # the forward keeps 8 rows of N distances in shared memory
+MAX_POINTS = 4096  # the forward keeps the cloud and a row of N distances a warp in shared memory
 MAX_K = 64
 
 

@@ -1,4 +1,4 @@
-"""Time chip_smoke.py's attack cells, and rows 8 and 9's kernels, in one checkout.
+"""Time chip_smoke.py's attack cells, and rows 3, 8 and 9's kernels, in one checkout.
 
 Run on a machine with one H100, once per checkout to compare, in turns
 (for example parent, change, change, parent):
@@ -10,10 +10,14 @@ CELL is one of ``slice`` (C&W 1 x 200 on PointNet, B=64; the default),
 ``slice-knn-ssg`` (KNN on SSG), ``slice-dgcnn`` (C&W 1 x 100 on DGCNN,
 B=16), ``slice-geoa3`` and ``slice-geoa3-r4`` (GeoA3 10 x 100 on PointNet,
 B=8, the curvature's neighbour set cached for 4 iterations in the second),
-``kernels-knn`` (the self-kNN at the four EdgeConv inputs of one DGCNN
-forward, the nine kNN inputs of one CurveNet forward and GeoA3's cached
-curvature set) and ``kernels-kappa`` (the curvature backward at GeoA3's
-shape, on the selecting forward's picks and on a stale given set).  It
+``slice-curvenet`` (C&W 1 x 100 on CurveNet, B=8), ``kernels-knn`` (the
+self-kNN at the four EdgeConv inputs of one DGCNN forward, the nine kNN
+inputs of one CurveNet forward and GeoA3's cached curvature set),
+``kernels-kappa`` (the curvature backward at GeoA3's shape, on the
+selecting forward's picks and on a stale given set), ``kernels-kappa-fwd``
+(the selecting curvature forward at GeoA3's shape) and ``kernels-group-mean``
+(the group mean backward at the eight residual LPFA shapes of one CurveNet
+forward, B=8, K=20).  It
 builds that checkout's kernels, makes each victim and its clouds as
 chip_smoke.py does (seeded random weights with the clouds' BatchNorm
 statistics, N=1024), runs each attack four times, printing each run's
@@ -32,12 +36,12 @@ import sys
 import time
 
 CELLS = ("slice", "slice-ssg", "slice-msg", "slice-knn-ssg", "slice-dgcnn", "slice-geoa3", "slice-geoa3-r4",
-         "kernels-knn", "kernels-kappa")
+         "slice-curvenet", "kernels-knn", "kernels-kappa", "kernels-kappa-fwd", "kernels-group-mean")
 VICTIMS = {"slice": "PointNet", "slice-ssg": "PointNet++Ssg", "slice-msg": "PointNet++Msg",
            "slice-knn-ssg": "PointNet++Ssg", "slice-dgcnn": "DGCNN", "slice-geoa3": "PointNet GeoA3",
-           "slice-geoa3-r4": "PointNet GeoA3"}
+           "slice-geoa3-r4": "PointNet GeoA3", "slice-curvenet": "CurveNet"}
 PROFILE_TAGS = {"PointNet": "profile", "PointNet++Ssg": "profile-ssg", "PointNet++Msg": "profile-msg",
-                "DGCNN": "profile-dgcnn", "PointNet GeoA3": "profile-geoa3"}
+                "DGCNN": "profile-dgcnn", "PointNet GeoA3": "profile-geoa3", "CurveNet": "profile-curvenet"}
 
 
 def victim(cs, name):
@@ -55,6 +59,10 @@ def victim(cs, name):
         data, labels = cs.synthetic_data(8, 1, cs.GEO_DATA, "cuda")
         model_fn, _ = cs.make_victim("PointNet", "cuda", data, ("dropout",))
         return model_fn, data, cs.victim_labels(model_fn, data, labels, "slice-geoa3")
+    if name == "CurveNet":
+        data, labels = cs.synthetic_data(8, 1, cs.CN_DATA, "cuda")
+        model_fn, _ = cs.make_victim(name, "cuda", data, ("dp1",))
+        return model_fn, data, cs.victim_labels(model_fn, data, labels, "slice-curvenet")
     data, labels = cs.synthetic_data(8, 2, cs.PN2_DATA[name], "cuda")
     model_fn, _ = cs.make_victim(name, "cuda", data, ("drop1", "drop2"))
     tag = "slice-ssg" if name == "PointNet++Ssg" else "slice-msg"
@@ -81,6 +89,8 @@ def attack_of(cs, cell, model_fn):
         return cs.cw_attack(model_fn, cs.DG_ITER)
     if cell in ("slice-geoa3", "slice-geoa3-r4"):
         return geoa3(cs, model_fn, cs.GEO_ROUNDS, cs.GEO_ITER, cs.GEO_REFRESH if cell.endswith("r4") else 1)
+    if cell == "slice-curvenet":
+        return cs.cw_attack(model_fn, cs.CN_ITER)
     return cs.cw_attack(model_fn, cs.PN2_ITER)
 
 
@@ -93,6 +103,7 @@ def kernel_times(cs, root, cell, label, fn):
     dev = cs.device_ms(fn)
     print(f"{root} [{cell}] {label}: {ms:.4f} ms a call on {torch.cuda.get_device_name(0)}; device "
           + ", ".join(f"{n} {v:.4f}" for n, v in dev.items()) + f" ({sum(dev.values()):.4f} in all)", flush=True)
+    return ms, dev
 
 
 def knn_inputs(mod, model_fn, data):
@@ -131,17 +142,15 @@ def kernels_knn(cs, root, made):
         kernel_times(cs, root, "kernels-knn", f"{what} {tuple(x.shape)} k={k}", lambda: knn(x, k))
 
 
-def kernels_kappa(cs, root):
-    """The curvature backward on chip_smoke.py's phase_kernels_geoa3 inputs:
-    an iterate 1e-3 from GeoA3's clouds with its nearest clean point's
-    normal, on the selecting forward's picks; and on the clouds' own sets,
-    stale on an iterate 1e-2 away."""
+def geoa3_iterate(cs):
+    """chip_smoke.py's phase_kernels_geoa3 inputs: an iterate 1e-3 from
+    GeoA3's clouds with its nearest clean point's normal, dkappa, and the
+    clouds with an iterate 1e-2 from them."""
     import numpy as np
     import torch
 
     from pointcloudattack_tpu_torch.geometry.normals import estimate_normal
     from pointcloudattack_tpu_torch.losses.geometry import nn1_idx
-    from pointcloudattack_tpu_torch.ops import kappa
     from pointcloudattack_tpu_torch.ops.gather import index_points
 
     data = cs.synthetic_data(8, 1, cs.GEO_DATA, "cuda")[0]
@@ -153,12 +162,55 @@ def kernels_kappa(cs, root):
     dk = dev(rng.randn(b, n) * 1e-3)
     rng.rand(b, n), rng.rand(b, n)  # chip_smoke.py's bundle cotangents: the same stream after them
     moved = (data + dev(rng.randn(b, n, 3) * 1e-2)).contiguous()
+    return adv, nrm, dk, data, moved
+
+
+def kernels_kappa(cs, root):
+    """The curvature backward on ``geoa3_iterate``'s inputs: on the
+    selecting forward's picks; and on the clouds' own sets, stale on the
+    iterate 1e-2 away."""
+    from pointcloudattack_tpu_torch.ops import kappa
+
+    adv, nrm, dk, data, moved = geoa3_iterate(cs)
+    b, n, _ = adv.shape
     idx = cs.stale_idx(moved, data)[0]
     _, picks = kappa.kappa_fwd(adv, nrm, cs.GEO_K)
     kernel_times(cs, root, "kernels-kappa", f"kappa_bwd [{b},{n},3] k={cs.GEO_K} (the forward's picks)",
                  lambda: kappa.kappa_bwd(adv, nrm, picks, dk, cs.GEO_K))
     kernel_times(cs, root, "kernels-kappa", f"kappa_idx_bwd [{b},{n},3] k={cs.GEO_K} (a stale set)",
                  lambda: kappa.kappa_bwd(moved, nrm, idx, dk, cs.GEO_K, counter="kappa_idx_bwd"))
+
+
+def kernels_kappa_fwd(cs, root):
+    """The selecting curvature forward on ``geoa3_iterate``'s iterate."""
+    from pointcloudattack_tpu_torch.ops import kappa
+
+    adv, nrm, _, _, _ = geoa3_iterate(cs)
+    b, n, _ = adv.shape
+    kernel_times(cs, root, "kernels-kappa-fwd", f"kappa_fwd [{b},{n},3] k={cs.GEO_K}",
+                 lambda: kappa.kappa_fwd(adv, nrm, cs.GEO_K))
+
+
+def kernels_group_mean(cs, root):
+    """The group mean backward at chip_smoke.py's eight residual LPFA cases
+    (its seeds), and their sum."""
+    from pointcloudattack_tpu_torch.ops import group_chain as gch
+
+    total, dev_total = 0.0, 0.0
+    for i, (name, (ng, c0, widths, pool)) in enumerate(cs.CURVENET_GROUP_SHAPES.items()):
+        if pool != "mean":
+            continue
+        x, layers, dy = cs.group_case(60 + i, cs.CN_B, ng, cs.CN_K, (c0, *widths))
+        g = (dy * layers[-1][3] / cs.CN_K).contiguous()
+        ms, dev = kernel_times(cs, root, "kernels-group-mean", f"{name} {tuple(x.shape)} -> {widths[-1]}",
+                               lambda: gch.chain_groupmean_bwd(x, layers, g, cs.CN_SLOPE))
+        total, dev_total = total + ms, dev_total + sum(dev.values())
+    print(f"{root} [kernels-group-mean] the eight a backward: {total:.4f} ms through the wrapper, {dev_total:.4f} ms "
+          "of device time", flush=True)
+
+
+KERNEL_CELLS = {"kernels-kappa": kernels_kappa, "kernels-kappa-fwd": kernels_kappa_fwd,
+                "kernels-group-mean": kernels_group_mean}
 
 
 def main():
@@ -181,8 +233,8 @@ def main():
         if cell == "kernels-knn":
             kernels_knn(cs, root, made)
             continue
-        if cell == "kernels-kappa":
-            kernels_kappa(cs, root)
+        if cell in KERNEL_CELLS:
+            KERNEL_CELLS[cell](cs, root)
             continue
         name = VICTIMS[cell]
         if name not in made:

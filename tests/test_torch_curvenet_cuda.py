@@ -10,7 +10,9 @@ file imports no JAX, so it runs on a machine without it:
 Checks come from ``chip_smoke.py``: ``check_group`` (y within Y_TOL, the
 argmax equal but at near ties, card picks at most PICK_ATOL below the
 plain max, dx within DX_TOL on the rows that carry a cotangent, rows with
-an activated unit within EDGE of 0 left out); CurveNet's logits on the
+an activated unit within EDGE of 0 left out, two backwards bit-equal, and
+for the one-layer mean no backward mask that differs from the forward's
+sign, ``mask_flips``); CurveNet's logits on the
 card against the CPU, the CPU taking the card's discrete choices and
 activation signs (``replay`` with ``curvenet_hooks``), within LOGP_ATOL;
 the kernels' own pre-activations (``kernel_rows``, whose signs the replay
@@ -57,7 +59,61 @@ def test_group_kernels_match_plain_on_card(cuda_device, pool, b, g, k, dims, slo
     x, layers, dy = chip_smoke.group_case(k * 7 + len(dims), b, g, k, dims, cuda_device)
     gch.reset_launches()
     chip_smoke.check_group(f"B={b} G={g} K={k}", pool, x, layers, dy, slope)
-    assert gch.LAUNCHES[f"group_{pool}_fwd"] == 1 and gch.LAUNCHES[f"group_{pool}_bwd"] == 1
+    # the backward twice (bit-equal), and for a one-layer mean once more a unit (mask_flips) and once with
+    # the other product back
+    masks = dims[-1] + 1 if pool == "mean" and len(dims) == 2 else 0
+    assert gch.LAUNCHES[f"group_{pool}_fwd"] == 1 and gch.LAUNCHES[f"group_{pool}_bwd"] == 2 + masks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,g,k,dims", [
+    *[(chip_smoke.CN_B, ng, chip_smoke.CN_K, (c0, *w))
+      for ng, c0, w, pool in chip_smoke.CURVENET_GROUP_SHAPES.values() if pool == "mean"],  # the eight LPFAs
+    (8, 1000, 20, (16, 16)),   # a ragged G
+    (4, 333, 7, (16, 24)),     # K=7, C0 != C
+    (2, 50, 64, (32, 32)),     # K=64
+    (3, 77, 3, (64, 64)),      # K=3: a 64-row tile straddles 22 groups
+    (1, 3, 20, (128, 128)),    # fewer rows than one tile (60 of 64)
+])
+def test_group_mean1_backward_on_card(cuda_device, b, g, k, dims):
+    """The one-layer mean backward (group_mean1_bwd_kernel) under
+    check_group's rules: dx within DX_TOL of the plain version, its masks
+    the forward's signs (mask_flips 0), two backwards bit-equal; the
+    profiler sees that kernel and not the chain backward."""
+    x, layers, dy = chip_smoke.group_case(g + k + dims[-1], b, g, k, dims, cuda_device)
+    gch.reset_launches()
+    chip_smoke.check_group(f"B={b} G={g} K={k}", "mean", x, layers, dy)
+    assert gch.LAUNCHES["group_mean_bwd"] >= 2
+    g_ = (dy * layers[-1][3] / k).contiguous()
+    names = chip_smoke.device_ms(lambda: gch.chain_groupmean_bwd(x, layers, g_, 0.2), reps=2)
+    assert any("group_mean1_bwd_kernel" in n for n in names) and not any("group_bwd_kernel" in n for n in names)
+
+
+@pytest.mark.cuda
+def test_group_mean_backward_of_two_layers_keeps_the_chain_kernel(cuda_device):
+    x, layers, dy = chip_smoke.group_case(12, 2, 256, 20, (32, 64, 32), cuda_device)
+    g_ = (dy * layers[-1][3] / 20).contiguous()
+    names = chip_smoke.device_ms(lambda: gch.chain_groupmean_bwd(x, layers, g_, 0.2), reps=2)
+    assert any("group_bwd_kernel" in n for n in names) and not any("group_mean1_bwd_kernel" in n for n in names)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [16, 32, 64, 128])
+def test_group_mean1_masks_are_the_forwards_signs_near_zero(cuda_device, c):
+    """Rows scaled to 1e-3 and the BatchNorm shift to 0 put many units
+    within rounding of 0: the backward's masks still equal the forward's
+    signs unit for unit, and two backwards are bit-equal, with either
+    product back."""
+    x, layers, dy = chip_smoke.group_case(c, 2, 64, 20, (c, c), cuda_device)
+    x = (x * 1e-3).contiguous()
+    (w, b, mean, mul, beta), = layers
+    layers = [(w, b, b.clone(), mul, torch.zeros_like(beta))]
+    z = chip_smoke.kernel_rows(x, layers, 0.2)
+    assert float((z.abs() < 1e-6).float().mean()) > 0.0
+    assert chip_smoke.mask_flips(x, layers, 0.2) == 0
+    g_ = (dy * mul / 20).contiguous()
+    for tc in (True, False):  # either product back
+        assert torch.equal(gch._mean1_bwd_kernel(x, layers, g_, 0.2, tc), gch._mean1_bwd_kernel(x, layers, g_, 0.2, tc))
 
 
 @pytest.mark.cuda

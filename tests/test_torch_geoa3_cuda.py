@@ -7,8 +7,10 @@ file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_geoa3_cuda.py
 
-The checks come from ``chip_smoke.py``: the curvature's picks equal, kappa
-within ``KAPPA_RTOL`` and its gradients within ``KAPPA_GRAD_ATOL``, two
+The checks come from ``chip_smoke.py``: the curvature's picks and kappa
+bit-equal to the plain version's (also at the selection's edges: k = 1,
+63 and 64, N = 4096, copies, a hub) and its gradients within
+``KAPPA_GRAD_ATOL``, two
 backwards bit-equal (``check_kappa``, and ``check_kappa_idx`` on a given
 neighbour set; ``check_kappa_bwd``, the backward alone, against the plain
 version that sums in the kernel's order, also on indices outside the
@@ -67,6 +69,32 @@ def test_kappa_kernels_match_plain_on_card(cuda_device, b, n, k, copies, monkeyp
     chip_smoke.check_kappa("test", f"{b}x{n} k={k} x{copies}", a, nrm, rand(n + 2, b, n))
     # the backward twice: the two must be bit-equal
     assert kappa.LAUNCHES == {"kappa_fwd": 1, "kappa_bwd": 2, "kappa_idx_fwd": 0, "kappa_idx_bwd": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,k,copies,hub", [
+    (2, 1000, 1, 1, 0), (2, 1000, 16, 1, 0), (2, 1000, 63, 1, 0), (2, 1000, 64, 1, 0), (8, 1024, 16, 1, 0),
+    (2, 4096, 16, 1, 0), (2, 4096, 63, 4, 0), (2, 4096, 16, 4, 0), (2, 1000, 16, 4, 0), (2, 1024, 16, 1, 300),
+    (2, 1024, 1, 1, 300)])
+def test_kappa_forward_bit_equal_on_card(cuda_device, b, n, k, copies, hub):
+    """Row 8a's forward (select_common.cuh's selection): picks and kappa
+    bit-equal to kappa_plain on the CPU at k = 1, 16, 63 (the last k the
+    bound serves) and 64 (k + 1 = 65: the passes), N = 1000 and 4096, every
+    point 4 times (ties at distance 0), and a hub of 300 copies of one point
+    (more pairs under the bound than the gather holds)."""
+    rng = np.random.RandomState(n + k + copies)
+    pts = np.concatenate([rng.randn(b, n // copies, 3) * 0.5] * copies, axis=1)
+    pts[:, :hub] = pts[:, :1]
+    nrm = rng.randn(b, n, 3)
+    a = torch.from_numpy(pts.astype(np.float32)).cuda()
+    nrm = unit(torch.from_numpy(nrm.astype(np.float32)).cuda())
+    kappa.reset_launches()
+    kap, picks = kappa.kappa_fwd(a, nrm, k)
+    torch.cuda.synchronize()
+    assert kappa.LAUNCHES["kappa_fwd"] == 1
+    kap_p, picks_p = kappa.kappa_plain(a.cpu(), nrm.cpu(), k)
+    assert torch.equal(picks.cpu(), picks_p), int((picks.cpu() != picks_p).sum())
+    assert torch.equal(kap.cpu(), kap_p), float((kap.cpu() - kap_p).abs().max())
 
 
 @pytest.mark.cuda

@@ -6,8 +6,9 @@ The port's plain versions serve CPU tensors; the JAX side runs
 ``reference_mlp_chain_groupmax`` / ``reference_mlp_chain_groupmean`` (the
 unfused f32 chains its custom VJPs differentiate) and ``jax.vjp`` of them,
 not the Pallas kernels in interpret mode, whose products truncate to bf16.
-Cases: 1 and 2 layers, slope 0 and 0.2, a ragged G, K=7 and K=20, and a
-group whose rows tie.  Tolerance atol 1e-5 (f32 sums over at most 64 terms
+Cases: 1 and 2 layers, slope 0 and 0.2, a ragged G, K=7 and K=20, every
+residual LPFA width (16, 32, 64 and 128, whose mean backward has a kernel
+of its own on the card), and a group whose rows tie.  Tolerance atol 1e-5 (f32 sums over at most 64 terms
 in another order).
 
 The max's input gradient sends each column's cotangent to its first
@@ -61,8 +62,12 @@ CASES = [  # (seed, B, G, K, dims, slope)
     (2, 1, 7, 7, (12, 24, 8), 0.2),      # K=7, two layers, a ragged G
     (3, 2, 5, 20, (9, 32, 32), 0.0),     # ReLU between the layers
     (4, 1, 33, 3, (5, 7), 0.0),          # one layer, ReLU
+    (8, 1, 6, 20, (32, 32), 0.2),        # the residual LPFA widths 32, 64 and 128
+    (9, 1, 3, 20, (64, 64), 0.2),
+    (10, 1, 2, 20, (128, 128), 0.2),
 ]
-IDS = ["initial", "residual", "k7_two_layers", "relu_two_layers", "k3_relu"]
+IDS = ["initial", "residual", "k7_two_layers", "relu_two_layers", "k3_relu", "residual_32", "residual_64",
+       "residual_128"]
 
 
 @pytest.mark.parametrize("seed,b,g,k,dims,slope", CASES, ids=IDS)
@@ -152,3 +157,12 @@ def test_bwd_plain_takes_the_scaled_cotangent():
     (want,) = torch.autograd.grad(gch.mlp_chain_groupmean(xr, tl, 0.2), xr, torch.from_numpy(dy))
     got = gch.chain_groupmean_bwd(xt, tl, torch.from_numpy(dy) * mul / 5, 0.2)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("c0,cl,tc", [(16, 16, False), (9, 16, False), (32, 32, True), (64, 64, True),
+                                      (128, 128, True), (16, 24, True)])
+def test_one_layer_mean_backward_takes_fp32_up_to_16_wide(c0, cl, tc):
+    """The one-layer mean backward's product back: FP32 on the CUDA cores
+    where both widths are 16 or less, 3xTF32 on the tensor cores past it
+    (CurveNet's 32- to 128-wide LPFAs)."""
+    assert gch.mean1_tc(c0, cl) is tc

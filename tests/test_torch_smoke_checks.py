@@ -669,3 +669,83 @@ def test_relu_hooks_replay_pointnets_last_head_sign():
         g_flip = grad()
     assert int(stats["pointnet_relu"]["other"][0][0]) == 1 and stats["pointnet_relu"]["off"] > 0
     assert not torch.equal(g_flip[0], g_want[0]) and torch.equal(g_flip[1], g_want[1])
+
+
+@pytest.mark.parametrize("fp32,total", [(False, 0.0667), (True, 0.0786)])
+def test_mean_backward_bounds_of_the_eight_lpfas(fp32, total):
+    """The one-layer mean backward's bounds at CurveNet's eight residual
+    LPFAs: bytes at the 16 and 32 widths (x read and dx written once),
+    operations at 64 and 128: the recompute over the FP32 peak and the
+    product back as three TF32 products over the tensor cores' (0.0667 ms
+    summed), or over the FP32 peak too with ``fp32`` (0.0786 ms)."""
+    got = {name: chip_smoke.group_bound(chip_smoke.CN_B, ng, chip_smoke.CN_K, (c0, *w), "mean",
+                                        chip_smoke.CN_B * ng * chip_smoke.CN_K, fp32=fp32)
+           for name, (ng, c0, w, pool) in chip_smoke.CURVENET_GROUP_SHAPES.items() if pool == "mean"}
+    assert [by for _, by in got.values()] == ["bytes"] * 4 + ["operations"] * 4
+    rows = chip_smoke.CN_B * 1024 * chip_smoke.CN_K
+    assert got["cic21"][0] >= 2 * 4.0 * rows * 32 / chip_smoke.PEAK_BYTES * 1e3
+    flops = 2.0 * 8 * 64 * 20 * 128 * 128  # one product at the 128 width
+    back = flops / chip_smoke.PEAK_FLOPS if fp32 else 3 * flops / chip_smoke.PEAK_TF32
+    assert np.isclose(got["cic41"][0], (flops / chip_smoke.PEAK_FLOPS + back) * 1e3)
+    assert np.isclose(sum(t for t, _ in got.values()), total, atol=5e-5)
+
+
+def _mean_case(seed=3, b=2, g=5, k=7, c=6):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(b, g, k, c).astype(np.float32))
+    layers = chip_smoke.seeded_layers(rng, (c, c), "cpu")
+    return x, layers
+
+
+def test_mask_flips_read_the_backward_masks():
+    """On the CPU the plain forward and backward share their
+    pre-activations: no mask differs.  A backward whose masks come from
+    other pre-activations (every BatchNorm shift moved by 0.3) is caught,
+    unit by unit."""
+    from pointcloudattack_tpu_torch.ops import group_chain as gch
+
+    x, layers = _mean_case()
+    assert chip_smoke.mask_flips(x, layers, 0.2) == 0
+    assert chip_smoke.mask_flips(x, layers, 0.0) == 0
+    (w, b, mean, mul, beta), = layers
+    z, _ = gch._chain(x, layers, 0.2)
+    z2, _ = gch._chain(x, [(w, b, mean, mul, beta + 0.3)], 0.2)
+    want = int(((z > 0) != (z2 > 0)).sum())
+    assert want > 0
+    orig = gch.chain_groupmean_bwd
+
+    def faulty(x, layers, g, slope=0.0, wts=None):
+        (w, b, mean, mul, beta), = layers
+        return orig(x, [(w, b, mean, mul, beta + 0.3)], g, slope)
+
+    gch.chain_groupmean_bwd = faulty
+    try:
+        assert chip_smoke.mask_flips(x, layers, 0.2) == want
+    finally:
+        gch.chain_groupmean_bwd = orig
+    with pytest.raises(ValueError, match="one-layer"):
+        chip_smoke.mask_flips(x[..., :6], chip_smoke.seeded_layers(np.random.RandomState(0), (6, 4, 6), "cpu"))
+
+
+def test_check_kappa_holds_the_forward_bit_equal(monkeypatch):
+    """check_kappa holds kappa to the plain version's bits: one ulp off in
+    one row fails it, where the earlier relative tolerance let it pass."""
+    from pointcloudattack_tpu_torch.ops import kappa
+
+    rng = np.random.RandomState(4)
+    a = torch.from_numpy((rng.randn(2, 64, 3) * 0.5).astype(np.float32))
+    nrm = torch.from_numpy(rng.randn(2, 64, 3).astype(np.float32))
+    nrm = nrm / nrm.norm(dim=-1, keepdim=True)
+    dk = torch.from_numpy(rng.randn(2, 64).astype(np.float32))
+    assert chip_smoke.check_kappa("test", "plain", a, nrm, dk, 5) == 0.0
+    orig = kappa.kappa_fwd
+
+    def off(adv, normal, k):
+        kap, picks = orig(adv, normal, k)
+        kap = kap.clone()
+        kap[0, 3] = torch.nextafter(kap[0, 3], torch.tensor(2.0))
+        return kap, picks
+
+    monkeypatch.setattr(kappa, "kappa_fwd", off)
+    with pytest.raises(AssertionError, match="kappa"):
+        chip_smoke.check_kappa("test", "one ulp off", a, nrm, dk, 5)
