@@ -329,9 +329,9 @@ GEO_DATA, GEO_ROUNDS, GEO_ITER, GEO_K = 5, 10, 100, 16
 GEO_REFRESH = 4
 PARTIAL_ROUNDS, PARTIAL_ITER, PARTIAL_REFRESH, PARTIAL_RANGE, PARTIAL_NPOINT = 2, 100, 50, 16, 512
 # the kernels against their plain versions: kappa rtol 1e-6, its gradients
-# atol 1e-5, the two-direction bundle's gradients atol 1e-6 (all designed to
-# be bit-equal to the plain version on the CPU; the log says whether they are)
-KAPPA_RTOL, KAPPA_GRAD_ATOL, BOTH_GRAD_ATOL = 1e-6, 1e-5, 1e-6
+# atol 1e-5 (both designed to be bit-equal to the plain version on the CPU;
+# the log says whether they are); the two-direction bundle bit for bit
+KAPPA_RTOL, KAPPA_GRAD_ATOL = 1e-6, 1e-5
 # GeoA3 card against CPU: once a point has parted, the curvature term and the
 # victim's pooled features carry the difference to other points
 # (``round_partings``), so a share of the points, not a few, may part; at
@@ -381,6 +381,20 @@ CURVENET_GATHER_SHAPES = {
 CN_INITIAL_LAYOUT = (("center", 0, 3), ("pass", 0, 3), ("diff", 0, 3, 0))
 TURNS = 2  # timed runs of each arm of a route comparison, in turns (A, B, A, B)
 FPS_SHAPES = ((1024, 512), (512, 128))  # (N, npoint) of SSG's (and MSG's) two SAs
+CN_FPS_SHAPES = ((1024, 256), (256, 64))  # CurveNet's two samplings (B=8)
+# FPS at the kernel's edges, (B, N, npoint, kind): the largest N (16 points
+# a lane on 16 warps), npoint = N (every running distance reaches 0), a
+# ragged N = 33 (a second warp of one point), a cloud of one repeated point
+# (every step ties at 0), one cloud and 64, a given start
+FPS_EDGE_CASES = {
+    "N=8192": (2, 8192, 512, "random"), "npoint=N": (2, 1024, 1024, "random"), "N=33": (4, 33, 33, "random"),
+    "one repeated point": (3, 500, 200, "repeated"), "B=1": (1, 1024, 512, "random"),
+    "B=64": (64, 1024, 512, "random"), "given start": (16, 1024, 512, "start"),
+}
+# the two-direction bundle at its edges, (B, N, M, kind): a hub (every y
+# point's nearest is x's point 0, whose backward sums all M terms), and one
+# x point against 4096
+BOTH_EDGE_CASES = {"hub": (8, 1024, 1024, "hub"), "N=1, M=4096": (2, 1, 4096, "random")}
 GROUP_ALL = {"ssg_sa3": (259, 256, 512, 1024), "msg_sa3": (643, 256, 512, 1024)}
 
 # The least time the card could take: NVIDIA's H100 SXM data sheet, FP32
@@ -1620,9 +1634,49 @@ def summed_bound(r):
     return (r["bound_ms"], max(r["bound_by"], key=r["bound_by"].get))
 
 
+def fps_case(seed, b, n, kind, device="cuda"):
+    """(xyz [B, N, 3], start [B] int32 or None) of an FPS_EDGE_CASES kind:
+    a random cloud, one point repeated N times, or a random cloud from a
+    given start."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    xyz = np.repeat(rng.randn(b, 1, 3), n, axis=1) if kind == "repeated" else rng.randn(b, n, 3) * 0.5
+    start = torch.from_numpy(rng.randint(0, n, size=b).astype(np.int32)).to(device) if kind == "start" else None
+    return torch.from_numpy(xyz.astype(np.float32)).to(device), start
+
+
+def check_fps(tag, name, xyz, npoint, start=None):
+    """The FPS kernel against the plain version on one input, bit for bit;
+    returns the max |index difference|."""
+    import torch
+
+    from pointcloudattack_tpu_torch.ops import fps as fps_mod
+
+    got = fps_mod.farthest_point_sample(xyz, npoint, start)
+    zero = torch.zeros(xyz.shape[0], dtype=torch.int32, device=xyz.device)
+    want = fps_mod.fps_plain(xyz, npoint, zero if start is None else start)
+    err = float((got.long() - want.long()).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"FPS kernel differs from the plain version at {name} {tuple(xyz.shape)} -> {npoint} "
+                             f"in {int((got != want).sum())} picks")
+    log(f"[{tag}] fps {name} {tuple(xyz.shape)} -> {npoint}: bit-equal to the plain version")
+    return err
+
+
+def fps_bound(b, n, npoint):
+    """(bound_ms, bound_by) of one FPS: 10 operations a point a step (3
+    subtractions, 3 products, 2 sums, a min and a compare); the cloud, start
+    and picks moved once."""
+    return bound(10.0 * b * (npoint - 1) * n, 4.0 * (3 * b * n + b + b * npoint))
+
+
 def phase_kernels_pn2():
     """The PointNet++ path's kernels at its shapes; the record's numbers sum
-    the shapes of one SSG forward (and backward)."""
+    the shapes of one SSG forward (and backward).  FPS also at CurveNet's two
+    shapes (the record's ``shapes``, each with its device time) and at
+    FPS_EDGE_CASES."""
     import numpy as np
     import torch
 
@@ -1630,28 +1684,31 @@ def phase_kernels_pn2():
     from pointcloudattack_tpu_torch.ops import fps as fps_mod
 
     rec = new_record("fps")
-    for n, npoint in FPS_SHAPES:
-        xyz = torch.from_numpy((np.random.RandomState(n).randn(PN2_B, n, 3) * 0.5).astype(np.float32)).cuda()
-        start = torch.zeros(PN2_B, dtype=torch.int32, device="cuda")
-        got = fps_mod.farthest_point_sample(xyz, npoint)
-        want = fps_mod.fps_plain(xyz, npoint, start)
-        dup = torch.cat([xyz[:, : n // 4]] * 4, dim=1).contiguous()  # every pick ties with its copies
-        dup_got = fps_mod.farthest_point_sample(dup, npoint)
-        dup_want = fps_mod.fps_plain(dup, npoint, start)
-        rec["fps"]["err"] = max(rec["fps"]["err"], float((got.long() - want.long()).abs().max()),
-                                float((dup_got.long() - dup_want.long()).abs().max()))
-        if not (torch.equal(got, want) and torch.equal(dup_got, dup_want)):
-            raise AssertionError(f"FPS kernel differs from the plain version at N={n} npoint={npoint}")
-        ms = time_pairs({"plain": lambda: fps_mod.fps_plain(xyz, npoint, start),
-                         "kernel": lambda: fps_mod.farthest_point_sample(xyz, npoint)}, reps=10)
-        flops = 10.0 * PN2_B * (npoint - 1) * n  # 3 sub, 3 mul, 2 add, min, compare
-        t, by = bound(flops, 4.0 * (xyz.numel() + PN2_B + PN2_B * npoint))
-        accumulate(rec["fps"], ms["kernel"], ms["plain"], (t, by))
-        dev = sum(device_ms(lambda: fps_mod.farthest_point_sample(xyz, npoint)).values())
-        rec["fps"]["device_ms"] = rec["fps"].get("device_ms", 0.0) + dev
-        log(f"[kernels] fps [{PN2_B},{n},3] -> {npoint}: bit-equal to the plain version (also with "
-            f"every point 4 times); kernel {ms['kernel']:.4f} ms ({ms['kernel'] * 1e3 / npoint:.3f} us "
-            f"per step; device {dev:.4f} ms), plain {ms['plain']:.4f} ms, bound {t:.5f} ms by {by}")
+    rec["fps"]["device_ms"], rec["fps"]["shapes"] = 0.0, {}
+    for what, b, shapes in (("ssg", PN2_B, FPS_SHAPES), ("curvenet", CN_B, CN_FPS_SHAPES)):
+        for n, npoint in shapes:
+            xyz = torch.from_numpy((np.random.RandomState(n).randn(b, n, 3) * 0.5).astype(np.float32)).cuda()
+            start = torch.zeros(b, dtype=torch.int32, device="cuda")
+            dup = torch.cat([xyz[:, : n // 4]] * 4, dim=1).contiguous()  # every pick ties with its copies
+            err = max(check_fps("kernels", f"{what} N={n}", xyz, npoint),
+                      check_fps("kernels", f"{what} N={n}, every point 4 times", dup, npoint))
+            ms = time_pairs({"plain": lambda: fps_mod.fps_plain(xyz, npoint, start),
+                             "kernel": lambda: fps_mod.farthest_point_sample(xyz, npoint)}, reps=10)
+            t, by = fps_bound(b, n, npoint)
+            dev = sum(v for k, v in device_ms(lambda: fps_mod.farthest_point_sample(xyz, npoint)).items()
+                      if k.startswith("fps_kernel"))
+            rec["fps"]["shapes"][f"{what} [{b},{n},3] -> {npoint}"] = {
+                "ms": ms["kernel"], "plain_ms": ms["plain"], "device_ms": dev, "bound_ms": t, "max_abs_err": err,
+                "us_a_step": dev * 1e3 / (npoint - 1)}
+            if what == "ssg":
+                rec["fps"]["err"] = max(rec["fps"]["err"], err)
+                accumulate(rec["fps"], ms["kernel"], ms["plain"], (t, by))
+                rec["fps"]["device_ms"] += dev
+            log(f"[kernels] fps {what} [{b},{n},3] -> {npoint}: kernel {ms['kernel']:.4f} ms, device {dev:.4f} ms "
+                f"({dev * 1e3 / (npoint - 1):.4f} us a step), plain {ms['plain']:.4f} ms, bound {t:.5f} ms by {by}")
+    for j, (name, (b, n, npoint, kind)) in enumerate(FPS_EDGE_CASES.items()):
+        xyz, start = fps_case(40 + j, b, n, kind)
+        rec["fps"]["err"] = max(rec["fps"]["err"], check_fps("kernels", name, xyz, npoint, start))
     chain = {}
     for i, (name, dims) in enumerate(GROUP_ALL.items()):
         err_y, err_dx, (x, layers, idx, g, win) = check_chain(cm, PN2_B, 128, seed=30 + i, dims=dims)
@@ -3104,28 +3161,42 @@ def stale_idx(adv, data, moved=8):
 
 def check_both(tag, name, x, y, gr, gc):
     """The two-direction kernels against the plain versions on the CPU on
-    one input: both mins and argmins bit for bit, dx and dy within
-    BOTH_GRAD_ATOL.  Returns the max |diff| over all of them."""
+    one input: both mins and argmins, dx and dy bit for bit, and two
+    backwards bit-equal.  Returns the max |diff| over all of them."""
     from pointcloudattack_tpu_torch.ops import chamfer
 
     fwd = chamfer.both_fwd(x, y)
     dx, dy = chamfer.both_bwd(x, y, fwd[1], fwd[3], gr, gc)
+    twice(tag, f"min_sqdist_both {name}", (dx, dy), chamfer.both_bwd(x, y, fwd[1], fwd[3], gr, gc))
     fwd_p = chamfer.both_plain(x.cpu(), y.cpu())
     dx_p, dy_p = chamfer.both_bwd_plain(x.cpu(), y.cpu(), fwd_p[1], fwd_p[3], gr.cpu(), gc.cpu())
-    res = {k: _same(tag, k, g, w) for k, g, w in zip(("row_min", "row_arg", "col_min", "col_arg"), fwd, fwd_p)}
-    res["dx"] = _same(tag, "dx", dx, dx_p, rtol=0.0, atol=BOTH_GRAD_ATOL)
-    res["dy"] = _same(tag, "dy", dy, dy_p, rtol=0.0, atol=BOTH_GRAD_ATOL)
-    log(f"[{tag}] min_sqdist_both {name} x {tuple(x.shape)} y {tuple(y.shape)}: mins and argmins bit-equal to the "
-        "plain version; max |diff| " + ", ".join(f"{k} {e:.3e} ({'bit-equal' if eq else 'not bit-equal'})"
-                                                for k, (e, eq) in res.items() if k in ("dx", "dy")))
+    res = {k: _same(tag, k, g, w) for k, g, w in zip(("row_min", "row_arg", "col_min", "col_arg", "dx", "dy"),
+                                                      (*fwd, dx, dy), (*fwd_p, dx_p, dy_p))}
+    log(f"[{tag}] min_sqdist_both {name} x {tuple(x.shape)} y {tuple(y.shape)}: mins, argmins, dx and dy bit-equal "
+        "to the plain version, two backwards bit-equal")
     return max(e for e, _ in res.values())
+
+
+def both_case(seed, b, n, m, kind, device="cuda"):
+    """(x [B, N, 3], y [B, M, 3]) of a BOTH_EDGE_CASES kind: random clouds,
+    or a hub, x's point 0 at (5, 0, 0) and y within 0.03 of (10, 0, 0)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    x, y = rng.randn(b, n, 3) * 0.5, rng.randn(b, m, 3) * 0.5
+    if kind == "hub":
+        x[:, 0] = (5.0, 0.0, 0.0)
+        y = y * 0.02 + np.array([10.0, 0.0, 0.0])
+    return (torch.from_numpy(x.astype(np.float32)).to(device), torch.from_numpy(y.astype(np.float32)).to(device))
 
 
 def phase_kernels_geoa3(data):
     """The curvature and the two-direction kernels at GeoA3's shapes, on an
     iterate a few steps in (clean clouds plus 1e-3 noise) with the normals
     of each point's nearest clean point, at a ragged N=1000, and with every
-    point twice (kappa) or 4 times (the bundle's y); the curvature on a
+    point twice (kappa) or 4 times (the bundle's y), and the bundle at
+    BOTH_EDGE_CASES; the curvature on a
     given neighbour set (the clean clouds' own, from the kNN kernel) on an
     iterate 1e-2 away, with 8 exact collisions and at a ragged N=1000; times
     beside the plain versions' (on the card) and the bounds."""
@@ -3164,6 +3235,9 @@ def phase_kernels_geoa3(data):
     err_b = max(check_both("kernels-geoa3", f"B={b} N=M={n}", adv, data, gr, gc),
                 check_both("kernels-geoa3", "ragged N=M=1000, every y point 4 times", adv[:, :1000].contiguous(), dup,
                            gr[:, :1000].contiguous(), gc[:, :1000].contiguous()))
+    for j, (name, (bb, nn, mm, kind)) in enumerate(BOTH_EDGE_CASES.items()):
+        xe, ye = both_case(20 + j, bb, nn, mm, kind)
+        err_b = max(err_b, check_both("kernels-geoa3", name, xe, ye, dev(erng.rand(bb, nn)), dev(erng.rand(bb, mm))))
     # the curvature on a given set: the clean clouds' sets on the iterate 1e-2 from them (stale), with
     # exact collisions, and at a ragged N=1000
     moved = (data + dev(rng.randn(b, n, 3) * 1e-2)).contiguous()
@@ -3561,7 +3635,7 @@ def time_group(name, pool, x, layers, am, g, carry, slope=CN_SLOPE):
             tc = gch.mean1_tc(*layers[0][0].shape)
             fns["bwd_other"] = lambda: gch._mean1_bwd_kernel(x, layers, g, slope, not tc)
     ms = time_pairs(fns)
-    ms["bwd_device"] = device_ms(fns["bwd"])
+    ms["fwd_device"], ms["bwd_device"] = device_ms(fns["fwd"]), device_ms(fns["bwd"])
     b, ng, k, _ = x.shape
     dims = [x.shape[-1]] + [layer[0].shape[1] for layer in layers]
     b_fwd, b_bwd = group_bound(b, ng, k, dims, pool), group_bound(b, ng, k, dims, pool, carry)
@@ -3573,7 +3647,9 @@ def time_group(name, pool, x, layers, am, g, carry, slope=CN_SLOPE):
                  "ms, device " + (", ".join(f"{n} {v:.4f}" for n, v in ms["bwd_other_device"].items())
                                   or "not measured") + f"; the bound in FP32 only {ms['bound_fp32'][0]:.5f} by "
                  f"{ms['bound_fp32'][1]}")
-    log(f"[kernels-curvenet] {pool} {name} chain {dims}: forward {ms['fwd']:.4f} ms (plain {ms['fwd_plain']:.4f}, "
+    log(f"[kernels-curvenet] {pool} {name} chain {dims}: forward {ms['fwd']:.4f} ms (device "
+        + (", ".join(f"{n} {v:.4f}" for n, v in ms["fwd_device"].items()) or "not measured") + "; plain "
+        f"{ms['fwd_plain']:.4f}, "
         f"bound {b_fwd[0]:.5f} by {b_fwd[1]} over {b * ng * k} rows), backward {ms['bwd']:.4f} ms (device "
         + (", ".join(f"{n} {v:.4f}" for n, v in ms["bwd_device"].items()) or "not measured") + "; plain "
         f"{ms['bwd_plain']:.4f}, bound {b_bwd[0]:.5f} by {b_bwd[1]} over the {carry} rows with a cotangent{other})")
@@ -3592,11 +3668,16 @@ def phase_kernels_curvenet():
     from pointcloudattack_tpu_torch.ops import group_chain as gch
 
     rec = new_record("group_max_fwd", "group_max_bwd", "group_mean_fwd", "group_mean_bwd")
-    rec["group_mean_bwd"]["device_ms"] = 0.0
+    for key in rec:
+        rec[key]["device_ms"] = 0.0
     for i, (name, (ng, c0, widths, pool)) in enumerate(CURVENET_GROUP_SHAPES.items()):
         x, layers, dy = group_case(60 + i, CN_B, ng, CN_K, (c0, *widths))
         errs, am, g, carry = check_group(name, pool, x, layers, dy)
         ms, b_fwd, b_bwd = time_group(name, pool, x, layers, am, g, carry)
+        for key, d in ((f"group_{pool}_fwd", "fwd_device"), (f"group_{pool}_bwd", "bwd_device")):
+            if key != "group_mean_bwd":  # None once a launch was not measured
+                dev = sum(ms[d].values()) if ms[d] else None
+                rec[key]["device_ms"] = None if dev is None or rec[key]["device_ms"] is None else rec[key]["device_ms"] + dev
         if pool == "mean":
             dev = sum(ms["bwd_device"].values()) if ms["bwd_device"] else None  # None: not measured
             rec["group_mean_bwd"]["device_ms"] = (None if dev is None or rec["group_mean_bwd"]["device_ms"] is None
@@ -4204,7 +4285,8 @@ def main():
               spine["bwd"], spine["bwd_plain"], spine["bound_bwd"], "PointNet spine B=64 N=1024 3-64-128-1024",
               spine["rows_bwd"], **chain_extra("bwd")),
         entry("fps", "fps", FPS_SRC, TPU_FPS, ssg[4]["fps"], pn2["fps"]["err"], pn2["fps"]["ms"],
-              pn2["fps"]["plain_ms"], summed_bound(pn2["fps"]), ssg_at, device_ms=pn2["fps"]["device_ms"]),
+              pn2["fps"]["plain_ms"], summed_bound(pn2["fps"]), ssg_at, device_ms=pn2["fps"]["device_ms"],
+              shapes=pn2["fps"]["shapes"]),
         *(entry(f"gather_hoist_{key}", f"hoist_{key}", HOIST_SRC, TPU_GATHER_FWD if key.endswith("fwd") else
                 TPU_GATHER_BWD, dg_launches[f"hoist_{key}"], dg[key]["err"], dg[key]["ms"], dg[key]["plain_ms"],
                 summed_bound(dg[key]), dg_at, library_ms=dg[key].get("library_ms"))

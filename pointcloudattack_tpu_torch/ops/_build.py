@@ -187,7 +187,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pca_min_rows.argtypes = [ci, vp, vp, ci, ci, ci, vp, vp, vp]
     lib.pca_min_rows.restype = ci
     # device, x, y, B, N, M, rmin, rarg, cmin, carg, stream
-    lib.pca_min_both_fwd.argtypes = [ci, vp, vp, ci, ci, ci, vp, vp, vp, vp, vp]
+    lib.pca_min_both_fwd.argtypes = [ci, vp, vp, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp]
     lib.pca_min_both_fwd.restype = ci
     # device, x, y, rarg, carg, gr, gc, B, N, M, dx, dy, stream
     lib.pca_min_both_bwd.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp]

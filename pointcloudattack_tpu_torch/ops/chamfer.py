@@ -130,7 +130,26 @@ def min_sqdist_rows(x: torch.Tensor, y: torch.Tensor):
 # own term ``2 g (p - nearest)`` minus the other side's terms scattered onto
 # the points they matched.  The CUDA kernels (``csrc/min_sqdist_both.cu``)
 # compute the plain versions' bits, the backward's sums in the order of
-# ``index_add_`` on the CPU.
+# ``index_add_`` on the CPU.  The forward's blocks fold each point's minimum
+# into a 64-bit key per point with integer atomics, and the last block of a
+# cloud writes ``col_min`` and ``col_arg`` and resets the keys: that scratch
+# (``_both_scratch``) is kept per device and stream, filled once.
+
+# (device index, stream) -> (keys int64 [>= B * M], all ones; done int32 [>= B], 0)
+_SCRATCH: dict = {}
+
+
+def _both_scratch(device: torch.device, stream: int, b: int, m: int):
+    """The forward kernel's keys and per-cloud counts on ``stream``, large
+    enough for ``b`` clouds of ``m`` points; the kernel leaves them as it
+    found them, so they are filled only when made."""
+    keys, done = _SCRATCH.get((device.index, stream), (None, None))
+    if keys is None or keys.numel() < b * m or done.numel() < b:
+        n = max(b * m, keys.numel() if keys is not None else 0)
+        keys = torch.full((n,), -1, dtype=torch.int64, device=device)
+        done = torch.zeros(max(b, done.numel() if done is not None else 0), dtype=torch.int32, device=device)
+        _SCRATCH[(device.index, stream)] = (keys, done)
+    return keys, done
 
 
 def both_plain(x: torch.Tensor, y: torch.Tensor):
@@ -157,8 +176,10 @@ def _both_fwd_kernel(x: torch.Tensor, y: torch.Tensor):
     cmin, carg = torch.empty((b, m), **f32), torch.empty((b, m), **i32)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        keys, done = _both_scratch(x.device, stream, b, m)
         rc = lib.pca_min_both_fwd(x.device.index, x.data_ptr(), y.data_ptr(), b, n, m, rmin.data_ptr(),
-                                  rarg.data_ptr(), cmin.data_ptr(), carg.data_ptr(), stream)
+                                  rarg.data_ptr(), cmin.data_ptr(), carg.data_ptr(), keys.data_ptr(),
+                                  done.data_ptr(), stream)
     _build.check(lib, rc, "min_sqdist_both forward launch")
     LAUNCHES["both_fwd"] += 1
     return rmin, rarg, cmin, carg

@@ -54,7 +54,9 @@ def fps_plain(xyz: torch.Tensor, npoint: int, start: torch.Tensor) -> torch.Tens
     return torch.stack(out, dim=1).to(torch.int32)
 
 
-def _fps_kernel(xyz: torch.Tensor, npoint: int, start: torch.Tensor) -> torch.Tensor:
+def _fps_kernel(xyz: torch.Tensor, npoint: int, start: torch.Tensor | None) -> torch.Tensor:
+    """The kernel on ``xyz``; ``start`` None starts every cloud at index 0
+    (the kernel reads no start array)."""
     if xyz.dtype != torch.float32 or xyz.dim() != 3 or xyz.shape[2] != 3 or not xyz.is_contiguous():
         raise ValueError(
             f"fps kernel takes a contiguous float32 [B, N, 3] tensor, got {xyz.dtype} "
@@ -64,15 +66,16 @@ def _fps_kernel(xyz: torch.Tensor, npoint: int, start: torch.Tensor) -> torch.Te
     if not (1 <= b <= 65535 and 1 <= n <= MAX_POINTS and 1 <= npoint):
         raise ValueError(f"fps kernel takes 1 <= B <= 65535, 1 <= N <= {MAX_POINTS}, npoint >= 1; "
                          f"got B={b}, N={n}, npoint={npoint}")
-    start = start.to(device=xyz.device, dtype=torch.int32).contiguous()
-    if tuple(start.shape) != (b,):
-        raise ValueError(f"fps: start must be [{b}], got {tuple(start.shape)}")
+    if start is not None:
+        start = start.to(device=xyz.device, dtype=torch.int32).contiguous()
+        if tuple(start.shape) != (b,):
+            raise ValueError(f"fps: start must be [{b}], got {tuple(start.shape)}")
     lib = _build.load_library()
     out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
     with torch.cuda.device(xyz.device):
         stream = torch.cuda.current_stream(xyz.device).cuda_stream
-        rc = lib.pca_fps(xyz.device.index, xyz.data_ptr(), start.data_ptr(), b, n, npoint,
-                         out.data_ptr(), stream)
+        rc = lib.pca_fps(xyz.device.index, xyz.data_ptr(), None if start is None else start.data_ptr(), b, n,
+                         npoint, out.data_ptr(), stream)
     _build.check(lib, rc, "fps launch")
     LAUNCHES["fps"] += 1
     return out
@@ -84,10 +87,8 @@ def farthest_point_sample(
     """``xyz [B, N, 3]`` -> ``[B, npoint]`` int32 indices.  ``start [B]``
     defaults to index 0, as every attack calls it."""
     xyz = xyz.detach()
-    if start is None:
-        start = torch.zeros(xyz.shape[0], dtype=torch.int32, device=xyz.device)
     if xyz.is_cuda:
         return _fps_kernel(xyz.contiguous(), npoint, start)
     if xyz.device.type == "cpu":
-        return fps_plain(xyz, npoint, start)
+        return fps_plain(xyz, npoint, torch.zeros(xyz.shape[0], dtype=torch.int32) if start is None else start)
     raise ValueError(f"farthest_point_sample: no implementation for device {xyz.device}")

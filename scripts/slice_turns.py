@@ -15,9 +15,11 @@ self-kNN at the four EdgeConv inputs of one DGCNN forward, the nine kNN
 inputs of one CurveNet forward and GeoA3's cached curvature set),
 ``kernels-kappa`` (the curvature backward at GeoA3's shape, on the
 selecting forward's picks and on a stale given set), ``kernels-kappa-fwd``
-(the selecting curvature forward at GeoA3's shape) and ``kernels-group-mean``
+(the selecting curvature forward at GeoA3's shape), ``kernels-group-mean``
 (the group mean backward at the eight residual LPFA shapes of one CurveNet
-forward, B=8, K=20).  It
+forward, B=8, K=20), ``kernels-fps`` (farthest point sampling at SSG's two
+shapes, B=16, and CurveNet's two, B=8) and ``kernels-both`` (the
+two-direction bundle's forward and backward at GeoA3's shape).  It
 builds that checkout's kernels, makes each victim and its clouds as
 chip_smoke.py does (seeded random weights with the clouds' BatchNorm
 statistics, N=1024), runs each attack four times, printing each run's
@@ -29,14 +31,17 @@ the profiler.  With ``--profile`` it then prints, for each victim it
 timed, chip_smoke.py's profile line (10 iterations of the attack under
 torch.profiler: kernel time and the device's idle share).  It reads only
 names that chip_smoke.py has kept since PR 10, so that checkout and later
-ones run it.
+ones run it; the kernel cells call only the ops' public entry points
+(``ops.fps.farthest_point_sample``, ``ops.chamfer.both_fwd`` and
+``both_bwd`` for the last two), which every checkout with those kernels has.
 """
 
 import sys
 import time
 
 CELLS = ("slice", "slice-ssg", "slice-msg", "slice-knn-ssg", "slice-dgcnn", "slice-geoa3", "slice-geoa3-r4",
-         "slice-curvenet", "kernels-knn", "kernels-kappa", "kernels-kappa-fwd", "kernels-group-mean")
+         "slice-curvenet", "kernels-knn", "kernels-kappa", "kernels-kappa-fwd", "kernels-group-mean",
+         "kernels-fps", "kernels-both")
 VICTIMS = {"slice": "PointNet", "slice-ssg": "PointNet++Ssg", "slice-msg": "PointNet++Msg",
            "slice-knn-ssg": "PointNet++Ssg", "slice-dgcnn": "DGCNN", "slice-geoa3": "PointNet GeoA3",
            "slice-geoa3-r4": "PointNet GeoA3", "slice-curvenet": "CurveNet"}
@@ -144,8 +149,8 @@ def kernels_knn(cs, root, made):
 
 def geoa3_iterate(cs):
     """chip_smoke.py's phase_kernels_geoa3 inputs: an iterate 1e-3 from
-    GeoA3's clouds with its nearest clean point's normal, dkappa, and the
-    clouds with an iterate 1e-2 from them."""
+    GeoA3's clouds with its nearest clean point's normal, dkappa, the
+    clouds with an iterate 1e-2 from them, and the bundle's cotangents."""
     import numpy as np
     import torch
 
@@ -160,9 +165,9 @@ def geoa3_iterate(cs):
     adv = (data + dev(rng.randn(b, n, 3) * 1e-3)).contiguous()
     nrm = index_points(estimate_normal(data), nn1_idx(adv, data)).contiguous()
     dk = dev(rng.randn(b, n) * 1e-3)
-    rng.rand(b, n), rng.rand(b, n)  # chip_smoke.py's bundle cotangents: the same stream after them
+    gr, gc = dev(rng.rand(b, n)), dev(rng.rand(b, n))  # chip_smoke.py's bundle cotangents
     moved = (data + dev(rng.randn(b, n, 3) * 1e-2)).contiguous()
-    return adv, nrm, dk, data, moved
+    return adv, nrm, dk, data, moved, gr, gc
 
 
 def kernels_kappa(cs, root):
@@ -171,7 +176,7 @@ def kernels_kappa(cs, root):
     iterate 1e-2 away."""
     from pointcloudattack_tpu_torch.ops import kappa
 
-    adv, nrm, dk, data, moved = geoa3_iterate(cs)
+    adv, nrm, dk, data, moved, _, _ = geoa3_iterate(cs)
     b, n, _ = adv.shape
     idx = cs.stale_idx(moved, data)[0]
     _, picks = kappa.kappa_fwd(adv, nrm, cs.GEO_K)
@@ -185,7 +190,7 @@ def kernels_kappa_fwd(cs, root):
     """The selecting curvature forward on ``geoa3_iterate``'s iterate."""
     from pointcloudattack_tpu_torch.ops import kappa
 
-    adv, nrm, _, _, _ = geoa3_iterate(cs)
+    adv, nrm, *_ = geoa3_iterate(cs)
     b, n, _ = adv.shape
     kernel_times(cs, root, "kernels-kappa-fwd", f"kappa_fwd [{b},{n},3] k={cs.GEO_K}",
                  lambda: kappa.kappa_fwd(adv, nrm, cs.GEO_K))
@@ -209,8 +214,44 @@ def kernels_group_mean(cs, root):
           "of device time", flush=True)
 
 
+def kernels_fps(cs, root):
+    """Farthest point sampling on chip_smoke.py's clouds (its seeds): SSG's
+    two set abstractions at B=16 and CurveNet's two at B=8, and the sum of
+    each forward's two."""
+    import numpy as np
+    import torch
+
+    from pointcloudattack_tpu_torch.ops import fps
+
+    for what, b, shapes in (("ssg", cs.PN2_B, ((1024, 512), (512, 128))), ("curvenet", cs.CN_B, ((1024, 256), (256, 64)))):
+        total, dev_total = 0.0, 0.0
+        for n, npoint in shapes:
+            xyz = torch.from_numpy((np.random.RandomState(n).randn(b, n, 3) * 0.5).astype(np.float32)).cuda()
+            ms, dev = kernel_times(cs, root, "kernels-fps", f"{what} [{b},{n},3] -> {npoint}",
+                                   lambda: fps.farthest_point_sample(xyz, npoint))
+            dev_ms = sum(dev.values())
+            print(f"{root} [kernels-fps] {what} [{b},{n},3] -> {npoint}: {dev_ms * 1e3 / (npoint - 1):.4f} us of device "
+                  "time a step", flush=True)
+            total, dev_total = total + ms, dev_total + dev_ms
+        print(f"{root} [kernels-fps] {what} forward's two: {total:.4f} ms through the wrapper, {dev_total:.4f} ms of "
+              "device time", flush=True)
+
+
+def kernels_both(cs, root):
+    """The two-direction bundle's forward and backward on ``geoa3_iterate``'s
+    iterate against GeoA3's clouds, with chip_smoke.py's cotangents."""
+    from pointcloudattack_tpu_torch.ops import chamfer
+
+    adv, _, _, data, _, gr, gc = geoa3_iterate(cs)
+    b, n, _ = adv.shape
+    fwd = chamfer.both_fwd(adv, data)
+    kernel_times(cs, root, "kernels-both", f"both_fwd [{b},{n},3]^2", lambda: chamfer.both_fwd(adv, data))
+    kernel_times(cs, root, "kernels-both", f"both_bwd [{b},{n},3]^2",
+                 lambda: chamfer.both_bwd(adv, data, fwd[1], fwd[3], gr, gc))
+
+
 KERNEL_CELLS = {"kernels-kappa": kernels_kappa, "kernels-kappa-fwd": kernels_kappa_fwd,
-                "kernels-group-mean": kernels_group_mean}
+                "kernels-group-mean": kernels_group_mean, "kernels-fps": kernels_fps, "kernels-both": kernels_both}
 
 
 def main():

@@ -94,6 +94,25 @@ def test_fps_ties_take_the_lowest_index():
     assert int(got[:, :64].max()) < 64  # all 64 distinct points before any copy
 
 
+@pytest.mark.parametrize("b,n,npoint,kind", [(2, 64, 64, "random"), (2, 33, 33, "random"), (3, 50, 20, "repeated"),
+                                              (1, 256, 100, "random"), (2, 33, 16, "start")],
+                         ids=["npoint=N", "N=33", "one repeated point", "B=1", "given start"])
+def test_fps_plain_matches_jax_at_the_kernels_edges(b, n, npoint, kind):
+    """The plain version, which the kernel is held to bit for bit, against
+    the JAX scan where the kernel's tie rule and padding matter: every
+    running distance reaching 0 (npoint = N), a second warp of one point
+    (N = 33), a cloud of one repeated point (every step ties at 0), one
+    cloud, a given start."""
+    rng = np.random.RandomState(n + b)
+    x = (np.repeat(rng.randn(b, 1, 3), n, axis=1) if kind == "repeated" else rng.randn(b, n, 3) * 0.5).astype(np.float32)
+    start = (rng.randint(0, n, size=b) if kind == "start" else np.zeros(b)).astype(np.int32)
+    want = np.asarray(jax.jit(j_fps_start, static_argnums=1)(jnp.asarray(x), npoint, jnp.asarray(start)))
+    got = fps_plain(torch.from_numpy(x), npoint, torch.from_numpy(start))
+    np.testing.assert_array_equal(got.numpy(), want)
+    if kind == "repeated":
+        assert (got[:, 1:] == 0).all()  # every distance 0 after the first pick: the first index
+
+
 def test_pairwise_sqdist_matches_jax():
     x, y = cloud(5, 2, 37), cloud(6, 2, 53)
     want = np.asarray(j_pairwise_sqdist(jnp.asarray(x), jnp.asarray(y)))

@@ -15,9 +15,9 @@ backwards bit-equal (``check_kappa``, and ``check_kappa_idx`` on a given
 neighbour set; ``check_kappa_bwd``, the backward alone, against the plain
 version that sums in the kernel's order, also on indices outside the
 cloud); the
-two-direction bundle's mins and argmins bit for bit and its gradients within
-``BOTH_GRAD_ATOL`` (``check_both``), each against the plain version on the
-CPU.
+two-direction bundle's mins, argmins and gradients bit for bit, two
+backwards bit-equal (``check_both``, also at ``BOTH_EDGE_CASES``: a hub, one
+x point against 4096), each against the plain version on the CPU.
 """
 
 import sys
@@ -195,16 +195,22 @@ def test_kappa_kernel_rejects_what_it_does_not_take(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n,m,dup", [(8, 1024, 1024, False), (4, 1000, 1000, True), (2, 3000, 2500, False),
-                                       (3, 5, 1, False), (2, 1, 700, False)])
-def test_both_kernels_match_plain_on_card(cuda_device, b, n, m, dup):
-    y = rand(m, b, m // 4 if dup else m, 3, scale=0.5)
-    if dup:
-        y = torch.cat([y] * 4, dim=1).contiguous()
-    x = rand(n + 1, b, n, 3, scale=0.5)
+@pytest.mark.parametrize("b,n,m,kind", [(8, 1024, 1024, "random"), (4, 1000, 1000, "dup"), (2, 3000, 2500, "random"),
+                                        (3, 5, 1, "random"), (2, 1, 700, "random"),
+                                        *chip_smoke.BOTH_EDGE_CASES.values()])
+def test_both_kernels_match_plain_on_card(cuda_device, b, n, m, kind):
+    """Mins, argmins, dx and dy bit-equal to the plain version, and two
+    backwards bit-equal; every y point 4 times (dup), a hub."""
+    if kind == "hub":
+        x, y = chip_smoke.both_case(n, b, n, m, kind, cuda_device)
+    else:
+        y = rand(m, b, m // 4 if kind == "dup" else m, 3, scale=0.5)
+        if kind == "dup":
+            y = torch.cat([y] * 4, dim=1).contiguous()
+        x = rand(n + 1, b, n, 3, scale=0.5)
     chamfer.reset_launches()
-    chip_smoke.check_both("test", f"{b}x{n}x{m}", x, y, rand(n + 2, b, n), rand(m + 3, b, m))
-    assert chamfer.LAUNCHES == {"min_rows": 0, "both_fwd": 1, "both_bwd": 1}
+    chip_smoke.check_both("test", f"{b}x{n}x{m} {kind}", x, y, rand(n + 2, b, n), rand(m + 3, b, m))
+    assert chamfer.LAUNCHES == {"min_rows": 0, "both_fwd": 1, "both_bwd": 2}
 
 
 @pytest.mark.cuda

@@ -315,6 +315,42 @@ def test_both_ties_go_to_the_first_index_and_the_scatter_sums_in_order():
     np.testing.assert_array_equal(dy.numpy()[0], want_dy)
 
 
+@pytest.mark.parametrize("case", ["hub", "N=1"])
+def test_both_plain_matches_jax_at_the_kernels_edges(case, monkeypatch):
+    """The plain bundle, which the kernels are held to bit for bit, against
+    the JAX package where the kernels' keys and lists matter: a hub (every y
+    point's nearest is x's point 0, whose backward sums all M terms; against
+    the interpret-mode kernel, its gradients within 1e-6 of their largest
+    entry: the hub's sum of 256 terms runs in another order) and one x point
+    (against the dense CPU path, mins atol 1e-5)."""
+    if case == "hub":
+        monkeypatch.setattr(CK, "_BOTH_INTERPRET", True)
+        x, y = (t.numpy() for t in chip_smoke.both_case(30, 2, 128, 256, "hub", device="cpu"))
+    else:
+        x, y = (t.numpy() for t in chip_smoke.both_case(31, 2, 1, 300, "random", device="cpu"))
+    d = exact_sqdist(x, y)
+    for ax in (-1, -2):
+        srt = np.sort(d, axis=ax)
+        if srt.shape[ax] > 1:
+            assert (np.take(srt, 1, axis=ax) - np.take(srt, 0, axis=ax)).min() > 1e-6, "seed gives a near tie"
+    rng = np.random.RandomState(32)
+    wr, wc = rng.randn(*x.shape[:2]).astype(np.float32), rng.randn(*y.shape[:2]).astype(np.float32)
+    rmin, cmin, rarg, dx, dy = port_both(x, y, wr, wc)
+    carg = chamfer.both_plain(torch.from_numpy(x), torch.from_numpy(y))[3].numpy()
+    np.testing.assert_array_equal(rarg, d.argmin(-1))
+    np.testing.assert_array_equal(carg, d.argmin(-2))
+    if case == "hub":
+        assert (carg == 0).all()
+    jr, jc, ja = CK.min_sqdist_both(jnp.asarray(x), jnp.asarray(y))
+    tol = dict(rtol=2e-7, atol=0) if case == "hub" else dict(rtol=0, atol=1e-5)
+    np.testing.assert_allclose(rmin, np.asarray(jr), **tol)
+    np.testing.assert_allclose(cmin, np.asarray(jc), **tol)
+    np.testing.assert_array_equal(rarg, np.asarray(ja))
+    jdx, jdy = (np.asarray(g) for g in jax_both_grads(x, y, wr, wc))
+    np.testing.assert_allclose(dx, jdx, rtol=0, atol=1e-6 * np.abs(jdx).max())
+    np.testing.assert_allclose(dy, jdy, rtol=0, atol=1e-6 * np.abs(jdy).max())
+
+
 def test_chamfer_hausdorff_nn_matches_jax():
     x, y, _, _ = bundle_inputs(7, 2, 300, 300)
     ta = torch.from_numpy(x).requires_grad_(True)

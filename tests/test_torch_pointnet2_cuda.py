@@ -9,7 +9,7 @@ file imports no JAX, so it runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_pointnet2_cuda.py
 
 Tolerances: FPS indices bit for bit (both round every product and sum on
-its own).  Gather forward y atol 1e-4 / rtol 1e-5, and the argmax equal
+its own), at the path's shapes and chip_smoke.py's ``FPS_EDGE_CASES``.  Gather forward y atol 1e-4 / rtol 1e-5, and the argmax equal
 except where a column's two best rows lie within 1e-4; dsrc and dctr atol
 1e-4 / rtol 1e-4 (f32 sums of up to 323 terms in another order, and dsrc's
 atomic adds in a varying order), except the points and groups of a winning
@@ -76,23 +76,30 @@ def test_gather_kernel_takes_ragged_groups_and_center_segments_on_card(cuda_devi
     check_gather(f"k{k}_g{g}", src, centers, idx, layers, layout, dy)
 
 
+# the path's shapes and a ragged one, (B, N, npoint, kind), then chip_smoke.py's edge cases
+FPS_CASES = {"N=1024 -> 512": (16, 1024, 512, "random"), "N=512 -> 128": (16, 512, 128, "random"),
+             "N=1000 -> 77": (16, 1000, 77, "random"), **chip_smoke.FPS_EDGE_CASES}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,npoint", [(1024, 512), (512, 128), (1000, 77)])
-def test_fps_kernel_matches_plain_bitwise_on_card(cuda_device, n, npoint):
-    rng = np.random.RandomState(n)
-    xyz = torch.from_numpy((rng.randn(16, n, 3) * 0.5).astype(np.float32)).to(cuda_device)
-    start = torch.from_numpy(rng.randint(0, n, size=16).astype(np.int32)).to(cuda_device)
+@pytest.mark.parametrize("name", list(FPS_CASES))
+def test_fps_kernel_matches_plain_bitwise_on_card(cuda_device, name):
+    """Picks bit-equal from index 0 and from a given start; on a random
+    cloud also with every point 4 times, where each pick ties with its
+    copies and the first n/4 picks are the originals."""
+    b, n, npoint, kind = FPS_CASES[name]
+    xyz, start = chip_smoke.fps_case(n, b, n, kind, cuda_device)
+    if start is None:
+        start = torch.from_numpy(np.random.RandomState(n + 1).randint(0, n, size=b).astype(np.int32)).to(cuda_device)
     for s in (None, start):
         fps_mod.reset_launches()
-        got = fps_mod.farthest_point_sample(xyz, npoint, s)
-        want = fps_mod.fps_plain(xyz, npoint, torch.zeros_like(start) if s is None else s)
+        chip_smoke.check_fps("test", name, xyz, npoint, s)
         assert fps_mod.LAUNCHES["fps"] == 1
-        assert torch.equal(got, want)
-    # duplicated points: every pick ties with its copies
-    dup = torch.cat([xyz[:, :200]] * 4, dim=1).contiguous()
-    got = fps_mod.farthest_point_sample(dup, 300)
-    assert torch.equal(got, fps_mod.fps_plain(dup, 300, torch.zeros(16, dtype=torch.int32, device=cuda_device)))
-    assert int(got[:, :200].max()) < 200
+    if kind == "random" and n >= 8:
+        q = n // 4
+        dup = torch.cat([xyz[:, :q]] * 4, dim=1).contiguous()
+        chip_smoke.check_fps("test", f"{name}, every point 4 times", dup, min(npoint, 4 * q))
+        assert int(fps_mod.farthest_point_sample(dup, q).max()) < q
 
 
 @pytest.mark.cuda

@@ -749,3 +749,32 @@ def test_check_kappa_holds_the_forward_bit_equal(monkeypatch):
     monkeypatch.setattr(kappa, "kappa_fwd", off)
     with pytest.raises(AssertionError, match="kappa"):
         chip_smoke.check_kappa("test", "one ulp off", a, nrm, dk, 5)
+
+
+def test_fps_bound_counts_ten_operations_a_point_a_step():
+    t, by = chip_smoke.fps_bound(16, 1024, 512)
+    assert by == "operations"
+    assert t == pytest.approx(10.0 * 16 * 511 * 1024 / chip_smoke.PEAK_FLOPS * 1e3)
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.FPS_EDGE_CASES))
+def test_fps_edge_cases_make_the_named_clouds(name):
+    b, n, npoint, kind = chip_smoke.FPS_EDGE_CASES[name]
+    xyz, start = chip_smoke.fps_case(7, b, n, kind, device="cpu")
+    assert tuple(xyz.shape) == (b, n, 3) and xyz.dtype == torch.float32 and 1 <= npoint <= n
+    assert (start is not None) == (kind == "start")
+    if kind == "repeated":
+        assert bool((xyz == xyz[:, :1]).all())
+    if start is not None:
+        assert start.dtype == torch.int32 and tuple(start.shape) == (b,) and int(start.max()) < n
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.BOTH_EDGE_CASES))
+def test_both_edge_cases_make_the_named_clouds(name):
+    from pointcloudattack_tpu_torch.ops import chamfer
+
+    b, n, m, kind = chip_smoke.BOTH_EDGE_CASES[name]
+    x, y = chip_smoke.both_case(7, b, min(n, 256), min(m, 512), kind, device="cpu")
+    _, _, _, carg = chamfer.both_plain(x, y)
+    if kind == "hub":
+        assert bool((carg == 0).all())  # every y point's nearest is x's point 0
