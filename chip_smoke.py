@@ -357,6 +357,10 @@ CURVENET_GROUP_SHAPES = {
     "cic31": (256, 64, (64,), "mean"), "cic32": (256, 64, (64,), "mean"),
     "cic41": (64, 128, (128,), "mean"), "cic42": (64, 128, (128,), "mean"),
 }
+# the max backward at an argmax made to order (max_bwd_case): (name, B, G, K, widths, kind)
+MAX_BWD_EDGE_CASES = (("a hub: every column's winner one row", CN_B, 1024, CN_K, (9, 32), "hub"),
+                      ("no row wins twice", 2, 50, 64, (9, 32), "distinct"),
+                      ("a hub at 3 -> 300, K=33", 1, 7, 33, (3, 300), "hub"))
 # The ball kernel at every GATHER_SHAPES set abstraction, then at these
 # cases in the same format with a last field for what is done to the cloud: "far" moves
 # every fourth center 10 away (an empty ball) with a radius that overfills
@@ -539,7 +543,10 @@ def top2_gap(x, layers):
 
 
 def top2_margin(x, dim):
-    """The gap between the largest and the second largest along ``dim``."""
+    """The gap between the largest and the second largest along ``dim``;
+    infinite where there is one value (no tie is possible)."""
+    if x.shape[dim] < 2:
+        return x.detach().select(dim, 0).abs() + float("inf")
     top = x.detach().topk(2, dim=dim).values
     return top.select(dim, 0) - top.select(dim, 1)
 
@@ -1547,11 +1554,14 @@ def time_knn(tag, name, x, k):
             "device_ms": dev}
 
 
-def chamfer_bound(b, n, m):
+def chamfer_bound(b, n, m, issued=False):
     """(bound_ms, bound_by) of one row min: 8 operations a pair (3
     subtractions, 3 products, 2 sums); x and y read once, mins and argmin
-    written once."""
-    return bound(8.0 * b * n * m, 4.0 * (3 * b * n + 3 * b * m + 2 * b * n))
+    written once.  ``issued``: the least time at one operation an issued
+    FP32 instruction, half the data sheet's rate (which counts an FMA as
+    two): the kernel keeps the plain version's rounding with
+    ``__fsub_rn``, ``__fmul_rn`` and ``__fadd_rn``, none of which fuse."""
+    return bound((2.0 if issued else 1.0) * 8.0 * b * n * m, 4.0 * (3 * b * n + 3 * b * m + 2 * b * n))
 
 
 def check_knn(tag, name, x, k):
@@ -2794,11 +2804,13 @@ def phase_kernels_chamfer(data):
                                  adv[:, :1000].contiguous(), dup, w[:, :1000].contiguous()))
     ms = time_pairs({"plain": lambda: chamfer.min_rows_plain(adv, data), "kernel": lambda: chamfer.min_rows_fwd(adv, data)})
     b, n, _ = data.shape
-    bnd = chamfer_bound(b, n, n)
+    bnd, floor = chamfer_bound(b, n, n), chamfer_bound(b, n, n, issued=True)
     dev = sum(device_ms(lambda: chamfer.min_rows_fwd(adv, data)).values())
     log(f"[kernels-chamfer] [{b},{n},3] x [{b},{n},3]: kernel {ms['kernel']:.4f} ms (device {dev:.4f} ms), plain "
-        f"{ms['plain']:.4f} ms, bound {bnd[0]:.5f} ms by {bnd[1]} ({8.0 * b * n * n / 1e9:.3f} G operations)")
-    return {"ms": ms["kernel"], "plain_ms": ms["plain"], "bound": bnd, "err": err, "device_ms": dev}
+        f"{ms['plain']:.4f} ms, bound {bnd[0]:.5f} ms by {bnd[1]} ({8.0 * b * n * n / 1e9:.3f} G operations); at one "
+        f"operation an issued FP32 instruction {floor[0]:.5f} ms")
+    return {"ms": ms["kernel"], "plain_ms": ms["plain"], "bound": bnd, "bound_issued": floor, "err": err,
+            "device_ms": dev}
 
 
 def parted_points(card_it, cpu_it, g_card, g_cpu):
@@ -3491,6 +3503,42 @@ def group_case(seed, b, g, k, dims, device="cuda"):
     return x, layers, dy
 
 
+def max_bwd_case(seed, b, g, k, dims, kind, device="cuda"):
+    """``group_case``'s rows, layers and cotangent ``g = dy * mul`` with an
+    argmax ``am [b, g, C]`` made to order for the max backward: "hub"
+    (every column's winner is row k // 2 of its group) or "distinct" (column
+    c's is row (2 c) % k, so no row wins twice where k >= 2 C)."""
+    import torch
+
+    x, layers, dy = group_case(seed, b, g, k, dims, device)
+    c = torch.arange(dims[-1], device=device, dtype=torch.int32)
+    row = torch.full_like(c, k // 2) if kind == "hub" else (2 * c) % k
+    am = row.expand(b, g, dims[-1]).contiguous()
+    return x, layers, am, (dy * layers[-1][3]).contiguous()
+
+
+def check_max_bwd(name, x, layers, am, g, slope=CN_SLOPE):
+    """The max backward on a given argmax against its plain version, both
+    on the card: dx within DX_TOL on every row (a row that wins no column
+    gets 0) and two backwards bit-equal.  Returns dx's max |err|."""
+    import torch
+
+    from pointcloudattack_tpu_torch.ops import group_chain as gch
+
+    dx = gch.chain_groupmax_bwd(x, layers, am, g, slope)
+    twice(name, "group max backward", (dx,), (gch.chain_groupmax_bwd(x, layers, am, g, slope),))
+    dx_ref = gch.chain_groupmax_bwd_plain(x, layers, am, g, slope)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(dx, dx_ref, **DX_TOL)
+    won = winners(am, x.shape[2])
+    err = float((dx - dx_ref).abs().max())
+    log(f"[kernels-curvenet] max backward {name} x {tuple(x.shape)} chain {[x.shape[-1]] + [l[0].shape[1] for l in layers]}: "
+        f"{int(won.sum())} of {won.numel()} rows win a column (at most {int(won.sum(-1).max())} a group, the busiest "
+        f"row {int(torch.nn.functional.one_hot(am.long(), x.shape[2]).sum(-2).max())} columns); dx max|err| "
+        f"{err:.3e}, {int((dx[~won] != 0).sum())} nonzero entries on rows that win nothing; two backwards bit-equal")
+    return err
+
+
 def mask_flips(x, layers, slope=CN_SLOPE):
     """The (row, unit) pairs of a one-layer mean whose backward mask
     differs from the sign the forward gave the unit.  The forward's
@@ -3529,14 +3577,18 @@ def check_group(name, pool, x, layers, dy, slope=CN_SLOPE):
     cotangent (the max's winning rows, every row for the mean), except rows
     with an activated pre-activation within EDGE of 0, which may take the
     other slope on either side (counted); two backwards bit-equal; for a
-    one-layer mean no unit whose backward mask differs from the forward's
-    sign (``mask_flips``).  Returns (errors, am_ref or None, g, rows that
-    carry a cotangent)."""
+    mean that runs the one-layer kernels no unit whose backward mask differs
+    from the forward's sign (``mask_flips``).  Returns (errors, am_ref or
+    None, g, rows that carry a cotangent)."""
     import torch
 
+    from pointcloudattack_tpu_torch.ops import _build
     from pointcloudattack_tpu_torch.ops import group_chain as gch
 
     b, ng, k, _ = x.shape
+    lib = _build.load_library()
+    mean1 = pool == "mean" and gch.one_layer_kernel(lib, lib.pca_group_mean1_smem, k,
+                                                      [x.shape[-1]] + [l[0].shape[1] for l in layers])
     mul = layers[-1][3]
     z, zs = gch._chain(x, layers, slope)
     if pool == "max":
@@ -3564,7 +3616,7 @@ def check_group(name, pool, x, layers, dy, slope=CN_SLOPE):
         dx_ref = gch.chain_groupmean_bwd_plain(x, layers, g, slope)
         carry = torch.ones(x.shape[:3], dtype=torch.bool, device=x.device)
         extra = ""
-        if len(layers) == 1:
+        if mean1:
             flips = mask_flips(x, layers, slope)
             if flips:
                 raise AssertionError(f"{name}: {flips} units' backward masks differ from the forward's signs")
@@ -3579,7 +3631,7 @@ def check_group(name, pool, x, layers, dy, slope=CN_SLOPE):
     edge &= carry
     torch.testing.assert_close(dx[~edge], dx_ref[~edge], **DX_TOL)
     errs = {"y": float((y - y_ref).abs().max()), "dx": float((dx - dx_ref)[~edge].abs().max())}
-    if pool == "mean" and len(layers) == 1:
+    if mean1:
         torch.testing.assert_close(dx_other[~edge], dx_ref[~edge], **DX_TOL)
         extra += f"the other product back's dx max|err| {float((dx_other - dx_ref)[~edge].abs().max()):.3e}; "
     log(f"[kernels-curvenet] {pool} {name} x {tuple(x.shape)} chain {[x.shape[-1]] + [l[0].shape[1] for l in layers]} "
@@ -3658,11 +3710,13 @@ def time_group(name, pool, x, layers, am, g, carry, slope=CN_SLOPE):
 
 def phase_kernels_curvenet():
     """The group chain kernels at the nine LPFA shapes of one CurveNet
-    forward (B=8, K=20), then at a ragged G=1000, at K=7, K=64, widths 3 ->
-    300 and with 2-layer chains; the record's numbers sum the nine LPFAs of
-    one forward (and backward), and the mean backward's device time the
+    forward (B=8, K=20), then at a ragged G=1000, K=1 over 1024 groups, B=1,
+    K=7, K=64, widths 3 -> 300 and with 2-layer chains, and the max backward
+    at MAX_BWD_EDGE_CASES' argmaxes; the record's numbers sum the nine LPFAs
+    of one forward (and backward), and the mean backward's device time the
     eight residual ones'.  The one-layer mean backward's tiles (32 to 256
-    rows) straddle K=20's groups."""
+    rows) straddle K=20's groups; the one-layer forward's hold whole groups
+    (a ragged G ends one inside a cloud)."""
     import torch
 
     from pointcloudattack_tpu_torch.ops import group_chain as gch
@@ -3692,6 +3746,12 @@ def phase_kernels_curvenet():
                                        (f"group_{pool}_bwd", errs["dx"], ms["bwd"], ms["bwd_plain"], b_bwd, carry)):
             rec[key]["err"] = max(rec[key]["err"], e)
             accumulate(rec[key], m, p, bb, rows)
+    dev = {key: rec[key]["device_ms"] for key in ("group_max_fwd", "group_mean_fwd", "group_max_bwd")}
+    log("[kernels-curvenet] the one-layer kernels' device time: " + ", ".join(
+        f"{what} {'not measured' if dev[key] is None else f'{dev[key]:.4f} ms'}"
+        for what, key in (("the initial LPFA's max forward", "group_max_fwd"),
+                          ("the eight mean forwards", "group_mean_fwd"),
+                          ("the initial LPFA's max backward", "group_max_bwd"))))
     eight = rec["group_mean_bwd"]["shapes"].values()
     if all(s["device_ms"] is not None and s["other_device_ms"] is not None for s in eight):
         tf32 = sum(s["device_ms"] if s["tc"] else s["other_device_ms"] for s in eight)
@@ -3706,6 +3766,8 @@ def phase_kernels_curvenet():
         f"bound {sum(s['bound_ms'] for s in eight):.4f} ms (in FP32 only {sum(s['bound_fp32_ms'] for s in eight):.4f})")
     for j, (name, b, ng, k, dims) in enumerate((("ragged G=1000", CN_B, 1000, CN_K, (9, 32)),
                                                  ("ragged G=1000", CN_B, 1000, CN_K, (16, 16)),
+                                                 ("K=1 over 1024 groups", CN_B, 1024, 1, (9, 32)),
+                                                 ("B=1", 1, 1024, CN_K, (9, 32)),
                                                  ("K=7", 4, 333, 7, (16, 24)),
                                                  ("K=64", 2, 50, 64, (32, 32)),
                                                  ("widths 3 -> 300, K=33", 1, 7, 33, (3, 300)),
@@ -3715,6 +3777,9 @@ def phase_kernels_curvenet():
             errs, *_ = check_group(name, pool, *group_case(80 + 2 * j + (pool == "mean"), b, ng, k, dims))
             rec[f"group_{pool}_fwd"]["err"] = max(rec[f"group_{pool}_fwd"]["err"], errs["y"])
             rec[f"group_{pool}_bwd"]["err"] = max(rec[f"group_{pool}_bwd"]["err"], errs["dx"])
+    for j, (name, b, ng, k, dims, kind) in enumerate(MAX_BWD_EDGE_CASES):
+        err = check_max_bwd(name, *max_bwd_case(100 + j, b, ng, k, dims, kind))
+        rec["group_max_bwd"]["err"] = max(rec["group_max_bwd"]["err"], err)
     torch.cuda.empty_cache()
     return rec
 
@@ -4298,7 +4363,7 @@ def main():
                       **cn_knn}),
         entry("min_sqdist_rows", "min_rows", CHAMFER_SRC, TPU_CHAMFER, knn1["min_rows"], cham["err"], cham["ms"],
               cham["plain_ms"], cham["bound"], f"B={B} N=M={N}, one KNN iteration's Chamfer on PointNet",
-              device_ms=cham["device_ms"]),
+              device_ms=cham["device_ms"], bound_issued_ms=cham["bound_issued"][0]),
         *(entry(name, key, src, tpu, geo_launches[key], geo[key]["err"], geo[key]["ms"], geo[key]["plain_ms"],
                 summed_bound(geo[key]), geo_at, device_ms=geo[key]["device_ms"])
           for name, key, src, tpu in (("kappa_knn_mean_fwd", "kappa_fwd", KAPPA_SRC, TPU_KAPPA_FWD),

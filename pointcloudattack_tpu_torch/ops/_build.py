@@ -207,6 +207,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     # device, x, B, G, K, C0, CL, params, slope, g, dx, tc, stream
     lib.pca_group_mean1_bwd.argtypes = [ci, vp, ci, ci, ci, ci, ci, vp, cf, vp, vp, ci, vp]
     lib.pca_group_mean1_bwd.restype = ci
+    # K, C0, CL
+    lib.pca_group_fwd1_smem.argtypes = [ci, ci, ci]
+    lib.pca_group_fwd1_smem.restype = ctypes.c_size_t
+    # device, x, B, G, K, C0, CL, params, slope, mean, y, am, stream
+    lib.pca_group_fwd1.argtypes = [ci, vp, ci, ci, ci, ci, ci, vp, cf, ci, vp, vp, vp]
+    lib.pca_group_fwd1.restype = ci
+    # K, C0, CL
+    lib.pca_group_max1_smem.argtypes = [ci, ci, ci]
+    lib.pca_group_max1_smem.restype = ctypes.c_size_t
+    # device, am, g, B, G, K, C0, CL, w, dx, stream
+    lib.pca_group_max1_bwd.argtypes = [ci, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp]
+    lib.pca_group_max1_bwd.restype = ci
     # device, a, nrm, B, N, k, kap, picks, stream
     lib.pca_kappa_fwd.argtypes = [ci, vp, vp, ci, ci, ci, vp, vp, vp]
     lib.pca_kappa_fwd.restype = ci

@@ -17,11 +17,14 @@ activated, and ``y`` is the sum of each group's rows in ascending ``k``,
 divided by ``K``.
 
 On a CUDA tensor the forwards and the input gradients run the kernels of
-``csrc/group_chain.cu`` (``K`` up to 64 rows a group); the mean's input
-gradient of a one-layer chain (CurveNet's residual LPFAs) runs a kernel of
-its own there, chosen by the number of layers.  On a CPU tensor they run
-the plain PyTorch versions below.  A CUDA tensor the kernels do not take
-raises: nothing falls back.  ``LAUNCHES`` counts kernel launches.
+``csrc/group_chain.cu`` (``K`` up to 64 rows a group).  A one-layer chain
+(CurveNet's LPFAs) runs kernels of its own there: the forward of either
+pool, the mean's and the max's input gradients; two or more layers, or a
+one-layer shape whose block would need more shared memory than the card
+has, run the chain kernels.  The route follows the shapes alone.  On a CPU
+tensor they run the plain PyTorch versions below.  A CUDA tensor the
+kernels do not take raises: nothing falls back.  ``LAUNCHES`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -161,9 +164,7 @@ def _pick_tm(lib, dims_arr, num_layers: int, k: int, bwd: bool) -> int:
     raise ValueError(f"group_chain kernel: no tile takes K={k} with these widths")
 
 
-def _common(x, layers, slope, bwd):
-    dims = _check_cuda(x, layers, slope)
-    lib = _build.load_library()
+def _common(x, layers, dims, lib, bwd):
     dims_arr = (ctypes.c_int * len(dims))(*dims)
     b, g, k, _ = x.shape
     tm = _pick_tm(lib, dims_arr, len(layers), k, bwd)
@@ -172,19 +173,41 @@ def _common(x, layers, slope, bwd):
     head = (x.device.index, x.data_ptr(), b, g, k, len(layers), ctypes.cast(dims_arr, ctypes.c_void_p),
             ctypes.cast(params, ctypes.c_void_p))
     # the caller holds the ctypes arrays (and ws) until the launch returns
-    return lib, dims, tm, head, (dims_arr, params, ws)
+    return tm, head, (dims_arr, params, ws)
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def one_layer_kernel(lib, smem, k: int, dims: Sequence[int]) -> bool:
+    """Whether a chain of ``dims`` over groups of ``k`` rows runs a
+    one-layer kernel whose block needs ``smem(K, C0, C1)`` bytes of shared
+    memory: one layer, and a block that fits the card.  Every other shape
+    runs the chain kernels."""
+    return len(dims) == 2 and smem(k, dims[0], dims[1]) <= lib.pca_chain_max_smem()
 
 
 def _fwd_kernel(x, layers, slope: float, mean: bool):
-    lib, dims, tm, head, keep = _common(x, layers, slope, bwd=False)
-    b, g, _, _ = x.shape
+    dims = _check_cuda(x, layers, slope)
+    lib = _build.load_library()
+    b, g, k, c0 = x.shape
     y = torch.empty((b, g, dims[-1]), dtype=torch.float32, device=x.device)
     am = torch.empty((b, g, dims[-1]) if not mean else (1,), dtype=torch.int32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.pca_group_fwd(*head, float(slope), int(mean), y.data_ptr(), am.data_ptr(), tm, stream)
     kind = "mean" if mean else "max"
-    _build.check(lib, rc, f"group_chain {kind} forward launch")
+    if one_layer_kernel(lib, lib.pca_group_fwd1_smem, k, dims):
+        w = layers[0][0].contiguous()
+        params = _ptr_array([w, *layers[0][1:]])
+        with torch.cuda.device(x.device):
+            rc = lib.pca_group_fwd1(x.device.index, x.data_ptr(), b, g, k, c0, dims[1],
+                                    ctypes.cast(params, ctypes.c_void_p), float(slope), int(mean), y.data_ptr(),
+                                    am.data_ptr(), _stream(x))
+        _build.check(lib, rc, f"group_chain one-layer {kind} forward launch")
+    else:
+        tm, head, keep = _common(x, layers, dims, lib, bwd=False)
+        with torch.cuda.device(x.device):
+            rc = lib.pca_group_fwd(*head, float(slope), int(mean), y.data_ptr(), am.data_ptr(), tm, _stream(x))
+        _build.check(lib, rc, f"group_chain {kind} forward launch")
     LAUNCHES[f"group_{kind}_fwd"] += 1
     return y if mean else (y, am)
 
@@ -211,35 +234,54 @@ def _mean1_bwd_kernel(x, layers, g, slope: float, tc: bool | None = None):
     """The one-layer mean's ``dx`` (``group_mean1_bwd_kernel``): W and the
     tile's g rows in shared memory, the rows tiled whatever the groups.
     ``tc``: the product back as 3xTF32 on the tensor cores or in FP32 on
-    the CUDA cores; by default as ``mean1_tc`` chooses."""
+    the CUDA cores; by default as ``mean1_tc`` chooses.  The checks call it
+    to hold either product back; on a shape that ``one_layer_kernel``
+    sends to the chain kernels its launch raises."""
     dims = _check_cuda(x, layers, slope)
     _check_pooled(x, dims, [("g", g, torch.float32)])
-    lib = _build.load_library()
+    return _mean1_bwd(x, layers, g, slope, dims, _build.load_library(), tc)
+
+
+def _mean1_bwd(x, layers, g, slope: float, dims, lib, tc: bool | None = None):
     b, ng, k, c0 = x.shape
     if tc is None:
         tc = mean1_tc(c0, dims[1])
-    need, cap = lib.pca_group_mean1_smem(k, c0, dims[1]), lib.pca_chain_max_smem()
-    if need > cap:
-        raise ValueError(f"group_chain one-layer mean backward: widths {dims} need {need} bytes of shared memory, "
-                         f"more than the {cap} a block has")
     w = layers[0][0].contiguous()
     params = _ptr_array([w, *layers[0][1:]])
     dx = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.pca_group_mean1_bwd(x.device.index, x.data_ptr(), b, ng, k, c0, dims[1],
                                      ctypes.cast(params, ctypes.c_void_p), float(slope), g.data_ptr(), dx.data_ptr(),
-                                     int(tc), stream)
+                                     int(tc), _stream(x))
     _build.check(lib, rc, "group_chain one-layer mean backward launch")
     LAUNCHES["group_mean_bwd"] += 1
     return dx
 
 
+def _max1_bwd_kernel(x, layers, am, g, dims, lib):
+    """The one-layer max's ``dx`` (``group_max1_bwd_kernel``): each
+    column's cotangent through W onto its winning row, no rows read."""
+    b, ng, k, c0 = x.shape
+    w = layers[0][0].contiguous()
+    dx = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.pca_group_max1_bwd(x.device.index, am.data_ptr(), g.data_ptr(), b, ng, k, c0, dims[1], w.data_ptr(),
+                                    dx.data_ptr(), _stream(x))
+    _build.check(lib, rc, "group_chain one-layer max backward launch")
+    LAUNCHES["group_max_bwd"] += 1
+    return dx
+
+
 def _bwd_kernel(x, layers, am, g, slope: float, mean: bool, wts=None):
-    if mean and len(layers) == 1:
-        return _mean1_bwd_kernel(x, layers, g, slope)
-    lib, dims, tm, head, keep = _common(x, layers, slope, bwd=True)
+    dims = _check_cuda(x, layers, slope)
     _check_pooled(x, dims, [("g", g, torch.float32)] + ([] if mean else [("am", am, torch.int32)]))
+    lib = _build.load_library()
+    k = x.shape[2]
+    if mean and one_layer_kernel(lib, lib.pca_group_mean1_smem, k, dims):
+        return _mean1_bwd(x, layers, g, slope, dims, lib)
+    if not mean and one_layer_kernel(lib, lib.pca_group_max1_smem, k, dims):
+        return _max1_bwd_kernel(x, layers, am, g, dims, lib)
+    tm, head, keep = _common(x, layers, dims, lib, bwd=True)
     if wts is None:
         wts = [layer[0].t() for layer in layers]
     wts = [wt.contiguous() for wt in wts]
@@ -249,9 +291,8 @@ def _bwd_kernel(x, layers, am, g, slope: float, mean: bool, wts=None):
     dx = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     am_ptr = g.data_ptr() if mean else am.data_ptr()  # unread by the mean kernel
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.pca_group_bwd(*head, ctypes.cast(wt_arr, ctypes.c_void_p), float(slope), int(mean), am_ptr,
-                               g.data_ptr(), dx.data_ptr(), tm, stream)
+                               g.data_ptr(), dx.data_ptr(), tm, _stream(x))
     kind = "mean" if mean else "max"
     _build.check(lib, rc, f"group_chain {kind} backward launch")
     LAUNCHES[f"group_{kind}_bwd"] += 1
@@ -275,8 +316,8 @@ def chain_groupmax_fwd(x, layers, slope: float = 0.0):
 def chain_groupmax_bwd(x, layers, am, g, slope: float = 0.0, wts=None):
     """``dx`` of the max for ``g = dy * mul_L``: the kernel for a CUDA
     tensor, the plain version for a CPU tensor.  ``wts``, the layers' ``W^T
-    [out, in]``, spares the kernel a transposed copy when the caller holds
-    them."""
+    [out, in]``, spares the chain kernel a transposed copy when the caller
+    holds them; the one-layer kernel reads W itself and ignores them."""
     if x.is_cuda:
         return _bwd_kernel(x, layers, am, g, slope, mean=False, wts=wts)
     if x.device.type == "cpu":
@@ -296,7 +337,8 @@ def chain_groupmean_fwd(x, layers, slope: float = 0.0):
 
 def chain_groupmean_bwd(x, layers, g, slope: float = 0.0, wts=None):
     """``dx`` of the mean for ``g = dy * mul_L / K``: the kernel for a CUDA
-    tensor, the plain version for a CPU tensor."""
+    tensor, the plain version for a CPU tensor.  ``wts`` as in
+    ``chain_groupmax_bwd``."""
     if x.is_cuda:
         return _bwd_kernel(x, layers, None, g, slope, mean=True, wts=wts)
     if x.device.type == "cpu":
@@ -339,12 +381,11 @@ class GroupChain(torch.autograd.Function):
         dx = None
         if ctx.needs_input_grad[0]:
             layers = [(w, *layer[1:]) for w, layer in zip(ws, _group(flat))]
-            wts = [w.t() for w in flat[::5]]
             g = dy * layers[-1][3]
             if mean:
-                dx = chain_groupmean_bwd(x, layers, (g / x.shape[2]).contiguous(), slope, wts)
+                dx = chain_groupmean_bwd(x, layers, (g / x.shape[2]).contiguous(), slope)
             else:
-                dx = chain_groupmax_bwd(x, layers, am, g.contiguous(), slope, wts)
+                dx = chain_groupmax_bwd(x, layers, am, g.contiguous(), slope)
             dx = dx.to(x.dtype)
         dflat = [None] * len(flat)
         want = [i for i, need in enumerate(ctx.needs_input_grad[3:]) if need]

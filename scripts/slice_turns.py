@@ -10,14 +10,18 @@ CELL is one of ``slice`` (C&W 1 x 200 on PointNet, B=64; the default),
 ``slice-knn-ssg`` (KNN on SSG), ``slice-dgcnn`` (C&W 1 x 100 on DGCNN,
 B=16), ``slice-geoa3`` and ``slice-geoa3-r4`` (GeoA3 10 x 100 on PointNet,
 B=8, the curvature's neighbour set cached for 4 iterations in the second),
-``slice-curvenet`` (C&W 1 x 100 on CurveNet, B=8), ``kernels-knn`` (the
+``slice-curvenet`` (C&W 1 x 100 on CurveNet, B=8), ``slice-geoa3-curvenet``
+(GeoA3 2 x 50 on CurveNet, B=8, on the log-softmax), ``kernels-knn`` (the
 self-kNN at the four EdgeConv inputs of one DGCNN forward, the nine kNN
 inputs of one CurveNet forward and GeoA3's cached curvature set),
 ``kernels-kappa`` (the curvature backward at GeoA3's shape, on the
 selecting forward's picks and on a stale given set), ``kernels-kappa-fwd``
 (the selecting curvature forward at GeoA3's shape), ``kernels-group-mean``
 (the group mean backward at the eight residual LPFA shapes of one CurveNet
-forward, B=8, K=20), ``kernels-fps`` (farthest point sampling at SSG's two
+forward, B=8, K=20), ``kernels-group-fwd`` (the group forwards at the nine
+LPFA shapes of one CurveNet forward: the initial LPFA's max, then the eight
+residual means and their sum), ``kernels-group-max-bwd`` (the initial
+LPFA's max backward), ``kernels-fps`` (farthest point sampling at SSG's two
 shapes, B=16, and CurveNet's two, B=8) and ``kernels-both`` (the
 two-direction bundle's forward and backward at GeoA3's shape).  It
 builds that checkout's kernels, makes each victim and its clouds as
@@ -33,20 +37,22 @@ torch.profiler: kernel time and the device's idle share).  It reads only
 names that chip_smoke.py has kept since PR 10, so that checkout and later
 ones run it; the kernel cells call only the ops' public entry points
 (``ops.fps.farthest_point_sample``, ``ops.chamfer.both_fwd`` and
-``both_bwd`` for the last two), which every checkout with those kernels has.
+``both_bwd``, ``ops.group_chain.chain_groupmax_fwd``, ``chain_groupmean_fwd``
+and ``chain_groupmax_bwd``), which every checkout with those kernels has.
 """
 
 import sys
 import time
 
 CELLS = ("slice", "slice-ssg", "slice-msg", "slice-knn-ssg", "slice-dgcnn", "slice-geoa3", "slice-geoa3-r4",
-         "slice-curvenet", "kernels-knn", "kernels-kappa", "kernels-kappa-fwd", "kernels-group-mean",
-         "kernels-fps", "kernels-both")
+         "slice-curvenet", "slice-geoa3-curvenet", "kernels-knn", "kernels-kappa", "kernels-kappa-fwd", "kernels-group-mean",
+         "kernels-group-fwd", "kernels-group-max-bwd", "kernels-fps", "kernels-both")
 VICTIMS = {"slice": "PointNet", "slice-ssg": "PointNet++Ssg", "slice-msg": "PointNet++Msg",
            "slice-knn-ssg": "PointNet++Ssg", "slice-dgcnn": "DGCNN", "slice-geoa3": "PointNet GeoA3",
-           "slice-geoa3-r4": "PointNet GeoA3", "slice-curvenet": "CurveNet"}
+           "slice-geoa3-r4": "PointNet GeoA3", "slice-curvenet": "CurveNet", "slice-geoa3-curvenet": "CurveNet GeoA3"}
 PROFILE_TAGS = {"PointNet": "profile", "PointNet++Ssg": "profile-ssg", "PointNet++Msg": "profile-msg",
-                "DGCNN": "profile-dgcnn", "PointNet GeoA3": "profile-geoa3", "CurveNet": "profile-curvenet"}
+                "DGCNN": "profile-dgcnn", "PointNet GeoA3": "profile-geoa3", "CurveNet": "profile-curvenet",
+                "CurveNet GeoA3": "profile-geoa3-curvenet"}
 
 
 def victim(cs, name):
@@ -68,6 +74,13 @@ def victim(cs, name):
         data, labels = cs.synthetic_data(8, 1, cs.CN_DATA, "cuda")
         model_fn, _ = cs.make_victim(name, "cuda", data, ("dp1",))
         return model_fn, data, cs.victim_labels(model_fn, data, labels, "slice-curvenet")
+    if name == "CurveNet GeoA3":
+        import torch
+
+        data, labels = cs.synthetic_data(8, 1, cs.GEO_DATA, "cuda")
+        fn, _ = cs.make_victim("CurveNet", "cuda", data, ("dp1",))
+        logp_fn = lambda x: torch.log_softmax(fn(x), dim=-1)  # noqa: E731
+        return logp_fn, data, cs.victim_labels(logp_fn, data, labels, "slice-geoa3-curvenet")
     data, labels = cs.synthetic_data(8, 2, cs.PN2_DATA[name], "cuda")
     model_fn, _ = cs.make_victim(name, "cuda", data, ("drop1", "drop2"))
     tag = "slice-ssg" if name == "PointNet++Ssg" else "slice-msg"
@@ -96,6 +109,8 @@ def attack_of(cs, cell, model_fn):
         return geoa3(cs, model_fn, cs.GEO_ROUNDS, cs.GEO_ITER, cs.GEO_REFRESH if cell.endswith("r4") else 1)
     if cell == "slice-curvenet":
         return cs.cw_attack(model_fn, cs.CN_ITER)
+    if cell == "slice-geoa3-curvenet":
+        return geoa3(cs, model_fn, cs.CN_GEO_ROUNDS, cs.CN_GEO_ITER)
     return cs.cw_attack(model_fn, cs.PN2_ITER)
 
 
@@ -214,6 +229,42 @@ def kernels_group_mean(cs, root):
           "of device time", flush=True)
 
 
+def group_cases(cs, pool):
+    """chip_smoke.py's LPFA cases of one pool (its seeds): (name, x, layers, dy)."""
+    for i, (name, (ng, c0, widths, p)) in enumerate(cs.CURVENET_GROUP_SHAPES.items()):
+        if p == pool:
+            yield (name, *cs.group_case(60 + i, cs.CN_B, ng, cs.CN_K, (c0, *widths)))
+
+
+def kernels_group_fwd(cs, root):
+    """The group forwards at chip_smoke.py's nine LPFA cases: the initial
+    LPFA's max, then the eight residual means and their sum."""
+    from pointcloudattack_tpu_torch.ops import group_chain as gch
+
+    for name, x, layers, _ in group_cases(cs, "max"):
+        kernel_times(cs, root, "kernels-group-fwd", f"max {name} {tuple(x.shape)} -> {layers[-1][0].shape[1]}",
+                     lambda: gch.chain_groupmax_fwd(x, layers, cs.CN_SLOPE))
+    total, dev_total = 0.0, 0.0
+    for name, x, layers, _ in group_cases(cs, "mean"):
+        ms, dev = kernel_times(cs, root, "kernels-group-fwd", f"mean {name} {tuple(x.shape)} -> {layers[-1][0].shape[1]}",
+                               lambda: gch.chain_groupmean_fwd(x, layers, cs.CN_SLOPE))
+        total, dev_total = total + ms, dev_total + sum(dev.values())
+    print(f"{root} [kernels-group-fwd] the eight mean forwards: {total:.4f} ms through the wrapper, {dev_total:.4f} ms "
+          "of device time", flush=True)
+
+
+def kernels_group_max_bwd(cs, root):
+    """The initial LPFA's max backward on its forward's argmax, with
+    chip_smoke.py's cotangent."""
+    from pointcloudattack_tpu_torch.ops import group_chain as gch
+
+    for name, x, layers, dy in group_cases(cs, "max"):
+        _, am = gch.chain_groupmax_fwd(x, layers, cs.CN_SLOPE)
+        g = (dy * layers[-1][3]).contiguous()
+        kernel_times(cs, root, "kernels-group-max-bwd", f"max {name} {tuple(x.shape)} -> {layers[-1][0].shape[1]}",
+                     lambda: gch.chain_groupmax_bwd(x, layers, am, g, cs.CN_SLOPE))
+
+
 def kernels_fps(cs, root):
     """Farthest point sampling on chip_smoke.py's clouds (its seeds): SSG's
     two set abstractions at B=16 and CurveNet's two at B=8, and the sum of
@@ -251,7 +302,8 @@ def kernels_both(cs, root):
 
 
 KERNEL_CELLS = {"kernels-kappa": kernels_kappa, "kernels-kappa-fwd": kernels_kappa_fwd,
-                "kernels-group-mean": kernels_group_mean, "kernels-fps": kernels_fps, "kernels-both": kernels_both}
+                "kernels-group-mean": kernels_group_mean, "kernels-group-fwd": kernels_group_fwd,
+                "kernels-group-max-bwd": kernels_group_max_bwd, "kernels-fps": kernels_fps, "kernels-both": kernels_both}
 
 
 def main():
@@ -298,7 +350,7 @@ def main():
               flush=True)
     if profile:
         for name, (model_fn, data, target) in made.items():
-            if name == "PointNet GeoA3":
+            if name in ("PointNet GeoA3", "CurveNet GeoA3"):
                 cs.phase_profile(PROFILE_TAGS[name], model_fn, data, target, geoa3(cs, model_fn, 1, 10), "GeoA3 1x10")
             else:
                 cs.phase_profile(PROFILE_TAGS[name], model_fn, data, target)

@@ -12,7 +12,8 @@ argmax equal but at near ties, card picks at most PICK_ATOL below the
 plain max, dx within DX_TOL on the rows that carry a cotangent, rows with
 an activated unit within EDGE of 0 left out, two backwards bit-equal, and
 for the one-layer mean no backward mask that differs from the forward's
-sign, ``mask_flips``); CurveNet's logits on the
+sign, ``mask_flips``); the max backward at an argmax made to order
+(``check_max_bwd``: a hub, no row winning twice); CurveNet's logits on the
 card against the CPU, the CPU taking the card's discrete choices and
 activation signs (``replay`` with ``curvenet_hooks``), within LOGP_ATOL;
 the kernels' own pre-activations (``kernel_rows``, whose signs the replay
@@ -54,6 +55,9 @@ def cuda_device():
     (2, 100, 20, (12, 40, 24, 8), 0.0),  # three layers, ReLU
     (1, 5, 64, (9, 32), 0.2),           # K = 64: one group a tile
     (1, 7, 33, (3, 300), 0.2),          # K = 33 (TM = 8), a chunked output width
+    (8, 1024, 1, (9, 32), 0.2),         # K = 1 over 1024 groups (kernel_rows' groups of one row)
+    (2, 1000, 20, (9, 32), 0.2),        # the initial LPFA's widths, a tile ending inside a cloud
+    (1, 1024, 20, (9, 32), 0.2),        # B = 1
 ])
 def test_group_kernels_match_plain_on_card(cuda_device, pool, b, g, k, dims, slope):
     x, layers, dy = chip_smoke.group_case(k * 7 + len(dims), b, g, k, dims, cuda_device)
@@ -114,6 +118,67 @@ def test_group_mean1_masks_are_the_forwards_signs_near_zero(cuda_device, c):
     g_ = (dy * mul / 20).contiguous()
     for tc in (True, False):  # either product back
         assert torch.equal(gch._mean1_bwd_kernel(x, layers, g_, 0.2, tc), gch._mean1_bwd_kernel(x, layers, g_, 0.2, tc))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(chip_smoke.MAX_BWD_EDGE_CASES)))
+def test_group_max1_backward_on_card(cuda_device, case):
+    """The one-layer max backward (group_max1_bwd_kernel) at an argmax made
+    to order (a hub, no row winning twice): dx within DX_TOL of plain, two
+    backwards bit-equal; each call launches that kernel, once, and not the
+    chain backward."""
+    name, b, g, k, dims, kind = chip_smoke.MAX_BWD_EDGE_CASES[case]
+    x, layers, am, g_ = chip_smoke.max_bwd_case(200 + case, b, g, k, dims, kind, cuda_device)
+    gch.reset_launches()
+    chip_smoke.check_max_bwd(name, x, layers, am, g_)
+    assert gch.LAUNCHES["group_max_bwd"] == 2
+    names = chip_smoke.device_ms(lambda: gch.chain_groupmax_bwd(x, layers, am, g_, 0.2), reps=2)
+    assert any("group_max1_bwd_kernel" in n for n in names) and not any("group_bwd_kernel" in n for n in names)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["max", "mean"])
+def test_group_forward_routes_by_layers(cuda_device, pool):
+    """One layer runs the one-layer forward (group_fwd1_kernel), two the
+    chain kernel (group_fwd_kernel); either is one launch a call."""
+    fwd = gch.chain_groupmax_fwd if pool == "max" else gch.chain_groupmean_fwd
+    for dims, want, other in (((9, 32), "group_fwd1_kernel", "group_fwd_kernel<"),
+                              ((9, 32, 32), "group_fwd_kernel<", "group_fwd1_kernel")):
+        x, layers, _ = chip_smoke.group_case(13, 2, 256, 20, dims, cuda_device)
+        gch.reset_launches()
+        names = chip_smoke.device_ms(lambda: fwd(x, layers, 0.2), reps=2)
+        assert any(want in n for n in names) and not any(other in n for n in names), names
+        assert gch.LAUNCHES[f"group_{pool}_fwd"] >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["max", "mean"])
+def test_one_layer_past_shared_memory_takes_the_chain_kernels(cuda_device, pool):
+    """256 -> 256 at K = 20: W alone passes the shared memory of a block of
+    each one-layer kernel, so the forward and the backward of either pool
+    run the chain kernels, held to check_group's rules like any other
+    shape; one launch a call."""
+    from pointcloudattack_tpu_torch.ops import _build
+
+    b, g, k, dims = 1, 40, 20, (256, 256)
+    lib = _build.load_library()
+    for smem in (lib.pca_group_fwd1_smem, lib.pca_group_mean1_smem, lib.pca_group_max1_smem):
+        assert not gch.one_layer_kernel(lib, smem, k, dims)
+    x, layers, dy = chip_smoke.group_case(14, b, g, k, dims, cuda_device)
+    gch.reset_launches()
+    chip_smoke.check_group(f"B={b} G={g} K={k}", pool, x, layers, dy)
+    assert gch.LAUNCHES[f"group_{pool}_fwd"] == 1 and gch.LAUNCHES[f"group_{pool}_bwd"] == 2
+    if pool == "max":
+        y, am = gch.chain_groupmax_fwd(x, layers, 0.2)
+        g_ = (dy * layers[-1][3]).contiguous()
+        fwd, bwd = lambda: gch.chain_groupmax_fwd(x, layers, 0.2), lambda: gch.chain_groupmax_bwd(x, layers, am, g_, 0.2)
+    else:
+        g_ = (dy * layers[-1][3] / k).contiguous()
+        fwd, bwd = lambda: gch.chain_groupmean_fwd(x, layers, 0.2), lambda: gch.chain_groupmean_bwd(x, layers, g_, 0.2)
+    for fn, want in ((fwd, "group_fwd_kernel<"), (bwd, "group_bwd_kernel<")):
+        names = chip_smoke.device_ms(fn, reps=2)
+        assert any(want in n for n in names), names
+        assert not any(one in n for n in names for one in ("fwd1_kernel", "mean1_bwd_kernel", "max1_bwd_kernel")), names
 
 
 @pytest.mark.cuda

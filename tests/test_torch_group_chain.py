@@ -6,9 +6,10 @@ The port's plain versions serve CPU tensors; the JAX side runs
 ``reference_mlp_chain_groupmax`` / ``reference_mlp_chain_groupmean`` (the
 unfused f32 chains its custom VJPs differentiate) and ``jax.vjp`` of them,
 not the Pallas kernels in interpret mode, whose products truncate to bf16.
-Cases: 1 and 2 layers, slope 0 and 0.2, a ragged G, K=7 and K=20, every
-residual LPFA width (16, 32, 64 and 128, whose mean backward has a kernel
-of its own on the card), and a group whose rows tie.  Tolerance atol 1e-5 (f32 sums over at most 64 terms
+Cases: 1 and 2 layers, slope 0 and 0.2, a ragged G, K=1, 7, 20 and 64,
+every residual LPFA width (16, 32, 64 and 128; one layer has kernels of
+its own on the card), a group whose rows tie, and a hub, where one row
+wins every column.  Tolerance atol 1e-5 (f32 sums over at most 64 terms
 in another order).
 
 The max's input gradient sends each column's cotangent to its first
@@ -65,9 +66,12 @@ CASES = [  # (seed, B, G, K, dims, slope)
     (8, 1, 6, 20, (32, 32), 0.2),        # the residual LPFA widths 32, 64 and 128
     (9, 1, 3, 20, (64, 64), 0.2),
     (10, 1, 2, 20, (128, 128), 0.2),
+    (11, 2, 16, 1, (9, 32), 0.2),        # K=1: groups of one row (the kernels' own pre-activations)
+    (12, 1, 3, 64, (9, 32), 0.2),        # K=64, the most rows a group
+    (13, 2, 13, 20, (9, 32), 0.2),       # a ragged G: 13 groups end a tile of 6 inside each cloud
 ]
 IDS = ["initial", "residual", "k7_two_layers", "relu_two_layers", "k3_relu", "residual_32", "residual_64",
-       "residual_128"]
+       "residual_128", "k1", "k64", "ragged_g"]
 
 
 @pytest.mark.parametrize("seed,b,g,k,dims,slope", CASES, ids=IDS)
@@ -140,6 +144,27 @@ def test_groupmax_ties_go_to_the_first_row():
     assert not dx[:, :, 2].any() and not dx[:, :, 5].any()
     rest = [1, 3, 4, 6]
     np.testing.assert_allclose(dx[:, :, rest], want[:, :, rest], rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("k,dims,hub", [(20, (9, 32), 7), (64, (16, 16), 63)])
+def test_groupmax_hub_backward_matches_oracle(k, dims, hub):
+    """A hub: W's first row positive and the rows' first channel +100 on
+    row ``hub`` and -100 elsewhere, so that every column's max is that row.
+    The max's input gradient reaches that row alone, within ATOL of the
+    oracle's VJP."""
+    x, layers, dy = case(14 + k, 2, 5, k, dims)
+    w = layers[0][0]
+    w[0] = np.abs(w[0]) + 0.1
+    x[:, :, :, 0] = -100.0
+    x[:, :, hub, 0] = 100.0
+    _, am = gch.chain_groupmax_plain(torch.from_numpy(x), torch_layers(layers), 0.2)
+    assert bool((am == hub).all())
+    _, vjp = jax.vjp(lambda a: reference_mlp_chain_groupmax(a, jax_layers(layers), 0.2), jnp.asarray(x))
+    want = np.asarray(vjp(jnp.asarray(dy))[0])
+    xt = torch.from_numpy(x).requires_grad_(True)
+    (dx,) = torch.autograd.grad(gch.mlp_chain_groupmax(xt, torch_layers(layers), 0.2), xt, torch.from_numpy(dy))
+    np.testing.assert_allclose(dx.numpy(), want, rtol=0, atol=ATOL)
+    assert not np.delete(dx.numpy(), hub, axis=2).any() and dx[:, :, hub].abs().sum() > 0
 
 
 def test_bwd_plain_takes_the_scaled_cotangent():

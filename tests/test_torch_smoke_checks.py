@@ -108,6 +108,17 @@ def test_geoa3_bounds_charge_the_functions_least_work():
     assert chip_smoke.both_bwd_bound(b, n, n)[1] == "bytes"
 
 
+def test_row_min_bound_and_its_issued_floor():
+    """Row 6 at the KNN attack's [64, 1024, 3]^2: 8 operations a pair over
+    the data sheet's 67 TFLOP/s, 0.0080 ms; at one operation an issued FP32
+    instruction (its ``__fsub_rn`` / ``__fmul_rn`` / ``__fadd_rn`` do not
+    fuse), 33.5 TOP/s, 0.0160 ms."""
+    t, by = chip_smoke.chamfer_bound(64, 1024, 1024)
+    assert by == "operations" and round(t, 4) == 0.0080
+    floor, by = chip_smoke.chamfer_bound(64, 1024, 1024, issued=True)
+    assert by == "operations" and round(floor, 4) == 0.0160 and np.isclose(floor, 2 * t)
+
+
 def _rounds(rounds=2, iters=3, b=2, n=6, seed=1):
     rng = np.random.RandomState(seed)
     it = torch.from_numpy(rng.randn(rounds * iters, b, n, 3).astype(np.float32))
