@@ -84,13 +84,20 @@ non-zero and prints no result):
               replaced; and each EdgeConv stage fused against the unfused
               plain layer.
 13. kernels-chamfer  the row-min kernel bit for bit (mins, argmin, dx) at
-              [64,1024,3] x [64,1024,3] and at a ragged 1000 x 1000 with every
-              y point 4 times; its device time under the profiler.
+              [64,1024,3] x [64,1024,3], at B = 16 and 8, on GeoA3's clouds,
+              at a ragged 1000 x 1000 with every y point 4 times and at
+              ROWMIN_EDGE_CASES (one cloud, all points equal, rows that
+              overflow to +inf, N=300 against M=1000, N=1 against M=4096);
+              its device time under the profiler at B = 64, 16 and 8 beside
+              the bound and the floor at one operation an issued instruction.
 14. slice-knn  the KNN attack on PointNet at bench.py's knn settings (B=64,
               kappa 30, budget 0.18, lr 1e-2, 500 of its 2500 iterations),
               nn_refresh 1 and 5 (knn_r5), then 100 iterations on PointNet++
               SSG (the cw_ssg clouds): exact launch counts, ASR > 0, every point
-              within the budget, s/batch over 3 reps after a warm-up.
+              within the budget, s/batch over 3 reps after a warm-up; then, as
+              a reading, the first step's KNN loss gradient on PointNet twice
+              (how many coordinates differ, the first of the chain's and the
+              row min's traced ops that parts).
 15. parity-knn  KNN on PointNet (B=8, 10 iterations) on the card and on the
               CPU from the same weights and noise: success identical,
               adversarial clouds within 1e-5 but at a few points (at most
@@ -119,7 +126,11 @@ non-zero and prints no result):
               a hub point and on indices outside the cloud (check_kappa_bwd);
               times beside the plain versions' and the bounds, and each
               kernel's device time under the profiler (both forwards, the
-              backwards' stages, the bundle both ways).
+              backwards' stages, the bundle both ways); the given-set forward
+              also at KAPPA_IDX_CASES (k = 1, 16, 33, 64 and N = 4096 with
+              repeated slots and indices outside the cloud, kappa bit for
+              bit) and beside a
+              one-element zero_() in one profiler window, the launch floor.
 20. slice-geoa3  GeoA3 on PointNet at bench.py's geoa3 settings (B=8, CE, 10
               rounds, 100 of their 500 iterations): exact launch counts, ASR > 0,
               finite clouds, s/batch over 3 reps after a warm-up; then, as a
@@ -160,7 +171,9 @@ Phases 23-27 run last; after phase 22 come
 22a. slice-geoa3-r4  GeoA3 as in phase 20 with the curvature's neighbour set
               cached for 4 iterations (curv_knn_refresh 4): exact launch counts
               (the given-set curvature kernels once an iteration, the selecting
-              one once a run, a kNN at each refresh), ASR > 0, s/batch.
+              one once a run, a kNN at each refresh), ASR > 0, s/batch; then,
+              as a reading, the first step's gradient on the iterate's own
+              set twice (the chain, bundle, kNN and given-set kernels traced).
 22b. slice-geoa3-partial  GeoA3's partial mode on the same cell (2 x 100, a
               patch of 16 points every 50 iterations, curv_knn_refresh 4, an
               FPS subsample of 512 for the evaluation): exact launch counts (FPS
@@ -328,10 +341,10 @@ GEO_DATA, GEO_ROUNDS, GEO_ITER, GEO_K = 5, 10, 100, 16
 # iterations, evaluated on a farthest-point subsample of PARTIAL_NPOINT
 GEO_REFRESH = 4
 PARTIAL_ROUNDS, PARTIAL_ITER, PARTIAL_REFRESH, PARTIAL_RANGE, PARTIAL_NPOINT = 2, 100, 50, 16, 512
-# the kernels against their plain versions: kappa rtol 1e-6, its gradients
-# atol 1e-5 (both designed to be bit-equal to the plain version on the CPU;
-# the log says whether they are); the two-direction bundle bit for bit
-KAPPA_RTOL, KAPPA_GRAD_ATOL = 1e-6, 1e-5
+# the kernels against their plain versions: kappa bit for bit, its
+# gradients atol 1e-5 (designed to be bit-equal to the plain version on the
+# CPU; the log says whether they are); the two-direction bundle bit for bit
+KAPPA_GRAD_ATOL = 1e-5
 # GeoA3 card against CPU: once a point has parted, the curvature term and the
 # victim's pooled features carry the difference to other points
 # (``round_partings``), so a share of the points, not a few, may part; at
@@ -399,6 +412,23 @@ FPS_EDGE_CASES = {
 # point's nearest is x's point 0, whose backward sums all M terms), and one
 # x point against 4096
 BOTH_EDGE_CASES = {"hub": (8, 1024, 1024, "hub"), "N=1, M=4096": (2, 1, 4096, "random")}
+# the row min (row 6) at its edges, (B, N, M, kind): one cloud; every point
+# of x and y one point (every distance 0: argmin 0); rows whose distances
+# overflow to +inf (x's odd rows at 1e20, y's first quarter at -1e20: those
+# rows' mins +inf and argmin 0, the others' first chunks all +inf); a ragged
+# N = 300 against M = 1000 (no multiple of a split's chunks); one x point
+# against 4096 y points (four staged tiles)
+ROWMIN_EDGE_CASES = {"B=1": (1, 1024, 1024, "random"), "all points equal": (2, 1024, 1024, "equal"),
+                     "rows that overflow to +inf": (4, 1024, 1024, "overflow"),
+                     "N=300, M=1000": (3, 300, 1000, "random"), "N=1, M=4096": (2, 1, 4096, "random")}
+# row 6's batch sizes at N = M = 1024: KNN on PointNet (64), KNN on SSG (16), and 8
+ROWMIN_BATCHES = (64, 16, 8)
+# row 8b's forward at the widths of the set it is given, (B, N, k): k = 1,
+# GeoA3's 16, 33 (a second pass of 32 lanes) and the largest, and the
+# largest cloud (its staged points past 48 KB of shared memory), each with
+# repeated slots, a row's own index and indices outside the cloud
+KAPPA_IDX_CASES = {"k=1": (2, 1000, 1), "k=16": (8, 1024, 16), "k=33": (2, 1000, 33), "k=64": (2, 1024, 64),
+                   "N=4096": (2, 4096, 16)}
 GROUP_ALL = {"ssg_sa3": (259, 256, 512, 1024), "msg_sa3": (643, 256, 512, 1024)}
 
 # The least time the card could take: NVIDIA's H100 SXM data sheet, FP32
@@ -1585,18 +1615,30 @@ def check_knn(tag, name, x, k):
     return err
 
 
-def check_chamfer(tag, name, x, y, w):
+def check_chamfer(tag, name, x, y, w, grad=True):
     """The row-min kernel against plain on one input: mins and argmin
     bit-equal, and ``dx`` of ``sum(mins * w)`` through autograd (the
     kernel's Function against autograd through the plain version's dense
     ``amin``) bit-equal on rows with one nearest point; where several tie
     (duplicated y points), ``amin`` splits the gradient among them, whose
-    sum may round: atol 1e-6 there.  Returns the measured max |diff| over
-    mins, argmin and dx."""
+    sum may round: atol 1e-6 there.  Without ``grad`` (rows whose minimum
+    is +inf have no gradient to compare) mins and argmin alone.  Returns
+    the measured max |diff| over mins, argmin and dx."""
     import torch
 
     from pointcloudattack_tpu_torch.ops import chamfer
 
+    if not grad:
+        mins, arg = chamfer.min_rows_fwd(x, y)
+        mins_p, arg_p = chamfer.min_rows_plain(x, y)
+        torch.cuda.synchronize()
+        if not (torch.equal(mins, mins_p) and torch.equal(arg, arg_p)):
+            raise AssertionError(f"min_sqdist_rows {name}: mins differ in {int((mins != mins_p).sum())} rows, "
+                                 f"argmin in {int((arg != arg_p).sum())}")
+        inf = torch.isinf(mins)
+        log(f"[{tag}] {name} x {tuple(x.shape)} y {tuple(y.shape)}: mins and argmin bit-equal to the plain "
+            f"version; {int(inf.sum())} rows at +inf, argmin 0 in {int((arg[inf] == 0).sum())} of them")
+        return float((arg.long() - arg_p.long()).abs().max())
     xk = x.clone().requires_grad_(True)
     mins, arg = chamfer.min_sqdist_rows(xk, y)
     (dx,) = torch.autograd.grad((mins * w).sum(), xk)
@@ -2788,8 +2830,11 @@ def phase_kernels_dgcnn(model, model_fn, data):
 
 def phase_kernels_chamfer(data):
     """The row-min kernel at the KNN attack's shape, against an iterate a
-    few steps in (clean clouds plus noise of 0.01), and at a ragged
-    N = M = 1000 against a cloud whose points each appear 4 times."""
+    few steps in (clean clouds plus noise of 0.01), at B = 16 and 8 (its
+    first clouds), on GeoA3's clouds, at a ragged N = M = 1000 against a
+    cloud whose points each appear 4 times, and at ROWMIN_EDGE_CASES; at each of
+    ROWMIN_BATCHES its device time beside its bound and its floor at one
+    operation an issued instruction."""
     import numpy as np
     import torch
 
@@ -2802,15 +2847,33 @@ def phase_kernels_chamfer(data):
     dup = torch.cat([data[:, :250]] * 4, dim=1).contiguous()
     err = max(err, check_chamfer("kernels-chamfer", "ragged N=M=1000, every y point 4 times",
                                  adv[:, :1000].contiguous(), dup, w[:, :1000].contiguous()))
+    for bb in ROWMIN_BATCHES[1:]:
+        err = max(err, check_chamfer("kernels-chamfer", f"B={bb} N=M={data.shape[1]}", adv[:bb].contiguous(),
+                                     data[:bb].contiguous(), w[:bb].contiguous()))
+    geo = synthetic_data(8, 1, GEO_DATA, "cuda")[0]
+    geo_adv = (geo + torch.from_numpy(rng.randn(*geo.shape).astype(np.float32) * 0.01).cuda()).contiguous()
+    err = max(err, check_chamfer("kernels-chamfer", "GeoA3's clouds", geo_adv, geo, w[:8].contiguous()))
+    for j, (name, (bb, nn, mm, kind)) in enumerate(ROWMIN_EDGE_CASES.items()):
+        xe, ye = rowmin_case(30 + j, bb, nn, mm, kind)
+        we = torch.from_numpy(rng.rand(bb, nn).astype(np.float32)).cuda()
+        err = max(err, check_chamfer("kernels-chamfer", name, xe, ye, we, grad=kind != "overflow"))
     ms = time_pairs({"plain": lambda: chamfer.min_rows_plain(adv, data), "kernel": lambda: chamfer.min_rows_fwd(adv, data)})
     b, n, _ = data.shape
     bnd, floor = chamfer_bound(b, n, n), chamfer_bound(b, n, n, issued=True)
-    dev = sum(device_ms(lambda: chamfer.min_rows_fwd(adv, data)).values())
+    shapes = {}
+    for bb in ROWMIN_BATCHES:
+        x, y = adv[:bb].contiguous(), data[:bb].contiguous()
+        dev = device_ms(lambda: chamfer.min_rows_fwd(x, y), reps=20)
+        sb, sf = chamfer_bound(bb, n, n), chamfer_bound(bb, n, n, issued=True)
+        shapes[f"[{bb},{n},3]^2"] = {"device_ms": sum(dev.values()), "bound_ms": sb[0], "bound_issued_ms": sf[0]}
+        log(f"[kernels-chamfer] [{bb},{n},3] x [{bb},{n},3]: device " + ", ".join(f"{k} {v:.4f}" for k, v in dev.items())
+            + f" ms, bound {sb[0]:.5f} ms by {sb[1]}, at one operation an issued FP32 instruction {sf[0]:.5f} ms")
+    dev = shapes[f"[{b},{n},3]^2"]["device_ms"]
     log(f"[kernels-chamfer] [{b},{n},3] x [{b},{n},3]: kernel {ms['kernel']:.4f} ms (device {dev:.4f} ms), plain "
         f"{ms['plain']:.4f} ms, bound {bnd[0]:.5f} ms by {bnd[1]} ({8.0 * b * n * n / 1e9:.3f} G operations); at one "
         f"operation an issued FP32 instruction {floor[0]:.5f} ms")
     return {"ms": ms["kernel"], "plain_ms": ms["plain"], "bound": bnd, "bound_issued": floor, "err": err,
-            "device_ms": dev}
+            "device_ms": dev, "shapes": shapes}
 
 
 def parted_points(card_it, cpu_it, g_card, g_cpu):
@@ -3097,8 +3160,8 @@ def check_kappa(tag, name, a, nrm, dk, k=None):
 
 def check_kappa_idx(tag, name, a, nrm, idx, dk):
     """The curvature kernels on a given neighbour set ``idx`` against the
-    plain versions on the CPU on one input: kappa within KAPPA_RTOL, dadv
-    and dnormal within KAPPA_GRAD_ATOL.  Returns the max |diff| over them."""
+    plain versions on the CPU on one input: kappa bit-equal, dadv and
+    dnormal within KAPPA_GRAD_ATOL.  Returns the max |diff| over them."""
     from pointcloudattack_tpu_torch.ops import chamfer, kappa
 
     kap = kappa.kappa_idx_fwd(a, nrm, idx, GEO_K)
@@ -3107,7 +3170,7 @@ def check_kappa_idx(tag, name, a, nrm, idx, dk):
           kappa.kappa_bwd(a, nrm, idx, dk, GEO_K, counter="kappa_idx_bwd"))
     kap_p = kappa.kappa_idx_plain(a.cpu(), nrm.cpu(), idx.cpu(), GEO_K)
     dadv_p, dnrm_p = kappa.kappa_bwd_plain(a.cpu(), nrm.cpu(), idx.cpu(), dk.cpu(), GEO_K)
-    res = {"kappa": _same(tag, "kappa (given set)", kap, kap_p, rtol=KAPPA_RTOL, atol=0.0),
+    res = {"kappa": _same(tag, "kappa (given set)", kap, kap_p),
            "dadv": _same(tag, "dadv (given set)", dadv, dadv_p, rtol=0.0, atol=KAPPA_GRAD_ATOL),
            "dnormal": _same(tag, "dnormal (given set)", dnrm, dnrm_p, rtol=0.0, atol=KAPPA_GRAD_ATOL)}
     zero = int((chamfer.exact_sqdist(a, a).gather(-1, idx.long()) == 0).sum())
@@ -3203,6 +3266,61 @@ def both_case(seed, b, n, m, kind, device="cuda"):
     return (torch.from_numpy(x.astype(np.float32)).to(device), torch.from_numpy(y.astype(np.float32)).to(device))
 
 
+def rowmin_case(seed, b, n, m, kind, device="cuda"):
+    """(x [B, N, 3], y [B, M, 3]) of a ROWMIN_EDGE_CASES kind: random
+    clouds; every point the same one; or random clouds with x's odd rows at
+    1e20 and y's first quarter at -1e20, whose squared distances overflow to
+    +inf."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    x, y = rng.randn(b, n, 3) * 0.5, rng.randn(b, m, 3) * 0.5
+    if kind == "equal":
+        x[:], y[:] = (0.3, -0.2, 0.1), (0.3, -0.2, 0.1)
+    if kind == "overflow":
+        x[:, 1::2] = 1e20
+        y[:, : m // 4] = -1e20
+    return (torch.from_numpy(x.astype(np.float32)).to(device), torch.from_numpy(y.astype(np.float32)).to(device))
+
+
+def given_idx(seed, b, n, k, device="cuda"):
+    """A given neighbour set [B, N, k] int32 for row 8b: random indices in
+    the cloud, slot 1 repeating slot 0, every 11th row's slot 0 the row
+    itself (distance 0), every 5th row's last slot -1 and every 7th row's
+    middle slot N + 3 (outside the cloud)."""
+    import numpy as np
+    import torch
+
+    idx = np.random.RandomState(seed).randint(0, n, size=(b, n, k))
+    if k > 1:
+        idx[:, :, 1] = idx[:, :, 0]
+    idx[:, ::11, 0] = np.arange(0, n, 11)
+    idx[:, ::5, k - 1] = -1
+    idx[:, ::7, k // 2] = n + 3
+    return torch.from_numpy(idx.astype(np.int32)).to(device).contiguous()
+
+
+def check_kappa_idx_fwd(tag, name, a, nrm, idx, k):
+    """Row 8b's forward on a given set ``idx`` against the plain version on
+    the CPU, kappa bit for bit; an index outside the cloud adds 0 in the
+    kernel, as the row's own index (distance 0) does in the plain version,
+    which takes it in its place.  Returns the max |diff|."""
+    import torch
+
+    from pointcloudattack_tpu_torch.ops import kappa
+
+    kap = kappa.kappa_idx_fwd(a, nrm, idx, k)
+    n = a.shape[1]
+    own = torch.arange(n, dtype=idx.dtype, device=idx.device)[None, :, None].expand_as(idx)
+    inside = (idx >= 0) & (idx < n)
+    kap_p = kappa.kappa_idx_plain(a.cpu(), nrm.cpu(), torch.where(inside, idx, own).cpu(), k)
+    err, _ = _same(tag, f"kappa_knn_mean_from_idx {name}", kap, kap_p)
+    log(f"[{tag}] kappa_knn_mean_from_idx {name} {tuple(a.shape)} k={k}: kappa bit-equal to the plain version; "
+        f"{int((~inside).sum())} indices outside the cloud, all finite")
+    return err
+
+
 def phase_kernels_geoa3(data):
     """The curvature and the two-direction kernels at GeoA3's shapes, on an
     iterate a few steps in (clean clouds plus 1e-3 noise) with the normals
@@ -3268,6 +3386,13 @@ def phase_kernels_geoa3(data):
                                        hub.contiguous(), dk),
                 check_kappa_bwd("kernels-geoa3", "indices outside the cloud, 8 exact collisions", hit, nrm,
                                 outside.contiguous(), dk))
+    # the given-set forward at the widths it takes: repeated slots, a row's own index, indices outside the cloud
+    for j, (name, (bb, nn, kk)) in enumerate(KAPPA_IDX_CASES.items()):
+        pts = erng.randn(bb, nn, 3) * 0.5
+        nv = erng.randn(bb, nn, 3)
+        err_i = max(err_i, check_kappa_idx_fwd("kernels-geoa3", name, dev(pts),
+                                               dev(nv / np.linalg.norm(nv, axis=-1, keepdims=True)),
+                                               given_idx(40 + j, bb, nn, kk), kk))
     for key in ("kappa_fwd", "kappa_bwd"):
         rec[key]["err"] = err_k
     for key in ("kappa_idx_fwd", "kappa_idx_bwd"):
@@ -3296,9 +3421,17 @@ def phase_kernels_geoa3(data):
         accumulate(rec[key], ms[key], ms[f"{key}_plain"], bnd)
         log(f"[kernels-geoa3] {key} [{b},{n},3] k={GEO_K}: kernel {ms[key]:.4f} ms, plain {ms[f'{key}_plain']:.4f} ms, "
             f"bound {bnd[0]:.5f} ms by {bnd[1]}")
+    # row 8b's forward beside a one-element zero_() in the same profiler window: the launch floor
+    one = torch.zeros(1, device="cuda")
+    both = device_ms(lambda: (kappa.kappa_idx_fwd(moved, nrm, idx, GEO_K), one.zero_()), reps=20)
+    rec["kappa_idx_fwd"]["device_ms"] = {k: v for k, v in both.items() if "kappa" in k}
+    floor = [v for k, v in both.items() if "kappa" not in k]
+    rec["kappa_idx_fwd"]["launch_floor_ms"] = floor[0] if floor else None
+    log(f"[kernels-geoa3] kappa_idx_fwd [{b},{n},3] k={GEO_K}: device "
+        + ", ".join(f"{name} {v:.4f} ms" for name, v in both.items())
+        + f" (the one-element zero_() is the launch floor), bound {rec['kappa_idx_fwd']['bound_ms']:.5f} ms")
     for key, fn in (("kappa_fwd", lambda: kappa.kappa_fwd(adv, nrm, GEO_K)),
                     ("kappa_bwd", lambda: kappa.kappa_bwd(adv, nrm, picks, dk, GEO_K)),
-                    ("kappa_idx_fwd", lambda: kappa.kappa_idx_fwd(moved, nrm, idx, GEO_K)),
                     ("kappa_idx_bwd", lambda: kappa.kappa_bwd(moved, nrm, idx, dk, GEO_K, counter="kappa_idx_bwd")),
                     ("both_fwd", lambda: chamfer.both_fwd(adv, data)),
                     ("both_bwd", lambda: chamfer.both_bwd(adv, data, fwd[1], fwd[3], gr, gc))):
@@ -4035,26 +4168,17 @@ def op_trace(targets):
             setattr(mod, name, fn)
 
 
-def geoa3_first_steps(tag, fn, data, target):
-    """A reading, not a check: GeoA3's first-round loss gradient (CE plus
-    10 x the bundle and the curvature, on the card's normals) at the first
-    iterate (the clouds plus the start noise of seed 1), twice on the card,
-    each run traced (the chain, bundle and curvature kernels' wrappers,
-    forward and backward): how many coordinates differ, and the first traced
-    op whose bits part, if any (ROADMAP Queue 3 item 1).  Returns the count."""
+def traced_first_steps(tag, fn, data, target, loss, targets):
+    """A reading, not a check: the input gradient of ``loss`` at the first
+    iterate (the clouds plus the start noise of seed 1), twice on the
+    clouds' device, each run under ``op_trace(targets)``: how many
+    coordinates differ, and the first traced op whose bits part, if any
+    (ROADMAP Queue 3 item 1).  Logs them; returns (the count, the op's
+    name or None)."""
     import torch
 
-    from pointcloudattack_tpu_torch.geometry.normals import estimate_normal
-    from pointcloudattack_tpu_torch.losses.geometry import kappa_ori
-    from pointcloudattack_tpu_torch.ops import chain_maxpool as cm
-    from pointcloudattack_tpu_torch.ops import chamfer, kappa
-
-    nrm = estimate_normal(data)
-    loss = geoa3_loss({"cuda": nrm}, {"cuda": kappa_ori(data, nrm, GEO_K)})
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    a0 = data + torch.randn(data.shape, generator=gen, device="cuda") * 1e-7
-    targets = ((cm, "chain_maxpool_fwd"), (cm, "chain_maxpool_bwd"), (chamfer, "both_fwd"), (chamfer, "both_bwd"),
-               (kappa, "kappa_fwd"), (kappa, "kappa_bwd"))
+    gen = torch.Generator(device=data.device).manual_seed(1)
+    a0 = data + torch.randn(data.shape, generator=gen, device=data.device) * 1e-7
     runs = []
     for _ in range(2):
         with op_trace(targets) as rec:
@@ -4065,12 +4189,45 @@ def geoa3_first_steps(tag, fn, data, target):
         raise AssertionError(f"{tag}: the two runs traced different ops")
     parted = next((n for (n, u), (_, v) in zip(r1, r2) if not torch.equal(u, v)), None)
     differ = int((g1 != g2).sum())
-    log(f"[{tag}] first_step_spread (a reading): the first step's loss gradient, two runs on the card: {differ} of "
-        f"{g1.numel()} coordinates differ, max |diff| {float((g1 - g2).abs().max()):.3e} (largest |gradient| "
-        f"{float(g1.abs().max()):.3e}); of the {len(r1)} traced ops ("
-        + ", ".join(sorted({n for n, _ in r1})) + ") "
+    log(f"[{tag}] first_step_spread (a reading): the first step's loss gradient, two runs on "
+        f"{'the card' if data.is_cuda else 'the CPU'}: {differ} of {g1.numel()} coordinates differ, max |diff| "
+        f"{float((g1 - g2).abs().max()):.3e} (largest |gradient| {float(g1.abs().max()):.3e}); of the {len(r1)} "
+        "traced ops (" + ", ".join(sorted({n for n, _ in r1})) + ") "
         + ("every one bit-equal" if parted is None else f"the first to part: {parted}"))
-    return differ
+    return differ, parted
+
+
+def geoa3_first_steps(tag, fn, data, target, cached=False):
+    """``traced_first_steps`` of GeoA3's first-round loss (CE plus 10 x the
+    bundle and the curvature, on the card's normals), tracing the chain,
+    bundle and curvature kernels' wrappers, forward and backward; with
+    ``cached``, the curvature on the iterate's own neighbour set (the kNN
+    and the given-set kernels, as at curv_knn_refresh > 1).  Returns (the
+    count of coordinates that differ, the op that parts or None)."""
+    from pointcloudattack_tpu_torch.geometry.normals import estimate_normal
+    from pointcloudattack_tpu_torch.losses import geometry
+    from pointcloudattack_tpu_torch.losses.geometry import kappa_ori
+    from pointcloudattack_tpu_torch.ops import chain_maxpool as cm
+    from pointcloudattack_tpu_torch.ops import chamfer, kappa
+
+    nrm = estimate_normal(data)
+    dev = data.device.type
+    loss = geoa3_loss({dev: nrm}, {dev: kappa_ori(data, nrm, GEO_K)}, cached=cached)
+    targets = ((cm, "chain_maxpool_fwd"), (cm, "chain_maxpool_bwd"), (chamfer, "both_fwd"), (chamfer, "both_bwd"))
+    targets += (((geometry, "knn"), (kappa, "kappa_idx_fwd"), (kappa, "kappa_bwd")) if cached else
+                ((kappa, "kappa_fwd"), (kappa, "kappa_bwd")))
+    return traced_first_steps(tag, fn, data, target, loss, targets)
+
+
+def knn_first_steps(tag, fn, data, target):
+    """``traced_first_steps`` of the KNN attack's loss (the adversarial
+    loss plus N x the Chamfer row min), tracing the chain's wrappers and
+    the row min's.  Returns (the count, the op that parts or None)."""
+    from pointcloudattack_tpu_torch.ops import chain_maxpool as cm
+    from pointcloudattack_tpu_torch.ops import chamfer
+
+    targets = ((cm, "chain_maxpool_fwd"), (cm, "chain_maxpool_bwd"), (chamfer, "min_rows_fwd"))
+    return traced_first_steps(tag, fn, data, target, knn_loss, targets)
 
 
 @contextlib.contextmanager
@@ -4254,6 +4411,7 @@ def main():
         fwd, step = PN2_LAUNCHES["PointNet++Ssg"]
         knn_ssg = run_knn("slice-knn-ssg", ssg[0], ssg[2], ssg[3], KNN_SSG_ITER, 1,
                           fwd, {**step, "min_rows": 1})
+        knn_first_steps("slice-knn", knn_fn, knn_data, knn_target)
     with phase_clock("parity-knn"):
         phase_parity_knn(knn_fn, knn_state, knn_data, knn_target)
     with phase_clock("slice-dgcnn"):
@@ -4285,6 +4443,7 @@ def main():
     with phase_clock("slice-geoa3-r4"):
         geo_r4 = run_geoa3("slice-geoa3-r4", geo_fn, geo_data, geo_target, {"chain_fwd": 2}, {"chain_bwd": 2},
                            refresh=GEO_REFRESH)
+        geoa3_first_steps("slice-geoa3-r4", geo_fn, geo_data, geo_target, cached=True)
     with phase_clock("slice-geoa3-partial"):
         geo_partial = run_geoa3_partial("slice-geoa3-partial", geo_fn, geo_data, geo_target, {"chain_fwd": 2},
                                         {"chain_bwd": 2})
@@ -4363,7 +4522,7 @@ def main():
                       **cn_knn}),
         entry("min_sqdist_rows", "min_rows", CHAMFER_SRC, TPU_CHAMFER, knn1["min_rows"], cham["err"], cham["ms"],
               cham["plain_ms"], cham["bound"], f"B={B} N=M={N}, one KNN iteration's Chamfer on PointNet",
-              device_ms=cham["device_ms"], bound_issued_ms=cham["bound_issued"][0]),
+              device_ms=cham["device_ms"], bound_issued_ms=cham["bound_issued"][0], shapes=cham["shapes"]),
         *(entry(name, key, src, tpu, geo_launches[key], geo[key]["err"], geo[key]["ms"], geo[key]["plain_ms"],
                 summed_bound(geo[key]), geo_at, device_ms=geo[key]["device_ms"])
           for name, key, src, tpu in (("kappa_knn_mean_fwd", "kappa_fwd", KAPPA_SRC, TPU_KAPPA_FWD),
@@ -4373,7 +4532,8 @@ def main():
         *(entry(name, key, KAPPA_SRC, tpu, geo_r4[key], geo[key]["err"], geo[key]["ms"], geo[key]["plain_ms"],
                 summed_bound(geo[key]), f"one GeoA3 iteration's call on PointNet at curv_knn_refresh {GEO_REFRESH} "
                 f"(B=8, N=1024, k={GEO_K}, a stale set)",
-                device_ms=geo[key]["device_ms"])
+                device_ms=geo[key]["device_ms"],
+                **({"launch_floor_ms": geo[key]["launch_floor_ms"]} if "launch_floor_ms" in geo[key] else {}))
           for name, key, tpu in (("kappa_knn_mean_from_idx_fwd", "kappa_idx_fwd", TPU_KAPPA_IDX_FWD),
                                  ("kappa_knn_mean_from_idx_bwd", "kappa_idx_bwd", TPU_KAPPA_IDX_BWD))),
         *(entry(name, key, GROUP_SRC, tpu, cn_cw[key], cnk[key]["err"], cnk[key]["ms"], cnk[key]["plain_ms"],

@@ -27,10 +27,10 @@
 // each edge formed exactly as above from sqdist3 of the two points.  The
 // TPU kernel rebuilt the set as an [R, N] column mask with k compare passes
 // over every column, O(N^2) work per cloud for N k edges, because Mosaic
-// has no gather; here a thread a row reads its k indices and gathers each
-// a_j from the cloud, staged in shared memory (12 KB at N = 1024).  Indices
-// are the caller's precondition, as in the JAX package: in [0, N).  An
-// index outside it reads nothing and adds 0, in both directions.
+// has no gather; here the lanes of a row read its k indices and gather each
+// a_j.  Indices are the caller's precondition, as in the JAX package: in
+// [0, N).  An index outside it reads nothing and adds 0, in both
+// directions.
 //
 // Backward.  With w = dkappa_i / k, s = sign(num), num = n_i . a_j -
 // n_i . a_i, rn = sqrt(d_ij), rr = rn + 1e-12, for each kept pick at d > 0:
@@ -79,9 +79,18 @@
 //     design ran k + 1 warp-wide passes over each row, 17 at k = 16, and
 //     formed the edges in lane 0 alone (0.1202 ms a call on an H100,
 //     against 0.0012).
-//   * Given-set forward: a block owns 256 rows of one cloud and stages the
-//     cloud's coordinates in shared memory; a thread a row forms its k
-//     edges (edge_term, shared with the selecting forward) and sums them.
+//   * Given-set forward: the selecting forward's tail on the given set.  A
+//     row takes 16 lanes at k <= 16 (32 past it, k > 32 in passes), a
+//     block of 1024 threads 64 rows of one cloud (128 blocks at B = 8,
+//     N = 1024: one an SM).  Lane t reads slot t first, so the row's indices
+//     (one coalesced read) are in flight while the block stages the cloud
+//     as float4 in shared memory (16 KB at N = 1024); then it gathers a_j
+//     with one shared load, forms edge t with edge_term, and lane_order_sum
+//     adds the terms in slot order, as the selecting forward does.  Every
+//     step is a latency; the staging replaces a gather through L1, three
+//     scattered loads an edge.  The earlier design, a thread a row over 256
+//     rows of one cloud staged as floats, put its 16 edges in one serial
+//     chain on 32 of the 132 SMs at B = 8.
 //   * Backward, for both forwards, two launches and no float atomics: the
 //     lists (hoist_common.cuh's stable counting sort of the picks by the
 //     point they name, 2048 picks a block: 64 blocks at B=8), then one warp
@@ -103,6 +112,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kFwdWarps = 8;  // warps of a forward block, one row each at a time
+constexpr int kIdxThreads = 1024;  // a block of the given-set forward: 64 rows of one cloud at k <= 16
 constexpr int kMaxK = 64;
 constexpr int kMaxPoints = 4096;
 constexpr float kEps = 1e-12f;
@@ -115,12 +125,35 @@ __device__ __forceinline__ float dot3(const float* n, const float* p) {
   return __fadd_rn(__fadd_rn(__fmul_rn(n[0], p[0]), __fmul_rn(n[1], p[1])), __fmul_rn(n[2], p[2]));
 }
 
+__device__ __forceinline__ void load3(const float* p, float (&v)[3]) {
+  v[0] = p[0];
+  v[1] = p[1];
+  v[2] = p[2];
+}
+
 // One edge's contribution |n_i . a_j - n_i . a_i| / (sqrt(d) + 1e-12), with
 // mii = n_i . a_i and d = sqdist3(a_i, a_j); 0 where d = 0.
 __device__ __forceinline__ float edge_term(const float* ni, const float* aj, float mii, float d) {
   if (!(d > 0.f)) return 0.f;
   const float num = __fsub_rn(dot3(ni, aj), mii);
   return __fdiv_rn(fabsf(num), __fadd_rn(__fsqrt_rn(d), kEps));
+}
+
+// acc plus the terms c of lanes 0 .. n-1 of each W-lane group of the warp,
+// added in lane order, each sum rounded; with first, lane 0's term starts
+// the sum.  The whole warp calls it and every lane of a group returns its
+// group's sum.  The W shuffles issue back to back, so only the adds form a
+// chain.  Both forwards sum a row's edge terms with it, W at a time in slot
+// order, so their sums take the plain version's order.
+template <int W>
+__device__ __forceinline__ float lane_order_sum(float acc, float c, int n, bool first) {
+  float v[W];
+#pragma unroll
+  for (int l = 0; l < W; ++l) v[l] = __shfl_sync(0xffffffffu, c, l, W);
+#pragma unroll
+  for (int l = 0; l < W; ++l)
+    if (l < n) acc = first && l == 0 ? v[l] : __fadd_rn(acc, v[l]);
+  return acc;
 }
 
 // A warp a row, per rows in turn, kFwdWarps warps a block; the
@@ -193,46 +226,53 @@ __global__ void __launch_bounds__(kFwdWarps * 32)
         c = edge_term(ni, aj, mii, d[j]);
         out[t] = j;
       }
-      const int n = min(32, k - t0);
-      for (int l = 0; l < n; ++l) {
-        const float v = __shfl_sync(0xffffffffu, c, l);
-        acc = t0 + l == 0 ? v : __fadd_rn(acc, v);
-      }
+      acc = lane_order_sum<32>(acc, c, min(32, k - t0), t0 == 0);
     }
     if (lane == 0) kap[r] = __fdiv_rn(acc, (float)k);
     __syncwarp();  // every read of d and pk is done before the next row rewrites them
   }
 }
 
-// One thread a row of the given set: kappa_i over the k indices idx[i, :],
-// in slot order.  The block's 256 rows lie in one cloud, whose points it
-// stages in shared memory first.
-__global__ void __launch_bounds__(kThreads)
+// W lanes a row of the given set (16 at k <= 16, 32 past it), kIdxThreads
+// / W rows of one cloud a block, which stages the cloud's points in shared
+// memory as float4 (16 N bytes).  Lane t reads slot t of its row first (the
+// row's reads of idx are coalesced, and in flight while the block stages),
+// gathers a_j with one shared load and forms edge t with edge_term; the
+// row's lanes sum the terms in slot order with lane_order_sum, W slots a
+// pass.  An index outside [0, N) reads nothing and adds 0.  The lanes of a
+// row past N take part in the shuffles and store nothing.
+template <int W>
+__global__ void __launch_bounds__(kIdxThreads)
     kappa_idx_fwd_kernel(const float* __restrict__ a, const float* __restrict__ nrm, const int* __restrict__ idx,
                          int N, int k, float* __restrict__ kap) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* pts = reinterpret_cast<float*>(smem);  // [N][3]
-  const int b = blockIdx.y, i = blockIdx.x * kThreads + threadIdx.x;
-  const float* ab = a + (size_t)b * N * 3;
-  for (int q = threadIdx.x; q < 3 * N; q += kThreads) pts[q] = ab[q];
-  __syncthreads();
-  if (i >= N) return;
+  extern __shared__ float4 cloud[];  // [N]
+  const int b = blockIdx.y, t = threadIdx.x & (W - 1);
+  const int i = blockIdx.x * (kIdxThreads / W) + threadIdx.x / W;
+  const bool live = i < N;
   const size_t r = (size_t)b * N + i;
-  const float* ai = pts + 3 * i;
-  const float* ni = nrm + r * 3;
-  const float mii = dot3(ni, ai);
   const int* ix = idx + r * k;
+  int j = live && t < k ? ix[t] : -1;  // the first pass's slot, read before the staging
+  const float* ab = a + (size_t)b * N * 3;
+  for (int q = threadIdx.x; q < N; q += kIdxThreads)
+    cloud[q] = make_float4(ab[3 * q], ab[3 * q + 1], ab[3 * q + 2], 0.f);
+  float ni[3] = {0.f, 0.f, 0.f};
+  if (live) load3(nrm + r * 3, ni);
+  __syncthreads();
+  const float4 pi = cloud[live ? i : 0];
+  const float ai[3] = {pi.x, pi.y, pi.z};
+  const float mii = dot3(ni, ai);
   float acc = 0.f;
-  for (int t = 0; t < k; ++t) {
-    const int j = ix[t];
+  for (int t0 = 0; t0 < k; t0 += W) {
+    if (t0 > 0) j = live && t0 + t < k ? ix[t0 + t] : -1;
     float c = 0.f;
-    if (j >= 0 && j < N) {
-      const float* aj = pts + 3 * j;
+    if ((unsigned)j < (unsigned)N) {  // not for -1: a slot past k, a row past N
+      const float4 p = cloud[j];
+      const float aj[3] = {p.x, p.y, p.z};
       c = edge_term(ni, aj, mii, pca::sqdist3(ai[0], ai[1], ai[2], aj[0], aj[1], aj[2]));
     }
-    acc = t == 0 ? c : __fadd_rn(acc, c);
+    acc = lane_order_sum<W>(acc, c, min(W, k - t0), t0 == 0);
   }
-  kap[r] = __fdiv_rn(acc, (float)k);
+  if (live && t == 0) kap[r] = __fdiv_rn(acc, (float)k);
 }
 
 // The gradient terms of the edge i -> j (w = dkappa_i / k, mii = n_i . a_i):
@@ -256,12 +296,6 @@ __device__ __forceinline__ void edge_grad(const float (&ai)[3], const float (&ni
     eq[q] = __fadd_rn(__fmul_rn(alpha, ni[q]), __fmul_rn(beta, v));
     nq[q] = __fmul_rn(alpha, v);
   }
-}
-
-__device__ __forceinline__ void load3(const float* p, float (&v)[3]) {
-  v[0] = p[0];
-  v[1] = p[1];
-  v[2] = p[2];
 }
 
 // Cloud b's entries are its N * k picks (or given indices) in (i, t) order,
@@ -401,11 +435,30 @@ int pca_kappa_idx_fwd(int device, const void* a, const void* nrm, const void* id
   if (B < 1 || B > 65535 || k < 1 || k > kMaxK || k + 1 > N || N > kMaxPoints) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = sizeof(float) * 3 * (size_t)N;  // at most 48 KB: no opt-in needed
-  const dim3 grid((N + kThreads - 1) / kThreads, B);
-  kappa_idx_fwd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(nrm), static_cast<const int*>(idx), N, k,
-      static_cast<float*>(kap));
+  static bool opted[64] = {false};  // the staged cloud takes up to 64 KB, past the 48 KB default
+  if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
+  if (!opted[device]) {
+    const int most = (int)sizeof(float4) * kMaxPoints;
+    e = cudaFuncSetAttribute(reinterpret_cast<const void*>(kappa_idx_fwd_kernel<16>),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(reinterpret_cast<const void*>(kappa_idx_fwd_kernel<32>),
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (e != cudaSuccess) return (int)e;
+    opted[device] = true;
+  }
+  const float* af = static_cast<const float*>(a);
+  const float* nf = static_cast<const float*>(nrm);
+  const int* xf = static_cast<const int*>(idx);
+  float* kf = static_cast<float*>(kap);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = sizeof(float4) * (size_t)N;
+  if (k <= 16)
+    kappa_idx_fwd_kernel<16><<<dim3((N * 16 + kIdxThreads - 1) / kIdxThreads, B), kIdxThreads, smem, s>>>(af, nf, xf,
+                                                                                                          N, k, kf);
+  else
+    kappa_idx_fwd_kernel<32><<<dim3((N * 32 + kIdxThreads - 1) / kIdxThreads, B), kIdxThreads, smem, s>>>(af, nf, xf,
+                                                                                                          N, k, kf);
   return (int)cudaGetLastError();
 }
 

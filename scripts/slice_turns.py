@@ -1,4 +1,4 @@
-"""Time chip_smoke.py's attack cells, and rows 3, 8 and 9's kernels, in one checkout.
+"""Time chip_smoke.py's attack cells, and rows 2, 3 and 6-10's kernels, in one checkout.
 
 Run on a machine with one H100, once per checkout to compare, in turns
 (for example parent, change, change, parent):
@@ -7,6 +7,7 @@ Run on a machine with one H100, once per checkout to compare, in turns
 
 CELL is one of ``slice`` (C&W 1 x 200 on PointNet, B=64; the default),
 ``slice-ssg``, ``slice-msg`` (C&W on PointNet++ SSG and MSG, B=16),
+``slice-knn`` (KNN 500 iterations on PointNet, B=64, nn_refresh 1),
 ``slice-knn-ssg`` (KNN on SSG), ``slice-dgcnn`` (C&W 1 x 100 on DGCNN,
 B=16), ``slice-geoa3`` and ``slice-geoa3-r4`` (GeoA3 10 x 100 on PointNet,
 B=8, the curvature's neighbour set cached for 4 iterations in the second),
@@ -22,8 +23,12 @@ forward, B=8, K=20), ``kernels-group-fwd`` (the group forwards at the nine
 LPFA shapes of one CurveNet forward: the initial LPFA's max, then the eight
 residual means and their sum), ``kernels-group-max-bwd`` (the initial
 LPFA's max backward), ``kernels-fps`` (farthest point sampling at SSG's two
-shapes, B=16, and CurveNet's two, B=8) and ``kernels-both`` (the
-two-direction bundle's forward and backward at GeoA3's shape).  It
+shapes, B=16, and CurveNet's two, B=8), ``kernels-both`` (the
+two-direction bundle's forward and backward at GeoA3's shape),
+``kernels-rowmin`` (the Chamfer row min on the KNN attack's iterate,
+[64,1024,3]^2 and [16,1024,3]^2) and ``kernels-kappa-idx-fwd`` (the
+curvature forward on a stale given set at GeoA3's shape, then beside a
+one-element zero_() in one profiler window, the launch floor).  It
 builds that checkout's kernels, makes each victim and its clouds as
 chip_smoke.py does (seeded random weights with the clouds' BatchNorm
 statistics, N=1024), runs each attack four times, printing each run's
@@ -33,24 +38,28 @@ the warm-up).  A kernel cell prints, for each input, the wrapper's time by
 CUDA events over back-to-back calls and each kernel's device time under
 the profiler.  With ``--profile`` it then prints, for each victim it
 timed, chip_smoke.py's profile line (10 iterations of the attack under
-torch.profiler: kernel time and the device's idle share).  It reads only
+torch.profiler: kernel time and the device's idle share; GeoA3 also at
+curv_knn_refresh 4 when ``slice-geoa3-r4`` ran).  It reads only
 names that chip_smoke.py has kept since PR 10, so that checkout and later
 ones run it; the kernel cells call only the ops' public entry points
-(``ops.fps.farthest_point_sample``, ``ops.chamfer.both_fwd`` and
-``both_bwd``, ``ops.group_chain.chain_groupmax_fwd``, ``chain_groupmean_fwd``
-and ``chain_groupmax_bwd``), which every checkout with those kernels has.
+(``ops.fps.farthest_point_sample``, ``ops.chamfer.both_fwd``,
+``both_bwd`` and ``min_rows_fwd``, ``ops.kappa.kappa_idx_fwd``,
+``ops.group_chain.chain_groupmax_fwd``, ``chain_groupmean_fwd`` and
+``chain_groupmax_bwd``), which every checkout with those kernels has.
 """
 
 import sys
 import time
 
-CELLS = ("slice", "slice-ssg", "slice-msg", "slice-knn-ssg", "slice-dgcnn", "slice-geoa3", "slice-geoa3-r4",
+CELLS = ("slice", "slice-ssg", "slice-msg", "slice-knn", "slice-knn-ssg", "slice-dgcnn", "slice-geoa3", "slice-geoa3-r4",
          "slice-curvenet", "slice-geoa3-curvenet", "kernels-knn", "kernels-kappa", "kernels-kappa-fwd", "kernels-group-mean",
-         "kernels-group-fwd", "kernels-group-max-bwd", "kernels-fps", "kernels-both")
-VICTIMS = {"slice": "PointNet", "slice-ssg": "PointNet++Ssg", "slice-msg": "PointNet++Msg",
+         "kernels-group-fwd", "kernels-group-max-bwd", "kernels-fps", "kernels-both", "kernels-rowmin",
+         "kernels-kappa-idx-fwd")
+VICTIMS = {"slice": "PointNet", "slice-ssg": "PointNet++Ssg", "slice-msg": "PointNet++Msg", "slice-knn": "PointNet KNN",
            "slice-knn-ssg": "PointNet++Ssg", "slice-dgcnn": "DGCNN", "slice-geoa3": "PointNet GeoA3",
            "slice-geoa3-r4": "PointNet GeoA3", "slice-curvenet": "CurveNet", "slice-geoa3-curvenet": "CurveNet GeoA3"}
-PROFILE_TAGS = {"PointNet": "profile", "PointNet++Ssg": "profile-ssg", "PointNet++Msg": "profile-msg",
+PROFILE_TAGS = {"PointNet": "profile", "PointNet KNN": "profile-knn", "PointNet++Ssg": "profile-ssg",
+                "PointNet++Msg": "profile-msg",
                 "DGCNN": "profile-dgcnn", "PointNet GeoA3": "profile-geoa3", "CurveNet": "profile-curvenet",
                 "CurveNet GeoA3": "profile-geoa3-curvenet"}
 
@@ -62,6 +71,11 @@ def victim(cs, name):
         model_fn, _ = cs.make_victim(name, "cuda", clouds, ("dropout",))
         data = clouds[: cs.B]
         return model_fn, data, cs.victim_labels(model_fn, data, labels[: cs.B])
+    if name == "PointNet KNN":
+        clouds, labels = cs.synthetic_data(cs.NUM_CLASSES, 2, cs.KNN_DATA, "cuda")
+        model_fn, _ = cs.make_victim("PointNet", "cuda", clouds, ("dropout",))
+        data = clouds[: cs.B]
+        return model_fn, data, cs.victim_labels(model_fn, data, labels[: cs.B], "slice-knn")
     if name == "DGCNN":
         data, labels = cs.synthetic_data(8, 2, cs.DG_DATA, "cuda")
         model_fn, _ = cs.make_victim(name, "cuda", data, ("dp1", "dp2"))
@@ -94,15 +108,20 @@ def geoa3(cs, model_fn, rounds, iters, refresh=1):
                                                     curv_knn_refresh=refresh))
 
 
+def knn_attack(cs, model_fn, iters):
+    from pointcloudattack_tpu_torch.attacks.knn import KNNAttackConfig, build_knn_attack
+
+    cfg = KNNAttackConfig(attack_lr=cs.KNN_LR, num_iter=iters, kappa=cs.KAPPA, budget=cs.BUDGET, nn_refresh=1)
+    return build_knn_attack(model_fn, cfg)
+
+
 def attack_of(cs, cell, model_fn):
     if cell == "slice":
         return cs.cw_attack(model_fn, cs.NUM_ITER)
+    if cell == "slice-knn":
+        return knn_attack(cs, model_fn, cs.KNN_ITER)
     if cell == "slice-knn-ssg":
-        from pointcloudattack_tpu_torch.attacks.knn import KNNAttackConfig, build_knn_attack
-
-        cfg = KNNAttackConfig(attack_lr=cs.KNN_LR, num_iter=cs.KNN_SSG_ITER, kappa=cs.KAPPA, budget=cs.BUDGET,
-                              nn_refresh=1)
-        return build_knn_attack(model_fn, cfg)
+        return knn_attack(cs, model_fn, cs.KNN_SSG_ITER)
     if cell == "slice-dgcnn":
         return cs.cw_attack(model_fn, cs.DG_ITER)
     if cell in ("slice-geoa3", "slice-geoa3-r4"):
@@ -301,9 +320,46 @@ def kernels_both(cs, root):
                  lambda: chamfer.both_bwd(adv, data, fwd[1], fwd[3], gr, gc))
 
 
+def kernels_rowmin(cs, root):
+    """The Chamfer row min on chip_smoke.py's phase-13 iterate (the KNN
+    clouds plus noise of 0.01, its seed) against the clouds, at B = 64 and
+    16."""
+    import numpy as np
+    import torch
+
+    from pointcloudattack_tpu_torch.ops import chamfer
+
+    data = cs.synthetic_data(cs.NUM_CLASSES, 2, cs.KNN_DATA, "cuda")[0][: cs.B]
+    rng = np.random.RandomState(8)
+    adv = (data + torch.from_numpy(rng.randn(*data.shape).astype(np.float32) * 0.01).cuda()).contiguous()
+    for b in (64, 16):
+        x, y = adv[:b].contiguous(), data[:b].contiguous()
+        kernel_times(cs, root, "kernels-rowmin", f"min_rows [{b},{x.shape[1]},3]^2", lambda: chamfer.min_rows_fwd(x, y))
+
+
+def kernels_kappa_idx_fwd(cs, root):
+    """The curvature forward on the clouds' own sets, stale on
+    ``geoa3_iterate``'s iterate 1e-2 away; then its device time beside a
+    one-element zero_() in one profiler window, the launch floor."""
+    import torch
+
+    from pointcloudattack_tpu_torch.ops import kappa
+
+    _, nrm, _, data, moved, _, _ = geoa3_iterate(cs)
+    b, n, _ = moved.shape
+    idx = cs.stale_idx(moved, data)[0]
+    kernel_times(cs, root, "kernels-kappa-idx-fwd", f"kappa_idx_fwd [{b},{n},3] k={cs.GEO_K} (a stale set)",
+                 lambda: kappa.kappa_idx_fwd(moved, nrm, idx, cs.GEO_K))
+    one = torch.zeros(1, device="cuda")
+    dev = cs.device_ms(lambda: (kappa.kappa_idx_fwd(moved, nrm, idx, cs.GEO_K), one.zero_()), reps=20)
+    print(f"{root} [kernels-kappa-idx-fwd] beside a one-element zero_() (the launch floor), device "
+          + ", ".join(f"{name} {v:.4f}" for name, v in dev.items()), flush=True)
+
+
 KERNEL_CELLS = {"kernels-kappa": kernels_kappa, "kernels-kappa-fwd": kernels_kappa_fwd,
                 "kernels-group-mean": kernels_group_mean, "kernels-group-fwd": kernels_group_fwd,
-                "kernels-group-max-bwd": kernels_group_max_bwd, "kernels-fps": kernels_fps, "kernels-both": kernels_both}
+                "kernels-group-max-bwd": kernels_group_max_bwd, "kernels-fps": kernels_fps, "kernels-both": kernels_both,
+                "kernels-rowmin": kernels_rowmin, "kernels-kappa-idx-fwd": kernels_kappa_idx_fwd}
 
 
 def main():
@@ -350,8 +406,13 @@ def main():
               flush=True)
     if profile:
         for name, (model_fn, data, target) in made.items():
+            if name == "PointNet GeoA3" and "slice-geoa3-r4" in cells:
+                cs.phase_profile("profile-geoa3-r4", model_fn, data, target, geoa3(cs, model_fn, 1, 10, cs.GEO_REFRESH),
+                                 f"GeoA3 1x10 curv_knn_refresh {cs.GEO_REFRESH}")
             if name in ("PointNet GeoA3", "CurveNet GeoA3"):
                 cs.phase_profile(PROFILE_TAGS[name], model_fn, data, target, geoa3(cs, model_fn, 1, 10), "GeoA3 1x10")
+            elif name == "PointNet KNN":
+                cs.phase_profile(PROFILE_TAGS[name], model_fn, data, target, knn_attack(cs, model_fn, 10), "KNN 10")
             else:
                 cs.phase_profile(PROFILE_TAGS[name], model_fn, data, target)
 

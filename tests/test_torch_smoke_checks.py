@@ -789,3 +789,132 @@ def test_both_edge_cases_make_the_named_clouds(name):
     _, _, _, carg = chamfer.both_plain(x, y)
     if kind == "hub":
         assert bool((carg == 0).all())  # every y point's nearest is x's point 0
+
+
+def _knn_victim():
+    clouds, labels = chip_smoke.synthetic_data(4, 1, 4, "cpu")
+    clouds = clouds[:, :128].contiguous()
+    fn, _ = chip_smoke.make_victim("PointNet", "cpu", clouds, ("dropout",))
+    return fn, clouds, chip_smoke.victim_labels(fn, clouds, labels, "slice-knn")
+
+
+def test_first_step_reading_names_the_op_that_parts(monkeypatch):
+    """knn_first_steps (traced_first_steps on the KNN loss) finds two
+    bit-equal runs bit-equal; with a row min whose second call moves row
+    0's argmin (as a kernel whose ties went another way would), it counts
+    the coordinates that differ and names the row min as the first traced
+    op to part, the chain's forward before it being bit-equal."""
+    from pointcloudattack_tpu_torch.ops import chamfer
+
+    fn, clouds, target = _knn_victim()
+    assert chip_smoke.knn_first_steps("test", fn, clouds, target) == (0, None)
+    orig, calls = chamfer.min_rows_fwd, []
+
+    def flaky(x, y):
+        mins, arg = orig(x, y)
+        calls.append(1)
+        if len(calls) % 2 == 0:
+            arg = arg.clone()
+            arg[0, 0] = (arg[0, 0] + 1) % y.shape[1]
+        return mins, arg
+
+    monkeypatch.setattr(chamfer, "min_rows_fwd", flaky)
+    differ, parted = chip_smoke.knn_first_steps("test", fn, clouds, target)
+    assert parted == "chamfer.min_rows_fwd" and 0 < differ <= 3
+
+
+def test_geoa3_first_step_reading_traces_the_curvature_and_bundle(monkeypatch):
+    """geoa3_first_steps traces the chain, the bundle and the curvature's
+    wrappers; a curvature backward whose second call gives other bits is
+    named as the first traced op to part."""
+    from pointcloudattack_tpu_torch.ops import kappa
+
+    fn, clouds, target = _knn_victim()
+    assert chip_smoke.geoa3_first_steps("test", fn, clouds, target) == (0, None)
+    orig, calls = kappa.kappa_bwd, []
+
+    def flaky(*args, **kw):
+        dadv, dnrm = orig(*args, **kw)
+        calls.append(1)
+        if len(calls) % 2 == 0:
+            dadv = dadv.clone()
+            dadv[0, 0, 0] += 1.0
+        return dadv, dnrm
+
+    monkeypatch.setattr(kappa, "kappa_bwd", flaky)
+    differ, parted = chip_smoke.geoa3_first_steps("test", fn, clouds, target)
+    assert parted == "kappa.kappa_bwd" and differ >= 1
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.ROWMIN_EDGE_CASES))
+def test_rowmin_edge_cases_make_the_named_clouds(name):
+    from pointcloudattack_tpu_torch.ops import chamfer
+
+    b, n, m, kind = chip_smoke.ROWMIN_EDGE_CASES[name]
+    x, y = chip_smoke.rowmin_case(7, b, min(n, 256), min(m, 512), kind, device="cpu")
+    mins, arg = chamfer.min_rows_plain(x, y)
+    assert tuple(x.shape) == (b, min(n, 256), 3) and tuple(y.shape) == (b, min(m, 512), 3)
+    if kind == "equal":
+        assert bool((mins == 0).all()) and not arg.any()
+    if kind == "overflow":  # the odd rows' distances all +inf, argmin 0; the others finite past y's first quarter
+        assert bool(torch.isinf(mins[:, 1::2]).all()) and not arg[:, 1::2].any()
+        assert bool(torch.isfinite(mins[:, ::2]).all()) and bool((arg[:, ::2] >= y.shape[1] // 4).all())
+
+
+def test_check_chamfer_without_a_gradient_catches_a_moved_argmin(monkeypatch):
+    """check_chamfer(grad=False) holds mins and argmin bit for bit: an
+    argmin moved in one row fails it."""
+    from pointcloudattack_tpu_torch.ops import chamfer
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    x, y = chip_smoke.rowmin_case(3, 2, 64, 96, "overflow", device="cpu")
+    w = torch.ones(2, 64)
+    assert chip_smoke.check_chamfer("test", "plain", x, y, w, grad=False) == 0.0
+    orig = chamfer.min_rows_fwd
+
+    def moved(a, b):
+        mins, arg = orig(a, b)
+        arg = arg.clone()
+        arg[1, 2] += 1
+        return mins, arg
+
+    monkeypatch.setattr(chamfer, "min_rows_fwd", moved)
+    with pytest.raises(AssertionError, match="argmin"):
+        chip_smoke.check_chamfer("test", "moved", x, y, w, grad=False)
+
+
+def test_given_idx_repeats_slots_and_leaves_the_cloud():
+    """given_idx's set: slot 1 repeats slot 0, every 11th row names itself,
+    every 5th and 7th row hold an index outside the cloud; check_kappa_idx_fwd
+    holds kappa on it bit for bit (the plain version, given the row's own
+    index in place of each index outside, against itself here)."""
+    from pointcloudattack_tpu_torch.ops import kappa
+
+    b, n, k = 2, 200, 16
+    idx = chip_smoke.given_idx(3, b, n, k, device="cpu")
+    assert idx.dtype == torch.int32 and tuple(idx.shape) == (b, n, k)
+    rest = torch.arange(n) % 11 != 0  # every 11th row's slot 0 was then set to the row itself
+    assert bool((idx[:, rest, 1] == idx[:, rest, 0]).all())
+    assert bool((idx[:, ::11, 0] == torch.arange(0, n, 11, dtype=torch.int32)).all())
+    assert bool((idx[:, ::5, k - 1] == -1).all()) and bool((idx[:, ::7, k // 2] == n + 3).all())
+    a = torch.from_numpy((np.random.RandomState(1).randn(b, n, 3) * 0.5).astype(np.float32))
+    nrm = torch.nn.functional.normalize(torch.from_numpy(np.random.RandomState(2).randn(b, n, 3).astype(np.float32)),
+                                        dim=-1)
+    own = torch.arange(n, dtype=torch.int32)[None, :, None].expand_as(idx)
+    inside = torch.where((idx >= 0) & (idx < n), idx, own).contiguous()
+    assert chip_smoke.check_kappa_idx_fwd("test", "in the cloud", a, nrm, inside, k) == 0.0
+    assert bool(torch.isfinite(kappa.kappa_idx_plain(a, nrm, inside, k)).all())
+
+
+def test_traces_patch_while_open_and_restore():
+    """dgcnn_trace and op_trace are context managers: while open they
+    replace the traced functions, and on leaving they put them back."""
+    from pointcloudattack_tpu_torch.models import dgcnn as dg
+    from pointcloudattack_tpu_torch.ops import chamfer
+
+    knn0, rows0 = dg.knn, chamfer.min_rows_fwd
+    with chip_smoke.dgcnn_trace() as rec:
+        assert rec == [] and dg.knn is not knn0
+    with chip_smoke.op_trace(((chamfer, "min_rows_fwd"),)) as rec:
+        assert rec == [] and chamfer.min_rows_fwd is not rows0
+    assert dg.knn is knn0 and chamfer.min_rows_fwd is rows0
