@@ -4,15 +4,14 @@ Run from the root of a checkout, on a machine with one H100:
 
     python3 chip_smoke.py
 
-It takes about eight to ten minutes, the kernel build included.
+It takes about eleven to thirteen minutes, the kernel build included.
 
 Phases, each raising on failure (nothing is caught; any failure exits
 non-zero and prints no result):
 
 1. device     CUDA present, capability (9, 0); the card's name and power limit.
 2. build      nvcc builds the kernels from this checkout's csrc/, one process
-              per source; then, for comparison, one nvcc call builds them
-              one after another into a scratch directory.
+              per source, all started together.
 3. kernels    the chain + max-pool kernels against their plain PyTorch versions
               at every shape PointNet's paths give them (3 -> 64 -> 128 -> 1024:
               B=64 and B=8 at N=1024, a ragged N=1000, N=512): the forward y
@@ -167,7 +166,7 @@ non-zero and prints no result):
 27. slice-geoa3-curvenet  GeoA3 on CurveNet (BASELINE config 4) on bench.py's
               geoa3 clouds, CE on the log-softmax of the logits, 2 rounds of 50
               of their 500 iterations: exact launch counts, ASR > 0, s/batch.
-Phases 23-27 run last; after phase 22 come
+Phases 28-36 run last, after phases 23-27; after phase 22 come
 22a. slice-geoa3-r4  GeoA3 as in phase 20 with the curvature's neighbour set
               cached for 4 iterations (curv_knn_refresh 4): exact launch counts
               (the given-set curvature kernels once an iteration, the selecting
@@ -197,7 +196,39 @@ gather route (``fused_gather=True``) adds:
               ASR > 0, then both routes in turns.
 25a. parity-curvenet-gather  phase 25 on the gather route, the CPU also taking
               the gather means' signs.
-Each of phases 11-27 prints its seconds.
+28. spectral  the AOF basis at bench.py's aof shape (B=8, N=1024, m=100, k=30): the
+              Chebyshev solve and a dense eigh timed, each one's projector error
+              against a float64 dense eigh of the same Laplacian, the CPU's
+              Chebyshev basis beside them; held: the card's basis orthonormal,
+              its error at most twice the CPU's.  Row 9 at the new kNN inputs:
+              AOF's graph ([8,1024,3], k=30) and SIadv's normals ([64,1024,3] and
+              [32,1024,3], k=21), bit for bit and timed as in phase 11.
+29. slice-aof, slice-taof  AOF and TAOF (targets truth + 1) on PointNet at bench.py's
+              aof settings (B=8, seed-1 clouds, 2 x 100, kappa 0, budget 0.45,
+              low_pass 100): exact launch counts (405 forwards: row 1's forward
+              810, its backward 800, one kNN), ASR > 0, every point within the
+              budget, s/batch.
+30. parity-aof, parity-taof  each (B=4, 2 x 10) on the card and on the CPU, the CPU
+              taking the card's basis (``basis_hooks``): every parting explained
+              by a gradient of opposite signs or a switched pick before it
+              (``step_partings``), some cloud never parting, and on those success
+              identical, best_dist rtol 1e-4, the clouds within 1e-5.
+31. profile-aof  torch.profiler over AOF 1 x 10, the basis included.
+32. slice-si-ifgm, -r5  SI iFGM at bench.py's si_ifgm settings (B=64, seed-2 clouds, eps
+              0.18, step 0.007, 50 steps), normal_refresh 1 and 5: exact launch
+              counts (row 1's forward 102, backward 100, kNN 50 or 10), ASR > 0,
+              every point within eps, s/batch.
+33. parity-si-ifgm  B=4, 10 steps, the CPU taking the card's normals; held as phase 30,
+              pred too.
+34. profile-si-ifgm  torch.profiler over 10 iFGM steps.
+35. slice-si-query, slice-simba, slice-simbapp  SI-query at bench.py's si_query
+              settings (B=32, seed-14 clouds, eps 0.18, step 0.32), SimBA and SimBA++
+              on its first 8 clouds at the same step: the loop iterations each ran,
+              the launches held to them, ASR > 0, the queries per cloud, s/batch.
+36. parity-si-query, parity-simba, parity-simbapp  card against CPU, the CPU taking the
+              card's normals, ranking, order and draws (``siadv_hooks``): queries,
+              pred and success identical, the clouds within 1e-5.
+Each of phases 11-36 prints its seconds.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the per-kernel record.  The script imports nothing of JAX.
@@ -210,7 +241,6 @@ import json
 import math
 import subprocess
 import sys
-import tempfile
 import time
 from pathlib import Path
 
@@ -527,12 +557,6 @@ def phase_build():
     for line in info.log.splitlines():
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             log(f"[build]   {line.strip()}")
-    sources = [str(s) for s in _build._sources() if s.suffix == ".cu"]
-    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        t0 = time.perf_counter()
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", f"{tmp}/lib.so", *sources],
-                       check=True, capture_output=True, timeout=900)
-        log(f"[build] the same {len(sources)} sources in one nvcc call: {time.perf_counter() - t0:.2f} s")
 
 
 def seeded_layers(rng, dims, device):
@@ -2422,13 +2446,15 @@ def knn_hooks(mod=None):
     return {"knn": (mod, "knn", card, cpu)}
 
 
-def normal_hooks():
-    """``replay`` hooks for GeoA3's normal estimates ("normals"): a normal
-    of a nearly collinear 3-point neighbourhood is ill-conditioned, and the
-    card's and the CPU's eigensolvers (their acos and cos) may give it
+def normal_hooks(geo_mod=None):
+    """``replay`` hooks for the normal estimates that ``geo_mod`` calls,
+    GeoA3's by default (SIadv's: ``attacks.siadv``) ("normals"): a normal
+    of a nearly collinear neighbourhood is ill-conditioned, and the card's
+    and the CPU's eigensolvers (their acos and cos) may give it
     differently.  ``off`` is, per cloud, the largest difference of the
     CPU's own normals from the card's."""
-    from pointcloudattack_tpu_torch.attacks import geoa3 as geo_mod
+    if geo_mod is None:
+        from pointcloudattack_tpu_torch.attacks import geoa3 as geo_mod
 
     def card(orig, pc, k=3):
         nrm = orig(pc, k)
@@ -4354,6 +4380,432 @@ def dgcnn_routes(state, data, target, kernel_fn):
     return times
 
 
+# BASELINE config 5 (AOF/TAOF and the SIadv family) on PointNet at bench.py's settings, 40 classes.
+# aof (bench.py:381-407): make_synthetic_clouds(8, 1, 1024, seed=1), B=8, 2 rounds x 100, kappa 0,
+# budget 0.45, low_pass 100 (Chebyshev: 5 x 100 < 1024), one basis (k=30) from the clean clouds
+AOF_DATA, AOF_ROUNDS, AOF_ITER, AOF_KAPPA, AOF_BUDGET, AOF_LOW_PASS, AOF_K = 1, 2, 100, 0.0, 0.45, 100, 30
+# si_ifgm and si_ifgm_r5 (bench.py:499-531): make_synthetic_clouds(8, 8, 1024, seed=2), B=64, eps 0.18,
+# step 0.007, 50 steps, the normals (k=20: a kNN of 21) every step or every 5
+SI_DATA, SI_STEPS, SI_EPS, SI_STEP, SI_K = 2, 50, 0.18, 0.007, 20
+# si_query (bench.py:332-369): make_synthetic_clouds(8, 4, 1024, seed=14), B=32, eps 0.18, step 0.32; SimBA
+# and SimBA++ (no bench cell) on its first SIMBA_B clouds at the same step, up to SIMBA_QUERIES iterations
+SIQ_DATA, SIQ_STEP, SIMBA_B, SIMBA_QUERIES = 14, 0.32, 8, 3 * 1024
+# PointNet forwards outside a query loop, backwards and kNNs of each query attack; each loop
+# iteration adds two forwards (the +step and the -step probe)
+QUERY_LAUNCHES = {"simba": (2, 0, 0), "simbapp": (3, 1, 0), "si-query": (3, 1, 1)}
+# card against CPU: a coordinate's two gradients further apart than SWITCH of its cloud's largest
+# |gradient| come from a max-pool pick or an activation's side taken otherwise (rounding alone
+# leaves them within 3e-7 on the CPU against the JAX package, tests/test_torch_aof.py)
+SWITCH = 1e-4
+
+
+def aof_attack(fn, targeted=False, rounds=AOF_ROUNDS, iters=AOF_ITER):
+    from pointcloudattack_tpu_torch.attacks.aof import AOFConfig, build_aof_attack
+
+    return build_aof_attack(fn, AOFConfig(binary_step=rounds, num_iter=iters, kappa=AOF_KAPPA, budget=AOF_BUDGET,
+                                          low_pass=AOF_LOW_PASS, knn_k=AOF_K, targeted=targeted))
+
+
+def si_ifgm_attack(fn, refresh=1, steps=SI_STEPS):
+    from pointcloudattack_tpu_torch.attacks.siadv import SIAdvConfig, build_si_ifgm
+
+    return build_si_ifgm(fn, fn, SIAdvConfig(eps=SI_EPS, step_size=SI_STEP, max_steps=steps,
+                                             normal_refresh=refresh, normal_k=SI_K))
+
+
+def query_attack(family, fn, max_queries=SIMBA_QUERIES):
+    """``attack(data, target, generator=None) -> QueryResult`` of one query
+    family, the victim its own white box."""
+    from pointcloudattack_tpu_torch.attacks import siadv
+
+    cfg = siadv.SIAdvConfig(eps=SI_EPS, step_size=SIQ_STEP, max_queries=max_queries, normal_k=SI_K)
+    if family == "simba":
+        return siadv.build_simba(fn, cfg)
+    if family == "simbapp":
+        return siadv.build_simbapp(fn, fn, cfg)
+    run = siadv.build_si_query_attack(fn, fn, cfg)
+    return lambda d, t, generator=None: run(d, t)
+
+
+def run_aof(tag, fn, data, target, truth=None):
+    """AOF (TAOF, with the true labels ``truth``) at the aof cell's settings,
+    counted and timed: per round 2 forwards and 2 backwards a step and 2
+    forwards after the last, one forward at the end, one kNN (the basis)."""
+    targeted = truth is not None
+    run = aof_attack(fn, targeted)
+    fwd, bwd = AOF_ROUNDS * (2 * AOF_ITER + 2) + 1, 2 * AOF_ROUNDS * AOF_ITER
+
+    def check(res):
+        adv, dist, succ = res
+        asr, moved = check_adv(tag, adv, data, succ, AOF_BUDGET)
+        kept = dist < 1e9
+        log(f"[{tag}] ASR {asr:.3f} ({int(succ.sum())}/{len(succ)}); max per-point move {moved:.4f}; "
+            f"{int(kept.sum())} clouds kept an iterate, mean best {'L2' if targeted else 'Linf'} distance "
+            f"{float(dist[kept].mean()) if bool(kept.any()) else float('nan'):.5f}")
+
+    log(f"[{tag}] {fwd} PointNet forwards, {bwd} backwards")
+    return counted_and_timed(tag, f"{'TAOF' if targeted else 'AOF'} {AOF_ROUNDS}x{AOF_ITER}",
+                             lambda d, t, generator=None: run(d, t, truth, generator=generator), data, target,
+                             {"chain_fwd": 2 * fwd, "chain_bwd": 2 * bwd, "knn": 1}, check)
+
+
+def run_si_ifgm(tag, fn, data, target, refresh):
+    """SI iFGM at the si_ifgm cell's settings, counted and timed: a forward
+    and a backward a step, one forward at the end, a kNN at each refresh."""
+    run = si_ifgm_attack(fn, refresh)
+
+    def check(res):
+        adv, _, succ = res
+        asr, moved = check_adv(tag, adv, data, succ, SI_EPS)
+        log(f"[{tag}] ASR {asr:.3f} ({int(succ.sum())}/{len(succ)}); max per-point move {moved:.4f}")
+
+    return counted_and_timed(tag, f"SI iFGM {SI_STEPS} steps, normal_refresh {refresh},",
+                             lambda d, t, generator=None: run(d, t), data, target,
+                             {"chain_fwd": 2 * (SI_STEPS + 1), "chain_bwd": 2 * SI_STEPS,
+                              "knn": -(-SI_STEPS // refresh)}, check)
+
+
+def run_query(tag, family, fn, data, target, reps=3, max_queries=SIMBA_QUERIES):
+    """A query family counted (its launches held to the loop iterations it
+    ran: the loop reads its stop flag once every ``QUERY_CHUNK``
+    iterations) and timed; returns the counted run's launch counts."""
+    import torch
+
+    from pointcloudattack_tpu_torch.attacks.siadv import QUERY_CHUNK
+
+    attack = query_attack(family, fn, max_queries)
+    gen = torch.Generator(device="cuda")
+    b = data.shape[0]
+
+    def run(seed):
+        gen.manual_seed(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = attack(data, target, generator=gen)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    reset_all()
+    res, t_warm = run(1)
+    launches = read_all()
+    fwd, bwd, knn = QUERY_LAUNCHES[family]
+    forwards = fwd + 2 * res.iterations
+    expect = {"chain_fwd": 2 * forwards, "chain_bwd": 2 * bwd, "knn": knn,
+              **{k: 2 * bwd for k in CHAIN_BWD_STAGES}}
+    want = {k: expect.get(k, 0) for k in launches}
+    log(f"[{tag}] {family} B={b}: {res.iterations} loop iterations (stop flag read every {QUERY_CHUNK}; cap "
+        f"{max_queries if family != 'si-query' else data.shape[1]}), {forwards} PointNet forwards, {bwd} "
+        f"backward(s); kernel launches {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"{tag}: launch counts {launches} != expected {want}")
+    asr, moved = check_adv(tag, res.adv, data, res.success, None)
+    log(f"[{tag}] ASR {asr:.3f} ({int(res.success.sum())}/{b}); queries per cloud {res.queries.tolist()}, mean "
+        f"{float(res.queries.float().mean()):.1f}; max per-point move {moved:.4f}")
+    runs = [run(2 + i) for i in range(reps)]
+    times = [t for _, t in runs]
+    tmin, tmean = min(times), sum(times) / len(times)
+    log(f"[{tag}] {family} B={b} N={data.shape[1]}: warm-up {t_warm:.4f} s; timed {[round(t, 6) for t in times]} "
+        f"s/batch at {[r.iterations for r, _ in runs]} loop iterations; min {tmin:.6f} s ({b / tmin:.3f} clouds/s), "
+        f"mean {tmean:.6f} s ({b / tmean:.3f} clouds/s)")
+    return launches
+
+
+def projector_error(v, ref):
+    """``||V V^T - R R^T||_F / sqrt(2m)`` per cloud, in float64."""
+    import torch
+
+    p, r = (torch.bmm(x.double(), x.double().transpose(1, 2)) for x in (v, ref.to(v.device)))
+    return torch.sqrt(((p - r) ** 2).sum(dim=(1, 2)) / (2 * v.shape[-1]))
+
+
+def phase_spectral(data):
+    """The AOF basis on the card at the aof cell's shape: the Chebyshev
+    solve and a dense ``eigh`` timed (CUDA events over the whole call, the
+    Laplacian's kNN kernel included; ``eigh`` reads its status back), each
+    one's projector error against a float64 dense ``eigh`` of the same
+    Laplacian and the CPU's Chebyshev basis beside them.  Held: the card's
+    Chebyshev basis orthonormal within 1e-4 and its projector error at most
+    twice the CPU's."""
+    import torch
+
+    from pointcloudattack_tpu_torch.geometry import spectral
+
+    m = AOF_LOW_PASS
+    lap, _ = spectral.laplacian_matrix(data, AOF_K)
+    w64, ref = torch.linalg.eigh(lap.double())
+    gap, ref = (w64[:, m] / w64[:, m - 1]).tolist(), ref[..., :m]
+    ms = {name: time_ms(fn, reps=3, warmup=1) for name, fn in (
+        ("laplacian", lambda: spectral.laplacian_matrix(data, AOF_K)),
+        ("chebyshev", lambda: spectral.lowpass_basis(data, k=AOF_K, m=m, method="chebyshev")),
+        ("dense", lambda: spectral.lowpass_basis(data, k=AOF_K, m=m, method="dense")))}
+    v = {"chebyshev": spectral.lowpass_basis(data, k=AOF_K, m=m, method="chebyshev")[1],
+         "dense": spectral.lowpass_basis(data, k=AOF_K, m=m, method="dense")[1]}
+    t0 = time.perf_counter()
+    v["cpu chebyshev"] = spectral.lowpass_basis(data.cpu(), k=AOF_K, m=m, method="chebyshev")[1]
+    cpu_s = time.perf_counter() - t0
+    err = {k: projector_error(x, ref).cpu() for k, x in v.items()}
+    lfc_ref = torch.bmm(ref, torch.bmm(ref.transpose(1, 2), data.double())).cpu()
+    lfc_err = {k: float((spectral.lowpass_split(data.to(x.device), x)[0].double().cpu() - lfc_ref).abs().max())
+               for k, x in v.items()}
+    card_cpu = projector_error(v["chebyshev"].cpu(), v["cpu chebyshev"])
+    ortho = float((torch.bmm(v["chebyshev"].transpose(1, 2), v["chebyshev"]) - torch.eye(m, device="cuda")).abs().max())
+    log(f"[spectral] B={data.shape[0]} N={data.shape[1]} m={m} k={AOF_K}: lambda_(m+1)/lambda_m per cloud "
+        f"{[round(g, 5) for g in gap]}; the card's Laplacian {ms['laplacian']:.4f} ms, Chebyshev basis "
+        f"{ms['chebyshev']:.4f} ms, dense eigh basis {ms['dense']:.4f} ms (dense / Chebyshev "
+        f"{ms['dense'] / ms['chebyshev']:.3f}); the CPU's Chebyshev {cpu_s * 1e3:.1f} ms")
+    for k in v:
+        log(f"[spectral] {k}: projector error against float64 dense per cloud "
+            f"{[float(f'{e:.3g}') for e in err[k]]}, max {float(err[k].max()):.3e}; lfc max |error| {lfc_err[k]:.3e}")
+    log(f"[spectral] the card's Chebyshev basis against the CPU's: projector difference per cloud "
+        f"{[float(f'{e:.3g}') for e in card_cpu]}; max |V^T V - I| {ortho:.3e}")
+    if ortho > 1e-4 or bool((err["chebyshev"] > 2 * err["cpu chebyshev"]).any()):
+        raise AssertionError("[spectral] the card's Chebyshev basis is not orthonormal, or further from the "
+                             "float64 dense one than twice the CPU's")
+    return ms
+
+
+def step_partings(card, cpu, g_card, g_cpu, rounds, iters):
+    """Where two runs of an attack whose rounds restart part.  ``card`` and
+    ``cpu`` ``[rounds * (iters + 1), b, ...]`` hold each evaluation's victim
+    input(s) (a round's steps, then its last iterate), ``g_card`` and
+    ``g_cpu`` ``[rounds * iters, b, N, 3]`` each step's gradient.  A cloud
+    parts at the first evaluation whose inputs lie further apart than
+    PART_ATOL; the parting is explained when, at an earlier step of its
+    round, a coordinate's two gradients had opposite signs (or 0 on one
+    side only: Adam's step is about lr whatever the gradient's size) or lay
+    further apart than SWITCH of the cloud's largest |gradient|, and it is
+    not the round's first evaluation.  Returns (``held [b]``: never parted,
+    a line per parted cloud, whether every parting is explained)."""
+    apart = (card - cpu).abs().flatten(2).amax(-1) > PART_ATOL  # [E, b]
+    held = ~apart.any(0)
+    lines, ok = [], True
+    for c in (~held).nonzero().flatten().tolist():
+        e = int(apart[:, c].int().argmax())
+        r, i = divmod(e, iters + 1)
+        why = []
+        for q in range(r * iters, r * iters + i):
+            gc, gp = g_card[q][c], g_cpu[q][c]
+            opp = int(((gc * gp < 0) | ((gc == 0) != (gp == 0))).sum())
+            far = float((gc - gp).abs().max() / gc.abs().max().clamp_min(1e-30))
+            if opp or far > SWITCH:
+                why.append((q - r * iters, opp, float(f"{far:.3g}")))
+        ok &= i > 0 and bool(why)
+        lines.append(f"cloud {c} parted in round {r} at step {i}; before it (step, coordinates of opposite signs, "
+                     f"largest difference over the cloud's largest |gradient|): {why[:4]}")
+    return held, lines, ok
+
+
+def input_recorder(fn, calls, grads):
+    """``fn`` that records each call's input and the gradient of each
+    differentiated input, that use's own (a step that calls ``fn`` twice
+    on one leaf records two)."""
+    def run(a):
+        calls.append(a.detach().cpu())
+        if a.requires_grad:
+            a = a.view_as(a)  # this use's gradient, not its leaf's sum
+            a.register_hook(lambda g: grads.append(g.detach().cpu()))
+        return fn(a)
+    return run
+
+
+def basis_hooks():
+    """``replay`` hooks for AOF's basis ("basis"): at the cut the 100th and
+    101st eigenvalues nearly coincide, so f32 fixes the basis only up to a
+    rotation there, and the card's and the CPU's differ.  ``off`` is, per
+    cloud, the projector difference of the CPU's own basis from the card's."""
+    from pointcloudattack_tpu_torch.geometry import spectral
+
+    def card(orig, pc, **kw):
+        res = orig(pc, **kw)
+        return res, res
+
+    def cpu(orig, res, pc, **kw):
+        return res, None, projector_error(orig(pc, **kw)[1], res[1]).float()
+
+    return {"basis": (spectral, "lowpass_basis", card, cpu)}
+
+
+def siadv_hooks(family):
+    """``replay`` hooks for the SIadv families' choices: the normals
+    (``normal_hooks``), SimBA's order ("order"), SimBA++'s draws ("draws")
+    and SI-query's ranking ("rank", ``off`` the positions where the CPU's
+    own order differs)."""
+    import torch
+
+    from pointcloudattack_tpu_torch.attacks import siadv
+
+    def card(orig, *args, **kw):
+        res = orig(*args, **kw)
+        return res, res
+
+    def take(orig, res, x, *args, **kw):
+        return res, None, torch.zeros(x.shape[0])
+
+    def rank(orig, res, rankings):
+        return res, None, (orig(rankings) != res).float()
+
+    hooks = {"siadv": normal_hooks(siadv), "simba": {"order": (siadv, "simba_order", card, take)},
+             "simbapp": {"draws": (siadv, "simbapp_draws", card, take)},
+             "si-query": {**normal_hooks(siadv), "rank": (siadv, "rank_order", card, rank)}}
+    return hooks[family]
+
+
+def phase_parity_aof(fn, state, data, target, truth=None, tag="parity-aof"):
+    """AOF (TAOF with ``truth``; B=4, 2 x 10) on the card and on the CPU from
+    the same weights and noise, the CPU taking the card's basis
+    (``basis_hooks``), each side's victim inputs and gradients recorded.
+    Held: every parting explained (``step_partings``), some cloud never
+    parting, and on those ``success`` identical, ``best_dist`` rtol 1e-4
+    and the clouds within 1e-5."""
+    import numpy as np
+    import torch
+
+    from pointcloudattack_tpu_torch import models
+    from pointcloudattack_tpu_torch.utils.apply import make_model_fn
+
+    b, rounds, iters = 4, 2, 10
+    noise = torch.from_numpy(np.random.RandomState(7).randn(rounds, b, N, 3).astype(np.float32))
+    cpu_fn = make_model_fn(models.make_model("PointNet", NUM_CLASSES), state, "cpu")
+    rec = {side: ([], []) for side in ("card", "cpu")}
+    out = {}
+    with replay(basis_hooks()) as taken:
+        for side, f, dev in (("card", fn, "cuda"), ("cpu", cpu_fn, "cpu")):
+            out[side] = aof_attack(input_recorder(f, *rec[side]), truth is not None, rounds, iters)(
+                data[:b].to(dev), target[:b].to(dev), None if truth is None else truth[:b].to(dev),
+                init_noise=noise.to(dev))
+    evals = rounds * (iters + 1)
+    its, grads = {}, {}
+    for side, (calls, gs) in rec.items():
+        if len(calls) != 2 * evals + 1 or len(gs) != 2 * rounds * iters:
+            raise AssertionError(f"{tag}: recorded {len(calls)} victim calls and {len(gs)} gradients on the {side}")
+        its[side] = torch.stack([torch.stack(calls[2 * e:2 * e + 2], dim=1) for e in range(evals)])
+        grads[side] = [gs[2 * q] + gs[2 * q + 1] for q in range(rounds * iters)]
+    held, lines, ok = step_partings(its["card"], its["cpu"], grads["card"], grads["cpu"], rounds, iters)
+    (adv_g, dist_g, succ_g), (adv_c, dist_c, succ_c) = ((t.cpu() for t in out[s]) for s in ("card", "cpu"))
+    log(f"[{tag}] card vs CPU, PointNet B={b}, {rounds}x{iters}, the CPU taking the card's {choice_line(taken)}: "
+        f"success card {succ_g.tolist()} cpu {succ_c.tolist()}; best_dist card {dist_g.tolist()} cpu "
+        f"{dist_c.tolist()}; clouds never parted {held.tolist()}; adv max |diff| per cloud "
+        f"{[float(f'{v:.3g}') for v in (adv_g - adv_c).abs().flatten(1).amax(1)]}" + "".join(f"; {w}" for w in lines))
+    if not ok or not bool(held.any()):
+        raise AssertionError(f"{tag}: a parting nothing explains, or every cloud parted")
+    if not torch.equal(succ_g[held], succ_c[held]):
+        raise AssertionError(f"{tag}: success differs between the card and the CPU")
+    torch.testing.assert_close(dist_g[held], dist_c[held], rtol=1e-4, atol=0.0)
+    torch.testing.assert_close(adv_g[held], adv_c[held], rtol=0.0, atol=PART_ATOL)
+
+
+def phase_parity_si_ifgm(fn, state, data, target, tag="parity-si-ifgm"):
+    """SI iFGM (B=4, 10 steps) on the card and on the CPU, the CPU taking
+    the card's normals; held as ``phase_parity_aof`` (one round), and
+    ``pred`` identical on the clouds that never parted."""
+    import torch
+
+    from pointcloudattack_tpu_torch import models
+    from pointcloudattack_tpu_torch.utils.apply import make_model_fn
+
+    b, steps = 4, 10
+    cpu_fn = make_model_fn(models.make_model("PointNet", NUM_CLASSES), state, "cpu")
+    rec = {side: ([], []) for side in ("card", "cpu")}
+    out = {}
+    with replay(siadv_hooks("siadv")) as taken:
+        for side, f, dev in (("card", fn, "cuda"), ("cpu", cpu_fn, "cpu")):
+            out[side] = si_ifgm_attack(input_recorder(f, *rec[side]), 1, steps)(data[:b].to(dev), target[:b].to(dev))
+    for side, (calls, gs) in rec.items():
+        if len(calls) != steps + 1 or len(gs) != steps:
+            raise AssertionError(f"{tag}: recorded {len(calls)} victim calls and {len(gs)} gradients on the {side}")
+    held, lines, ok = step_partings(torch.stack(rec["card"][0]), torch.stack(rec["cpu"][0]), rec["card"][1],
+                                    rec["cpu"][1], 1, steps)
+    (adv_g, pred_g, succ_g), (adv_c, pred_c, succ_c) = ((t.cpu() for t in out[s]) for s in ("card", "cpu"))
+    log(f"[{tag}] card vs CPU, PointNet B={b}, {steps} steps, the CPU taking the card's {choice_line(taken)}: "
+        f"pred card {pred_g.tolist()} cpu {pred_c.tolist()}; success card {succ_g.tolist()} cpu {succ_c.tolist()}; "
+        f"clouds never parted {held.tolist()}; adv max |diff| per cloud "
+        f"{[float(f'{v:.3g}') for v in (adv_g - adv_c).abs().flatten(1).amax(1)]}" + "".join(f"; {w}" for w in lines))
+    if not ok or not bool(held.any()):
+        raise AssertionError(f"{tag}: a parting nothing explains, or every cloud parted")
+    if not (torch.equal(succ_g[held], succ_c[held]) and torch.equal(pred_g[held], pred_c[held])):
+        raise AssertionError(f"{tag}: pred or success differs between the card and the CPU")
+    torch.testing.assert_close(adv_g[held], adv_c[held], rtol=0.0, atol=PART_ATOL)
+
+
+def phase_parity_query(family, fn, state, data, target, b, max_queries, tag):
+    """A query family on the card and on the CPU from the same weights, the
+    CPU taking the card's choices (``siadv_hooks``): ``pred``, ``success``
+    and the queries identical, the clouds within PART_ATOL."""
+    import torch
+
+    from pointcloudattack_tpu_torch import models
+    from pointcloudattack_tpu_torch.utils.apply import make_model_fn
+
+    cpu_fn = make_model_fn(models.make_model("PointNet", NUM_CLASSES), state, "cpu")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    with replay(siadv_hooks(family)) as taken:
+        card = query_attack(family, fn, max_queries)(data[:b], target[:b], generator=gen)
+        cpu = query_attack(family, cpu_fn, max_queries)(data[:b].cpu(), target[:b].cpu())
+    diff = (card.adv.cpu() - cpu.adv).abs().flatten(1).amax(1)
+    log(f"[{tag}] card vs CPU, {family} on PointNet B={b}, cap {max_queries}, the CPU taking the card's "
+        f"{choice_line(taken)}: iterations card {card.iterations} cpu {cpu.iterations}; queries card "
+        f"{card.queries.tolist()} cpu {cpu.queries.tolist()}; pred card {card.pred.tolist()} cpu {cpu.pred.tolist()}; "
+        f"success card {card.success.tolist()} cpu {cpu.success.tolist()}; adv max |diff| per cloud "
+        f"{[float(f'{v:.3g}') for v in diff]}")
+    for name in ("queries", "pred", "success"):
+        if not torch.equal(getattr(card, name).cpu(), getattr(cpu, name)):
+            raise AssertionError(f"{tag}: {name} differs between the card and the CPU")
+    if float(diff.max()) > PART_ATOL:
+        raise AssertionError(f"{tag}: the adversarial clouds differ by more than {PART_ATOL}")
+
+
+def config5_path():
+    """BASELINE config 5 on PointNet: the spectral basis on the card, row 9
+    at the new kNN shapes, then AOF and TAOF (the aof cell), SI iFGM at
+    normal_refresh 1 and 5 (si_ifgm, si_ifgm_r5), SI-query (si_query),
+    SimBA and SimBA++: each counted and timed, card against CPU, and the
+    profiles of AOF and iFGM.  Returns the launch counts of each path and
+    row 9's records at the new shapes."""
+    aof_data, aof_labels = synthetic_data(8, 1, AOF_DATA, "cuda")
+    si_data, si_labels = synthetic_data(8, 8, SI_DATA, "cuda")
+    siq_data, siq_labels = synthetic_data(8, 4, SIQ_DATA, "cuda")
+    with phase_clock("spectral"):
+        phase_spectral(aof_data)
+    with phase_clock("kernels-knn (config 5)"):
+        knn = {f"aof graph {tuple(aof_data.shape)} k={AOF_K}": time_knn("kernels-knn", "AOF's graph", aof_data, AOF_K),
+               **{f"siadv normals {tuple(x.shape)} k={SI_K + 1}": time_knn("kernels-knn", "SIadv's normals", x,
+                                                                          SI_K + 1) for x in (si_data, siq_data)}}
+    launches = {}
+    aof_fn, aof_state = make_victim("PointNet", "cuda", aof_data, ("dropout",))
+    aof_target = victim_labels(aof_fn, aof_data, aof_labels, "slice-aof")
+    with phase_clock("slice-aof"):
+        launches["aof"] = run_aof("slice-aof", aof_fn, aof_data, aof_target)
+    with phase_clock("slice-taof"):
+        launches["taof"] = run_aof("slice-taof", aof_fn, aof_data, (aof_target + 1) % NUM_CLASSES, aof_target)
+    with phase_clock("parity-aof"):
+        phase_parity_aof(aof_fn, aof_state, aof_data, aof_target)
+        phase_parity_aof(aof_fn, aof_state, aof_data, (aof_target + 1) % NUM_CLASSES, aof_target, "parity-taof")
+    with phase_clock("profile-aof"):
+        phase_profile("profile-aof", aof_fn, aof_data, aof_target, aof_attack(aof_fn, False, 1, 10), "AOF 1x10")
+    si_fn, si_state = make_victim("PointNet", "cuda", si_data, ("dropout",))
+    si_target = victim_labels(si_fn, si_data, si_labels, "slice-si-ifgm")
+    with phase_clock("slice-si-ifgm"):
+        launches["si_ifgm"] = run_si_ifgm("slice-si-ifgm", si_fn, si_data, si_target, 1)
+        launches["si_ifgm_r5"] = run_si_ifgm("slice-si-ifgm-r5", si_fn, si_data, si_target, 5)
+    with phase_clock("parity-si-ifgm"):
+        phase_parity_si_ifgm(si_fn, si_state, si_data, si_target)
+    with phase_clock("profile-si-ifgm"):
+        phase_profile("profile-si-ifgm", si_fn, si_data, si_target, si_ifgm_attack(si_fn, 1, 10), "SI iFGM 10 steps")
+    siq_fn, siq_state = make_victim("PointNet", "cuda", siq_data, ("dropout",))
+    siq_target = victim_labels(siq_fn, siq_data, siq_labels, "slice-si-query")
+    with phase_clock("slice-si-query"):
+        launches["si_query"] = run_query("slice-si-query", "si-query", siq_fn, siq_data, siq_target)
+    with phase_clock("slice-simba"):
+        launches["simba"] = run_query("slice-simba", "simba", siq_fn, siq_data[:SIMBA_B], siq_target[:SIMBA_B])
+    with phase_clock("slice-simbapp"):
+        launches["simbapp"] = run_query("slice-simbapp", "simbapp", siq_fn, siq_data[:SIMBA_B], siq_target[:SIMBA_B])
+    with phase_clock("parity-query"):
+        phase_parity_query("si-query", siq_fn, siq_state, siq_data, siq_target, 2, N, "parity-si-query")
+        phase_parity_query("simba", siq_fn, siq_state, siq_data, siq_target, 4, 200, "parity-simba")
+        phase_parity_query("simbapp", siq_fn, siq_state, siq_data, siq_target, 4, 200, "parity-simbapp")
+    return launches, knn
+
+
 def main():
     if not (ROOT / KERNEL_SRC).is_file():
         raise SystemExit(f"chip_smoke: {KERNEL_SRC} not found beside this script; run it from a checkout")
@@ -4463,6 +4915,8 @@ def main():
     with phase_clock("kernels-gather-curvenet"):
         cng = phase_kernels_gather_curvenet()
     cn_cw, cn_geo, cn_gather, cn_knn = curvenet_path()
+    # AOF/TAOF and the SIadv family (BASELINE config 5) on PointNet
+    c5, c5_knn = config5_path()
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "pointcloudattack_tpu"))
     if loaded:
         raise AssertionError(f"the JAX side was imported: {loaded}")
@@ -4470,7 +4924,7 @@ def main():
     by_path = {"pointnet": {"chain_fwd": launches["fwd"], "chain_bwd": launches["bwd"]},
                "ssg": ssg[4], "msg": msg[4], "dgcnn": dg_launches, "knn": knn1, "knn_r5": knn5,
                "knn_ssg": knn_ssg, "geoa3": geo_launches, "geoa3_r4": geo_r4, "geoa3_partial": geo_partial,
-               "curvenet": cn_cw, "geoa3_curvenet": cn_geo, "curvenet_gather": cn_gather}
+               "curvenet": cn_cw, "geoa3_curvenet": cn_geo, "curvenet_gather": cn_gather, **c5}
 
     def entry(name, key, source, replaces, launches_, err, ms, plain_ms, bnd, at, rows=None, **extra):
         """``rows``: the chain rows the bound charges (every row forward, the
@@ -4516,10 +4970,11 @@ def main():
                 summed_bound(dg[key]), dg_at, library_ms=dg[key].get("library_ms"))
           for key in HOIST_KEYS),
         entry("knn", "knn", KNN_SRC, TPU_KNN, dg_launches["knn"],
-              max(dg["knn"]["err"], geo["knn_geoa3"]["err"], *(r["err"] for r in cn_knn.values())), dg["knn"]["ms"],
+              max(dg["knn"]["err"], geo["knn_geoa3"]["err"], *(r["err"] for r in (*cn_knn.values(), *c5_knn.values()))),
+              dg["knn"]["ms"],
               dg["knn"]["plain_ms"], summed_bound(dg["knn"]), dg_at,
               shapes={**dg["knn"]["shapes"], f"geoa3 cached set {tuple(geo_data.shape)} k={GEO_K + 1}": geo["knn_geoa3"],
-                      **cn_knn}),
+                      **cn_knn, **c5_knn}),
         entry("min_sqdist_rows", "min_rows", CHAMFER_SRC, TPU_CHAMFER, knn1["min_rows"], cham["err"], cham["ms"],
               cham["plain_ms"], cham["bound"], f"B={B} N=M={N}, one KNN iteration's Chamfer on PointNet",
               device_ms=cham["device_ms"], bound_issued_ms=cham["bound_issued"][0], shapes=cham["shapes"]),

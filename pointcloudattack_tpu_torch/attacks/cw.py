@@ -13,11 +13,7 @@ import torch
 
 from pointcloudattack_tpu_torch.attacks.engine import CWConfig, CWResult, cw_attack
 from pointcloudattack_tpu_torch.constraints.clip import clip_points_linf
-from pointcloudattack_tpu_torch.losses.adv import (
-    cross_entropy_adv_loss,
-    logits_adv_loss,
-    untargeted_logits_adv_loss,
-)
+from pointcloudattack_tpu_torch.losses.adv import adv_loss_fn
 from pointcloudattack_tpu_torch.losses.distance import l2_dist
 
 
@@ -33,18 +29,7 @@ class CWPerturbConfig(CWConfig):
 def build_cw_attack(model_fn, cfg: CWPerturbConfig):
     """``run(data, target, generator=None, init_noise=None) -> CWResult``
     for the plain CW attack."""
-    if cfg.adv_func == "logits":
-        if cfg.targeted:
-            adv_fn = lambda lg, t: logits_adv_loss(lg, t, cfg.kappa)
-        else:
-            adv_fn = lambda lg, t: untargeted_logits_adv_loss(lg, t, cfg.kappa)
-    elif cfg.adv_func == "cross_entropy":
-        if cfg.targeted:
-            adv_fn = cross_entropy_adv_loss
-        else:
-            adv_fn = lambda lg, t: -cross_entropy_adv_loss(lg, t)
-    else:
-        raise ValueError(f"unknown adv_func {cfg.adv_func!r}")
+    adv_fn = adv_loss_fn(cfg.adv_func, cfg.targeted, cfg.kappa)
 
     clip = lambda adv, ori: clip_points_linf(adv, ori, cfg.budget)
 

@@ -16,11 +16,7 @@ import torch
 
 from pointcloudattack_tpu_torch.attacks.engine import adam_step
 from pointcloudattack_tpu_torch.constraints.clip import project_inner_clip_linf
-from pointcloudattack_tpu_torch.losses.adv import (
-    cross_entropy_adv_loss,
-    logits_adv_loss,
-    untargeted_logits_adv_loss,
-)
+from pointcloudattack_tpu_torch.losses.adv import adv_loss_fn
 from pointcloudattack_tpu_torch.losses.distance import chamfer_dist
 from pointcloudattack_tpu_torch.losses.geometry import nn1_idx
 from pointcloudattack_tpu_torch.ops.gather import index_points
@@ -45,18 +41,7 @@ def build_knn_attack(model_fn, cfg: KNNAttackConfig):
     """``run(data, target, generator=None, init_noise=None, normals=None)
     -> (adv [B, N, 3], success [B])``.  ``init_noise`` is the unscaled
     ``[B, N, 3]`` start noise, drawn from ``generator`` when absent."""
-    if cfg.adv_func == "logits":
-        if cfg.targeted:
-            adv_fn = lambda lg, t: logits_adv_loss(lg, t, cfg.kappa)
-        else:
-            adv_fn = lambda lg, t: untargeted_logits_adv_loss(lg, t, cfg.kappa)
-    elif cfg.adv_func == "cross_entropy":
-        if cfg.targeted:
-            adv_fn = cross_entropy_adv_loss
-        else:
-            adv_fn = lambda lg, t: -cross_entropy_adv_loss(lg, t)
-    else:
-        raise ValueError(f"unknown adv_func {cfg.adv_func!r}")
+    adv_fn = adv_loss_fn(cfg.adv_func, cfg.targeted, cfg.kappa)
     if cfg.nn_refresh < 1:
         raise ValueError(f"nn_refresh must be >= 1, got {cfg.nn_refresh} (1 = the reference's per-iteration Chamfer)")
     cache_nn = cfg.nn_refresh > 1

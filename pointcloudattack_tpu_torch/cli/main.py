@@ -1,7 +1,9 @@
-"""Command-line entry point: ``attack cw``, ``knn``, ``geoa3`` and ``geoa3-partial``.
+"""Command-line entry point: ``attack cw``, ``knn``, ``geoa3``,
+``geoa3-partial``, ``aof``, ``taof``, ``siadv``, ``simba``, ``simbapp`` and
+``si-query``.
 
-Counterpart of ``pointcloudattack_tpu/cli/main.py::cmd_attack`` for the
-``cw``, ``knn``, ``geoa3`` and ``geoa3-partial`` families.  Run as
+Counterpart of ``pointcloudattack_tpu/cli/main.py::cmd_attack`` for those
+families.  Run as
 
     python -m pointcloudattack_tpu_torch.cli attack cw --dataset synthetic \\
         --model PointNet --num_points 1024 --num_classes 40 \\
@@ -16,12 +18,28 @@ Counterpart of ``pointcloudattack_tpu/cli/main.py::cmd_attack`` for the
     python -m pointcloudattack_tpu_torch.cli attack geoa3-partial \\
         --model PointNet --knn_range 16 --refresh_iters 50 \\
         --subsample_npoint 512 --curv_knn_refresh 4
+    python -m pointcloudattack_tpu_torch.cli attack aof --model PointNet \
+        --binary_step 2 --num_iter 100 --kappa 0 --budget 0.45 --low_pass 100
+    python -m pointcloudattack_tpu_torch.cli attack taof --attack_method target
+    python -m pointcloudattack_tpu_torch.cli attack siadv --budget 0.18 \
+        --step_size 0.007 --num_iter 50
+    python -m pointcloudattack_tpu_torch.cli attack si-query --budget 0.18 \
+        --step_size 0.32 --surrogate_model PointNet --surrogate_checkpoint s.pth
 
 ``--model`` is ``PointNet``, ``PointNet++Ssg``, ``PointNet++Msg``,
 ``DGCNN`` or ``CurveNet`` (whose raw logits the attacks see as
 log-probs, as the JAX CLI normalises them).  ``--num_iter 0`` /
 ``--binary_step 0`` mean the family's reference default (C&W and GeoA3
-10 x 500, KNN 2500).  ``geoa3-partial`` takes the settings the JAX CLI
+10 x 500, KNN 2500, AOF and TAOF 2 x 200, siadv 50 steps; for simba and
+simbapp ``--num_iter`` caps the loop's iterations, by default 3 x 1024, and
+si-query runs up to N, as the JAX package's; the query families print the
+mean query cost).  ``--attack_method target`` (aof,
+taof and the SIadv families) attacks ``--target_class``, by default the
+class after the truth; TAOF's success rule reads the true labels.  siadv,
+simbapp and si-query take their gradients from ``--surrogate_model`` with
+``--surrogate_checkpoint`` when given, else from the victim.  aof and taof
+also write ``{family}_results.npz`` (the adversarial clouds, the true
+labels and the targets).  ``geoa3-partial`` takes the settings the JAX CLI
 passes it: the step size, the rounds and iterations, the classification
 loss and its confidence, ``--curv_knn_refresh``, ``--knn_range``,
 ``--refresh_iters`` and ``--subsample_npoint``.  ``--device`` defaults to
@@ -43,7 +61,9 @@ import torch
 
 from pointcloudattack_tpu_torch.data.synthetic import make_synthetic_clouds
 
-ATTACK_FAMILIES = ("cw", "knn", "geoa3", "geoa3-partial")
+ATTACK_FAMILIES = ("cw", "knn", "geoa3", "geoa3-partial", "aof", "taof", "siadv", "simba", "simbapp", "si-query")
+# the families that take --attack_method target
+TARGETED_FAMILIES = ("aof", "taof", "siadv", "simba", "simbapp", "si-query")
 
 
 def _device(name: str) -> torch.device:
@@ -96,8 +116,60 @@ def _dump_adv(outdir, name, adv, labels, preds):
         np.savetxt(path, adv[i], fmt="%.6f")
 
 
-def _run_family(args, model_fn, data, target, noise_gen):
-    """One attack family; returns ``(adv, success)``."""
+def _surrogate_model_fn(args, num_classes, dev):
+    """The SIadv families' white-box surrogate (reference Eval_SIadv.py:180-182,
+    a surrogate PointNet against the target model), or None: the victim."""
+    if not args.surrogate_model:
+        return None
+    if not args.surrogate_checkpoint:
+        raise SystemExit("--surrogate_model requires --surrogate_checkpoint "
+                         "(a randomly initialized surrogate gives useless gradients)")
+    from pointcloudattack_tpu_torch import models
+    from pointcloudattack_tpu_torch.train.weights import load_checkpoint
+    from pointcloudattack_tpu_torch.utils.apply import make_model_fn
+
+    model = models.make_model(args.surrogate_model, num_classes)
+    fn = make_model_fn(model, load_checkpoint(args.surrogate_checkpoint), dev)
+    return _normalize_output(fn, args.surrogate_model)
+
+
+def _run_siadv(args, model_fn, data, target, noise_gen, wb_fn):
+    """An SIadv family; returns ``(adv, success, queries or None)``."""
+    from pointcloudattack_tpu_torch.attacks import siadv
+
+    if args.family == "siadv":
+        cfg = siadv.SIAdvConfig(eps=args.budget, step_size=args.step_size, max_steps=args.num_iter or 50,
+                                top5_attack=args.top5_attack)
+        adv, _, success = siadv.build_si_ifgm(wb_fn, model_fn, cfg)(data, target)
+        return adv, success, None
+    kw = {"max_queries": args.num_iter} if args.num_iter else {}
+    cfg = siadv.SIAdvConfig(eps=args.budget, step_size=args.step_size, top5_attack=args.top5_attack, **kw)
+    if args.family == "simba":
+        res = siadv.build_simba(model_fn, cfg)(data, target, generator=noise_gen)
+    elif args.family == "simbapp":
+        res = siadv.build_simbapp(wb_fn, model_fn, cfg)(data, target, generator=noise_gen)
+    else:
+        res = siadv.build_si_query_attack(wb_fn, model_fn, cfg)(data, target)
+    return res.adv, res.success, res.queries
+
+
+def _run_family(args, model_fn, data, target, noise_gen, truth, wb_fn):
+    """One attack family; returns ``(adv, success, queries or None)``.
+    ``truth``: the true labels (TAOF's success rule reads them); ``wb_fn``:
+    the SIadv families' gradient source."""
+    if args.family in ("siadv", "simba", "simbapp", "si-query"):
+        return _run_siadv(args, model_fn, data, target, noise_gen, wb_fn)
+    if args.family in ("aof", "taof"):
+        from pointcloudattack_tpu_torch.attacks.aof import AOFConfig, build_aof_attack
+
+        cfg = AOFConfig(
+            attack_lr=args.attack_lr, binary_step=args.binary_step or 2, num_iter=args.num_iter or 200,
+            budget=args.budget, kappa=args.kappa, targeted=args.family == "taof", low_pass=args.low_pass,
+            gamma=args.aof_gamma,
+        )
+        adv, _, success = build_aof_attack(model_fn, cfg)(
+            data, target, truth if args.family == "taof" else None, generator=noise_gen)
+        return adv, success, None
     if args.family == "cw":
         from pointcloudattack_tpu_torch.attacks.cw import CWPerturbConfig, build_cw_attack
 
@@ -109,7 +181,7 @@ def _run_family(args, model_fn, data, target, noise_gen):
             budget=args.budget,
         )
         res = build_cw_attack(model_fn, cfg)(data, target, generator=noise_gen)
-        return res.best_attack, res.success
+        return res.best_attack, res.success, None
     if args.family == "geoa3":
         from pointcloudattack_tpu_torch.attacks.geoa3 import GeoA3Config, build_geoa3_attack
 
@@ -123,7 +195,7 @@ def _run_family(args, model_fn, data, target, noise_gen):
             use_jitter=bool(args.use_jitter), use_offset_proj=bool(args.use_offset_proj), cc_linf=args.cc_linf,
         )
         adv, _, success = build_geoa3_attack(model_fn, cfg)(data, target, generator=noise_gen)
-        return adv, success
+        return adv, success, None
     if args.family == "geoa3-partial":
         from pointcloudattack_tpu_torch.attacks.geoa3_partial import GeoA3PartialConfig, build_geoa3_partial_attack
 
@@ -133,7 +205,7 @@ def _run_family(args, model_fn, data, target, noise_gen):
             knn_range=args.knn_range, refresh_iters=args.refresh_iters, subsample_npoint=args.subsample_npoint,
         )
         adv, _, success = build_geoa3_partial_attack(model_fn, cfg)(data, target, generator=noise_gen)
-        return adv, success
+        return adv, success, None
     from pointcloudattack_tpu_torch.attacks.knn import KNNAttackConfig, build_knn_attack
 
     cfg = KNNAttackConfig(
@@ -143,7 +215,7 @@ def _run_family(args, model_fn, data, target, noise_gen):
         budget=args.budget,
         nn_refresh=args.nn_refresh,
     )
-    return build_knn_attack(model_fn, cfg)(data, target, generator=noise_gen)
+    return (*build_knn_attack(model_fn, cfg)(data, target, generator=noise_gen), None)
 
 
 def cmd_attack(args) -> float:
@@ -153,12 +225,24 @@ def cmd_attack(args) -> float:
     from pointcloudattack_tpu_torch.utils.apply import make_model_fn
 
     dev = _device(args.device)
+    family = args.family
+    targeted = args.attack_method == "target"
+    if targeted and family not in TARGETED_FAMILIES:
+        raise SystemExit(f"--attack_method target is not ported for {family} (only for {', '.join(TARGETED_FAMILIES)})")
+    if family == "simba" and args.surrogate_model:
+        raise SystemExit("simba is pure black-box — it takes no surrogate "
+                         "(use simbapp or si-query for surrogate gradients)")
     num_classes = args.num_classes or 10
     clouds, labels = make_synthetic_clouds(num_classes, 16, args.num_points, seed=args.seed)
     if args.num_samples:
         clouds, labels = clouds[: args.num_samples], labels[: args.num_samples]
+    truth = labels.astype(np.int64)
+    if targeted:
+        # a target other than the truth: --target_class, else the next class
+        labels = np.full_like(truth, args.target_class) if args.target_class >= 0 else (truth + 1) % num_classes
     data = torch.from_numpy(clouds).to(dev)
     target = torch.from_numpy(labels.astype(np.int64)).to(dev)
+    wb_fn = _surrogate_model_fn(args, num_classes, dev) if family in ("siadv", "simbapp", "si-query") else None
 
     gen = torch.Generator().manual_seed(args.seed)
     model = models.make_model(args.model, num_classes, generator=gen)
@@ -172,14 +256,19 @@ def cmd_attack(args) -> float:
 
     noise_gen = torch.Generator(device=dev).manual_seed(args.seed)
     t0 = time.time()
-    adv, success = _run_family(args, model_fn, data, target, noise_gen)
+    adv, success, queries = _run_family(args, model_fn, data, target, noise_gen,
+                                        torch.from_numpy(truth).to(dev), wb_fn or model_fn)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.time() - t0
 
+    if family in ("aof", "taof"):
+        # the reference's result bundle (Eval_AOF.py:245-259)
+        os.makedirs(args.output_dir, exist_ok=True)
+        np.savez(os.path.join(args.output_dir, f"{family}_results.npz"), test_pc=adv.detach().cpu().numpy(),
+                 test_label=truth, target_label=labels)
     success = success.cpu().numpy()
     asr = float(success.mean())
-    family = args.family
     print(
         f"attack {family}: ASR {asr:.3f} "
         f"({int(success.sum())}/{len(success)}) in {dt:.1f}s"
@@ -188,6 +277,9 @@ def cmd_attack(args) -> float:
         "family": family, "model": args.model, "asr": asr,
         "wall_clock_s": dt, "n": int(len(success)), "device": str(dev),
     }
+    if queries is not None:
+        summary["mean_query_cost"] = float(queries.float().mean())
+        print(f"mean query cost: {summary['mean_query_cost']:.1f}")
     im = imperceptibility_metrics(adv, data)
     summary.update(im)
     print(
@@ -200,11 +292,11 @@ def cmd_attack(args) -> float:
             preds = model_fn(adv).argmax(dim=-1)
         _dump_adv(
             os.path.join(args.output_dir, "AdvData", args.model), family,
-            adv.cpu().numpy(), labels, preds.cpu().numpy(),
+            adv.cpu().numpy(), truth, preds.cpu().numpy(),
         )
 
     shuf_gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
-    shuf = float(shuffle_check(model_fn, adv, target, shuf_gen).float().mean())
+    shuf = float(shuffle_check(model_fn, adv, target, shuf_gen, targeted=targeted).float().mean())
     summary["shuffle_asr"] = shuf
     print(f"shuffle-robust ASR: {shuf:.3f}")
 
@@ -225,9 +317,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_points", type=int, default=1024)
     p.add_argument("--num_classes", type=int, default=0, help="0 = 10")
     p.add_argument("--checkpoint", default="", help="reference-layout .pth state dict")
-    p.add_argument("--binary_step", type=int, default=0, help="cw, geoa3, geoa3-partial: 0 = 10")
+    p.add_argument("--binary_step", type=int, default=0,
+                   help="cw, geoa3, geoa3-partial, aof, taof: 0 = the family's default (10; aof 2)")
     p.add_argument("--num_iter", type=int, default=0,
-                   help="0 = the family's default (cw and geoa3 500, knn 2500)")
+                   help="0 = the family's default (cw and geoa3 500, knn 2500, aof 200, siadv 50); "
+                        "simba, simbapp: the loop's iteration cap (0 = 3 x 1024; si-query runs up to N)")
     p.add_argument("--attack_lr", type=float, default=1e-2)
     p.add_argument("--nn_refresh", type=int, default=1,
                    help="knn: refresh the Chamfer nearest-point index every R iterations (1 = the reference)")
@@ -254,6 +348,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="geoa3-partial: iterations between patch refreshes")
     p.add_argument("--subsample_npoint", type=int, default=0,
                    help="geoa3-partial: evaluate on a farthest-point subsample of this size (0 = off)")
+    p.add_argument("--attack_method", default="untarget", choices=["untarget", "target"],
+                   help="target: attack --target_class (aof, taof and the SIadv families)")
+    p.add_argument("--target_class", type=int, default=-1,
+                   help="targeted mode: the target class (-1 = the class after the truth)")
+    p.add_argument("--low_pass", type=int, default=100, help="aof, taof: low-frequency eigenvectors")
+    p.add_argument("--aof_gamma", type=float, default=0.5,
+                   help="aof, taof: blend of the full and the low-frequency loss (reference GAMMA)")
+    p.add_argument("--step_size", type=float, default=0.07, help="SIadv families: the step (reference 0.07)")
+    p.add_argument("--top5_attack", action="store_true",
+                   help="SIadv families: success only once the target leaves the top 5")
+    p.add_argument("--surrogate_model", default="",
+                   choices=["", "PointNet", "PointNet++Ssg", "PointNet++Msg", "DGCNN", "CurveNet"],
+                   help="siadv, simbapp, si-query: white-box surrogate (empty = the victim)")
+    p.add_argument("--surrogate_checkpoint", default="", help="reference-layout .pth of --surrogate_model")
     p.add_argument("--kappa", type=float, default=30.0)
     p.add_argument("--budget", type=float, default=0.18)
     p.add_argument("--num_samples", type=int, default=0, help="0 = all")

@@ -44,3 +44,17 @@ def cross_entropy_adv_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch
 def negative_logits_adv_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Negated NLL: maximise the true-class loss (untargeted CE mode)."""
     return -cross_entropy_adv_loss(logits, targets)
+
+
+def adv_loss_fn(adv_func: str, targeted: bool, kappa: float):
+    """The attack families' classification loss ``(logits, target) -> [B]``:
+    ``"logits"``, the margin loss (targeted or untargeted) with confidence
+    ``kappa``; ``"cross_entropy"``, the target's NLL (negated when
+    untargeted)."""
+    if adv_func == "logits":
+        if targeted:
+            return lambda lg, t: logits_adv_loss(lg, t, kappa)
+        return lambda lg, t: untargeted_logits_adv_loss(lg, t, kappa)
+    if adv_func == "cross_entropy":
+        return cross_entropy_adv_loss if targeted else negative_logits_adv_loss
+    raise ValueError(f"unknown adv_func {adv_func!r}")
