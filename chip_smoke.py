@@ -4,7 +4,8 @@ Run from the root of a checkout, on a machine with one H100:
 
     python3 chip_smoke.py
 
-It takes about eleven to thirteen minutes, the kernel build included.
+It takes about sixteen minutes, the kernel build included; SI-query through
+DUP-Net (phase 38) takes about two of them.
 
 Phases, each raising on failure (nothing is caught; any failure exits
 non-zero and prints no result):
@@ -228,7 +229,30 @@ gather route (``fused_gather=True``) adds:
 36. parity-si-query, parity-simba, parity-simbapp  card against CPU, the CPU taking the
               card's normals, ranking, order and draws (``siadv_hooks``): queries,
               pred and success identical, the clouds within 1e-5.
-Each of phases 11-36 prints its seconds.
+37. kernels-punet  row 2's multi-layer chain + max (3 layers, K=32, ReLU) at PU-Net's four set
+              abstractions on the rows of one DUP-Net forward over the si_query clouds (B=32:
+              [32,1024,32,3] -> 32,32,64 ... [32,128,32,259] -> 256,256,512), held as phase 23 holds
+              it, timed beside plain, its device time and bound, the tile ``_pick_tm`` takes; FPS at
+              its four samplings (1024 -> 1024, 512, 256, 128) bit for bit; SOR's kNN (k=3); the
+              peak memory of one forward.
+38. slice-dupnet  SI-query on PointNet behind DUP-Net (SOR k=2, alpha 1.1, then PU-Net at its
+              published widths, seeded weights) at bench.py's si_query settings: exact launch counts
+              (a forward: SOR's kNN 1, FPS 4, group max 4, chain 2; the white-box backward: group max
+              4, chain 2; SI-query's own kNN), ASR > 0, s/batch of one timed run after the counted
+              one (cut from 3); profile-dupnet the idle share of a whole SI-query run through DUP-Net at
+              B=32 on the clouds the counted run flipped within one stop-flag chunk.
+39. slice-cw-dupnet  C&W through DUP-Net (B=16, 1 x 20, cut from 1 x 200): exact launch counts,
+              ASR > 0, s/batch.
+40. slice-sor, slice-srs  C&W on PointNet behind SOR and SRS (B=64, 1 x 100, cut from 1 x 200).
+41. parity-dupnet  card against CPU through the defenses, the CPU taking the card's choices
+              (``dupnet_hooks``: SOR's mask, SRS's draw, PU-Net's FPS picks, ball slots, group-chain
+              picks and hidden signs, 3-NN picks, ReLU signs): the upsampled clouds within 1e-4;
+              SI-query through DUP-Net (queries, pred, success identical, clouds 1e-5); C&W's
+              first-step gradient through DUP-Net, SOR and SRS (1e-5 relative L2 where no tie).
+42. cli-defense  the CLI on the card: si-query --defense dupnet on a saved PU-Net state dict,
+              cw --defense sor, cw --defense srs, cw --transfer_test --trans_model PointNet,DGCNN,
+              and dupnet without --defense_checkpoint refused with the JAX CLI's message.
+Each of phases 11-42 prints its seconds.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the per-kernel record.  The script imports nothing of JAX.
@@ -469,10 +493,13 @@ PEAK_FLOPS, PEAK_TF32, PEAK_BYTES = 67e12, 495e12, 3.35e12
 # Row 1 (the chain + max pool, ops/chain_maxpool.py) at every shape its
 # paths give it, (B, N, dims): PointNet's spine at C&W's and KNN's B=64,
 # GeoA3's B=8 (all three paths), a ragged N=1000, GeoA3's partial mode's
-# 512-point subsample; PointNet++'s last set abstraction is GROUP_ALL's
+# 512-point subsample, DUP-Net's upsampled clouds (SI-query's B=32, N=4 x
+# 1024) and SRS's survivors (C&W's B=64, N=1024 - 500); PointNet++'s last
+# set abstraction is GROUP_ALL's
 CHAIN_SHAPES = {
     "spine B=64": (64, 1024, SPINE), "spine B=8": (8, 1024, SPINE),
     "spine B=8 N=1000": (8, 1000, SPINE), "spine B=8 N=512": (8, 512, SPINE),
+    "spine B=32 N=4096": (32, 4096, SPINE), "spine B=64 N=524": (64, 524, SPINE),
 }
 # edge cases of the backward, (B, N, dims, case): a hub (row 17 wins every
 # column of cloud 0), every row winning (N=128 < C_L=1024), ties (each point
@@ -2051,7 +2078,7 @@ TIE_GAP = 1e-5  # a choice whose two best candidates lie this close is counted a
 def replay(hooks, take=None):
     """While open, the functions that ``hooks`` names (kind -> (module,
     attribute, on_card, on_cpu)) make their discrete choices on the card and
-    take them on the CPU.  A call whose first argument lies on the card runs
+    take them on the CPU.  A call whose first tensor argument lies on the card runs
     ``on_card(orig, *args) -> (result, choice)``, and the choice joins its
     kind's queue.  A call on the CPU takes the oldest queued choice of its
     kind (or ``take(kind)``, when given) and runs ``on_cpu(orig, choice,
@@ -2081,7 +2108,7 @@ def replay(hooks, take=None):
 
     def patched(kind, on_card, on_cpu):
         def fn(*args, **kw):
-            if args[0].is_cuda:
+            if next(a for a in args if hasattr(a, "is_cuda")).is_cuda:
                 out, choice = on_card(orig[kind], *args, **kw)
                 queues[kind].append(tuple(c.cpu() for c in choice) if isinstance(choice, tuple) else choice.cpu())
                 return out
@@ -2522,7 +2549,8 @@ def knn_loss(logp, a, o, t):
     return untargeted_logits_adv_loss(logp, t, KAPPA) + chamfer_dist(a, o) * a.shape[1]
 
 
-def grad_parity(model_fn, cpu_fn, adv, ori, target, loss_fn=cw_loss, choices=None, signs=True, gather=False):
+def grad_parity(model_fn, cpu_fn, adv, ori, target, loss_fn=cw_loss, choices=None, signs=True, gather=False,
+                hooks=None):
     """Log-probs and the input gradient of ``loss_fn`` at ``adv``, on the
     card and on the CPU, the CPU taking the card's max-pool picks
     and their chains' hidden signs (``pick_hooks``) and CurveNet's discrete
@@ -2531,11 +2559,14 @@ def grad_parity(model_fn, cpu_fn, adv, ori, target, loss_fn=cw_loss, choices=Non
     stats go to the list ``choices`` when given.  Per cloud: log-probs
     max|diff|, the gradient's relative L2 difference, the log-prob tie gap
     (``logp_ties``, on the card) and how far the taken choices lie from the
-    CPU's own, at most."""
+    CPU's own, at most.  ``hooks``, when given, replaces that set of
+    hooks."""
     import torch
 
     outs = []
-    with replay({**pick_hooks(), **(relu_hooks() if signs else {}), **curvenet_hooks(signs, gather)}) as stats:
+    if hooks is None:
+        hooks = {**pick_hooks(), **(relu_hooks() if signs else {}), **curvenet_hooks(signs, gather)}
+    with replay(hooks) as stats:
         for fn, a0, o, t in ((model_fn, adv, ori, target), (cpu_fn, adv.cpu(), ori.cpu(), target.cpu())):
             a = a0.detach().clone().requires_grad_(True)
             logp = fn(a)
@@ -2571,7 +2602,7 @@ def hold_grad_parity(tag, steps):
     if float(pick.max()) > PICK_ATOL or float(lp.max()) > LOGP_ATOL:
         raise AssertionError(f"{tag}: card choices {float(pick.max()):.3e} from the CPU's own (> {PICK_ATOL}) "
                              f"or log-probs {float(lp.max()):.3e} apart (> {LOGP_ATOL})")
-    if not held.numel() or float(held.max()) > GRAD_CLEAN:
+    if not held.numel() or not float(held.max()) <= GRAD_CLEAN:  # a NaN fails too
         raise AssertionError(f"{tag}: loss gradients differ by more than {GRAD_CLEAN} (or every step tied)")
 
 
@@ -3728,7 +3759,7 @@ def mask_flips(x, layers, slope=CN_SLOPE):
     return flips
 
 
-def check_group(name, pool, x, layers, dy, slope=CN_SLOPE):
+def check_group(name, pool, x, layers, dy, slope=CN_SLOPE, tag="kernels-curvenet"):
     """The group chain kernel (``pool`` "max" or "mean") against its plain
     version on one case, both on the card: y within Y_TOL; for the max the
     argmax equal except at near ties and every card pick at most PICK_ATOL
@@ -3793,7 +3824,7 @@ def check_group(name, pool, x, layers, dy, slope=CN_SLOPE):
     if mean1:
         torch.testing.assert_close(dx_other[~edge], dx_ref[~edge], **DX_TOL)
         extra += f"the other product back's dx max|err| {float((dx_other - dx_ref)[~edge].abs().max()):.3e}; "
-    log(f"[kernels-curvenet] {pool} {name} x {tuple(x.shape)} chain {[x.shape[-1]] + [l[0].shape[1] for l in layers]} "
+    log(f"[{tag}] {pool} {name} x {tuple(x.shape)} chain {[x.shape[-1]] + [l[0].shape[1] for l in layers]} "
         f"slope {slope}: y max|err| {errs['y']:.3e}; {extra}{int(carry.sum())} of {carry.numel()} rows carry a "
         f"cotangent, {int(edge.sum())} of them an activated unit within {EDGE} of 0 (left out); dx max|err| "
         f"{errs['dx']:.3e} (all rows {float((dx - dx_ref).abs().max()):.3e}); two backwards bit-equal")
@@ -3825,7 +3856,7 @@ def group_bound(b, g, k, dims, pool, carry=None, fp32=False):
     return bound(flops, nbytes)
 
 
-def time_group(name, pool, x, layers, am, g, carry, slope=CN_SLOPE):
+def time_group(name, pool, x, layers, am, g, carry, slope=CN_SLOPE, tag="kernels-curvenet"):
     """Group kernel and plain times at one case, and the bounds; for a
     one-layer mean the backward's other product back beside the one the
     wrapper takes (``other``), on the same inputs."""
@@ -3858,7 +3889,7 @@ def time_group(name, pool, x, layers, am, g, carry, slope=CN_SLOPE):
                  "ms, device " + (", ".join(f"{n} {v:.4f}" for n, v in ms["bwd_other_device"].items())
                                   or "not measured") + f"; the bound in FP32 only {ms['bound_fp32'][0]:.5f} by "
                  f"{ms['bound_fp32'][1]}")
-    log(f"[kernels-curvenet] {pool} {name} chain {dims}: forward {ms['fwd']:.4f} ms (device "
+    log(f"[{tag}] {pool} {name} chain {dims}: forward {ms['fwd']:.4f} ms (device "
         + (", ".join(f"{n} {v:.4f}" for n, v in ms["fwd_device"].items()) or "not measured") + "; plain "
         f"{ms['fwd_plain']:.4f}, "
         f"bound {b_fwd[0]:.5f} by {b_fwd[1]} over {b * ng * k} rows), backward {ms['bwd']:.4f} ms (device "
@@ -4171,18 +4202,27 @@ def first_step_spread(tag, fn, data, target):
 
 
 @contextlib.contextmanager
-def op_trace(targets):
+def op_trace(targets, inputs=False):
     """While open, records in run order what each function ``(module,
-    name)`` of ``targets`` returns, its tensors flattened into one; yields
-    the list of (name, tensor)."""
+    name)`` of ``targets`` returns, its tensors flattened into one, or with
+    ``inputs`` its positional arguments, each tensor detached and copied;
+    yields the list of (name, record)."""
     import torch
+
+    def copied(a):
+        if torch.is_tensor(a):
+            return a.detach().clone(memory_format=torch.contiguous_format)
+        return type(a)(copied(v) for v in a) if isinstance(a, (list, tuple)) else a
 
     rec, saved = [], []
     for mod, name in targets:
         def traced(*args, _fn=getattr(mod, name), _name=f"{mod.__name__.rsplit('.', 1)[-1]}.{name}", **kw):
+            if inputs:
+                rec.append((_name, copied(args)))
             out = _fn(*args, **kw)
-            outs = out if isinstance(out, tuple) else (out,)
-            rec.append((_name, torch.cat([o.detach().flatten().double() for o in outs if torch.is_tensor(o)])))
+            if not inputs:
+                outs = out if isinstance(out, tuple) else (out,)
+                rec.append((_name, torch.cat([o.detach().flatten().double() for o in outs if torch.is_tensor(o)])))
             return out
 
         saved.append((mod, name, getattr(mod, name)))
@@ -4465,10 +4505,12 @@ def run_si_ifgm(tag, fn, data, target, refresh):
                               "knn": -(-SI_STEPS // refresh)}, check)
 
 
-def run_query(tag, family, fn, data, target, reps=3, max_queries=SIMBA_QUERIES):
+def run_query(tag, family, fn, data, target, reps=3, max_queries=SIMBA_QUERIES, per_fwd=None, per_bwd=None):
     """A query family counted (its launches held to the loop iterations it
     ran: the loop reads its stop flag once every ``QUERY_CHUNK``
-    iterations) and timed; returns the counted run's launch counts."""
+    iterations) and timed; returns the counted run's launch counts and its
+    queries per cloud.  ``per_fwd`` and ``per_bwd``: the launches of one forward and one
+    backward of ``fn`` (PointNet's by default: the chain's 2 each)."""
     import torch
 
     from pointcloudattack_tpu_torch.attacks.siadv import QUERY_CHUNK
@@ -4490,11 +4532,17 @@ def run_query(tag, family, fn, data, target, reps=3, max_queries=SIMBA_QUERIES):
     launches = read_all()
     fwd, bwd, knn = QUERY_LAUNCHES[family]
     forwards = fwd + 2 * res.iterations
-    expect = {"chain_fwd": 2 * forwards, "chain_bwd": 2 * bwd, "knn": knn,
-              **{k: 2 * bwd for k in CHAIN_BWD_STAGES}}
+    expect = {}
+    for k, v in (per_fwd or {"chain_fwd": 2}).items():
+        expect[k] = expect.get(k, 0) + v * forwards
+    for k, v in (per_bwd or {"chain_bwd": 2}).items():
+        expect[k] = expect.get(k, 0) + v * bwd
+    expect["knn"] = expect.get("knn", 0) + knn
+    for k in CHAIN_BWD_STAGES:  # each chain backward launches both of its stages
+        expect[k] = expect.get("chain_bwd", 0)
     want = {k: expect.get(k, 0) for k in launches}
     log(f"[{tag}] {family} B={b}: {res.iterations} loop iterations (stop flag read every {QUERY_CHUNK}; cap "
-        f"{max_queries if family != 'si-query' else data.shape[1]}), {forwards} PointNet forwards, {bwd} "
+        f"{max_queries if family != 'si-query' else data.shape[1]}), {forwards} victim forwards, {bwd} "
         f"backward(s); kernel launches {launches} (expected {want})")
     if launches != want:
         raise AssertionError(f"{tag}: launch counts {launches} != expected {want}")
@@ -4507,7 +4555,7 @@ def run_query(tag, family, fn, data, target, reps=3, max_queries=SIMBA_QUERIES):
     log(f"[{tag}] {family} B={b} N={data.shape[1]}: warm-up {t_warm:.4f} s; timed {[round(t, 6) for t in times]} "
         f"s/batch at {[r.iterations for r, _ in runs]} loop iterations; min {tmin:.6f} s ({b / tmin:.3f} clouds/s), "
         f"mean {tmean:.6f} s ({b / tmean:.3f} clouds/s)")
-    return launches
+    return launches, res.queries
 
 
 def projector_error(v, ref):
@@ -4727,18 +4775,21 @@ def phase_parity_si_ifgm(fn, state, data, target, tag="parity-si-ifgm"):
     torch.testing.assert_close(adv_g[held], adv_c[held], rtol=0.0, atol=PART_ATOL)
 
 
-def phase_parity_query(family, fn, state, data, target, b, max_queries, tag):
+def phase_parity_query(family, fn, state, data, target, b, max_queries, tag, cpu_fn=None, hooks=None):
     """A query family on the card and on the CPU from the same weights, the
-    CPU taking the card's choices (``siadv_hooks``): ``pred``, ``success``
-    and the queries identical, the clouds within PART_ATOL."""
+    CPU taking the card's choices (``siadv_hooks``, and ``hooks`` when
+    given): ``pred``, ``success`` and the queries identical, the clouds
+    within PART_ATOL.  ``cpu_fn``: the CPU's victim (by default PointNet on
+    ``state``)."""
     import torch
 
     from pointcloudattack_tpu_torch import models
     from pointcloudattack_tpu_torch.utils.apply import make_model_fn
 
-    cpu_fn = make_model_fn(models.make_model("PointNet", NUM_CLASSES), state, "cpu")
+    if cpu_fn is None:
+        cpu_fn = make_model_fn(models.make_model("PointNet", NUM_CLASSES), state, "cpu")
     gen = torch.Generator(device="cuda").manual_seed(3)
-    with replay(siadv_hooks(family)) as taken:
+    with replay({**siadv_hooks(family), **(hooks or {})}) as taken:
         card = query_attack(family, fn, max_queries)(data[:b], target[:b], generator=gen)
         cpu = query_attack(family, cpu_fn, max_queries)(data[:b].cpu(), target[:b].cpu())
     diff = (card.adv.cpu() - cpu.adv).abs().flatten(1).amax(1)
@@ -4794,16 +4845,426 @@ def config5_path():
     siq_fn, siq_state = make_victim("PointNet", "cuda", siq_data, ("dropout",))
     siq_target = victim_labels(siq_fn, siq_data, siq_labels, "slice-si-query")
     with phase_clock("slice-si-query"):
-        launches["si_query"] = run_query("slice-si-query", "si-query", siq_fn, siq_data, siq_target)
+        launches["si_query"], _ = run_query("slice-si-query", "si-query", siq_fn, siq_data, siq_target)
     with phase_clock("slice-simba"):
-        launches["simba"] = run_query("slice-simba", "simba", siq_fn, siq_data[:SIMBA_B], siq_target[:SIMBA_B])
+        launches["simba"], _ = run_query("slice-simba", "simba", siq_fn, siq_data[:SIMBA_B], siq_target[:SIMBA_B])
     with phase_clock("slice-simbapp"):
-        launches["simbapp"] = run_query("slice-simbapp", "simbapp", siq_fn, siq_data[:SIMBA_B], siq_target[:SIMBA_B])
+        launches["simbapp"], _ = run_query("slice-simbapp", "simbapp", siq_fn, siq_data[:SIMBA_B],
+                                           siq_target[:SIMBA_B])
     with phase_clock("parity-query"):
         phase_parity_query("si-query", siq_fn, siq_state, siq_data, siq_target, 2, N, "parity-si-query")
         phase_parity_query("simba", siq_fn, siq_state, siq_data, siq_target, 4, 200, "parity-simba")
         phase_parity_query("simbapp", siq_fn, siq_state, siq_data, siq_target, 4, 200, "parity-simbapp")
     return launches, knn
+
+
+# The defenses (--defense sor|srs|dupnet, attacks/evaluation.py::with_defense) on PointNet.  DUP-Net behind bench.py's
+# si_query cell (make_synthetic_clouds(8, 4, 1024, seed=14), B=32, eps 0.18, step 0.32), PU-Net at its published widths
+# (npoint = N = 1024, up_ratio 4, set abstractions 3-32-32-64 ... 259-256-256-512 over K=32) on weights drawn from
+# DUP_SEED; C&W through DUP-Net on the first DUP_CW_B of those clouds, 1 x DUP_CW_ITER (cut from 1 x 200); C&W behind
+# SOR and SRS on the headline's clouds (B=64), 1 x DEF_ITER (cut from 1 x 200).  SRS's draw is seeded with DEF_KEY, as
+# the CLI's with --seed 0.
+DUP_UP, DUP_SEED, DUP_CW_B, DUP_CW_ITER, DEF_ITER, DEF_KEY = 4, 21, 16, 20, 100, 7
+# the launches of one DUP-Net + PointNet forward (SOR's kNN, PU-Net's four FPS and four group chains, the victim's two
+# chains) and of its backward (the four group chains', the victim's two)
+DUP_FWD = {"knn": 1, "fps": 4, "group_max_fwd": 4, "chain_fwd": 2}
+DUP_BWD = {"group_max_bwd": 4, "chain_bwd": 2}
+DEF_FWD = {"sor": {"knn": 1, "chain_fwd": 2}, "srs": {"chain_fwd": 2}}
+DUP_PARITY_B = 2  # clouds of the card-against-CPU readings through DUP-Net (the CPU runs PU-Net's plain chains)
+DUP_PARITY_QUERIES = 32  # SI-query's parity takes clouds the card's run flipped in fewer queries than this
+# SI-query through DUP-Net: the counted run (also the warm-up), then DUP_SIQ_REPS fenced timed runs, cut from 3: 4 of
+# the 32 clouds never flip behind the seeded upsampler, so every run goes all N = 1024 loop iterations (about 50 s)
+DUP_SIQ_REPS = 1
+
+
+def short_runs(queries, below):
+    """The clouds whose ``queries`` lie under ``below``, most queries first
+    (ties to the lower index)."""
+    import torch
+
+    q = queries.cpu().long()
+    cand = (q < below).nonzero().flatten()
+    return cand[torch.sort(-q[cand], stable=True).indices].tolist()
+
+
+def punet_state(seed=DUP_SEED):
+    """A PU-Net state dict at the published widths (npoint N, up_ratio
+    DUP_UP), its weights drawn from ``seed`` (PyTorch's default draw)."""
+    import torch
+
+    from pointcloudattack_tpu_torch.models.punet import PUNet
+
+    model = PUNet(npoint=N, up_ratio=DUP_UP)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def defended(fn, defense, pu_state=None):
+    """``fn`` behind ``defense`` as the CLI puts it there (``with_defense``,
+    SRS's key DEF_KEY, DUP-Net to N points on ``pu_state``); ``fn`` the
+    identity gives the defended clouds."""
+    from pointcloudattack_tpu_torch.attacks.evaluation import with_defense
+
+    return with_defense(fn, defense, key=DEF_KEY, npoint=N, dup_variables=pu_state)
+
+
+def defended_victim(defense, data, labels, tag, pu_state=None):
+    """PointNet behind ``defense``, its BatchNorm statistics taken from the
+    defended clouds (``make_victim``): ``(model_fn, defended model_fn,
+    state, target)``, the target its clean predictions through the
+    defense."""
+    import torch
+
+    with torch.no_grad():
+        clouds = defended(lambda x: x, defense, pu_state)(data)
+    fn, state = make_victim("PointNet", "cuda", clouds, ("dropout",))
+    dfn = defended(fn, defense, pu_state)
+    return fn, dfn, state, victim_labels(dfn, data, labels, tag)
+
+
+def phase_kernels_punet(data, pu_state):
+    """Row 2's multi-layer chain + max at PU-Net's four set abstractions and
+    FPS at its four samplings, on the rows and clouds of one DUP-Net forward
+    over ``data`` (SI-query's B=32): the forward and the max backward held
+    to their plain versions (``check_group``: y within Y_TOL, the argmax
+    equal but at near ties, dx within DX_TOL, two backwards bit-equal),
+    FPS bit for bit (npoint = N at the first), each timed beside its plain
+    version, its device time and its bound; the tile ``_pick_tm`` takes for
+    the widest backward; SOR's kNN (row 9, k=3) as phase 11 holds it; and
+    the peak memory of one forward.  Returns the records of rows 2, 10 and
+    9 at these shapes."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from pointcloudattack_tpu_torch.models import punet
+    from pointcloudattack_tpu_torch.ops import _build
+    from pointcloudattack_tpu_torch.ops import fps as fps_mod
+    from pointcloudattack_tpu_torch.ops import group_chain as gch
+    from pointcloudattack_tpu_torch.ops import grouping
+
+    dup = defended(lambda x: x, "dupnet", pu_state)
+    with torch.no_grad():
+        dup(data[:1])  # PU-Net onto the card
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with op_trace(((punet, "mlp_chain_groupmax"), (grouping, "farthest_point_sample")), inputs=True) as rec:
+            up = dup(data)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    if tuple(up.shape) != (data.shape[0], DUP_UP * N, 3) or not bool(torch.isfinite(up).all()):
+        raise AssertionError(f"[kernels-punet] DUP-Net gave {tuple(up.shape)}, finite {bool(torch.isfinite(up).all())}")
+    log(f"[kernels-punet] one DUP-Net forward over {tuple(data.shape)} -> {tuple(up.shape)}: peak memory "
+        f"{peak:.1f} MiB above the {base / 2**20:.1f} MiB held before it")
+    out = {"group_max_fwd": {}, "group_max_bwd": {}, "fps": {}, "peak_mib": peak}
+    lib = _build.load_library()
+    groups = [args for name, args in rec if name == "punet.mlp_chain_groupmax"]
+    samplings = [args for name, args in rec if name == "grouping.farthest_point_sample"]
+    for i, (x, layers) in enumerate(groups):
+        b, ng, k, c0 = x.shape
+        dims = [c0] + [layer[0].shape[1] for layer in layers]
+        name = f"sa{i} {tuple(x.shape)} -> {dims[1:]}"
+        dy = torch.from_numpy(np.random.RandomState(120 + i).randn(b, ng, dims[-1]).astype(np.float32)).cuda()
+        errs, am, g, carry = check_group(f"sa{i}", "max", x, layers, dy, slope=0.0, tag="kernels-punet")
+        ms, b_fwd, b_bwd = time_group(f"sa{i}", "max", x, layers, am, g, carry, slope=0.0, tag="kernels-punet")
+        arr = (ctypes.c_int * len(dims))(*dims)
+        tiles = {d: gch._pick_tm(lib, arr, len(layers), k, d == "bwd") for d in ("fwd", "bwd")}
+        smem = {d: lib.pca_group_smem(len(layers), ctypes.cast(arr, ctypes.c_void_p), k, tiles[d], int(d == "bwd"))
+                for d in tiles}
+        log(f"[kernels-punet] sa{i} chain {dims} K={k}: _pick_tm takes TM={tiles['fwd']} forward ({smem['fwd']} B of "
+            f"shared memory a block), TM={tiles['bwd']} backward ({smem['bwd']} B of the "
+            f"{lib.pca_chain_max_smem()} a block may hold)")
+        for key, d, err, bnd, rows in (("group_max_fwd", "fwd", errs["y"], b_fwd, b * ng * k),
+                                       ("group_max_bwd", "bwd", errs["dx"], b_bwd, carry)):
+            out[key][f"punet {name}"] = {
+                "ms": ms[d], "plain_ms": ms[f"{d}_plain"], "device_ms": sum(ms[f"{d}_device"].values()) or None,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "bound_rows": rows, "max_abs_err": err, "tm": tiles[d]}
+    if len(groups) != 4 or len(samplings) != 4:
+        raise AssertionError(f"[kernels-punet] one forward ran {len(groups)} group chains and {len(samplings)} FPS, "
+                             "not 4 and 4")
+    for i, (xyz, npoint) in enumerate(samplings):
+        b, n, _ = xyz.shape
+        err = check_fps("kernels-punet", f"sa{i}", xyz, npoint)
+        zero = torch.zeros(b, dtype=torch.int32, device=xyz.device)
+        ms = time_pairs({"plain": lambda: fps_mod.fps_plain(xyz, npoint, zero),
+                         "kernel": lambda: fps_mod.farthest_point_sample(xyz, npoint)}, reps=3)
+        dev = sum(v for kn, v in device_ms(lambda: fps_mod.farthest_point_sample(xyz, npoint)).items()
+                  if kn.startswith("fps_kernel")) or None
+        t, by = fps_bound(b, n, npoint)
+        out["fps"][f"punet sa{i} [{b},{n},3] -> {npoint}"] = {
+            "ms": ms["kernel"], "plain_ms": ms["plain"], "device_ms": dev, "bound_ms": t, "bound_by": by,
+            "max_abs_err": err}
+        log(f"[kernels-punet] fps sa{i} [{b},{n},3] -> {npoint}: kernel {ms['kernel']:.4f} ms, device "
+            f"{'not measured' if dev is None else f'{dev:.4f} ms'}, plain {ms['plain']:.4f} ms, bound {t:.5f} by {by}")
+    out["knn"] = {f"sor neighbours {tuple(data.shape)} k=3": time_knn("kernels-punet", "SOR's neighbours", data, 3)}
+    torch.cuda.empty_cache()
+    return out
+
+
+def dupnet_hooks():
+    """``replay`` hooks for the defenses' choices: SOR's keep mask ("sor",
+    ``defense/sor.py::sor_keep``: a value within rounding of the threshold
+    may fall on either side; ``gap`` each value's distance to the CPU's
+    threshold) and its neighbours ("sor_knn", ``knn_hooks``), SRS's draw
+    ("srs", ``srs_draw``: the CPU's generator draws other numbers; ``off``
+    0), and PU-Net's: the FPS picks ("fps") and ball slots ("slots") of its
+    set abstractions (bit-equal by design: ``off`` 1 for each cloud where
+    the CPU's own differ), each group chain's max picks and hidden signs
+    ("punet_group": the picks from the op's own forward run again, which
+    must give its bits, the signs from ``hidden_sides``; the CPU runs the
+    chain in plain differentiable ops on them, as ``pick_hooks``' chain
+    hooks do), the 3-NN picks of its feature propagations ("nn3": ``gap``
+    the 4th nearest's distance over the 3rd's, ``off`` the taken distances'
+    largest difference from the CPU's own) and the signs of every ReLU's
+    input ("punet_relu")."""
+    import torch
+
+    from pointcloudattack_tpu_torch.defense import sor, srs
+    from pointcloudattack_tpu_torch.models import punet
+    from pointcloudattack_tpu_torch.ops import group_chain as gch
+    from pointcloudattack_tpu_torch.ops import grouping
+    from pointcloudattack_tpu_torch.ops import interpolate as interp
+    from pointcloudattack_tpu_torch.ops.pairwise import pairwise_sqdist
+
+    def same(orig, *args, **kw):
+        out = orig(*args, **kw)
+        return out, out
+
+    def keep_cpu(orig, keep, value, alpha):
+        thr = value.mean(dim=-1, keepdim=True) + alpha * value.std(dim=-1, keepdim=True, unbiased=True)
+        gap = (value - thr).abs()
+        return keep, gap, torch.where(keep != (value <= thr), gap, 0.0)
+
+    def draw_cpu(orig, idx, pc, keep, generator=None):
+        return idx, None, torch.zeros(pc.shape[0])
+
+    def fps_cpu(orig, idx, xyz, npoint, start=None):
+        return idx, None, (orig(xyz, npoint, start) != idx).any(-1, keepdim=True).float()
+
+    def slots_cpu(orig, idx, radius, nsample, xyz, new_xyz, sqr=None):
+        own = orig(radius, nsample, xyz, new_xyz, sqr)
+        return idx, None, (own != idx).flatten(1).any(1, keepdim=True).float()
+
+    def group_card(orig, x, layers, slope=0.0):
+        y = orig(x, layers, slope)
+        with torch.no_grad():
+            det = [tuple(t.detach().contiguous() for t in layer) for layer in layers]
+            y2, am = gch.chain_groupmax_fwd(x.detach().contiguous(), det, slope)
+            if not torch.equal(y2, y.detach()):
+                raise AssertionError(f"PU-Net's group chain gave other bits the second time in "
+                                     f"{int((y2 != y.detach()).sum())} of {y.numel()} outputs")
+            _, sides = hidden_sides(x, det, slope)
+        return y, (am, *sides)
+
+    def group_cpu(orig, choice, x, layers, slope=0.0):
+        pick, *sides = choice
+        z, gaps, offs = signed_chain(x.float(), layers, slope, sides)
+        (y, _), gap, off = pool_at(z, pick, 2)
+        b = z.shape[0]
+        return y, torch.cat([gap.reshape(b, -1), *gaps], 1), torch.cat([off.reshape(b, -1), *offs], 1)
+
+    def nn_card(orig, dst, src):
+        d, idx = orig(dst, src)
+        return (d, idx), idx
+
+    def nn_cpu(orig, idx, dst, src):
+        dall = pairwise_sqdist(dst, src)
+        d = dall.gather(-1, idx.long())
+        own = torch.sort(dall.detach(), dim=-1, stable=True).values
+        gap = own[..., 3] - own[..., 2] if own.shape[-1] > 3 else own[..., 0].abs() + float("inf")
+        return (d, idx), gap, (d.detach() - own[..., :3]).abs().amax(-1)
+
+    def sign_card(orig, x):
+        return orig(x), x.detach() > 0
+
+    def sign_cpu(orig, pos, x):
+        xd = x.detach()
+        return torch.where(pos, x, 0.0 * x), xd.abs(), torch.where(pos != (xd > 0), xd.abs(), 0.0)
+
+    return {"sor": (sor, "sor_keep", same, keep_cpu), "sor_knn": knn_hooks(sor)["knn"],
+            "srs": (srs, "srs_draw", same, draw_cpu),
+            "fps": (grouping, "farthest_point_sample", same, fps_cpu),
+            "slots": (grouping, "query_ball_point", same, slots_cpu),
+            "punet_group": (punet, "mlp_chain_groupmax", group_card, group_cpu),
+            "nn3": (interp, "three_nn", nn_card, nn_cpu), "punet_relu": (punet, "relu", sign_card, sign_cpu)}
+
+
+def victim_hooks():
+    """``replay`` hooks for PointNet behind a defense: its chain's picks and
+    hidden signs (``pick_hooks``' "chain"), its ReLUs' signs
+    (``relu_hooks``) and the defenses' choices (``dupnet_hooks``)."""
+    return {"chain": pick_hooks()["chain"], **relu_hooks(), **dupnet_hooks()}
+
+
+def phase_parity_dupnet(fn, state, pu_state, data, target, sor_srs, short):
+    """Card against CPU through the defenses, the CPU taking the card's
+    choices (``victim_hooks``): DUP-Net's upsampled clouds within 1e-4 at
+    B=4; SI-query through DUP-Net on the clouds ``short``
+    (``phase_parity_query``: queries, ``pred`` and ``success`` identical,
+    clouds within PART_ATOL); C&W's
+    first-step gradient through DUP-Net, and through SOR and SRS on the
+    headline's victim (``sor_srs``: defense -> (model_fn, state, data,
+    target)), at two perturbed copies of the clean clouds (at the clean
+    clouds the L2 term's gradient is 0 / 0), held by
+    ``hold_grad_parity`` (1e-5 relative L2 at every (input, cloud) whose
+    log-probs do not tie)."""
+    import numpy as np
+    import torch
+
+    from pointcloudattack_tpu_torch import models
+    from pointcloudattack_tpu_torch.utils.apply import make_model_fn
+
+    def cpu_victim(st):
+        return make_model_fn(models.make_model("PointNet", NUM_CLASSES), st, "cpu")
+
+    b = 4
+    with replay(dupnet_hooks()) as taken:
+        up_card = defended(lambda x: x, "dupnet", pu_state)(data[:b])
+        up_cpu = defended(lambda x: x, "dupnet", pu_state)(data[:b].cpu())
+    diff = (up_card.cpu() - up_cpu).abs().flatten(1).amax(1)
+    log(f"[parity-dupnet] DUP-Net's upsampled clouds {tuple(up_card.shape)}, card vs CPU: max |diff| per cloud "
+        f"{[float(f'{v:.3g}') for v in diff]} (bound 1e-4), the CPU taking the card's {choice_line(taken)}")
+    if float(diff.max()) > 1e-4:
+        raise AssertionError(f"[parity-dupnet] the upsampled clouds differ by {float(diff.max()):.3e} > 1e-4")
+    cpu_dfn = defended(cpu_victim(state), "dupnet", pu_state)
+    if not short:
+        raise AssertionError(f"[parity-dupnet] no cloud flipped in fewer than {DUP_PARITY_QUERIES} queries")
+    log(f"[parity-dupnet] SI-query on clouds {short}, which the card's counted run flipped in fewer than "
+        f"{DUP_PARITY_QUERIES} queries")
+    phase_parity_query("si-query", fn, state, data[short], target[short], len(short), N, "parity-dupnet-si-query",
+                       cpu_fn=cpu_dfn, hooks=victim_hooks())
+    rng = np.random.RandomState(17)
+    for defense, (dfn, st, x, t) in {"dupnet": (fn, state, data, target), **sor_srs}.items():
+        bb = DUP_PARITY_B if defense == "dupnet" else 4
+        ori = x[:bb]
+        advs = [ori + torch.from_numpy((rng.randn(*ori.shape) * 0.01).astype(np.float32)).cuda() for _ in range(2)]
+        cpu_fn = defended(cpu_victim(st), defense, pu_state if defense == "dupnet" else None)
+        hold_grad_parity(f"parity-{defense}", [grad_parity(dfn, cpu_fn, a, ori, t[:bb], hooks=victim_hooks())
+                                               for a in advs])
+
+
+def phase_cli_defense(pu_state):
+    """The CLI on the card, one process each, all started together: SI-query
+    behind DUP-Net on a PU-Net state dict written to a temporary file, C&W
+    behind SOR and behind SRS, C&W with a transfer panel of PointNet and
+    DGCNN, and DUP-Net without ``--defense_checkpoint``, which must exit
+    non-zero with the JAX CLI's message.  Each other run must exit 0 with
+    its ASR line and summary (the transfer ASR of both members in it)."""
+    import tempfile
+
+    import torch
+
+    common = ["--model", "PointNet", "--num_points", str(N), "--num_classes", str(NUM_CLASSES), "--seed", "0"]
+    runs = {"si-query dupnet": ["si-query", "--defense", "dupnet", "--budget", "0.18", "--step_size", "0.32",
+                                "--num_samples", "8"],
+            "cw sor": ["cw", "--defense", "sor", "--binary_step", "1", "--num_iter", "20", "--num_samples", "16"],
+            "cw srs": ["cw", "--defense", "srs", "--binary_step", "1", "--num_iter", "20", "--num_samples", "16"],
+            "cw transfer": ["cw", "--binary_step", "1", "--num_iter", "10", "--num_samples", "16", "--transfer_test",
+                            "--trans_model", "PointNet,DGCNN"],
+            "dupnet without a checkpoint": ["cw", "--defense", "dupnet", "--num_samples", "2"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = str(Path(tmp) / "punet.pth")
+        torch.save(pu_state, ckpt)
+        runs["si-query dupnet"] += ["--defense_checkpoint", ckpt]
+        procs = {}
+        try:
+            for i, (name, argv) in enumerate(runs.items()):
+                procs[name] = subprocess.Popen(
+                    [sys.executable, "-m", "pointcloudattack_tpu_torch.cli", "attack", *argv, *common,
+                     "--output_dir", str(Path(tmp) / str(i))], cwd=ROOT, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True)
+            done = {name: (p.communicate(timeout=600), p.returncode) for name, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for i, (name, ((out, err), rc)) in enumerate(done.items()):
+            family = runs[name][0]
+            tail = " | ".join(line for line in out.strip().splitlines()[-4:])
+            log(f"[cli-defense] {name}: exit {rc}; {tail or err.strip().splitlines()[-1:]}")
+            if name == "dupnet without a checkpoint":
+                if rc == 0 or "--defense dupnet requires --defense_checkpoint" not in err:
+                    raise AssertionError(f"[cli-defense] {name}: exit {rc}, stderr {err[-400:]!r}")
+                continue
+            summary = Path(tmp) / str(i) / f"attack_{family}_summary.json"
+            if rc != 0 or f"attack {family}: ASR" not in out or not summary.is_file():
+                raise AssertionError(f"[cli-defense] {name}: exit {rc}, stdout {out[-400:]!r}, stderr {err[-800:]!r}")
+            summ = json.loads(summary.read_text())
+            if not summ["device"].startswith("cuda"):
+                raise AssertionError(f"[cli-defense] {name} ran on {summ['device']}")
+            if name == "cw transfer" and sorted(summ.get("transfer_asr", {})) != ["DGCNN", "PointNet"]:
+                raise AssertionError(f"[cli-defense] {name}: transfer ASR {summ.get('transfer_asr')}")
+
+
+def phase_profile_dupnet(dfn, data, target, queries):
+    """torch.profiler over SI-query through DUP-Net, the whole attack at
+    B=32: the normals, the white-box backward, the query loop's probes,
+    acceptance updates and stop-flag reads, the last forward.  Its clouds
+    are those the counted run flipped within one QUERY_CHUNK of loop
+    iterations (fewer than DUP_PARITY_QUERIES queries), cycled to the
+    batch, so that the loop stops at its first stop-flag read; a cloud that
+    never flips would hold it for all N iterations."""
+    import torch
+
+    from pointcloudattack_tpu_torch.attacks.siadv import QUERY_CHUNK
+
+    quick = short_runs(queries, DUP_PARITY_QUERIES)
+    if not quick:
+        raise AssertionError(f"[profile-dupnet] no cloud flipped in fewer than {DUP_PARITY_QUERIES} queries")
+    pick = torch.tensor(quick, device=data.device)[torch.arange(data.shape[0], device=data.device) % len(quick)]
+    attack, iters = query_attack("si-query", dfn, N), []
+
+    def window(d, t):
+        iters.append(attack(d, t).iterations)
+
+    phase_profile("profile-dupnet", dfn, data[pick], target[pick], window,
+                  f"SI-query through DUP-Net on the {len(quick)} clouds flipped within {QUERY_CHUNK} loop "
+                  "iterations, cycled,")
+    log(f"[profile-dupnet] the profiled run went {iters[-1]} loop iterations ({2 * iters[-1] + 3} DUP-Net forwards, "
+        "1 backward)")
+
+
+def dupnet_path():
+    """The defenses on PointNet: row 2's multi-layer kernels and FPS at
+    PU-Net's shapes, SI-query behind DUP-Net at the si_query cell (counted,
+    timed, profiled), C&W through DUP-Net, C&W behind SOR and behind SRS,
+    card against CPU through each, and the CLI's defense and transfer runs.
+    Returns the launch counts of each path and the kernel records at
+    PU-Net's shapes."""
+    siq_data, siq_labels = synthetic_data(8, 4, SIQ_DATA, "cuda")
+    pu_state = punet_state()
+    with phase_clock("kernels-punet"):
+        kp = phase_kernels_punet(siq_data, pu_state)
+    launches = {}
+    fn, dfn, state, target = defended_victim("dupnet", siq_data, siq_labels, "slice-dupnet", pu_state)
+    with phase_clock("slice-dupnet"):
+        launches["si_query_dupnet"], queries = run_query("slice-dupnet", "si-query", dfn, siq_data, target,
+                                                         reps=DUP_SIQ_REPS, max_queries=N, per_fwd=DUP_FWD,
+                                                         per_bwd=DUP_BWD)
+    with phase_clock("profile-dupnet"):
+        phase_profile_dupnet(dfn, siq_data, target, queries)
+    with phase_clock("slice-cw-dupnet"):
+        launches["cw_dupnet"] = run_attack("slice-cw-dupnet", dfn, siq_data[:DUP_CW_B], target[:DUP_CW_B],
+                                           DUP_CW_ITER, DUP_FWD, DUP_BWD)
+    clouds, labels = synthetic_data(NUM_CLASSES, 2, 0, "cuda")
+    sor_srs = {}
+    for defense in ("sor", "srs"):
+        _, d_fn, d_state, d_target = defended_victim(defense, clouds[:B], labels[:B], f"slice-{defense}")
+        with phase_clock(f"slice-{defense}"):
+            launches[f"cw_{defense}"] = run_attack(f"slice-{defense}", d_fn, clouds[:B], d_target, DEF_ITER,
+                                                   DEF_FWD[defense], {"chain_bwd": 2})
+        sor_srs[defense] = (d_fn, d_state, clouds[:B], d_target)
+    # SI-query card against CPU on the two clouds that took the most queries under DUP_PARITY_QUERIES on the card
+    # (the CPU runs PU-Net's plain chains, and a cloud that never flips runs all N iterations)
+    short = short_runs(queries, DUP_PARITY_QUERIES)[:DUP_PARITY_B]
+    with phase_clock("parity-dupnet"):
+        phase_parity_dupnet(dfn, state, pu_state, siq_data, target, sor_srs, short)
+    with phase_clock("cli-defense"):
+        phase_cli_defense(pu_state)
+    return launches, kp
 
 
 def main():
@@ -4917,6 +5378,8 @@ def main():
     cn_cw, cn_geo, cn_gather, cn_knn = curvenet_path()
     # AOF/TAOF and the SIadv family (BASELINE config 5) on PointNet
     c5, c5_knn = config5_path()
+    # the defenses: SOR, SRS and DUP-Net (SOR, then PU-Net) in front of PointNet
+    dn_launches, dn = dupnet_path()
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "pointcloudattack_tpu"))
     if loaded:
         raise AssertionError(f"the JAX side was imported: {loaded}")
@@ -4924,7 +5387,7 @@ def main():
     by_path = {"pointnet": {"chain_fwd": launches["fwd"], "chain_bwd": launches["bwd"]},
                "ssg": ssg[4], "msg": msg[4], "dgcnn": dg_launches, "knn": knn1, "knn_r5": knn5,
                "knn_ssg": knn_ssg, "geoa3": geo_launches, "geoa3_r4": geo_r4, "geoa3_partial": geo_partial,
-               "curvenet": cn_cw, "geoa3_curvenet": cn_geo, "curvenet_gather": cn_gather, **c5}
+               "curvenet": cn_cw, "geoa3_curvenet": cn_geo, "curvenet_gather": cn_gather, **c5, **dn_launches}
 
     def entry(name, key, source, replaces, launches_, err, ms, plain_ms, bnd, at, rows=None, **extra):
         """``rows``: the chain rows the bound charges (every row forward, the
@@ -4962,19 +5425,20 @@ def main():
         entry("chain_maxpool_bwd", "chain_bwd", KERNEL_SRC, TPU_BWD, launches["bwd"], spine["err_dx"],
               spine["bwd"], spine["bwd_plain"], spine["bound_bwd"], "PointNet spine B=64 N=1024 3-64-128-1024",
               spine["rows_bwd"], **chain_extra("bwd")),
-        entry("fps", "fps", FPS_SRC, TPU_FPS, ssg[4]["fps"], pn2["fps"]["err"], pn2["fps"]["ms"],
-              pn2["fps"]["plain_ms"], summed_bound(pn2["fps"]), ssg_at, device_ms=pn2["fps"]["device_ms"],
-              shapes=pn2["fps"]["shapes"]),
+        entry("fps", "fps", FPS_SRC, TPU_FPS, ssg[4]["fps"], max(pn2["fps"]["err"], *(r["max_abs_err"] for r in
+              dn["fps"].values())), pn2["fps"]["ms"], pn2["fps"]["plain_ms"], summed_bound(pn2["fps"]), ssg_at,
+              device_ms=pn2["fps"]["device_ms"], shapes={**pn2["fps"]["shapes"], **dn["fps"]}),
         *(entry(f"gather_hoist_{key}", f"hoist_{key}", HOIST_SRC, TPU_GATHER_FWD if key.endswith("fwd") else
                 TPU_GATHER_BWD, dg_launches[f"hoist_{key}"], dg[key]["err"], dg[key]["ms"], dg[key]["plain_ms"],
                 summed_bound(dg[key]), dg_at, library_ms=dg[key].get("library_ms"))
           for key in HOIST_KEYS),
         entry("knn", "knn", KNN_SRC, TPU_KNN, dg_launches["knn"],
-              max(dg["knn"]["err"], geo["knn_geoa3"]["err"], *(r["err"] for r in (*cn_knn.values(), *c5_knn.values()))),
+              max(dg["knn"]["err"], geo["knn_geoa3"]["err"],
+                  *(r["err"] for r in (*cn_knn.values(), *c5_knn.values(), *dn["knn"].values()))),
               dg["knn"]["ms"],
               dg["knn"]["plain_ms"], summed_bound(dg["knn"]), dg_at,
               shapes={**dg["knn"]["shapes"], f"geoa3 cached set {tuple(geo_data.shape)} k={GEO_K + 1}": geo["knn_geoa3"],
-                      **cn_knn, **c5_knn}),
+                      **cn_knn, **c5_knn, **dn["knn"]}),
         entry("min_sqdist_rows", "min_rows", CHAMFER_SRC, TPU_CHAMFER, knn1["min_rows"], cham["err"], cham["ms"],
               cham["plain_ms"], cham["bound"], f"B={B} N=M={N}, one KNN iteration's Chamfer on PointNet",
               device_ms=cham["device_ms"], bound_issued_ms=cham["bound_issued"][0], shapes=cham["shapes"]),
@@ -4991,9 +5455,12 @@ def main():
                 **({"launch_floor_ms": geo[key]["launch_floor_ms"]} if "launch_floor_ms" in geo[key] else {}))
           for name, key, tpu in (("kappa_knn_mean_from_idx_fwd", "kappa_idx_fwd", TPU_KAPPA_IDX_FWD),
                                  ("kappa_knn_mean_from_idx_bwd", "kappa_idx_bwd", TPU_KAPPA_IDX_BWD))),
-        *(entry(name, key, GROUP_SRC, tpu, cn_cw[key], cnk[key]["err"], cnk[key]["ms"], cnk[key]["plain_ms"],
-                summed_bound(cnk[key]), cn_at[pool], cnk[key]["rows"],
-                **{x: cnk[key][x] for x in ("device_ms", "shapes") if x in cnk[key]})
+        *(entry(name, key, GROUP_SRC, tpu, cn_cw[key],
+                max([cnk[key]["err"], *(r["max_abs_err"] for r in dn.get(key, {}).values())]), cnk[key]["ms"],
+                cnk[key]["plain_ms"], summed_bound(cnk[key]), cn_at[pool], cnk[key]["rows"],
+                **{x: cnk[key][x] for x in ("device_ms",) if x in cnk[key]},
+                **({"shapes": {**cnk[key].get("shapes", {}), **dn.get(key, {})}}
+                   if "shapes" in cnk[key] or key in dn else {}))
           for name, key, tpu, pool in (("chain_groupmax_fwd", "group_max_fwd", TPU_GROUP_FWD, "max"),
                                        ("chain_groupmax_bwd", "group_max_bwd", TPU_GROUP_BWD, "max"),
                                        ("chain_groupmean_fwd", "group_mean_fwd", TPU_GROUP_MEAN_FWD, "mean"),

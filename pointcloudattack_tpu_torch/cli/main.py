@@ -46,6 +46,24 @@ loss and its confidence, ``--curv_knn_refresh``, ``--knn_range``,
 ``cuda`` and never drops to the CPU; pass ``--device cpu`` to run the
 plain versions of the kernels.  Without ``--checkpoint`` the victim's
 weights are drawn from ``--seed``.
+
+``--defense sor|srs|dupnet`` puts a pre-processing defense in front of the
+victim for every family (``attacks/evaluation.py::with_defense``; SRS's draw
+seeded with ``--seed`` + 7, the same on every forward): the attack, its
+white-box gradients (without a surrogate), the shuffle check and
+``--save_adv``'s predictions all see the defended victim.  ``dupnet`` needs
+``--defense_checkpoint``, a reference-layout PU-Net state dict (the
+reference's ``pu-in_1024-up_4.pth``): a randomly initialised upsampler does
+not defend.  ``--transfer_test`` scores the adversarial clouds against the
+undefended panel ``--trans_model`` (comma-separated, paired positionally with
+``--trans_checkpoint``; a repeated name gets a ``#i`` suffix; a member with
+no checkpoint runs on weights drawn from ``--seed``, with a warning) and
+writes ``transfer_asr`` into the summary:
+
+    python -m pointcloudattack_tpu_torch.cli attack si-query --defense dupnet \
+        --defense_checkpoint pu-in_1024-up_4.pth --budget 0.18 --step_size 0.32
+    python -m pointcloudattack_tpu_torch.cli attack cw --defense sor \
+        --transfer_test --trans_model PointNet,DGCNN --trans_checkpoint a.pth,b.pth
 """
 
 from __future__ import annotations
@@ -131,6 +149,61 @@ def _surrogate_model_fn(args, num_classes, dev):
     model = models.make_model(args.surrogate_model, num_classes)
     fn = make_model_fn(model, load_checkpoint(args.surrogate_checkpoint), dev)
     return _normalize_output(fn, args.surrogate_model)
+
+
+def _load_dup_variables(path: str):
+    """The trained PU-Net upsampler's state dict for ``--defense dupnet``
+    (the reference hard-loads its ``pu-in_1024-up_4.pth``,
+    DUP_Net.py:24); without one the CLI refuses to run."""
+    if not path:
+        raise SystemExit(
+            "--defense dupnet requires --defense_checkpoint: a randomly "
+            "initialized PU-Net upsampler does not defend (the reference "
+            "DUP_Net.py:24 hard-loads its trained pu-in_1024-up_4.pth)"
+        )
+    from pointcloudattack_tpu_torch.train.weights import load_checkpoint
+
+    return load_checkpoint(path)
+
+
+def _transfer_panel(args, num_classes, dev):
+    """``{name: model_fn}`` of ``--trans_model`` paired positionally with
+    ``--trans_checkpoint``, as the JAX CLI builds it: empty names dropped
+    after the pairing, a repeated name suffixed ``#2``, ``#3``, ..."""
+    from pointcloudattack_tpu_torch import models
+    from pointcloudattack_tpu_torch.train.weights import load_checkpoint
+    from pointcloudattack_tpu_torch.utils.apply import make_model_fn
+
+    names = args.trans_model.split(",")
+    ckpts = (args.trans_checkpoint or "").split(",")
+    if len(ckpts) > len(names) and any(c for c in ckpts[len(names):]):
+        raise SystemExit(
+            f"--trans_checkpoint lists {len(ckpts)} entries for "
+            f"{len(names)} --trans_model entries; pairing is "
+            "positional, the extras would be silently dropped"
+        )
+    ckpts += [""] * (len(names) - len(ckpts))
+    panel = {}
+    for name, ckpt in zip(names, ckpts):
+        if not name:
+            continue
+        if name not in models.MODEL_REGISTRY:
+            raise SystemExit(f"--trans_model {name!r}: choose from {sorted(models.MODEL_REGISTRY)}")
+        if not ckpt:
+            # a random-init panel member scores meaningless transfer ASR: loud, not silent
+            print(
+                f"WARNING: transfer panel member {name!r} has "
+                "no --trans_checkpoint slot; scoring against "
+                "RANDOMLY INITIALIZED weights",
+                file=sys.stderr,
+            )
+        model = models.make_model(name, num_classes, generator=torch.Generator().manual_seed(args.seed))
+        fn = _normalize_output(make_model_fn(model, load_checkpoint(ckpt) if ckpt else None, dev), name)
+        key, i = name, 2
+        while key in panel:
+            key, i = f"{name}#{i}", i + 1
+        panel[key] = fn
+    return panel
 
 
 def _run_siadv(args, model_fn, data, target, noise_gen, wb_fn):
@@ -220,12 +293,13 @@ def _run_family(args, model_fn, data, target, noise_gen, truth, wb_fn):
 
 def cmd_attack(args) -> float:
     from pointcloudattack_tpu_torch import models
-    from pointcloudattack_tpu_torch.attacks.engine import shuffle_check
+    from pointcloudattack_tpu_torch.attacks.evaluation import shuffle_robustness, transfer_matrix
     from pointcloudattack_tpu_torch.train.weights import load_checkpoint
     from pointcloudattack_tpu_torch.utils.apply import make_model_fn
 
     dev = _device(args.device)
     family = args.family
+    dup_variables = _load_dup_variables(args.defense_checkpoint) if args.defense == "dupnet" else None
     targeted = args.attack_method == "target"
     if targeted and family not in TARGETED_FAMILIES:
         raise SystemExit(f"--attack_method target is not ported for {family} (only for {', '.join(TARGETED_FAMILIES)})")
@@ -253,6 +327,11 @@ def cmd_attack(args) -> float:
             file=sys.stderr,
         )
     model_fn = _normalize_output(make_model_fn(model, state, dev), args.model)
+    if args.defense != "none":
+        from pointcloudattack_tpu_torch.attacks.evaluation import with_defense
+
+        model_fn = with_defense(model_fn, args.defense, key=args.seed + 7, npoint=args.num_points,
+                                dup_variables=dup_variables)
 
     noise_gen = torch.Generator(device=dev).manual_seed(args.seed)
     t0 = time.time()
@@ -296,9 +375,13 @@ def cmd_attack(args) -> float:
         )
 
     shuf_gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
-    shuf = float(shuffle_check(model_fn, adv, target, shuf_gen, targeted=targeted).float().mean())
+    shuf = shuffle_robustness(model_fn, adv, target, shuf_gen, targeted=targeted)
     summary["shuffle_asr"] = shuf
     print(f"shuffle-robust ASR: {shuf:.3f}")
+    if args.transfer_test and args.trans_model:
+        mat = transfer_matrix(_transfer_panel(args, num_classes, dev), adv.detach(), target, targeted=targeted)
+        summary["transfer_asr"] = mat
+        print(f"transfer ASR: {mat}")
 
     os.makedirs(args.output_dir, exist_ok=True)
     with open(os.path.join(args.output_dir, f"attack_{family}_summary.json"), "w") as f:
@@ -369,6 +452,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", help="cuda | cuda:N | cpu")
     p.add_argument("--output_dir", default="runs")
     p.add_argument("--save_adv", action="store_true")
+    p.add_argument("--defense", default="none", choices=["none", "sor", "srs", "dupnet"],
+                   help="pre-head on the victim for every family")
+    p.add_argument("--defense_checkpoint", default="",
+                   help="trained PU-Net weights for --defense dupnet: a reference-layout .pth state dict "
+                        "(required: a random upsampler does not defend)")
+    p.add_argument("--transfer_test", action="store_true", help="evaluate transfer ASR on --trans_model")
+    p.add_argument("--trans_model", default="PointNet++Msg",
+                   help="comma-separated transfer panel (a repeated name gets a #i suffix)")
+    p.add_argument("--trans_checkpoint", default="",
+                   help="comma-separated reference-layout .pth state dicts, paired positionally with --trans_model")
     p.set_defaults(fn=cmd_attack)
     return parser
 

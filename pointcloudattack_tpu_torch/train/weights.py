@@ -162,6 +162,27 @@ def dgcnn_spec() -> _Spec:
     return s
 
 
+def punet_spec(up_ratio: int = 4) -> _Spec:
+    """DUP_Net/pu_net.py PUNet layout (``pu-in_1024-up_4.pth``), no BN: the
+    four set abstractions (``SA_modules.K.mlps.0.layerI.conv``), the three
+    feature propagations (``FP_Modules.K.mlp.layer0.conv``), ``up_ratio``
+    expansion branches (``FC_Modules.K.layerI.conv``) and the coordinate
+    head (``pcd_layer.{0,1}.layer0.conv``), every one a Conv2d 1x1."""
+    s = _Spec()
+    mlps = [[32, 32, 64], [64, 64, 128], [128, 128, 256], [256, 256, 512]]
+    for k, mlp in enumerate(mlps):
+        for i in range(len(mlp)):
+            s.dense(f"SA_modules.{k}.mlps.0.layer{i}.conv", (f"sa{k}", "mlp", f"dense{i}"), kind="conv2d")
+    for k in range(3):
+        s.dense(f"FP_Modules.{k}.mlp.layer0.conv", (f"fp{k}", "dense0"), kind="conv2d")
+    for k in range(up_ratio):
+        for i in range(2):
+            s.dense(f"FC_Modules.{k}.layer{i}.conv", (f"expand{k}", f"dense{i}"), kind="conv2d")
+    s.dense("pcd_layer.0.layer0.conv", ("recon0", "dense0"), kind="conv2d")
+    s.dense("pcd_layer.1.layer0.conv", ("recon1",), kind="conv2d")
+    return s
+
+
 # CIC blocks of model/curvenet.py:21-39: (name, in_ch, out_ch, stage);
 # curve_config (model/curvenet.py:5-8) runs curves in stages 1-2 for
 # 'default' and only in stage 1 for 'long'.
@@ -226,6 +247,7 @@ SPECS = {
     "PointNet++Msg": pointnet2_msg_spec,
     "DGCNN": dgcnn_spec,
     "CurveNet": curvenet_spec,
+    "PUNet": punet_spec,
 }
 
 
@@ -233,7 +255,8 @@ def state_dict_from_flax(model_name: str, variables: Mapping, **kw) -> dict[str,
     """The JAX model's variables (numpy arrays) -> the port's state dict.
 
     ``model_name`` is a key of ``SPECS``; ``kw`` goes to its spec
-    (``feature_transform`` for PointNet, ``setting`` for CurveNet).
+    (``feature_transform`` for PointNet, ``setting`` for CurveNet,
+    ``up_ratio`` for PUNet).
     """
     if model_name not in SPECS:
         raise KeyError(f"no weight spec for {model_name!r}; choose from {sorted(SPECS)}")

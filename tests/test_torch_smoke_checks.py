@@ -918,3 +918,122 @@ def test_traces_patch_while_open_and_restore():
     with chip_smoke.op_trace(((chamfer, "min_rows_fwd"),)) as rec:
         assert rec == [] and chamfer.min_rows_fwd is not rows0
     assert dg.knn is knn0 and chamfer.min_rows_fwd is rows0
+
+
+def test_op_trace_records_inputs_of_punet_group_chains_and_samplings():
+    """``op_trace(..., inputs=True)`` records the positional arguments of
+    PU-Net's four group chains and four FPS calls in run order, copied, so
+    that a chain run again on its recorded rows and layers gives the rows
+    the forward pooled; the traced functions are put back on leaving."""
+    from pointcloudattack_tpu_torch.models import punet
+    from pointcloudattack_tpu_torch.ops import grouping
+
+    torch.manual_seed(0)
+    model = punet.PUNet(npoint=64)
+    pc = torch.from_numpy(np.random.RandomState(4).rand(2, 64, 3).astype(np.float32))
+    chain0, fps0 = punet.mlp_chain_groupmax, grouping.farthest_point_sample
+    outs = []
+
+    def keep(x, layers, slope=0.0):
+        outs.append(chain0(x, layers, slope))
+        return outs[-1]
+
+    punet.mlp_chain_groupmax = keep
+    try:
+        with chip_smoke.op_trace(((punet, "mlp_chain_groupmax"), (grouping, "farthest_point_sample")),
+                                 inputs=True) as rec, torch.no_grad():
+            model(pc)
+    finally:
+        punet.mlp_chain_groupmax = chain0
+    assert grouping.farthest_point_sample is fps0
+    groups = [args for name, args in rec if name == "punet.mlp_chain_groupmax"]
+    samplings = [args for name, args in rec if name == "grouping.farthest_point_sample"]
+    assert len(groups) == 4 and len(samplings) == 4
+    assert [npoint for _, npoint in samplings] == [64, 32, 16, 8]
+    assert [tuple(x.shape[:3]) for x, _ in groups] == [(2, 64, 32), (2, 32, 32), (2, 16, 32), (2, 8, 32)]
+    for (x, layers), y in zip(groups, outs):
+        assert x.is_contiguous() and len(layers) == 3
+        assert torch.equal(chain0(x, layers, 0.0), y)
+
+
+def test_defense_hooks_replay_the_mask_the_draw_and_the_signs():
+    """DUP-Net (PU-Net at npoint 64) and SRS on the CPU, replaying their own
+    recorded choices (``replay`` with ``dupnet_hooks``: SOR's mask and
+    neighbours, SRS's draw, PU-Net's FPS picks, ball slots, group-chain picks
+    and hidden signs, 3-NN picks and ReLU signs) give the same clouds and
+    input gradient, each taken choice 0 from its own; a flipped SOR mask
+    entry or flipped ReLU signs move the result and are counted; another SRS
+    draw is taken as it is."""
+    from pointcloudattack_tpu_torch.attacks.evaluation import with_defense
+    from pointcloudattack_tpu_torch.models.punet import PUNet
+    from pointcloudattack_tpu_torch.ops import group_chain as gch
+
+    model = PUNet(npoint=64)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    dup = with_defense(lambda x: x, "dupnet", npoint=64, dup_variables=model.state_dict())
+    srs = with_defense(lambda x: x, "srs", key=3)
+    x = torch.from_numpy((np.random.RandomState(4).randn(1, 80, 3) * 0.3).astype(np.float32))
+    x[0, 5] = 3.0  # an outlier for SOR to drop
+    w = torch.from_numpy(np.random.RandomState(5).randn(1, 256 + 40, 3).astype(np.float32))
+    hooks = chip_smoke.dupnet_hooks()
+    orig = {k: getattr(mod, name) for k, (mod, name, _, _) in hooks.items()}
+    rec = {k: [] for k in hooks}
+
+    def group_choice(out, t, layers, slope=0.0):
+        z, zs = gch._chain(t.detach(), layers, slope)
+        return (gch.chain_groupmax_plain(t.detach(), layers, slope)[1], *(zl > 0 for zl in zs))
+
+    choice_of = {"sor": lambda out, *a: out, "sor_knn": lambda out, *a: out, "srs": lambda out, *a: out,
+                 "fps": lambda out, *a: out, "slots": lambda out, *a: out, "punet_group": group_choice,
+                 "nn3": lambda out, *a: out[1], "punet_relu": lambda out, t: t.detach() > 0}
+
+    def recording(kind):
+        def run(*args):
+            out = orig[kind](*args)
+            rec[kind].append(choice_of[kind](out, *args))
+            return out
+        return run
+
+    def clouds_and_grad():
+        a = x.clone().requires_grad_(True)
+        out = torch.cat([dup(a), srs(a)], dim=1)
+        return out.detach(), torch.autograd.grad((out * w).sum(), a)[0]
+
+    for k, (mod, name, _, _) in hooks.items():
+        setattr(mod, name, recording(k))
+    try:
+        want, g_want = clouds_and_grad()
+    finally:
+        for k, (mod, name, _, _) in hooks.items():
+            setattr(mod, name, orig[k])
+    # SOR once; four set abstractions (FPS, slots, chain); three propagations (3-NN); 16 ReLUs
+    assert {k: len(v) for k, v in rec.items()} == {"sor": 1, "sor_knn": 1, "srs": 1, "fps": 4, "slots": 4,
+                                                   "punet_group": 4, "nn3": 3, "punet_relu": 16}
+    assert not bool(rec["sor"][0][0, 5])
+
+    def replayed(queues):
+        with chip_smoke.replay(hooks, lambda kind: queues[kind].pop(0)) as stats:
+            got, g = clouds_and_grad()
+        assert not any(queues.values())
+        return got, g, stats
+
+    got, g_got, stats = replayed({k: list(v) for k, v in rec.items()})
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    assert float((g_got - g_want).norm() / g_want.norm()) <= 1e-6
+    assert all(st["off"] == 0 for st in stats.values()) and stats["punet_relu"]["calls"] == 16
+    queues = {k: list(v) for k, v in rec.items()}
+    keep = queues["sor"][0].clone()
+    keep[0, 5] = True  # the outlier kept
+    queues["sor"][0] = keep
+    got, _, stats = replayed(queues)
+    assert stats["sor"]["off"] > 0 and float((got - want).abs().max()) > 1e-3
+    queues = {k: list(v) for k, v in rec.items()}
+    queues["srs"][0] = torch.roll(queues["srs"][0], 1, dims=1)
+    first = queues["punet_relu"][0].clone()
+    flipped = first.flatten().clone()
+    flipped[:40] = ~flipped[:40]
+    queues["punet_relu"][0] = flipped.view_as(first)
+    got, g_flip, stats = replayed(queues)
+    assert stats["srs"]["off"] == 0 and not torch.equal(got[:, 256:], want[:, 256:])
+    assert int(stats["punet_relu"]["other"][0][0]) == 40 and stats["punet_relu"]["off"] > 0
+    assert float((g_flip - g_want).norm() / g_want.norm()) > 1e-6
