@@ -232,9 +232,9 @@ gather route (``fused_gather=True``) adds:
 37. kernels-punet  row 2's multi-layer chain + max (3 layers, K=32, ReLU) at PU-Net's four set
               abstractions on the rows of one DUP-Net forward over the si_query clouds (B=32:
               [32,1024,32,3] -> 32,32,64 ... [32,128,32,259] -> 256,256,512), held as phase 23 holds
-              it, timed beside plain, its device time and bound, the tile ``_pick_tm`` takes; FPS at
-              its four samplings (1024 -> 1024, 512, 256, 128) bit for bit; SOR's kNN (k=3); the
-              peak memory of one forward.
+              it, timed beside plain, its device time and bound, the tiles and ring stages ``mmax_plan``
+              gives the forward and the rows stage; FPS at its four samplings (1024 -> 1024, 512, 256,
+              128) bit for bit; SOR's kNN (k=3); the peak memory of one forward.
 38. slice-dupnet  SI-query on PointNet behind DUP-Net (SOR k=2, alpha 1.1, then PU-Net at its
               published widths, seeded weights) at bench.py's si_query settings: exact launch counts
               (a forward: SOR's kNN 1, FPS 4, group max 4, chain 2; the white-box backward: group max
@@ -2323,19 +2323,27 @@ def relu_hooks():
 
 
 def kernel_rows(x, layers, slope):
-    """The group kernels' own pre-activations ``z [B, G, K, C]`` of a
+    """The group kernels' own FP32 pre-activations ``z [B, G, K, C]`` of a
     one-layer chain over ``x [B, G, K, C0]``: the max kernel over groups of
-    one row, whose pass over a row is the mean kernel's."""
+    one row, whose pass over a row is the mean kernel's (the one-layer
+    forward where its block fits, else the chain kernel, whose products are
+    the FP32 hidden stages' of the fused chains; never the multi-layer
+    max's tensor cores, whose signs ``dupnet_hooks`` reads from its own
+    forward)."""
     import torch
 
+    from pointcloudattack_tpu_torch.ops import _build
     from pointcloudattack_tpu_torch.ops import group_chain as gch
 
     if len(layers) != 1:
         raise ValueError(f"kernel_rows reads one layer's pre-activations, got {len(layers)} layers")
     b, g, k, c0 = x.shape
+    dims = [c0, layers[0][0].shape[1]]
+    lib = _build.load_library()
+    run = gch._fwd1 if gch.one_layer_kernel(lib, lib.pca_group_fwd1_smem, 1, dims) else gch._chain_fwd
     with torch.no_grad():
-        z, _ = gch._fwd_kernel(x.detach().reshape(b, g * k, 1, c0).contiguous(),
-                               [tuple(t.detach() for t in layer) for layer in layers], slope, mean=False)
+        z, _ = run(x.detach().reshape(b, g * k, 1, c0).contiguous(),
+                   [tuple(t.detach() for t in layer) for layer in layers], slope, False, dims, lib)
     return z.reshape(b, g, k, -1)
 
 
@@ -3759,6 +3767,88 @@ def mask_flips(x, layers, slope=CN_SLOPE):
     return flips
 
 
+def mmax_mask_flips(x, layers, am, slope=0.0):
+    """``(flips, compared)``: the (listed row, hidden unit) pairs of a
+    multi-layer max whose backward mask differs from the sign the forward
+    gave the unit, and how many pairs were compared.  The forward's signs
+    are those of its hidden pre-activations as the forward kernel writes
+    them (``_mmax_fwd(hidden=True)``); the backward's masks are the words
+    its rows stage's recompute wrote (``_mmax_rows(masks=True)``), on the
+    rows the lists name."""
+    import torch
+
+    from pointcloudattack_tpu_torch.ops import _build
+    from pointcloudattack_tpu_torch.ops import group_chain as gch
+
+    b, ng, k, c0 = x.shape
+    dims = [c0] + [layer[0].shape[1] for layer in layers]
+    lib = _build.load_library()
+    with torch.no_grad():
+        _, _, hz = gch._mmax_fwd(x, layers, slope, dims, lib, hidden=True)
+        lists = gch._mmax_lists(am, k, lib)
+        _, masks = gch._mmax_rows(x, layers, am, lists, torch.ones(am.shape, device=x.device), slope, dims, lib,
+                                  masks=True)
+        wrow = lists.wrow.reshape(b * ng, -1)
+        gi, slot = (wrow >= 0).nonzero(as_tuple=True)  # the lists' order, the rows stage's
+        rows = gi * k + wrow[gi, slot].long()
+        shifts = torch.arange(32, device=x.device, dtype=torch.int32)
+        flips, compared, word = 0, 0, 0
+        for z in hz:
+            c, nw = z.shape[1], (z.shape[1] + 31) // 32
+            took = ((masks[:, word:word + nw, None] >> shifts) & 1).reshape(len(rows), 32 * nw)[:, :c].bool()
+            flips += int((took != (z[rows] > 0)).sum())
+            compared += took.numel()
+            word += nw
+    return flips, compared
+
+
+def check_mmax_stages(tag, name, x, layers, am, slope=0.0):
+    """The multi-layer max backward's stages on the card: the lists
+    (``_mmax_lists``) bit-equal to their plain version, and 0 hidden units
+    whose backward mask differs from the forward's sign on the listed rows
+    (``mmax_mask_flips``).  Returns the winning rows."""
+    import torch
+
+    from pointcloudattack_tpu_torch.ops import _build
+    from pointcloudattack_tpu_torch.ops import group_chain as gch
+
+    k = x.shape[2]
+    lists = gch._mmax_lists(am, k, _build.load_library())
+    plain = gch.group_winner_lists_plain(am, k)
+    for field, got, want in zip(gch.GroupWinners._fields, lists, plain):
+        if not torch.equal(got, want):
+            raise AssertionError(f"[{tag}] {name}: the lists' {field} differ from the plain version's in "
+                                 f"{int((got != want).sum())} entries")
+    flips, compared = mmax_mask_flips(x, layers, am, slope)
+    if flips:
+        raise AssertionError(f"[{tag}] {name}: {flips} of {compared} hidden units' backward masks differ from the "
+                             "forward's signs")
+    win = int(lists.off[-1])
+    log(f"[{tag}] {name}: the lists bit-equal to plain ({win} winning rows of {am.shape[0] * am.shape[1] * k}); "
+        f"0 of {compared} hidden units on them whose backward mask differs from the forward's sign")
+    return win
+
+
+def time_row1_arm(tag, name, x, layers, am, g):
+    """Row 1's backward stages (``chain_maxpool.winner_lists``,
+    ``winners_bwd``: slope 0, B * G <= 65535) on the groups read as clouds,
+    ``x`` as ``[B * G, K, C0]`` and ``am`` as ``[B * G, C_L]``: the bar the
+    multi-layer max's backward is held to.  Returns each kernel's device ms
+    under the profiler and dx's max |err| against the plain backward."""
+    from pointcloudattack_tpu_torch.ops import chain_maxpool as cm
+    from pointcloudattack_tpu_torch.ops import group_chain as gch
+
+    b, ng, k, c0 = x.shape
+    xc, amc, gc = x.reshape(b * ng, k, c0), am.reshape(b * ng, -1), g.reshape(b * ng, -1)
+    run = lambda: cm.winners_bwd(xc, layers, cm.winner_lists(amc, k), gc)  # noqa: E731
+    err = float((run().reshape(x.shape) - gch.chain_groupmax_bwd_plain(x, layers, am, g, 0.0)).abs().max())
+    dev = device_ms(run)
+    log(f"[{tag}] {name}: row 1's lists and rows on the {b * ng} groups as clouds, device "
+        + (", ".join(f"{n} {v:.4f}" for n, v in dev.items()) or "not measured")
+        + f" ({sum(dev.values()):.4f} in all); dx max|err| {err:.3e}")
+    return dev, err
+
+
 def check_group(name, pool, x, layers, dy, slope=CN_SLOPE, tag="kernels-curvenet"):
     """The group chain kernel (``pool`` "max" or "mean") against its plain
     version on one case, both on the card: y within Y_TOL; for the max the
@@ -3831,7 +3921,7 @@ def check_group(name, pool, x, layers, dy, slope=CN_SLOPE, tag="kernels-curvenet
     return errs, am_ref, g, int(carry.sum())
 
 
-def group_bound(b, g, k, dims, pool, carry=None, fp32=False):
+def group_bound(b, g, k, dims, pool, carry=None, fp32=False, tc=False):
     """(bound_ms, bound_by) of a group chain forward or, with ``carry``
     rows carrying a cotangent, of its backward, counted as ``chain_bound``
     counts them: the forward's chain over every row; the max's backward
@@ -3842,24 +3932,39 @@ def group_bound(b, g, k, dims, pool, carry=None, fp32=False):
     W^T) needs none.  The one-layer mean's backward recomputes in FP32 (its
     masks are the forward's signs) and may run its product back on the
     tensor cores as 3xTF32 (``tc_bound``); ``fp32`` counts that product
-    over the FP32 peak too."""
+    over the FP32 peak too.  ``tc``: the multi-layer max's kernels, whose
+    products run as 3xTF32 (``tc_bound``) but a first layer of fewer than 8
+    inputs, and the backward's sparse expansion (one row of W_L a pooled
+    column), on the CUDA cores; ``fp32`` counts every product over the FP32
+    peak."""
     rows = b * g * k
     out = 4.0 * b * g * dims[-1] * (2 if pool == "max" else 1)
     x_bytes = 4.0 * rows * dims[0]
+    first = len(dims) > 2 and dims[0] < 8  # the multi-layer max's first layer on the CUDA cores
     if carry is None:
-        return bound(chain_flops(rows, dims), x_bytes + out + param_bytes(dims))
+        nbytes = x_bytes + out + param_bytes(dims)
+        if tc and not fp32:
+            f1 = chain_flops(rows, dims[:2]) if first else 0.0
+            return tc_bound(chain_flops(rows, dims) - f1, f1, nbytes)
+        return bound(chain_flops(rows, dims), nbytes)
     flops = chain_bwd_flops(carry, b * g, dims) if pool == "max" else 2 * chain_flops(rows, dims)
     reads_x = pool == "mean" or len(dims) > 2
     nbytes = (2 if reads_x else 1) * x_bytes + out + 2 * param_bytes(dims)
+    if tc and not fp32:
+        f1 = chain_flops(carry, dims[:2]) if first else 0.0  # the recompute of that layer
+        sparse = 2.0 * b * g * dims[-1] * dims[-2]
+        return tc_bound(flops - sparse - f1, sparse + f1, nbytes)
     if pool == "mean" and len(dims) == 2 and not fp32:
         return tc_bound(chain_flops(rows, dims), chain_flops(rows, dims), nbytes)
     return bound(flops, nbytes)
 
 
-def time_group(name, pool, x, layers, am, g, carry, slope=CN_SLOPE, tag="kernels-curvenet"):
+def time_group(name, pool, x, layers, am, g, carry, slope=CN_SLOPE, tag="kernels-curvenet", mmax=False):
     """Group kernel and plain times at one case, and the bounds; for a
     one-layer mean the backward's other product back beside the one the
-    wrapper takes (``other``), on the same inputs."""
+    wrapper takes (``other``), on the same inputs; ``mmax``: the
+    multi-layer max's kernels, bounded as 3xTF32 (``group_bound``'s ``tc``),
+    the FP32 bounds beside (``bound_fp32``)."""
     from pointcloudattack_tpu_torch.ops import group_chain as gch
 
     wts = [layer[0].t().contiguous() for layer in layers]
@@ -3880,8 +3985,13 @@ def time_group(name, pool, x, layers, am, g, carry, slope=CN_SLOPE, tag="kernels
     ms["fwd_device"], ms["bwd_device"] = device_ms(fns["fwd"]), device_ms(fns["bwd"])
     b, ng, k, _ = x.shape
     dims = [x.shape[-1]] + [layer[0].shape[1] for layer in layers]
-    b_fwd, b_bwd = group_bound(b, ng, k, dims, pool), group_bound(b, ng, k, dims, pool, carry)
+    b_fwd, b_bwd = group_bound(b, ng, k, dims, pool, tc=mmax), group_bound(b, ng, k, dims, pool, carry, tc=mmax)
     other = ""
+    if mmax:
+        ms["bound_fp32"] = {"fwd": group_bound(b, ng, k, dims, pool, fp32=True),
+                            "bwd": group_bound(b, ng, k, dims, pool, carry, fp32=True)}
+        other = (f"; FP32 bounds {ms['bound_fp32']['fwd'][0]:.5f} forward, {ms['bound_fp32']['bwd'][0]:.5f} "
+                 "backward")
     if "bwd_other" in fns:
         ms["bwd_other_device"] = device_ms(fns["bwd_other"])
         ms["bound_fp32"] = group_bound(b, ng, k, dims, pool, carry, fp32=True)
@@ -4925,16 +5035,17 @@ def defended_victim(defense, data, labels, tag, pu_state=None):
 def phase_kernels_punet(data, pu_state):
     """Row 2's multi-layer chain + max at PU-Net's four set abstractions and
     FPS at its four samplings, on the rows and clouds of one DUP-Net forward
-    over ``data`` (SI-query's B=32): the forward and the max backward held
-    to their plain versions (``check_group``: y within Y_TOL, the argmax
-    equal but at near ties, dx within DX_TOL, two backwards bit-equal),
-    FPS bit for bit (npoint = N at the first), each timed beside its plain
-    version, its device time and its bound; the tile ``_pick_tm`` takes for
-    the widest backward; SOR's kNN (row 9, k=3) as phase 11 holds it; and
-    the peak memory of one forward.  Returns the records of rows 2, 10 and
-    9 at these shapes."""
-    import ctypes
-
+    over ``data`` (SI-query's B=32): the forward and the max backward on the
+    multi-layer max kernels (``max_route``), held to their plain versions
+    (``check_group``: y within Y_TOL, the argmax equal but at near ties, dx
+    within DX_TOL, two backwards bit-equal; ``check_mmax_stages``: the
+    lists bit-equal, 0 backward masks off the forward's signs), FPS bit for
+    bit (npoint = N at the first), each timed beside its plain version, its
+    device time and its bounds (3xTF32 and FP32); row 1's backward stages
+    on the groups as clouds (``time_row1_arm``); the tiles the kernels
+    take; SOR's kNN (row 9, k=3) as phase 11 holds it; and the peak memory
+    of one forward.  Returns the records of rows 2, 10 and 9 at these
+    shapes."""
     import numpy as np
     import torch
 
@@ -4966,21 +5077,29 @@ def phase_kernels_punet(data, pu_state):
         b, ng, k, c0 = x.shape
         dims = [c0] + [layer[0].shape[1] for layer in layers]
         name = f"sa{i} {tuple(x.shape)} -> {dims[1:]}"
+        routes = {d: gch.max_route(lib, k, dims, d == "bwd") for d in ("fwd", "bwd")}
+        if set(routes.values()) != {"tc"}:
+            raise AssertionError(f"[kernels-punet] sa{i}: the route is {routes}, not the multi-layer max kernels")
         dy = torch.from_numpy(np.random.RandomState(120 + i).randn(b, ng, dims[-1]).astype(np.float32)).cuda()
         errs, am, g, carry = check_group(f"sa{i}", "max", x, layers, dy, slope=0.0, tag="kernels-punet")
-        ms, b_fwd, b_bwd = time_group(f"sa{i}", "max", x, layers, am, g, carry, slope=0.0, tag="kernels-punet")
-        arr = (ctypes.c_int * len(dims))(*dims)
-        tiles = {d: gch._pick_tm(lib, arr, len(layers), k, d == "bwd") for d in ("fwd", "bwd")}
-        smem = {d: lib.pca_group_smem(len(layers), ctypes.cast(arr, ctypes.c_void_p), k, tiles[d], int(d == "bwd"))
-                for d in tiles}
-        log(f"[kernels-punet] sa{i} chain {dims} K={k}: _pick_tm takes TM={tiles['fwd']} forward ({smem['fwd']} B of "
-            f"shared memory a block), TM={tiles['bwd']} backward ({smem['bwd']} B of the "
+        check_mmax_stages("kernels-punet", f"sa{i}", x, layers, am, 0.0)
+        ms, b_fwd, b_bwd = time_group(f"sa{i}", "max", x, layers, am, g, carry, slope=0.0, tag="kernels-punet",
+                                      mmax=True)
+        arm, arm_err = time_row1_arm("kernels-punet", f"sa{i}", x, layers, am, g)
+        plans = {d: gch.mmax_plan(lib, dims, k, d == "bwd") for d in ("fwd", "bwd")}
+        log(f"[kernels-punet] sa{i} chain {dims} K={k}: the forward's tile {plans['fwd'][1]} rows, "
+            f"{plans['fwd'][2]} ring stages ({plans['fwd'][0]} B of shared memory a block); the rows stage's "
+            f"{plans['bwd'][1]} rows, {plans['bwd'][2]} stages ({plans['bwd'][0]} B of the "
             f"{lib.pca_chain_max_smem()} a block may hold)")
         for key, d, err, bnd, rows in (("group_max_fwd", "fwd", errs["y"], b_fwd, b * ng * k),
                                        ("group_max_bwd", "bwd", errs["dx"], b_bwd, carry)):
             out[key][f"punet {name}"] = {
                 "ms": ms[d], "plain_ms": ms[f"{d}_plain"], "device_ms": sum(ms[f"{d}_device"].values()) or None,
-                "bound_ms": bnd[0], "bound_by": bnd[1], "bound_rows": rows, "max_abs_err": err, "tm": tiles[d]}
+                "kernels": ms[f"{d}_device"], "bound_ms": bnd[0], "bound_by": bnd[1],
+                "bound_fp32_ms": ms["bound_fp32"][d][0], "bound_rows": rows, "max_abs_err": err,
+                "tile": plans[d][1], "stages": plans[d][2],
+                **({"row1_arm_device_ms": sum(arm.values()) or None, "row1_arm_max_abs_err": arm_err}
+                   if d == "bwd" else {})}
     if len(groups) != 4 or len(samplings) != 4:
         raise AssertionError(f"[kernels-punet] one forward ran {len(groups)} group chains and {len(samplings)} FPS, "
                              "not 4 and 4")
@@ -5013,7 +5132,9 @@ def dupnet_hooks():
     set abstractions (bit-equal by design: ``off`` 1 for each cloud where
     the CPU's own differ), each group chain's max picks and hidden signs
     ("punet_group": the picks from the op's own forward run again, which
-    must give its bits, the signs from ``hidden_sides``; the CPU runs the
+    must give its bits, the signs from the multi-layer max forward's own
+    hidden pre-activations (``_mmax_fwd(hidden=True)``; ``hidden_sides``
+    on the chain kernels' route); the CPU runs the
     chain in plain differentiable ops on them, as ``pick_hooks``' chain
     hooks do), the 3-NN picks of its feature propagations ("nn3": ``gap``
     the 4th nearest's distance over the 3rd's, ``off`` the taken distances'
@@ -5023,6 +5144,7 @@ def dupnet_hooks():
 
     from pointcloudattack_tpu_torch.defense import sor, srs
     from pointcloudattack_tpu_torch.models import punet
+    from pointcloudattack_tpu_torch.ops import _build
     from pointcloudattack_tpu_torch.ops import group_chain as gch
     from pointcloudattack_tpu_torch.ops import grouping
     from pointcloudattack_tpu_torch.ops import interpolate as interp
@@ -5051,11 +5173,18 @@ def dupnet_hooks():
         y = orig(x, layers, slope)
         with torch.no_grad():
             det = [tuple(t.detach().contiguous() for t in layer) for layer in layers]
-            y2, am = gch.chain_groupmax_fwd(x.detach().contiguous(), det, slope)
+            xd = x.detach().contiguous()
+            y2, am = gch.chain_groupmax_fwd(xd, det, slope)
             if not torch.equal(y2, y.detach()):
                 raise AssertionError(f"PU-Net's group chain gave other bits the second time in "
                                      f"{int((y2 != y.detach()).sum())} of {y.numel()} outputs")
-            _, sides = hidden_sides(x, det, slope)
+            dims = [x.shape[-1]] + [layer[0].shape[1] for layer in det]
+            lib = _build.load_library()
+            if gch.max_route(lib, x.shape[2], dims, False) == "tc":  # the forward's own hidden pre-activations
+                _, _, hz = gch._mmax_fwd(xd, det, slope, dims, lib, hidden=True)
+                sides = [z.reshape(x.shape[:3] + (-1,)) > 0 for z in hz]
+            else:
+                _, sides = hidden_sides(x, det, slope)
         return y, (am, *sides)
 
     def group_cpu(orig, choice, x, layers, slope=0.0):

@@ -28,10 +28,55 @@
 // activation and the pool; this kernel reads the rows once and writes only
 // the pooled output (and dx).
 //
+// PU-Net's set abstractions (B=32, K=32: 3-32-32-64 over 1,048,576 rows up
+// to 259-256-256-512 over 131,072) run the multi-layer max, bound by
+// operations: sa3's forward is 68.9 GFLOP against 136 MB of rows (about
+// 500 flops a byte), 1.03 ms at the FP32 peak, 0.42 ms as 3xTF32 on the
+// tensor cores.  Its backward has work only on the rows that win a column
+// (24% to 66% of them).
+//
 // What the design does about it.
-//   * Two or more layers (and a one-layer shape whose block below would need
-//     more shared memory than the card has) run group_fwd_kernel and
-//     group_bwd_kernel.  The rows of a group are contiguous, so a block takes
+//   * The multi-layer max (every max chain the one-layer kernels do not
+//     take, K a power of two up to 64; ops/group_chain.py::max_route) runs
+//     group_mfwd_kernel and, backward, group_mlists_kernel,
+//     group_mscan_kernel and group_mrows_kernel, their products as 3xTF32
+//     mma.sync m16n8k8 (chain_common.cuh's split_tf32 / mma_tf32; a first
+//     layer of fewer than 8 inputs on FP32 FMA).  A block holds a tile of
+//     T rows (128 where no product is wider than 64, else 64, else 32;
+//     mx_plan) in two [T][S] activation buffers, S the widest input padded
+//     to 8, plus 4: the weights stream through L2 once a tile, in steps of
+//     32 depth rows x 128 columns through a ring of 2-3 stages filled by
+//     cp.async; a warp takes 16 or 32 rows x 32 columns of a chunk; two
+//     blocks of 8 warps share an SM where their shared memory fits, else
+//     one block of 16 warps.  The forward's blocks stay resident and take
+//     tiles of whole groups in turn, the ring running on from one tile to
+//     the next and the next tile's rows copied in (4-byte copies: a row of
+//     67, 131 or 259 floats is not 16-byte aligned) behind the last layer,
+//     into the buffer it leaves free.  The hidden layers are one function,
+//     mx_hidden, which the backward's recompute calls too, so its masks
+//     are the forward's signs bit for bit (a row's bits do not depend on
+//     the other rows of its tile: the depth order and the order of the
+//     three products are fixed).  The last layer's epilogue applies the
+//     BatchNorm and reduces each group's K rows from the accumulators:
+//     (value, k) as one 64-bit key (mx_key), merged by max over the
+//     thread's rows, then the lanes (a butterfly: K is a power of two),
+//     then the warps of a group through shared memory, so a tie keeps the
+//     lowest k in any order; z never leaves the registers.  Backward: the
+//     lists (a warp a group: the winning rows as bits, ORed over the lanes,
+//     each placed by a popcount; no atomics), their offsets (one block's
+//     scan), then resident blocks over tiles of listed rows: the rows by
+//     4-byte copies, the hidden layers again with their masks as bits, the
+//     one-hot cotangent through W_L^T as a dense 3xTF32 product over the
+//     listed rows (its A fragments formed from each row's (am, g) entries,
+//     which the ring brings in beside W), then back through the masks and
+//     mul factors, W read as stored and transposed in the fragment loads;
+//     every other row's dx is a memset's 0, each listed row's written once.
+//     A sparse expansion on the CUDA cores (a ballot over each step's am
+//     entries) lost to the dense product at every PU-Net shape on an H100
+//     (PERF.md, row 2, with where the forward's time goes).
+//   * The multi-layer mean (and a max shape the kernels above do not take)
+//     run group_fwd_kernel and group_bwd_kernel.  The rows of a group are
+//     contiguous, so a block takes
 //     whole groups: a tile of T = 8 * TM rows holds gpb = floor(T / K) groups
 //     (3 at K = 20 and T = 64: 60 rows of 64 at work), and a ragged G masks
 //     the last tile's missing groups.  K <= T.  The chain is
@@ -899,6 +944,909 @@ __global__ void __launch_bounds__(kMbWarps * 32) group_max1_bwd_kernel(MaxBwd1 p
   }
 }
 
+// ---------------------------------------------------------------------------
+// The multi-layer max (PU-Net's set abstractions): the forward
+// (group_mfwd_kernel) and the backward over the winning rows
+// (group_mlists_kernel, group_mscan_kernel, group_mrows_kernel), the
+// products on the tensor cores as 3xTF32 mma.sync
+// ---------------------------------------------------------------------------
+
+constexpr int kMxThreads = 256;              // 8 warps a block (16 where one block fills an SM)
+constexpr int kMxNC = 128;                   // output columns of a chunk
+constexpr int kMxKC = 32;                    // depth of a ring step
+constexpr int kMxLDF = kMxNC + 8;            // a forward stage's row stride ([kMxKC][kMxNC]): 8 (mod 32)
+constexpr int kMxLDT = kMxKC + 4;            // a transposed stage's ([kMxNC][kMxKC]) and the (am, g) rows': 4 (mod 32)
+constexpr int kMxFwdStage = kMxKC * kMxLDF;  // floats of a forward stage
+constexpr int kMxBwdStage = kMxNC * kMxLDT;  // floats of a transposed stage
+constexpr int kMxProds = 2 * kMaxLayers;
+constexpr int kMxMaxK = 64;
+
+// A product's kind: the first layer on the CUDA cores (fewer than 8 inputs;
+// no ring steps), a forward layer (W as the stage holds it, [depth][out]),
+// a product back through W^T (W's rows are the outputs), or the last
+// layer's one-hot cotangent through W_L^T (A from the (am, g) rows).
+enum { kMxFma = 0, kMxFwd = 1, kMxTrans = 2, kMxOneHot = 3 };
+// What its epilogue makes: a hidden activation, the group max, a
+// cotangent through a mask and mul, or dx.
+enum { kMxHidden = 0, kMxMax = 1, kMxCot = 2, kMxDx = 3 };
+
+struct MxProd {
+  const float* w;                       // W_l [C_l, C_l+1] row-major, as the layer holds it
+  const float *b, *mean, *mul, *beta;   // forward: layer l's; backward: mul of layer l - 1 (the mask's), the rest unused
+  int depth, width;                     // the product's depth and output columns
+  int kind, out, layer;
+  int vec;                              // W's rows by 16-byte copies
+  int mword;                            // kMxCot: the first mask word of h_layer in a row's words
+  int nchunk, nk;                       // chunks of kMxNC columns, ring steps a chunk
+};
+
+struct MxArgs {
+  const float* x;   // [NG * K, C0]
+  int NG, K, L, C0, CL;
+  float slope;
+  int T, stages, S, stage_floats, mwords, nprod, nsteps;
+  int nt;           // threads a block
+  MxProd prod[kMxProds];
+  // forward
+  float* y;                // [NG, CL]
+  int* am_out;             // [NG, CL]
+  float* hz[kMaxLayers];   // optional: hidden layer l's pre-activation [NG * K, C_l+1]
+  // backward
+  const int* am;           // [NG, CL]
+  const float* g;          // [NG, CL], dy * mul_L
+  int vecg;                // am and g rows by 16-byte copies
+  const int* off;          // [NG + 1]
+  const int* wrow;         // [NG, wc]
+  int wc;
+  float* dx;               // [NG * K, C0]
+  unsigned* mask_out;      // optional: each listed row's mask words [total, mwords]
+};
+
+__host__ __device__ inline int mx_round8(int v) { return (v + 7) & ~7; }
+
+// The BatchNorm of a pre-activation, each step rounded as written: the
+// forward and the backward's recompute give the same bits.
+__device__ __forceinline__ float mx_bn(float acc, float b, float mean, float mul, float beta) {
+  return __fmaf_rn(__fsub_rn(__fadd_rn(acc, b), mean), mul, beta);
+}
+
+// (value, row) as one key whose unsigned order is the group max's: the
+// value's bits made monotone (a -0 first made +0, so that the two tie as
+// the float compare has them), then the row's complement, so that of
+// equal values the lower row is the larger key.  The max of keys is the
+// largest value at its lowest row, whatever the order of the merges; 0
+// is below every key (a row past the tile's).
+__device__ __forceinline__ unsigned long long mx_key(float v, int r) {
+  unsigned u = __float_as_uint(__fadd_rn(v, 0.f));
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((unsigned long long)u << 32) | (unsigned)~r;
+}
+
+__device__ __forceinline__ float mx_key_value(unsigned long long key) {
+  const unsigned u = (unsigned)(key >> 32);
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+}
+
+__device__ __forceinline__ int mx_key_row(unsigned long long key) { return ~(int)(unsigned)key; }
+
+__device__ __forceinline__ unsigned long long mx_max(unsigned long long a, unsigned long long b) { return a > b ? a : b; }
+
+struct MxSmem {
+  float* buf[2];     // activations and cotangents, [T][S] each
+  float* ring;       // [stages][stage_floats]
+  float* red;        // forward: [T / 16][kMxNC] values, then as many rows
+  unsigned* masks;   // backward: [T][mwords]
+  int *rbg, *rk, *rrow;  // backward: each tile row's group, k and row of x (-1 past the listed rows)
+  MxProd* prod;
+};
+
+// The ring's cursors: the next step to put in flight (its product, chunk
+// and depth step, and its stage) and the stage of the next step to
+// consume, moved on a step at a time.
+struct MxRing {
+  int left;       // steps still to put in flight: every tile's (forward) or one tile's (rows stage)
+  int p, ch, ks;  // the next step in flight
+  int in, out;    // the stages of the next step in flight and of the next to consume
+};
+
+__device__ __forceinline__ MxSmem mx_carve(const MxArgs& a, unsigned char* smem, bool bwd) {
+  MxSmem s;
+  float* p = reinterpret_cast<float*>(smem);
+  s.prod = reinterpret_cast<MxProd*>(p);
+  p += align16(sizeof(MxProd) * kMxProds) / sizeof(float);
+  s.buf[0] = p;
+  p += align16(sizeof(float) * a.T * a.S) / sizeof(float);
+  s.buf[1] = p;
+  p += align16(sizeof(float) * a.T * a.S) / sizeof(float);
+  s.ring = p;
+  p += (size_t)a.stages * a.stage_floats;
+  s.red = p;
+  s.masks = reinterpret_cast<unsigned*>(p);
+  if (!bwd) return s;
+  p += align16(sizeof(unsigned) * a.T * a.mwords) / sizeof(float);
+  s.rbg = reinterpret_cast<int*>(p);
+  s.rk = s.rbg + a.T;
+  s.rrow = s.rk + a.T;
+  return s;
+}
+
+// The products' table into shared memory, each entry by its own constant
+// index (an index known only at run time would put the kernel's argument
+// in local memory).
+__device__ __forceinline__ void mx_copy_prods(const MxArgs& a, MxProd* sp) {
+#pragma unroll
+  for (int i = 0; i < kMxProds; ++i)
+    if ((int)threadIdx.x == i && i < a.nprod) sp[i] = a.prod[i];
+}
+
+// The copies of a ring step into the stage st: depth rows k0 .. k0 + 31 of
+// product P's weights for the output columns c0 .. c0 + 127, 0 past its
+// depth and width, and for the one-hot product each tile row's (am, g)
+// entries of those depth columns, 0 past C_L and on rows past the list.
+__device__ void mx_issue(const MxArgs& a, const MxSmem& sm, const MxProd& P, int c0, int k0, float* st) {
+  const int tid = threadIdx.x;
+  if (P.kind == kMxFwd) {  // W[k0 + kk][c0 + n] -> st[kk][n]
+    if (P.vec) {
+      for (int e = tid; e < kMxKC * kMxNC / 4; e += a.nt) {
+        const int kk = e >> 5, q = e & 31, k = k0 + kk, c = c0 + 4 * q;
+        const bool ok = k < P.depth && c < P.width;
+        cp_async16(st + kk * kMxLDF + 4 * q, ok ? P.w + (size_t)k * P.width + c : P.w, ok ? 16 : 0);
+      }
+    } else {
+      for (int e = tid; e < kMxKC * kMxNC; e += a.nt) {
+        const int kk = e >> 7, n = e & 127, k = k0 + kk, c = c0 + n;
+        const bool ok = k < P.depth && c < P.width;
+        cp_async4(st + kk * kMxLDF + n, ok ? P.w + (size_t)k * P.width + c : P.w, ok ? 4 : 0);
+      }
+    }
+    return;
+  }
+  // W[c0 + n][k0 + kk] (W's row c0 + n is output c0 + n of the product back) -> st[n][kk]
+  if (P.vec) {
+    for (int e = tid; e < kMxNC * kMxKC / 4; e += a.nt) {
+      const int n = e >> 3, q = e & 7, i = c0 + n, j = k0 + 4 * q;
+      const bool ok = i < P.width && j < P.depth;
+      cp_async16(st + n * kMxLDT + 4 * q, ok ? P.w + (size_t)i * P.depth + j : P.w, ok ? 16 : 0);
+    }
+  } else {
+    for (int e = tid; e < kMxNC * kMxKC; e += a.nt) {
+      const int n = e >> 5, kk = e & 31, i = c0 + n, j = k0 + kk;
+      const bool ok = i < P.width && j < P.depth;
+      cp_async4(st + n * kMxLDT + kk, ok ? P.w + (size_t)i * P.depth + j : P.w, ok ? 4 : 0);
+    }
+  }
+  if (P.kind != kMxOneHot) return;
+  float* gs = st + kMxBwdStage;                               // [T][kMxLDT]
+  int* as = reinterpret_cast<int*>(gs + a.T * kMxLDT);        // [T][kMxLDT]
+  if (a.vecg) {
+    for (int e = tid; e < a.T * kMxKC / 4; e += a.nt) {
+      const int r = e >> 3, q = e & 7, bg = sm.rbg[r], c = k0 + 4 * q;
+      const bool ok = bg >= 0 && c < a.CL;
+      const size_t o = ok ? (size_t)bg * a.CL + c : 0;
+      cp_async16(gs + r * kMxLDT + 4 * q, a.g + o, ok ? 16 : 0);
+      cp_async16(as + r * kMxLDT + 4 * q, a.am + o, ok ? 16 : 0);
+    }
+  } else {
+    for (int e = tid; e < a.T * kMxKC; e += a.nt) {
+      const int r = e >> 5, kk = e & 31, bg = sm.rbg[r], c = k0 + kk;
+      const bool ok = bg >= 0 && c < a.CL;
+      const size_t o = ok ? (size_t)bg * a.CL + c : 0;
+      cp_async4(gs + r * kMxLDT + kk, a.g + o, ok ? 4 : 0);
+      cp_async4(as + r * kMxLDT + kk, a.am + o, ok ? 4 : 0);
+    }
+  }
+}
+
+// Puts the ring's next step in flight, where one is left, and commits its
+// group (an empty one past the last step, so that every step commits one).
+// Past a tile's last product the cursor comes back to its first.
+__device__ __forceinline__ void mx_push(const MxArgs& a, const MxSmem& sm, MxRing& rg) {
+  if (rg.left > 0) {
+    const MxProd& P = sm.prod[rg.p];
+    mx_issue(a, sm, P, rg.ch * kMxNC, rg.ks * kMxKC, sm.ring + rg.in * a.stage_floats);
+    --rg.left;
+    rg.in = rg.in + 1 == a.stages ? 0 : rg.in + 1;
+    if (++rg.ks == P.nk) {
+      rg.ks = 0;
+      if (++rg.ch == P.nchunk) {
+        rg.ch = 0;
+        do rg.p = rg.p + 1 == a.nprod ? 0 : rg.p + 1;
+        while (sm.prod[rg.p].kind == kMxFma);
+      }
+    }
+  }
+  cp_async_commit();
+}
+
+// A ring of `steps` steps from the first product with any, its first
+// stages - 1 steps put in flight (the caller's copies in flight join the
+// first's group).
+__device__ __forceinline__ void mx_prologue(const MxArgs& a, const MxSmem& sm, MxRing& rg, int steps) {
+  rg = MxRing{steps, sm.prod[0].kind == kMxFma ? 1 : 0, 0, 0, 0, 0};
+  for (int s = 0; s < a.stages - 1; ++s) mx_push(a, sm, rg);
+}
+
+// Waits for the ring's next step, then puts the step stages - 1 later in
+// flight into the stage that the step before used; returns the step's
+// stage.
+__device__ __forceinline__ const float* mx_step(const MxArgs& a, const MxSmem& sm, MxRing& rg) {
+  if (a.stages == 3) cp_async_wait<1>();
+  else cp_async_wait<0>();
+  __syncthreads();  // the step has landed for every thread, and every thread is done with the one before
+  mx_push(a, sm, rg);
+  const float* st = sm.ring + rg.out * a.stage_floats;
+  rg.out = rg.out + 1 == a.stages ? 0 : rg.out + 1;
+  return st;
+}
+
+// kn8 depth steps of 8 of one warp's job, MT row tiles of 16 x 4 column
+// tiles of 8, rows wr * 16 * MT + [0, 16 * MT), columns wc * 32 + [0, 32):
+// acc += A[rows][k0 + ...] B[k0 + ...][columns] as 3xTF32 (a = hi + lo,
+// a b ~ lo hi + hi lo + hi hi, in that order on every accumulator).  A is
+// the [T][S] buffer, or for the one-hot product the stage's (am, g) rows:
+// A[r][c] = g[r][c] where am[r][c] is the row's k (kr), else 0.  B is the
+// stage: [depth][column] (kMxFwd) or [column][depth].
+template <int MT, int KIND>
+__device__ __forceinline__ void mx_mma(const float* st, const float* A, int S, int T, int k0, int kn8, int wr, int wc,
+                                       const int (&kr)[MT][2], float (&acc)[MT][4][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* gs = st + kMxBwdStage;
+  const int* as = reinterpret_cast<const int*>(gs + T * kMxLDT);
+  auto k8 = [&](int kk) {
+    unsigned bh[4][2], bl[4][2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if constexpr (KIND == kMxFwd) {
+        const float* bp = st + (kk + t) * kMxLDF + wc * 32 + 8 * j + g;
+        split_tf32(bp[0], bh[j][0], bl[j][0]);
+        split_tf32(bp[4 * kMxLDF], bh[j][1], bl[j][1]);
+      } else {
+        const float* bp = st + (wc * 32 + 8 * j + g) * kMxLDT + kk + t;
+        split_tf32(bp[0], bh[j][0], bl[j][0]);
+        split_tf32(bp[4], bh[j][1], bl[j][1]);
+      }
+    }
+    unsigned ah[MT][4], al[MT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int r = wr * 16 * MT + 16 * i + g;
+      float av[4];
+      if constexpr (KIND == kMxOneHot) {
+        const int o = r * kMxLDT + kk + t;
+        av[0] = as[o] == kr[i][0] ? gs[o] : 0.f;                                // (row g, k t)
+        av[1] = as[o + 8 * kMxLDT] == kr[i][1] ? gs[o + 8 * kMxLDT] : 0.f;      // (g + 8, t)
+        av[2] = as[o + 4] == kr[i][0] ? gs[o + 4] : 0.f;                        // (g, t + 4)
+        av[3] = as[o + 8 * kMxLDT + 4] == kr[i][1] ? gs[o + 8 * kMxLDT + 4] : 0.f;
+      } else {
+        const float* ap = A + r * S + k0 + kk + t;
+        av[0] = ap[0];
+        av[1] = ap[8 * S];
+        av[2] = ap[4];
+        av[3] = ap[8 * S + 4];
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) split_tf32(av[u], ah[i][u], al[i][u]);
+    }
+    // each product over every (i, j) tile in turn: an accumulator's next mma comes 4 MT mma later
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_tf32(acc[i][j], al[i], bh[j][0], bh[j][1]);
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_tf32(acc[i][j], ah[i], bl[j][0], bl[j][1]);
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_tf32(acc[i][j], ah[i], bh[j][0], bh[j][1]);
+  };
+  if (kn8 == kMxKC / 8) {  // a whole step: its loads issue ahead of the products
+#pragma unroll
+    for (int kk = 0; kk < kMxKC; kk += 8) k8(kk);
+  } else {
+    for (int kk = 0; kk < 8 * kn8; kk += 8) k8(kk);
+  }
+}
+
+// A tile's mask words of a hidden output h (width C, in buf [T][S]) from
+// its signs: bit b of word wd of row r is h[r][32 wd + b] > 0, which holds
+// exactly where the pre-activation is above 0.
+__device__ __forceinline__ void mx_mask_pass(const MxArgs& a, const MxSmem& sm, const float* h, int C, int word0) {
+  const int nw = (C + 31) >> 5;
+  for (int e = threadIdx.x; e < a.T * nw; e += a.nt) {
+    const int r = e / nw, wd = e - r * nw;
+    const float* row = h + r * a.S + 32 * wd;
+    const int n = min(32, C - 32 * wd);
+    unsigned bits = 0;
+    for (int b = 0; b < n; ++b) bits |= (row[b] > 0.f ? 1u : 0u) << b;
+    sm.masks[r * a.mwords + word0 + wd] = bits;
+  }
+}
+
+// Where an epilogue puts its output, the tile it serves, and what a
+// product's first step starts besides its products.
+struct MxOut {
+  float* buf;        // kMxHidden, kMxCot: [T][S]
+  int rows;          // forward: the tile's rows (whole groups)
+  size_t g0;         // forward: its first group
+  const float* mask_h;  // a hidden output whose mask words the product's first step writes (nullptr: none)
+  int mask_c, mask_word;
+  float* x_dst;      // forward: the buffer the next tile's rows go to (nullptr: none) ...
+  size_t x_g0;       // ... its first group
+  int x_rows;        // ... and its rows
+};
+
+// Rows [g0 K, g0 K + rows) of x into buf ([T][S]) by 4-byte copies in
+// flight (a row of x is rarely 16-byte aligned; committed by the caller),
+// 0 past them and in the pad columns.
+__device__ void mx_load_x(const MxArgs& a, size_t g0, int rows, float* buf) {
+  const float* xb = a.x + g0 * a.K * a.C0;
+  for (int e = threadIdx.x; e < a.T * a.C0; e += a.nt) {
+    const int r = e / a.C0, q = e - r * a.C0;
+    cp_async4(buf + r * a.S + q, r < rows ? xb + e : a.x, r < rows ? 4 : 0);
+  }
+  const int pad = mx_round8(a.C0) - a.C0;
+  for (int e = threadIdx.x; e < a.T * pad; e += a.nt) {
+    const int r = e / pad;
+    buf[r * a.S + a.C0 + (e - r * pad)] = 0.f;
+  }
+}
+
+// The vectors v (of product P's b, mean, mul, beta: the bits 1, 2, 4, 8 of
+// `which`) at a thread's 8 columns cb + 8 j + q of a chunk (entry 2 j +
+// q), 0 from column `width` on: all loads issue before any is used, so
+// that their latencies overlap.
+__device__ __forceinline__ void mx_vec_load(const MxProd& P, int cb, int width, int which, float (&v)[4][8]) {
+  const float* src[4] = {P.b, P.mean, P.mul, P.beta};
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const int c = cb + 8 * (u >> 1) + (u & 1);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k][u] = (which >> k & 1) && c < width ? __ldg(src[k] + c) : 0.f;
+  }
+}
+
+// The epilogue of one chunk (columns c0 .. c0 + 127) of product P from the
+// warp's accumulators.  Every thread of the block calls it (the group max
+// may hold a barrier); warps without a job (active false) add nothing.
+template <int MT, bool kFwd>
+__device__ __forceinline__ void mx_epilogue(const MxArgs& a, const MxSmem& sm, const MxProd& P, const MxOut& o,
+                                            float (&acc)[MT][4][4], int c0, int wr, int wc, bool active) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, S = a.S;
+  const int cb = c0 + wc * 32 + 2 * t;  // column of acc[.][j][q] is cb + 8 j + q
+  if (P.out == kMxHidden) {
+    if (!active) return;
+    const int w8 = mx_round8(P.width);
+    float* hz = a.hz[0];
+#pragma unroll
+    for (int l = 1; l < kMaxLayers; ++l)
+      if (P.layer == l) hz = a.hz[l];
+    float bn[4][8];
+    mx_vec_load(P, cb, P.width, 15, bn);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int c = cb + 8 * j + q, u = 2 * j + q;
+        if (c >= w8) continue;
+        const bool ok = c < P.width;
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = wr * 16 * MT + 16 * i + 8 * h + g;
+            const float z = mx_bn(acc[i][j][2 * h + q], bn[0][u], bn[1][u], bn[2][u], bn[3][u]);
+            o.buf[r * S + c] = ok ? act_fwd(z, a.slope) : 0.f;
+            if (hz && ok && r < o.rows) hz[(o.g0 * a.K + r) * P.width + c] = z;
+          }
+      }
+    return;
+  }
+  if constexpr (!kFwd) {  // the rows stage: a cotangent or dx
+    if (!active) return;
+    const int w8 = mx_round8(P.width);
+    float mul[4][8];
+    if (P.out == kMxCot) mx_vec_load(P, cb, P.width, 4, mul);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int c = cb + 8 * j + q;
+        if (P.out == kMxCot) {
+          if (c >= w8) continue;
+          const bool ok = c < P.width;
+          const float mu = mul[2][2 * j + q];
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = wr * 16 * MT + 16 * i + 8 * h + g;
+              const bool m = (sm.masks[r * a.mwords + P.mword + (c >> 5)] >> (c & 31)) & 1u;
+              const float dh = acc[i][j][2 * h + q];
+              o.buf[r * S + c] = ok ? (m ? dh * mu : (a.slope == 0.f ? 0.f : (a.slope * dh) * mu)) : 0.f;
+            }
+        } else {
+          if (c >= a.C0) continue;
+#pragma unroll
+          for (int i = 0; i < MT; ++i)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = wr * 16 * MT + 16 * i + 8 * h + g, row = sm.rrow[r];
+              if (row >= 0) a.dx[(size_t)row * a.C0 + c] = acc[i][j][2 * h + q];
+            }
+        }
+      }
+    return;
+  } else {
+  // the group max: BatchNorm, then the max key (mx_key) over each group's K
+  // rows, first over the thread's own rows, then over the lanes, then,
+  // where a group spans the warps of several row tiles, over those warps
+  // in shared memory
+  const int K = a.K, span = 16 * MT;
+  unsigned long long* red = reinterpret_cast<unsigned long long*>(sm.red);  // [T / 16][kMxNC]
+  float bn[4][8];
+  mx_vec_load(P, cb, active ? a.CL : 0, 15, bn);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int c = cb + 8 * j + q, u = 2 * j + q;
+      const bool ok = active && c < a.CL;
+      unsigned long long kv[MT][2];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = wr * 16 * MT + 16 * i + 8 * h + g;
+          kv[i][h] = ok && r < o.rows ? mx_key(mx_bn(acc[i][j][2 * h + q], bn[0][u], bn[1][u], bn[2][u], bn[3][u]), r)
+                                      : 0ull;
+        }
+      // rows r and r ^ d share a group where d < K: the thread's own rows first (h: d = 8; i: 16),
+      // then the lanes' (d = 1, 2, 4), so that the shuffles carry one key where a group spans the slots
+      if (8 < K) {
+#pragma unroll
+        for (int i = 0; i < MT; ++i) kv[i][0] = kv[i][1] = mx_max(kv[i][0], kv[i][1]);
+      }
+      if (MT == 2 && 16 < K) kv[0][0] = kv[0][1] = kv[1][0] = kv[1][1] = mx_max(kv[0][0], kv[MT - 1][0]);
+      auto lanes = [&](unsigned long long& key) {  // over the lanes g whose rows share the group
+#pragma unroll
+        for (int d = 1; d < 8; d <<= 1)
+          if (d < K) key = mx_max(key, __shfl_xor_sync(0xffffffffu, key, 4 * d));
+      };
+      if (K <= 8) {  // each slot its own group
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) lanes(kv[i][h]);
+      } else if (K <= 16) {  // a group a row tile i
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          lanes(kv[i][0]);
+          kv[i][1] = kv[i][0];
+        }
+      } else {  // one group over all the thread's rows
+        lanes(kv[0][0]);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) kv[i][0] = kv[i][1] = kv[0][0];
+      }
+      if (K <= span) {  // whole groups in the warp's rows: the thread with a group's first row writes it
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = wr * 16 * MT + 16 * i + 8 * h + g;
+            if (ok && r < o.rows && (r & (K - 1)) == 0) {
+              const size_t gi = o.g0 + r / K;
+              a.y[gi * a.CL + c] = mx_key_value(kv[i][h]);
+              a.am_out[gi * a.CL + c] = mx_key_row(kv[i][h]) - (r / K) * K;
+            }
+          }
+      } else if (ok && g == 0) {  // the warp's rows lie in one group: its partial
+        red[wr * kMxNC + (c - c0)] = kv[0][0];
+      }
+    }
+  if (K <= span) return;
+  __syncthreads();
+  const int per = K / span, ng = o.rows / K, nc = min(kMxNC, a.CL - c0);
+  for (int e = threadIdx.x; e < ng * nc; e += a.nt) {
+    const int s = e / nc, cc = e - s * nc;
+    unsigned long long key = red[s * per * kMxNC + cc];
+    for (int u = 1; u < per; ++u) key = mx_max(key, red[(s * per + u) * kMxNC + cc]);
+    const size_t gi = o.g0 + s;
+    a.y[gi * a.CL + c0 + cc] = mx_key_value(key);
+    a.am_out[gi * a.CL + c0 + cc] = mx_key_row(key) - s * K;
+  }
+  // the next chunk writes red only past its first ring step's barrier
+  }
+}
+
+// One chunk (columns c0 .. c0 + 127) of product P: its ring steps, each a
+// barrier and MT row tiles of mma a warp, then the epilogue.  A chunk of w
+// columns (32, 64 or 128) takes w / 32 column warps, the rest of the 8 the
+// rows, MT row tiles of 16 each; warps past the rows idle.  The first step
+// of a product's first chunk writes the mask words that o names.
+template <int MT, int KIND, bool kFwd>
+__device__ void mx_chunk(const MxArgs& a, const MxSmem& sm, const MxProd& P, int ch, MxRing& rg, const float* A,
+                         const MxOut& o) {
+  const int rem = P.width - ch * kMxNC, w = rem <= 32 ? 32 : rem <= 64 ? 64 : 128;
+  const int ncw = w / 32, nrw = a.T / (16 * MT), warp = threadIdx.x >> 5;
+  const bool active = warp < nrw * ncw;
+  const int wr = warp % nrw, wc = warp / nrw, g = (threadIdx.x & 31) >> 2;
+  float acc[MT][4][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[i][j][u] = 0.f;
+  int kr[MT][2];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) kr[i][h] = KIND == kMxOneHot && active ? sm.rk[wr * 16 * MT + 16 * i + 8 * h + g] : 0;
+  const int depth8 = mx_round8(P.depth);
+  for (int ks = 0; ks < P.nk; ++ks) {
+    const float* st = mx_step(a, sm, rg);
+    if (ks == 0 && o.mask_h) mx_mask_pass(a, sm, o.mask_h, o.mask_c, o.mask_word);
+    if (ks == 0 && o.x_dst) {  // the next tile's rows, into the buffer this product leaves free
+      mx_load_x(a, o.x_g0, o.x_rows, o.x_dst);
+      cp_async_commit();
+    }
+    const int k0 = ks * kMxKC, kn8 = min(kMxKC, depth8 - k0) >> 3;
+    if (active) mx_mma<MT, KIND>(st, A, a.S, a.T, k0, kn8, wr, wc, kr, acc);
+  }
+  // the mask words written at the first step are read by other warps in the
+  // epilogue (the one-hot product's cotangent); a second step's barrier
+  // orders them where there is one, this one where there is not
+  if (o.mask_h && P.nk == 1) __syncthreads();
+  mx_epilogue<MT, kFwd>(a, sm, P, o, acc, ch * kMxNC, wr, wc, active);
+}
+
+// Product P over all its chunks, each at the row tiles its width gives.
+template <int KIND, bool kFwd>
+__device__ void mx_prod(const MxArgs& a, const MxSmem& sm, const MxProd& P, MxRing& rg, const float* A, MxOut o) {
+  for (int ch = 0; ch < P.nchunk; ++ch) {
+    const int rem = P.width - ch * kMxNC, ncw = rem <= 32 ? 1 : rem <= 64 ? 2 : 4;
+    if (a.T / (16 * ((a.nt >> 5) / ncw)) >= 2) mx_chunk<2, KIND, kFwd>(a, sm, P, ch, rg, A, o);
+    else mx_chunk<1, KIND, kFwd>(a, sm, P, ch, rg, A, o);
+    o.mask_h = nullptr;
+    o.x_dst = nullptr;
+  }
+}
+
+// The first layer on the CUDA cores (fewer than 8 inputs): z = fmaf over
+// the inputs in ascending order from 0, then mx_bn; h_1 into O (0 in its
+// pad columns), z into hz where asked.  A thread keeps one column's
+// weights and BatchNorm in registers and walks the rows.
+__device__ void mx_fma_layer(const MxArgs& a, const MxProd& P, const float* X, float* O, int rows, size_t g0) {
+  const int w8 = mx_round8(P.width), rl = max(1, a.nt / w8);
+  float* hz = a.hz[0];
+  for (int e = threadIdx.x; e < w8 * rl; e += a.nt) {
+    const int c = e % w8, r0 = e / w8;
+    if (c >= P.width) {
+      for (int r = r0; r < a.T; r += rl) O[r * a.S + c] = 0.f;
+      continue;
+    }
+    float wv[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) wv[k] = k < P.depth ? __ldg(P.w + (size_t)k * P.width + c) : 0.f;
+    const float bb = __ldg(P.b + c), mm = __ldg(P.mean + c), mu = __ldg(P.mul + c), be = __ldg(P.beta + c);
+    for (int r = r0; r < a.T; r += rl) {
+      const float* xr = X + r * a.S;
+      float acc = 0.f;
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (k < P.depth) acc = fmaf(xr[k], wv[k], acc);
+      const float z = mx_bn(acc, bb, mm, mu, be);
+      O[r * a.S + c] = act_fwd(z, a.slope);
+      if (hz && r < rows) hz[(g0 * a.K + r) * P.width + c] = z;
+    }
+  }
+}
+
+// The hidden layers of a tile, the one function the forward and the
+// backward's recompute share, so that the backward's masks are the
+// forward's signs bit for bit: h_l+1 = act(mx_bn(h_l W_l)) for l < L - 1,
+// from buf[xb] (the rows, 0 in the pad columns, landed for every thread
+// where the caller says so) into the other buffer, then back, ...
+// (kMasks: each h_l+1's mask words, written by the next product's first
+// step).  Returns the mask pass of the last hidden output, for the product
+// that follows.
+template <bool kMasks>
+__device__ MxOut mx_hidden(const MxArgs& a, const MxSmem& sm, MxRing& rg, int rows, size_t g0, int xb, bool landed) {
+  MxOut o = {nullptr, rows, g0, nullptr, 0, 0, nullptr, 0, 0};
+  for (int l = 0; l + 1 < a.L; ++l) {
+    const MxProd& P = sm.prod[l];
+    o.buf = sm.buf[(xb + l + 1) & 1];
+    if (P.kind == kMxFma) {
+      if (!landed) {
+        cp_async_wait<0>();
+        __syncthreads();  // the rows have landed for every thread
+      }
+      mx_fma_layer(a, P, sm.buf[xb], o.buf, rows, g0);
+    } else {
+      mx_prod<kMxFwd, !kMasks>(a, sm, P, rg, sm.buf[(xb + l) & 1], o);
+    }
+    o.mask_h = kMasks ? o.buf : nullptr;
+    o.mask_c = P.width;
+    o.mask_word = P.mword;
+  }
+  return o;
+}
+
+// The forward: resident blocks over tiles of T / K whole groups (T rows;
+// a ragged last tile masks its missing groups).  The weights stream
+// through the ring, which runs on from one tile to the next; the hidden
+// layers (mx_hidden), then the last layer's chunks, each reduced to its
+// groups' (max, lowest k) from the accumulators (mx_epilogue), while the
+// next tile's rows come in behind them into the buffer the last layer
+// leaves free.
+__global__ void __launch_bounds__(2 * kMxThreads, 1) group_mfwd_kernel(MxArgs a, int ntiles) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const MxSmem sm = mx_carve(a, smem, false);
+  mx_copy_prods(a, sm.prod);
+  const int gpt = a.T / a.K, L = a.L;
+  auto tile_rows = [&](int tile) {
+    const size_t g0 = (size_t)tile * gpt;
+    return (size_t)a.NG - g0 < (size_t)gpt ? (int)((size_t)a.NG - g0) * a.K : gpt * a.K;
+  };
+  mx_load_x(a, (size_t)blockIdx.x * gpt, tile_rows(blockIdx.x), sm.buf[0]);
+  __syncthreads();  // the products' table
+  MxRing rg;
+  mx_prologue(a, sm, rg, a.nsteps * ((ntiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x));
+  // commit groups after the one with the tile's rows: the prologue's, or the last layer's steps after its first
+  int after = a.stages - 2, xb = 0;
+  const int last_steps = sm.prod[L - 1].nchunk * sm.prod[L - 1].nk;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    if (after >= 2) cp_async_wait<2>();
+    else if (after == 1) cp_async_wait<1>();
+    else cp_async_wait<0>();
+    __syncthreads();  // the tile's rows have landed for every thread, and the last tile is done
+    const size_t g0 = (size_t)tile * gpt;
+    const int rows = tile_rows(tile);
+    MxOut o = mx_hidden<false>(a, sm, rg, rows, g0, xb, true);
+    o.buf = nullptr;
+    const int next = tile + gridDim.x;
+    if (next < ntiles) {
+      o.x_dst = sm.buf[(xb + L) & 1];
+      o.x_g0 = (size_t)next * gpt;
+      o.x_rows = tile_rows(next);
+    }
+    mx_prod<kMxFwd, true>(a, sm, sm.prod[L - 1], rg, sm.buf[(xb + L - 1) & 1], o);
+    xb = (xb + L) & 1;
+    after = last_steps - 1;
+  }
+  cp_async_wait<0>();
+}
+
+// The lists: a warp a group, whose winning rows (each the argmax of some
+// column), ascending, then -1 up to wc, and their count.  A lane marks the
+// rows its columns name in two words (K <= 64), the warp ORs them, and a
+// winner's place is the count of winners below it: no atomics.
+__global__ void __launch_bounds__(kMxThreads) group_mlists_kernel(const int* __restrict__ am, int NG, int K, int CL,
+                                                                  int wc, int* __restrict__ counts,
+                                                                  int* __restrict__ wrow) {
+  const int lane = threadIdx.x & 31;
+  const size_t bg = (size_t)blockIdx.x * (kMxThreads / 32) + (threadIdx.x >> 5);
+  if (bg >= (size_t)NG) return;
+  const int* a = am + bg * CL;
+  unsigned lo = 0, hi = 0;
+  for (int c = lane; c < CL; c += 32) {
+    const int k = __ldg(a + c);
+    if (k >= 0 && k < 32 && k < K) lo |= 1u << k;
+    else if (k >= 32 && k < K) hi |= 1u << (k - 32);
+  }
+  lo = __reduce_or_sync(0xffffffffu, lo);
+  hi = __reduce_or_sync(0xffffffffu, hi);
+  const unsigned below = (1u << lane) - 1u;
+  const int nlo = __popc(lo), n = nlo + __popc(hi);
+  int* out = wrow + bg * wc;
+  if ((lo >> lane) & 1u) out[__popc(lo & below)] = lane;
+  if ((hi >> lane) & 1u) out[nlo + __popc(hi & below)] = 32 + lane;
+  for (int i = n + lane; i < wc; i += 32) out[i] = -1;
+  if (lane == 0) counts[bg] = n;
+}
+
+// off[i] = the winners of the groups before group i, off[NG] all of them:
+// one block, each thread a run of groups.
+__global__ void __launch_bounds__(1024) group_mscan_kernel(const int* __restrict__ counts, int NG,
+                                                           int* __restrict__ off) {
+  __shared__ int ws[32];
+  const int total = block_scan(NG, [&](int i) { return __ldg(counts + i); }, [&](int i, int p) { off[i] = p; }, ws);
+  if (threadIdx.x == 0) off[NG] = total;
+}
+
+// The rows stage: resident blocks over tiles of T listed rows (in the
+// lists' order: groups ascending, rows ascending in each).  A tile's rows
+// come in by 4-byte copies; the hidden layers again (mx_hidden, with their
+// mask words); the one-hot cotangent of the last layer (g where the row is
+// its column's argmax) through W_L^T, dense over the listed rows; then
+// back through the masks and mul factors, W_l^T read as W is stored; each
+// listed row's dx written once (every other row's is the memset's 0).
+__global__ void __launch_bounds__(2 * kMxThreads, 1) group_mrows_kernel(MxArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const MxSmem sm = mx_carve(a, smem, true);
+  mx_copy_prods(a, sm.prod);
+  const int L = a.L, total = __ldg(a.off + a.NG), ntiles = (total + a.T - 1) / a.T;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    __syncthreads();  // the table (first tile); every buffer free (later tiles)
+    for (int r = threadIdx.x; r < a.T; r += a.nt) {
+      const int p = tile * a.T + r;
+      int bg = -1, k = -1, row = -1;
+      if (p < total) {
+        int lo = 0, hi = a.NG - 1;  // the last group with off <= p
+        while (lo < hi) {
+          const int mid = (lo + hi + 1) >> 1;
+          if (__ldg(a.off + mid) <= p) lo = mid;
+          else hi = mid - 1;
+        }
+        bg = lo;
+        k = __ldg(a.wrow + (size_t)lo * a.wc + (p - __ldg(a.off + lo)));
+        row = lo * a.K + k;
+      }
+      sm.rbg[r] = bg;
+      sm.rk[r] = k;
+      sm.rrow[r] = row;
+    }
+    __syncthreads();
+    if (L > 1) {  // the rows (the one-layer backward reads none)
+      for (int e = threadIdx.x; e < a.T * a.C0; e += a.nt) {
+        const int r = e / a.C0, q = e - r * a.C0, row = sm.rrow[r];
+        cp_async4(sm.buf[0] + r * a.S + q, row >= 0 ? a.x + (size_t)row * a.C0 + q : a.x, row >= 0 ? 4 : 0);
+      }
+      const int pad = mx_round8(a.C0) - a.C0;
+      for (int e = threadIdx.x; e < a.T * pad; e += a.nt) {
+        const int r = e / pad;
+        sm.buf[0][r * a.S + a.C0 + (e - r * pad)] = 0.f;
+      }
+    }
+    MxRing rg;  // again for each tile: the one-hot steps read the tile's lists
+    mx_prologue(a, sm, rg, a.nsteps);
+    MxOut o = mx_hidden<true>(a, sm, rg, a.T, 0, 0, false);
+    o.buf = sm.buf[L & 1];  // not the buffer of h_L-1, whose mask words the first step writes
+    mx_prod<kMxOneHot, false>(a, sm, sm.prod[L - 1], rg, nullptr, o);
+    o.mask_h = nullptr;
+    for (int l = L - 2, q = L & 1; l >= 0; --l, q ^= 1) {
+      o.buf = sm.buf[q ^ 1];
+      mx_prod<kMxTrans, false>(a, sm, sm.prod[2 * L - 2 - l], rg, sm.buf[q], o);
+    }
+    if (a.mask_out) {
+      __syncthreads();
+      for (int e = threadIdx.x; e < a.T * a.mwords; e += a.nt)
+        if (tile * a.T + e / a.mwords < total) a.mask_out[(size_t)tile * a.T * a.mwords + e] = sm.masks[e];
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// The tile and ring of the forward (bwd 0) or the rows stage (bwd 1): 128
+// rows where no product is wider than 64 (PU-Net's sa0), else 64, with 3
+// ring stages, then 2, where two blocks of 8 warps fit an SM's shared
+// memory; else 64 rows in one block of 16 warps; else 32 rows (the
+// forward's T holds whole groups).  The weights stream through L2 once a tile, so the
+// taller tile costs less traffic (PU-Net's sa3: 1.05 MB a tile, 2.2 GB a
+// forward at 64 rows); a second block on the SM works while the first
+// waits on its ring, and two blocks of 64 rows hold as many rows as one of
+// 128 with twice the warps.  A block's 8 warps take 16 or 32 rows x 32
+// columns each of a 128-column chunk (MT = 1 or 2 row tiles), so the
+// kernels keep to 128 registers.
+struct MxPlan {
+  int T, stages, S, mwords, stage_floats, nt;
+  size_t smem;
+};
+
+bool mx_plan(int L, const int* dims, int K, int bwd, MxPlan& p) {
+  if (L < 1 || L > kMaxLayers || K < 1 || K > kMxMaxK || (K & (K - 1))) return false;
+  for (int l = 0; l <= L; ++l)
+    if (dims[l] < 1) return false;
+  int maxw = 8;  // the rows' and hidden layers' widths, each padded to 8
+  for (int l = 0; l < L; ++l) maxw = std::max(maxw, mx_round8(dims[l]));
+  p.S = maxw + 4;  // 4 (mod 8): an A fragment's 8 rows x 4 columns in distinct banks
+  p.mwords = 0;
+  if (bwd)
+    for (int l = 1; l < L; ++l) p.mwords += (dims[l] + 31) / 32;
+  constexpr size_t kTwo = 233472 / 2 - 1024;  // a block's share when two share an SM (228 KB, 1 KB each reserved)
+  // (T, stages, two blocks an SM): two blocks take 8 warps each, one 16
+  static const int cand[8][3] = {{128, 3, 1}, {128, 2, 1}, {64, 3, 1}, {64, 2, 1},
+                                 {64, 3, 0}, {64, 2, 0}, {32, 3, 0}, {32, 2, 0}};
+  int widest = 0;  // the widest product output: at 128 rows 8 warps keep to 2 row tiles up to 64
+  for (int l = bwd ? 0 : 1; l <= L; ++l) widest = std::max(widest, dims[l]);
+  for (const auto& c : cand) {
+    const int T = c[0], st = c[1];
+    if (T == 128 && widest > 64) continue;
+    if (!bwd && T < K) continue;
+    const int stage = bwd ? std::max(L > 1 ? kMxFwdStage : 0, kMxBwdStage) + 2 * T * kMxLDT : kMxFwdStage;
+    const size_t smem = align16(sizeof(MxProd) * kMxProds) + 2 * align16(sizeof(float) * T * p.S) +
+                        sizeof(float) * (size_t)st * stage +
+                        (bwd ? align16(sizeof(unsigned) * T * p.mwords) + 3 * sizeof(int) * T
+                             : sizeof(float) * (T / 16) * kMxNC * 2);
+    if (smem <= (c[2] ? kTwo : kMaxSmem)) {
+      p.T = T;
+      p.nt = c[2] || T < 64 ? kMxThreads : 2 * kMxThreads;  // one block an SM: 16 warps
+      p.stages = st;
+      p.stage_floats = stage;
+      p.smem = smem;
+      return true;
+    }
+  }
+  return false;
+}
+
+// The products of the forward (the L layers) or of the rows stage (the
+// hidden layers, the last layer's one-hot product back, the products back
+// through the others), each with its ring steps; returns the steps.
+int mx_prods(int L, const int* dims, const void* const* params, int bwd, MxArgs& a) {
+  auto W = [&](int l) { return static_cast<const float*>(params[5 * l]); };
+  auto V = [&](int l, int v) { return static_cast<const float*>(params[5 * l + v]); };
+  auto vec = [&](int l) { return dims[l + 1] % 4 == 0 && (reinterpret_cast<size_t>(W(l)) & 15) == 0; };
+  int moff[kMaxLayers + 1] = {};  // the first mask word of h_l, l >= 1
+  for (int l = 2; l < L; ++l) moff[l] = moff[l - 1] + (dims[l - 1] + 31) / 32;
+  int n = 0, steps = 0;
+  auto add = [&](MxProd P) {
+    P.nchunk = (P.width + kMxNC - 1) / kMxNC;
+    P.nk = P.kind == kMxFma ? 0 : (mx_round8(P.depth) + kMxKC - 1) / kMxKC;
+    steps += P.nchunk * P.nk;
+    a.prod[n++] = P;
+  };
+  for (int l = 0; l < (bwd ? L - 1 : L); ++l) {
+    MxProd P = {};
+    P.w = W(l);
+    P.b = V(l, 1);
+    P.mean = V(l, 2);
+    P.mul = V(l, 3);
+    P.beta = V(l, 4);
+    P.depth = dims[l];
+    P.width = dims[l + 1];
+    P.layer = l;
+    P.kind = l == 0 && l < L - 1 && dims[0] < 8 ? kMxFma : kMxFwd;
+    P.out = l < L - 1 ? kMxHidden : kMxMax;
+    P.vec = vec(l);
+    P.mword = l < L - 1 ? moff[l + 1] : 0;
+    add(P);
+  }
+  for (int l = L - 1; bwd && l >= 0; --l) {
+    MxProd P = {};
+    P.w = W(l);
+    P.mul = l > 0 ? V(l - 1, 3) : nullptr;
+    P.depth = dims[l + 1];
+    P.width = dims[l];
+    P.layer = l;
+    P.kind = l == L - 1 ? kMxOneHot : kMxTrans;
+    P.out = l > 0 ? kMxCot : kMxDx;
+    P.vec = vec(l);
+    P.mword = l > 0 ? moff[l] : 0;
+    add(P);
+  }
+  a.nprod = n;
+  return steps;
+}
+
+cudaError_t mx_setup(int device, const void* x, int B, int G, int K, int L, const int* dims,
+                     const void* const* params, float slope, int bwd, MxArgs& a, MxPlan& pl) {
+  if (B < 1 || G < 1 || (long long)B * G >= INT_MAX / kMxMaxK || !(slope >= 0.f && slope <= 1.f) ||
+      !mx_plan(L, dims, K, bwd, pl))
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  a = MxArgs{};
+  a.x = static_cast<const float*>(x);
+  a.NG = B * G;
+  a.K = K;
+  a.L = L;
+  a.C0 = dims[0];
+  a.CL = dims[L];
+  a.slope = slope;
+  a.T = pl.T;
+  a.stages = pl.stages;
+  a.S = pl.S;
+  a.stage_floats = pl.stage_floats;
+  a.mwords = pl.mwords;
+  a.nt = pl.nt;
+  a.nsteps = mx_prods(L, dims, params, bwd, a);
+  return cudaSuccess;
+}
+
 int check_group(int B, int G, int K, int L, const int* dims, float slope, int tm, int bwd) {
   if (B < 1 || B > 65535 || G < 1 || K < 1 || K > 8 * tm) return 1;
   if (L < 1 || L > kMaxLayers || !(slope >= 0.f && slope <= 1.f)) return 1;
@@ -1124,6 +2072,95 @@ int pca_group_max1_bwd(int device, const void* am, const void* g, int B, int G, 
   const size_t jobs = (m.NG + m.gpw - 1) / m.gpw, blocks = (jobs + m.nw - 1) / m.nw;
   const unsigned grid = (unsigned)(blocks < (size_t)slots ? blocks : (size_t)slots);
   group_max1_bwd_kernel<<<grid, m.nw * 32, smem, static_cast<cudaStream_t>(stream)>>>(m, jobs);
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory one block of the multi-layer max's forward (bwd 0)
+// or rows stage (bwd 1) takes at (L, dims, K), and its tile rows and ring
+// stages (where tile and stages are not null); 0 for a shape they do not
+// take (K not a power of two up to 64, or no tile fits a block).
+size_t pca_group_mmax_plan(int L, const int* dims, int K, int bwd, int* tile, int* stages) {
+  MxPlan p;
+  if (!mx_plan(L, dims, K, bwd, p)) return 0;
+  if (tile) *tile = p.T;
+  if (stages) *stages = p.stages;
+  return p.smem;
+}
+
+// The multi-layer max forward on the tensor cores: x [B, G, K, dims[0]]
+// f32, params as pca_group_fwd, slope in [0, 1]; y and am [B, G, dims[L]];
+// hz: L - 1 pointers or null, each null or hidden layer l's pre-activation
+// [B * G * K, dims[l + 1]] (the check of the backward's masks reads them).
+// Returns a cudaError_t code.
+int pca_group_mmax_fwd(int device, const void* x, int B, int G, int K, int L, const int* dims,
+                       const void* const* params, float slope, void* y, void* am, void* const* hz, void* stream) {
+  MxArgs a;
+  MxPlan pl;
+  cudaError_t e = mx_setup(device, x, B, G, K, L, dims, params, slope, 0, a, pl);
+  if (e != cudaSuccess) return (int)e;
+  a.y = static_cast<float*>(y);
+  a.am_out = static_cast<int*>(am);
+  for (int l = 0; hz && l + 1 < L; ++l) a.hz[l] = static_cast<float*>(hz[l]);
+  int slots = 0;
+  e = resident_slots(reinterpret_cast<const void*>(group_mfwd_kernel), pl.nt, pl.smem, kMaxSmem, device, &slots);
+  if (e != cudaSuccess) return (int)e;
+  const size_t gpt = pl.T / K, tiles = ((size_t)a.NG + gpt - 1) / gpt;
+  if (tiles * a.nsteps > (size_t)INT_MAX) return (int)cudaErrorInvalidValue;
+  group_mfwd_kernel<<<(unsigned)std::min(tiles, (size_t)slots), pl.nt, pl.smem, static_cast<cudaStream_t>(stream)>>>(
+      a, (int)tiles);
+  return (int)cudaGetLastError();
+}
+
+// The lists of the multi-layer max's backward from am int32 [B * G, CL]
+// (each entry a row in [0, K)): counts int32 [B * G] scratch; off [B * G +
+// 1] the winners before each group, then all of them; wrow [B * G, min(K,
+// CL)] each group's winning rows ascending, then -1.  Returns a
+// cudaError_t code.
+int pca_group_mmax_lists(int device, const void* am, int B, int G, int K, int CL, void* counts, void* off,
+                         void* wrow, void* stream) {
+  if (B < 1 || G < 1 || K < 1 || K > kMxMaxK || CL < 1 || (long long)B * G * CL >= INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int NG = B * G, per = kMxThreads / 32;
+  group_mlists_kernel<<<(NG + per - 1) / per, kMxThreads, 0, s>>>(static_cast<const int*>(am), NG, K, CL,
+                                                                  std::min(K, CL), static_cast<int*>(counts),
+                                                                  static_cast<int*>(wrow));
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  group_mscan_kernel<<<1, 1024, 0, s>>>(static_cast<const int*>(counts), NG, static_cast<int*>(off));
+  return (int)cudaGetLastError();
+}
+
+// dx [B, G, K, dims[0]] of the multi-layer max for g = dy * mul_L [B, G,
+// dims[L]], over the winning rows of pca_group_mmax_lists' off and wrow:
+// x, params, slope as pca_group_mmax_fwd, am int32 [B, G, dims[L]];
+// mask_out null or [off[B * G], mask words a row] (the check of the masks).
+// Returns a cudaError_t code.
+int pca_group_mmax_rows(int device, const void* x, int B, int G, int K, int L, const int* dims,
+                        const void* const* params, float slope, const void* am, const void* g, const void* off,
+                        const void* wrow, void* dx, void* mask_out, void* stream) {
+  MxArgs a;
+  MxPlan pl;
+  cudaError_t e = mx_setup(device, x, B, G, K, L, dims, params, slope, 1, a, pl);
+  if (e != cudaSuccess) return (int)e;
+  a.am = static_cast<const int*>(am);
+  a.g = static_cast<const float*>(g);
+  a.vecg = a.CL % 4 == 0 && ((reinterpret_cast<size_t>(am) | reinterpret_cast<size_t>(g)) & 15) == 0;
+  a.off = static_cast<const int*>(off);
+  a.wrow = static_cast<const int*>(wrow);
+  a.wc = std::min(K, a.CL);
+  a.dx = static_cast<float*>(dx);
+  a.mask_out = static_cast<unsigned*>(mask_out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  e = cudaMemsetAsync(dx, 0, sizeof(float) * (size_t)a.NG * K * a.C0, s);
+  if (e != cudaSuccess) return (int)e;
+  int slots = 0;
+  e = resident_slots(reinterpret_cast<const void*>(group_mrows_kernel), pl.nt, pl.smem, kMaxSmem, device, &slots);
+  if (e != cudaSuccess) return (int)e;
+  const size_t tiles = ((size_t)a.NG * a.wc + pl.T - 1) / pl.T;  // at most
+  group_mrows_kernel<<<(unsigned)std::min(tiles, (size_t)slots), pl.nt, pl.smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 

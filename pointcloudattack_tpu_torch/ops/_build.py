@@ -219,6 +219,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     # device, am, g, B, G, K, C0, CL, w, dx, stream
     lib.pca_group_max1_bwd.argtypes = [ci, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp]
     lib.pca_group_max1_bwd.restype = ci
+    # L, dims, K, bwd, tile, stages
+    lib.pca_group_mmax_plan.argtypes = [ci, vp, ci, ci, vp, vp]
+    lib.pca_group_mmax_plan.restype = ctypes.c_size_t
+    # device, x, B, G, K, L, dims, params, slope, y, am, hz, stream
+    lib.pca_group_mmax_fwd.argtypes = [ci, vp, ci, ci, ci, ci, vp, vp, cf, vp, vp, vp, vp]
+    lib.pca_group_mmax_fwd.restype = ci
+    # device, am, B, G, K, CL, counts, off, wrow, stream
+    lib.pca_group_mmax_lists.argtypes = [ci, vp, ci, ci, ci, ci, vp, vp, vp, vp]
+    lib.pca_group_mmax_lists.restype = ci
+    # device, x, B, G, K, L, dims, params, slope, am, g, off, wrow, dx, mask_out, stream
+    lib.pca_group_mmax_rows.argtypes = [ci, vp, ci, ci, ci, ci, vp, vp, cf, vp, vp, vp, vp, vp, vp, vp]
+    lib.pca_group_mmax_rows.restype = ci
     # device, a, nrm, B, N, k, kap, picks, stream
     lib.pca_kappa_fwd.argtypes = [ci, vp, vp, ci, ci, ci, vp, vp, vp]
     lib.pca_kappa_fwd.restype = ci

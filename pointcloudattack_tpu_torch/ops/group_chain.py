@@ -19,23 +19,29 @@ divided by ``K``.
 On a CUDA tensor the forwards and the input gradients run the kernels of
 ``csrc/group_chain.cu`` (``K`` up to 64 rows a group).  A one-layer chain
 (CurveNet's LPFAs) runs kernels of its own there: the forward of either
-pool, the mean's and the max's input gradients; two or more layers, or a
-one-layer shape whose block would need more shared memory than the card
-has, run the chain kernels.  The route follows the shapes alone.  On a CPU
-tensor they run the plain PyTorch versions below.  A CUDA tensor the
-kernels do not take raises: nothing falls back.  ``LAUNCHES`` counts kernel
+pool, the mean's and the max's input gradients.  Every other max chain
+(PU-Net's set abstractions) runs the multi-layer max kernels, its products
+on the tensor cores as 3xTF32, wherever they fit (``K`` a power of two):
+the forward, and a backward in two stages, each with its plain version,
+``group_winner_lists_plain`` (per group, the rows that win a column) and
+``group_winners_bwd_plain`` (the gradient of those rows; every other row's
+is 0).  The multi-layer mean, and a shape neither takes, run the chain
+kernels.  ``max_route`` decides, from the shapes alone.  On a CPU tensor
+they run the plain PyTorch versions below.  A CUDA tensor the kernels do
+not take raises: nothing falls back.  ``LAUNCHES`` counts kernel
+launches, a forward or backward call once however many stages it
 launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
 from pointcloudattack_tpu_torch.ops import _build
-from pointcloudattack_tpu_torch.ops.chain_maxpool import Layer, _group, _ptr_array, act, act_bwd
+from pointcloudattack_tpu_torch.ops.chain_maxpool import Layer, _group, _ptr_array, _rows_mm, act, act_bwd
 from pointcloudattack_tpu_torch.ops.pairwise import sum_neighbours
 
 # Kernel launches since the last reset, by pool and direction.  Bumped only
@@ -99,6 +105,55 @@ def chain_groupmax_bwd_plain(x, layers: Sequence[Layer], am, g, slope: float = 0
         k = x.shape[2]
         hit = am.long()[:, :, None, :] == torch.arange(k, device=x.device)[:, None]
         return _back(torch.where(hit, g.float()[:, :, None, :], 0.0), layers, zs, slope)
+
+
+class GroupWinners(NamedTuple):
+    """The multi-layer max backward's lists over ``am [B, G, C_L]``, each
+    entry a row in ``[0, K)`` (``W = min(K, C_L)``), int32: ``off [B * G +
+    1]``, the winning rows before each group (groups in ``B, G`` order;
+    ``off[B * G]`` all of them); ``wrow [B, G, W]``, each group's winning
+    rows ascending, then -1.  A row's columns are those where ``am`` names
+    it."""
+
+    off: torch.Tensor
+    wrow: torch.Tensor
+
+
+def group_winner_lists_plain(am: torch.Tensor, k: int) -> GroupWinners:
+    """Plain lists: each group's rows that some column of ``am`` names."""
+    b, ng, cl = am.shape
+    win = torch.zeros((b * ng, k), dtype=torch.bool, device=am.device).scatter_(1, am.reshape(b * ng, cl).long(), True)
+    off = torch.zeros(b * ng + 1, dtype=torch.int64, device=am.device)
+    off[1:] = win.sum(1).cumsum(0)
+    wrow = torch.full((b * ng, min(k, cl)), -1, dtype=torch.int64, device=am.device)
+    gi, rows = win.nonzero(as_tuple=True)
+    wrow[gi, (win.cumsum(1) - 1)[gi, rows]] = rows
+    return GroupWinners(off.int(), wrow.reshape(b, ng, -1).int())
+
+
+def group_winners_bwd_plain(x, layers: Sequence[Layer], am, lists: GroupWinners, g, slope: float = 0.0) -> torch.Tensor:
+    """Plain rows stage: ``chain_groupmax_bwd_plain``'s arithmetic on the
+    rows ``lists`` names only, scattered into zeros (the same bits; short
+    products padded as ``_rows_mm`` says)."""
+    with torch.no_grad():
+        b, ng, k, c0 = x.shape
+        cl = am.shape[-1]
+        wrow = lists.wrow.reshape(b * ng, -1)
+        gi, slot = (wrow >= 0).nonzero(as_tuple=True)  # the lists' order
+        rows = wrow[gi, slot].long()
+        h, zs = x.reshape(b * ng, k, c0).float()[gi, rows], []
+        for w, b_, mean, mul, beta in layers[:-1]:
+            z = (_rows_mm(h, w.float()) + b_ - mean) * mul + beta
+            zs.append(z)
+            h = act(z, slope)
+        hit = am.reshape(b * ng, cl)[gi].long() == rows[:, None]
+        dh = _rows_mm(torch.where(hit, g.reshape(b * ng, cl).float()[gi], 0.0), layers[-1][0].float().t())
+        for i in range(len(layers) - 2, -1, -1):
+            c = act_bwd(dh, zs[i], slope) * layers[i][3]
+            dh = _rows_mm(c, layers[i][0].float().t())
+        dx = x.new_zeros((b * ng, k, c0), dtype=torch.float32)
+        dx[gi, rows] = dh
+        return dx.reshape(x.shape)
 
 
 def chain_groupmean_plain(x: torch.Tensor, layers: Sequence[Layer], slope: float = 0.0) -> torch.Tensor:
@@ -188,26 +243,141 @@ def one_layer_kernel(lib, smem, k: int, dims: Sequence[int]) -> bool:
     return len(dims) == 2 and smem(k, dims[0], dims[1]) <= lib.pca_chain_max_smem()
 
 
+def mmax_plan(lib, dims: Sequence[int], k: int, bwd: bool) -> tuple[int, int, int]:
+    """``(smem, tile rows, ring stages)`` of one block of the multi-layer
+    max's forward (``bwd`` false) or rows stage at ``dims`` over groups of
+    ``k`` rows; smem 0 where they do not take the shape."""
+    arr = (ctypes.c_int * len(dims))(*dims)
+    tile, stages = ctypes.c_int(0), ctypes.c_int(0)
+    smem = lib.pca_group_mmax_plan(len(dims) - 1, ctypes.cast(arr, ctypes.c_void_p), k, int(bwd),
+                                   ctypes.byref(tile), ctypes.byref(stages))
+    return smem, tile.value, stages.value
+
+
+def max_route(lib, k: int, dims: Sequence[int], bwd: bool) -> str:
+    """The kernels a max chain of ``dims`` over groups of ``k`` rows runs,
+    forward (``bwd`` false) or backward: "one" (the one-layer kernels,
+    where ``one_layer_kernel`` takes the shape), "tc" (the multi-layer max
+    on the tensor cores, where the blocks of both its directions fit: ``k``
+    a power of two up to 64), else "chain" (``group_fwd_kernel`` /
+    ``group_bwd_kernel``)."""
+    if one_layer_kernel(lib, lib.pca_group_max1_smem if bwd else lib.pca_group_fwd1_smem, k, dims):
+        return "one"
+    if all(mmax_plan(lib, dims, k, d)[0] for d in (False, True)):
+        return "tc"
+    return "chain"
+
+
+def _layer_params(layers):
+    """(pointer array, tensors to keep alive): per layer W ``[in, out]``
+    contiguous, then b, mean, mul, beta."""
+    keep = [t for layer in layers for t in (layer[0].contiguous(), *layer[1:])]
+    return _ptr_array(keep), keep
+
+
+def _mmax_fwd(x, layers, slope: float, dims, lib, hidden: bool = False):
+    """The multi-layer max forward (``group_mfwd_kernel``): ``(y, am)``, and
+    with ``hidden`` each hidden layer's pre-activation ``[B * G * K, C_l]``
+    as the kernel computed it (the check of the backward's masks reads
+    them)."""
+    b, g, k, _ = x.shape
+    y = torch.empty((b, g, dims[-1]), dtype=torch.float32, device=x.device)
+    am = torch.empty((b, g, dims[-1]), dtype=torch.int32, device=x.device)
+    hz = [torch.empty((b * g * k, c), dtype=torch.float32, device=x.device) for c in dims[1:-1]] if hidden else []
+    hz_arr = _ptr_array(hz) if hz else None
+    params, _keep = _layer_params(layers)
+    dims_arr = (ctypes.c_int * len(dims))(*dims)
+    with torch.cuda.device(x.device):
+        rc = lib.pca_group_mmax_fwd(x.device.index, x.data_ptr(), b, g, k, len(layers),
+                                    ctypes.cast(dims_arr, ctypes.c_void_p), ctypes.cast(params, ctypes.c_void_p),
+                                    float(slope), y.data_ptr(), am.data_ptr(),
+                                    ctypes.cast(hz_arr, ctypes.c_void_p) if hz else None, _stream(x))
+    _build.check(lib, rc, "group_chain multi-layer max forward launch")
+    LAUNCHES["group_max_fwd"] += 1
+    return (y, am, hz) if hidden else (y, am)
+
+
+def _mmax_lists(am, k: int, lib) -> GroupWinners:
+    """The backward's lists stage (``group_mlists_kernel``, then
+    ``group_mscan_kernel``'s offsets) on ``am [B, G, C_L]``."""
+    b, g, cl = am.shape
+    wc = min(k, cl)
+    buf = torch.empty(2 * b * g + 1 + b * g * wc, dtype=torch.int32, device=am.device)
+    counts, off, wrow = buf.split([b * g, b * g + 1, b * g * wc])
+    with torch.cuda.device(am.device):
+        rc = lib.pca_group_mmax_lists(am.device.index, am.data_ptr(), b, g, k, cl, counts.data_ptr(), off.data_ptr(),
+                                      wrow.data_ptr(), _stream(am))
+    _build.check(lib, rc, "group_chain multi-layer max lists launch")
+    return GroupWinners(off, wrow.view(b, g, wc))
+
+
+def _mmax_rows(x, layers, am, lists: GroupWinners, g, slope: float, dims, lib, masks: bool = False):
+    """The backward's rows stage (``group_mrows_kernel``): ``dx``, and with
+    ``masks`` each listed row's hidden masks as the stage's recompute took
+    them, ``[rows, words]`` int32 (bit b of word w of hidden layer l's
+    words: unit 32 w + b; layers one after another)."""
+    b, g_, k, _ = x.shape
+    dx = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    out = None
+    if masks:
+        words = sum((c + 31) // 32 for c in dims[1:-1])
+        out = torch.zeros((int(lists.off[-1]), words), dtype=torch.int32, device=x.device)
+    params, _keep = _layer_params(layers)
+    dims_arr = (ctypes.c_int * len(dims))(*dims)
+    with torch.cuda.device(x.device):
+        rc = lib.pca_group_mmax_rows(x.device.index, x.data_ptr(), b, g_, k, len(layers),
+                                     ctypes.cast(dims_arr, ctypes.c_void_p), ctypes.cast(params, ctypes.c_void_p),
+                                     float(slope), am.data_ptr(), g.data_ptr(), lists.off.data_ptr(),
+                                     lists.wrow.data_ptr(), dx.data_ptr(), None if out is None else out.data_ptr(),
+                                     _stream(x))
+    _build.check(lib, rc, "group_chain multi-layer max rows launch")
+    LAUNCHES["group_max_bwd"] += 1  # the backward's last stage: one count a backward call
+    return (dx, out) if masks else dx
+
+
 def _fwd_kernel(x, layers, slope: float, mean: bool):
     dims = _check_cuda(x, layers, slope)
     lib = _build.load_library()
-    b, g, k, c0 = x.shape
+    k = x.shape[2]
+    if not mean and max_route(lib, k, dims, bwd=False) == "tc":
+        return _mmax_fwd(x, layers, slope, dims, lib)
+    if one_layer_kernel(lib, lib.pca_group_fwd1_smem, k, dims):
+        return _fwd1(x, layers, slope, mean, dims, lib)
+    return _chain_fwd(x, layers, slope, mean, dims, lib)
+
+
+def _pooled_out(x, dims, mean):
+    b, g = x.shape[:2]
     y = torch.empty((b, g, dims[-1]), dtype=torch.float32, device=x.device)
     am = torch.empty((b, g, dims[-1]) if not mean else (1,), dtype=torch.int32, device=x.device)
+    return y, am
+
+
+def _fwd1(x, layers, slope: float, mean: bool, dims, lib):
+    """The one-layer forward of either pool (``group_fwd1_kernel``)."""
+    b, g, k, c0 = x.shape
+    y, am = _pooled_out(x, dims, mean)
     kind = "mean" if mean else "max"
-    if one_layer_kernel(lib, lib.pca_group_fwd1_smem, k, dims):
-        w = layers[0][0].contiguous()
-        params = _ptr_array([w, *layers[0][1:]])
-        with torch.cuda.device(x.device):
-            rc = lib.pca_group_fwd1(x.device.index, x.data_ptr(), b, g, k, c0, dims[1],
-                                    ctypes.cast(params, ctypes.c_void_p), float(slope), int(mean), y.data_ptr(),
-                                    am.data_ptr(), _stream(x))
-        _build.check(lib, rc, f"group_chain one-layer {kind} forward launch")
-    else:
-        tm, head, keep = _common(x, layers, dims, lib, bwd=False)
-        with torch.cuda.device(x.device):
-            rc = lib.pca_group_fwd(*head, float(slope), int(mean), y.data_ptr(), am.data_ptr(), tm, _stream(x))
-        _build.check(lib, rc, f"group_chain {kind} forward launch")
+    w = layers[0][0].contiguous()
+    params = _ptr_array([w, *layers[0][1:]])
+    with torch.cuda.device(x.device):
+        rc = lib.pca_group_fwd1(x.device.index, x.data_ptr(), b, g, k, c0, dims[1],
+                                ctypes.cast(params, ctypes.c_void_p), float(slope), int(mean), y.data_ptr(),
+                                am.data_ptr(), _stream(x))
+    _build.check(lib, rc, f"group_chain one-layer {kind} forward launch")
+    LAUNCHES[f"group_{kind}_fwd"] += 1
+    return y if mean else (y, am)
+
+
+def _chain_fwd(x, layers, slope: float, mean: bool, dims, lib):
+    """The chain kernel's forward of either pool (``group_fwd_kernel``, FP32
+    register tiles)."""
+    y, am = _pooled_out(x, dims, mean)
+    kind = "mean" if mean else "max"
+    tm, head, keep = _common(x, layers, dims, lib, bwd=False)
+    with torch.cuda.device(x.device):
+        rc = lib.pca_group_fwd(*head, float(slope), int(mean), y.data_ptr(), am.data_ptr(), tm, _stream(x))
+    _build.check(lib, rc, f"group_chain {kind} forward launch")
     LAUNCHES[f"group_{kind}_fwd"] += 1
     return y if mean else (y, am)
 
@@ -279,8 +449,12 @@ def _bwd_kernel(x, layers, am, g, slope: float, mean: bool, wts=None):
     k = x.shape[2]
     if mean and one_layer_kernel(lib, lib.pca_group_mean1_smem, k, dims):
         return _mean1_bwd(x, layers, g, slope, dims, lib)
-    if not mean and one_layer_kernel(lib, lib.pca_group_max1_smem, k, dims):
-        return _max1_bwd_kernel(x, layers, am, g, dims, lib)
+    if not mean:
+        route = max_route(lib, k, dims, bwd=True)
+        if route == "one":
+            return _max1_bwd_kernel(x, layers, am, g, dims, lib)
+        if route == "tc":
+            return _mmax_rows(x, layers, am, _mmax_lists(am, k, lib), g, slope, dims, lib)
     tm, head, keep = _common(x, layers, dims, lib, bwd=True)
     if wts is None:
         wts = [layer[0].t() for layer in layers]
@@ -314,10 +488,11 @@ def chain_groupmax_fwd(x, layers, slope: float = 0.0):
 
 
 def chain_groupmax_bwd(x, layers, am, g, slope: float = 0.0, wts=None):
-    """``dx`` of the max for ``g = dy * mul_L``: the kernel for a CUDA
+    """``dx`` of the max for ``g = dy * mul_L``: the kernels for a CUDA
     tensor, the plain version for a CPU tensor.  ``wts``, the layers' ``W^T
     [out, in]``, spares the chain kernel a transposed copy when the caller
-    holds them; the one-layer kernel reads W itself and ignores them."""
+    holds them; the one-layer and the multi-layer max kernels read W itself
+    and ignore them."""
     if x.is_cuda:
         return _bwd_kernel(x, layers, am, g, slope, mean=False, wts=wts)
     if x.device.type == "cpu":

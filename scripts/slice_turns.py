@@ -26,9 +26,13 @@ LPFA's max backward), ``kernels-fps`` (farthest point sampling at SSG's two
 shapes, B=16, and CurveNet's two, B=8), ``kernels-both`` (the
 two-direction bundle's forward and backward at GeoA3's shape),
 ``kernels-rowmin`` (the Chamfer row min on the KNN attack's iterate,
-[64,1024,3]^2 and [16,1024,3]^2) and ``kernels-kappa-idx-fwd`` (the
+[64,1024,3]^2 and [16,1024,3]^2), ``kernels-kappa-idx-fwd`` (the
 curvature forward on a stale given set at GeoA3's shape, then beside a
-one-element zero_() in one profiler window, the launch floor).  It
+one-element zero_() in one profiler window, the launch floor),
+``kernels-group-punet`` (the group max forward and backward at PU-Net's
+four set abstractions, on the rows of one DUP-Net forward over SI-query's
+clouds, B=32, K=32, and their sums) and ``slice-cw-dupnet`` (C&W 1 x 20
+on PointNet through DUP-Net, B=16, PU-Net's weights seeded).  It
 builds that checkout's kernels, makes each victim and its clouds as
 chip_smoke.py does (seeded random weights with the clouds' BatchNorm
 statistics, N=1024), runs each attack four times, printing each run's
@@ -45,7 +49,10 @@ ones run it; the kernel cells call only the ops' public entry points
 (``ops.fps.farthest_point_sample``, ``ops.chamfer.both_fwd``,
 ``both_bwd`` and ``min_rows_fwd``, ``ops.kappa.kappa_idx_fwd``,
 ``ops.group_chain.chain_groupmax_fwd``, ``chain_groupmean_fwd`` and
-``chain_groupmax_bwd``), which every checkout with those kernels has.
+``chain_groupmax_bwd``), which every checkout with those kernels has; the
+DUP-Net cells read chip_smoke.py's defense helpers (``punet_state``,
+``defended``, ``defended_victim``, ``op_trace``), which every checkout with
+the defenses has.
 """
 
 import sys
@@ -54,14 +61,15 @@ import time
 CELLS = ("slice", "slice-ssg", "slice-msg", "slice-knn", "slice-knn-ssg", "slice-dgcnn", "slice-geoa3", "slice-geoa3-r4",
          "slice-curvenet", "slice-geoa3-curvenet", "kernels-knn", "kernels-kappa", "kernels-kappa-fwd", "kernels-group-mean",
          "kernels-group-fwd", "kernels-group-max-bwd", "kernels-fps", "kernels-both", "kernels-rowmin",
-         "kernels-kappa-idx-fwd")
+         "kernels-kappa-idx-fwd", "kernels-group-punet", "slice-cw-dupnet")
 VICTIMS = {"slice": "PointNet", "slice-ssg": "PointNet++Ssg", "slice-msg": "PointNet++Msg", "slice-knn": "PointNet KNN",
            "slice-knn-ssg": "PointNet++Ssg", "slice-dgcnn": "DGCNN", "slice-geoa3": "PointNet GeoA3",
-           "slice-geoa3-r4": "PointNet GeoA3", "slice-curvenet": "CurveNet", "slice-geoa3-curvenet": "CurveNet GeoA3"}
+           "slice-geoa3-r4": "PointNet GeoA3", "slice-curvenet": "CurveNet", "slice-geoa3-curvenet": "CurveNet GeoA3",
+           "slice-cw-dupnet": "PointNet DUP-Net"}
 PROFILE_TAGS = {"PointNet": "profile", "PointNet KNN": "profile-knn", "PointNet++Ssg": "profile-ssg",
                 "PointNet++Msg": "profile-msg",
                 "DGCNN": "profile-dgcnn", "PointNet GeoA3": "profile-geoa3", "CurveNet": "profile-curvenet",
-                "CurveNet GeoA3": "profile-geoa3-curvenet"}
+                "CurveNet GeoA3": "profile-geoa3-curvenet", "PointNet DUP-Net": "profile-cw-dupnet"}
 
 
 def victim(cs, name):
@@ -88,6 +96,10 @@ def victim(cs, name):
         data, labels = cs.synthetic_data(8, 1, cs.CN_DATA, "cuda")
         model_fn, _ = cs.make_victim(name, "cuda", data, ("dp1",))
         return model_fn, data, cs.victim_labels(model_fn, data, labels, "slice-curvenet")
+    if name == "PointNet DUP-Net":
+        data, labels = cs.synthetic_data(8, 4, cs.SIQ_DATA, "cuda")
+        _, dfn, _, target = cs.defended_victim("dupnet", data, labels, "slice-cw-dupnet", cs.punet_state())
+        return dfn, data[: cs.DUP_CW_B], target[: cs.DUP_CW_B]
     if name == "CurveNet GeoA3":
         import torch
 
@@ -130,6 +142,8 @@ def attack_of(cs, cell, model_fn):
         return cs.cw_attack(model_fn, cs.CN_ITER)
     if cell == "slice-geoa3-curvenet":
         return geoa3(cs, model_fn, cs.CN_GEO_ROUNDS, cs.CN_GEO_ITER)
+    if cell == "slice-cw-dupnet":
+        return cs.cw_attack(model_fn, cs.DUP_CW_ITER)
     return cs.cw_attack(model_fn, cs.PN2_ITER)
 
 
@@ -356,10 +370,41 @@ def kernels_kappa_idx_fwd(cs, root):
           + ", ".join(f"{name} {v:.4f}" for name, v in dev.items()), flush=True)
 
 
+def kernels_group_punet(cs, root):
+    """The group max forward and backward at PU-Net's four set
+    abstractions, on the rows and layers of one DUP-Net forward over
+    SI-query's clouds (chip_smoke.py's [kernels-punet] inputs and
+    cotangents), and the sums of their device times."""
+    import numpy as np
+    import torch
+
+    from pointcloudattack_tpu_torch.models import punet
+    from pointcloudattack_tpu_torch.ops import group_chain as gch
+
+    data = cs.synthetic_data(8, 4, cs.SIQ_DATA, "cuda")[0]
+    dup = cs.defended(lambda x: x, "dupnet", cs.punet_state())
+    with torch.no_grad(), cs.op_trace(((punet, "mlp_chain_groupmax"),), inputs=True) as rec:
+        dup(data)
+    total = {"fwd": 0.0, "bwd": 0.0}
+    for i, (x, layers) in enumerate(args for _, args in rec):
+        b, ng, k, c0 = x.shape
+        dims = [c0] + [layer[0].shape[1] for layer in layers]
+        dy = torch.from_numpy(np.random.RandomState(120 + i).randn(b, ng, dims[-1]).astype(np.float32)).cuda()
+        _, am = gch.chain_groupmax_fwd(x, layers, 0.0)
+        g = (dy * layers[-1][3]).contiguous()
+        for d, fn in (("fwd", lambda: gch.chain_groupmax_fwd(x, layers, 0.0)),
+                      ("bwd", lambda: gch.chain_groupmax_bwd(x, layers, am, g, 0.0))):
+            _, dev = kernel_times(cs, root, "kernels-group-punet", f"max {d} sa{i} {tuple(x.shape)} -> {dims[1:]}", fn)
+            total[d] += sum(dev.values())
+    print(f"{root} [kernels-group-punet] the four a DUP-Net forward: forward {total['fwd']:.4f} ms, backward "
+          f"{total['bwd']:.4f} ms of device time", flush=True)
+
+
 KERNEL_CELLS = {"kernels-kappa": kernels_kappa, "kernels-kappa-fwd": kernels_kappa_fwd,
                 "kernels-group-mean": kernels_group_mean, "kernels-group-fwd": kernels_group_fwd,
                 "kernels-group-max-bwd": kernels_group_max_bwd, "kernels-fps": kernels_fps, "kernels-both": kernels_both,
-                "kernels-rowmin": kernels_rowmin, "kernels-kappa-idx-fwd": kernels_kappa_idx_fwd}
+                "kernels-rowmin": kernels_rowmin, "kernels-kappa-idx-fwd": kernels_kappa_idx_fwd,
+                "kernels-group-punet": kernels_group_punet}
 
 
 def main():
